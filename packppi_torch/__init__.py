@@ -1,0 +1,20 @@
+"""PackPPI in PyTorch with hand-written CUDA kernels for Hopper (sm_90a).
+
+The side-chain packing path of ``packppi_tpu`` rebuilt on PyTorch: parse and
+featurize a structure, build the kNN graph once, run the 30-step SO(2) ODE
+sampler over ``ChiScoreNetwork``, and rebuild atom14 coordinates. The two
+hot steps of every IPMP layer, the message MLP with in-kernel point geometry
+(``ops.message``) and the residual -> LayerNorm -> FFN -> LayerNorm chain
+(``ops.chain``), run as CUDA kernels from ``csrc/`` on the card and as their
+plain PyTorch versions on CPU tensors.
+
+This package imports neither JAX nor ``packppi_tpu``.
+"""
+import torch
+
+# float32 products stay float32 on the card: TF32 keeps ~3 decimal digits,
+# which would round O(100 A) coordinates and break parity with the reference
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+__version__ = "0.1.0"

@@ -1,0 +1,141 @@
+"""Dense residue-type-indexed chemistry tables (the packing path's subset).
+
+Plain numpy constants built from ``chem_data.json`` (this package's own
+copy). Row convention: 0..19 are the 20 standard amino acids in the order
+of ``RESTYPES``; row 20 is the unknown type 'X' with all-zero entries.
+Semantics follow AlphaFold2's atom14 encoding and 8-rigid-group frame
+decomposition (backbone, pre-omega, phi, psi, chi1..4).
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+from pathlib import Path
+
+import numpy as np
+
+_RAW = json.loads((Path(__file__).parent / "chem_data.json").read_text())
+
+RESTYPES: list[str] = _RAW["restypes"]
+NUM_RESTYPES = len(RESTYPES)  # 20 standard; tables have a 21st 'X' row
+RESTYPE_ORDER = {r: i for i, r in enumerate(RESTYPES)}
+RESTYPE_1TO3: dict[str, str] = _RAW["restype_1to3"]
+RESTYPE_3TO1 = {three: one for one, three in RESTYPE_1TO3.items()}
+
+ATOM37_TYPES: list[str] = _RAW["atom37_types"]
+ATOM14_NAMES: dict[str, list[str]] = _RAW["atom14_names"]
+NUM_ATOM14 = 14
+
+
+def _resnames():
+    """3-letter names in restype order."""
+    return [RESTYPE_1TO3[r] for r in RESTYPES]
+
+
+def _rigid_transform_from_axes(ex, ey_hint, origin):
+    """4x4 transform whose x-axis is ex and whose y-axis is the component of
+    ey_hint orthogonal to ex (Gram-Schmidt), translated to ``origin``."""
+    ex = ex / np.linalg.norm(ex)
+    ey = ey_hint - np.dot(ey_hint, ex) * ex
+    ey = ey / np.linalg.norm(ey)
+    ez = np.cross(ex, ey)
+    m = np.eye(4)
+    m[:3, 0], m[:3, 1], m[:3, 2], m[:3, 3] = ex, ey, ez, origin
+    return m
+
+
+def _build_rigid_group_tables():
+    """(default_frames [21,8,4,4], atom14_group [21,14], atom14_mask [21,14],
+    atom14_local_pos [21,14,3])."""
+    frames = np.zeros((NUM_RESTYPES + 1, 8, 4, 4), np.float32)
+    group = np.zeros((NUM_RESTYPES + 1, NUM_ATOM14), np.int64)
+    mask = np.zeros((NUM_RESTYPES + 1, NUM_ATOM14), np.float32)
+    local = np.zeros((NUM_RESTYPES + 1, NUM_ATOM14, 3), np.float32)
+    chi_mask = np.asarray(_RAW["chi_angles_mask"], np.float32)
+
+    for ri, resname in enumerate(_resnames()):
+        entries = _RAW["rigid_group_atom_positions"][resname]
+        pos = {a: np.array([x, y, z]) for a, g, x, y, z in entries}
+        a14 = ATOM14_NAMES[resname]
+        for a, g, x, y, z in entries:
+            i14 = a14.index(a)
+            group[ri, i14] = g
+            mask[ri, i14] = 1.0
+            local[ri, i14] = (x, y, z)
+
+        # group 0 (backbone) and group 1 (pre-omega) are identities
+        frames[ri, 0] = np.eye(4)
+        frames[ri, 1] = np.eye(4)
+        # phi frame: x along CA->N, translated to N
+        frames[ri, 2] = _rigid_transform_from_axes(
+            pos["N"] - pos["CA"], np.array([1.0, 0.0, 0.0]), pos["N"])
+        # psi frame: x along CA->C, y toward N
+        frames[ri, 3] = _rigid_transform_from_axes(
+            pos["C"] - pos["CA"], pos["CA"] - pos["N"], pos["C"])
+        chis = _RAW["chi_angles_atoms"][resname]
+        if chi_mask[ri, 0]:
+            p0, p1, p2 = (pos[a] for a in chis[0][:3])
+            frames[ri, 4] = _rigid_transform_from_axes(p2 - p1, p0 - p1, p2)
+        # chi_{k+1} relative to chi_k: the rotation axis passes through the
+        # axis-end atom, which sits at the previous group's origin
+        for k in range(1, 4):
+            if chi_mask[ri, k]:
+                end = pos[chis[k][2]]
+                frames[ri, 4 + k] = _rigid_transform_from_axes(
+                    end, np.array([-1.0, 0.0, 0.0]), end)
+    return frames, group, mask, local
+
+
+def _build_chi_tables():
+    """Chi-angle gather indices: the four chi dihedrals of a residue are read
+    off a chain of at most 7 unique atoms, listed by atom14 slot."""
+    idx = np.zeros((NUM_RESTYPES + 1, 7), np.int64)
+    cmask = np.zeros((NUM_RESTYPES + 1, 4), np.float32)
+    for ri, resname in enumerate(_resnames()):
+        chis = _RAW["chi_angles_atoms"][resname]
+        cmask[ri, : len(chis)] = 1.0
+        seen: list[str] = []
+        for chi in chis:
+            for a in chi:
+                if a not in seen:
+                    seen.append(a)
+        names = ATOM14_NAMES[resname]
+        for k, a in enumerate(seen):
+            idx[ri, k] = names.index(a)
+    return idx, cmask
+
+
+def _pad21(rows):
+    """Stack 20 rows and append an all-zero 'X' row."""
+    arr = np.asarray(rows, np.float32)
+    return np.concatenate([arr, np.zeros((1,) + arr.shape[1:], np.float32)], 0)
+
+
+@dataclasses.dataclass(frozen=True)
+class ChemTables:
+    """The dense tables the packing path reads."""
+
+    rigid_group_default_frame: np.ndarray  # [21, 8, 4, 4]
+    atom14_to_rigid_group: np.ndarray      # [21, 14] int64
+    atom14_mask: np.ndarray                # [21, 14]
+    atom14_local_positions: np.ndarray     # [21, 14, 3]
+    chi_atom14_indices: np.ndarray         # [21, 7] int64
+    chi_mask: np.ndarray                   # [21, 4]
+    chi_pi_periodic: np.ndarray            # [21, 4]
+
+    @staticmethod
+    def build() -> "ChemTables":
+        frames, group, mask, local = _build_rigid_group_tables()
+        chi_idx, chi_mask = _build_chi_tables()
+        return ChemTables(
+            rigid_group_default_frame=frames,
+            atom14_to_rigid_group=group,
+            atom14_mask=mask,
+            atom14_local_positions=local,
+            chi_atom14_indices=chi_idx,
+            chi_mask=chi_mask,
+            chi_pi_periodic=_pad21(_RAW["chi_pi_periodic"][:NUM_RESTYPES]),
+        )
+
+
+CHEM = ChemTables.build()

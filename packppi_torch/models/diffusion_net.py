@@ -1,0 +1,116 @@
+"""The chi-angle score network: encoder -> IPMP stack -> score decoder.
+
+Module and parameter names are the reference checkpoint's (``encoder.*``,
+``mpnn.mpnn_layers.N.*``, ``decoder_score.{0,2}.*``), so a reference state
+dict loads with ``load_state_dict(strict=True)``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from packppi_torch.data.batch import ProteinBatch
+from packppi_torch.models.encoder import ProteinEncoder
+from packppi_torch.models.ipmp import MessagePassingStack
+from packppi_torch.models.layers import MLP
+
+
+@dataclasses.dataclass(frozen=True)
+class NetworkConfig:
+    """The network's widths and numerics. Values this port does not
+    implement raise ``ValueError`` when the network is built."""
+
+    node_features: int = 128
+    edge_features: int = 128
+    hidden_dim: int = 128
+    num_mpnn_layers: int = 3
+    n_points: int = 8
+    dropout: float = 0.1     # training only; inference never applies it
+    act: str = "relu"
+    position_scale: float = 1.0
+    use_ipmp: bool = True
+    time_embedding_dim: int = 16
+    num_rbf: int = 16
+    top_k: int = 32
+    compute_dtype: str = "float32"  # "bfloat16" for the fast inference path
+    static_edge_dtype: str = "float32"
+    geometry_mode: str = "global"
+
+    def validate(self) -> None:
+        unsupported = {
+            "geometry_mode": (self.geometry_mode, "global"),
+            "use_ipmp": (self.use_ipmp, True),
+            "static_edge_dtype": (self.static_edge_dtype, "float32"),
+            "act": (self.act, "relu"),
+        }
+        for name, (value, supported) in unsupported.items():
+            if value != supported:
+                raise ValueError(f"NetworkConfig.{name}={value!r} is not implemented "
+                                 f"in packppi_torch (only {supported!r})")
+        if self.compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"NetworkConfig.compute_dtype={self.compute_dtype!r} "
+                             "(float32 or bfloat16)")
+        if self.node_features != self.hidden_dim:
+            raise ValueError("node_features must equal hidden_dim")
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return torch.bfloat16 if self.compute_dtype == "bfloat16" else torch.float32
+
+
+class StaticGraph(NamedTuple):
+    """Backbone-only encoder outputs, constant through a sampling run."""
+
+    h_E: torch.Tensor          # [B, L, K, F] in the compute dtype
+    idx: torch.Tensor          # [B, L, K] int64
+    mask_attend: torch.Tensor  # [B, L, K] float32
+
+
+class ChiScoreNetwork(nn.Module):
+    def __init__(self, cfg: NetworkConfig = NetworkConfig()):
+        super().__init__()
+        cfg.validate()
+        self.cfg = cfg
+        self.encoder = ProteinEncoder(cfg.node_features, cfg.edge_features,
+                                      cfg.time_embedding_dim, cfg.num_rbf, cfg.top_k)
+        self.mpnn = MessagePassingStack(cfg.hidden_dim, cfg.num_mpnn_layers,
+                                        cfg.n_points, cfg.edge_features,
+                                        cfg.position_scale)
+        h = cfg.hidden_dim
+        self.decoder_score = nn.Sequential(MLP(h, h // 2, h // 4, 2), nn.ReLU(),
+                                           MLP(h // 4, h // 8, 4, 2))
+
+    def encode_static(self, batch: ProteinBatch) -> StaticGraph:
+        """kNN graph, edge features and edge mask: computed once per structure
+        and reused by every denoising step."""
+        h_E, idx = self.encoder.encode_edges(batch.X, batch.chain_indices,
+                                             batch.residue_mask, batch.residue_index,
+                                             self.cfg.dtype)
+        mask_attend = MessagePassingStack.attend_mask(batch.residue_mask, idx)
+        return StaticGraph(h_E, idx, mask_attend)
+
+    def forward(self, batch: ProteinBatch, SC_D_noised: torch.Tensor, t: torch.Tensor,
+                static: Optional[StaticGraph] = None,
+                skip_last_edge_update: bool = False):
+        """SC_D_noised [B, L, 4] noised chis, t [B, L] diffusion time.
+        Returns (score [B, L, 4], h_V [B, L, hidden]), both float32."""
+        if self.training and self.cfg.dropout > 0:
+            raise ValueError("training with dropout is not implemented in packppi_torch; "
+                             "the network is inference-only (call .eval())")
+        dtype = self.cfg.dtype
+        sc_sincos = torch.stack([torch.sin(SC_D_noised), torch.cos(SC_D_noised)], -1)
+        sc_sincos = sc_sincos * batch.SC_D_mask[..., None]
+        if static is None:
+            static = self.encode_static(batch)
+        h_V = self.encoder.encode_nodes(batch.residue_type, batch.BB_D_sincos,
+                                        sc_sincos, t, dtype)
+        h_V = self.mpnn(h_V, static.h_E, static.idx, batch.X, batch.residue_mask,
+                        skip_last_edge_update, static.mask_attend)
+
+        dec1, _, dec2 = self.decoder_score
+        score = dec2(F.relu(dec1(h_V, dtype)), dtype)
+        return score.float(), h_V.float()

@@ -1,0 +1,136 @@
+"""Build the CUDA sources under ``csrc/`` and load them with ctypes.
+
+Each ``csrc/<name>.cu`` becomes one shared library with a plain C
+interface, compiled by ``nvcc`` for ``sm_90a`` into
+``packppi_torch/_build/<name>-<hash>.so``. The hash covers the source, the
+shared headers and the flags, so an edited kernel is rebuilt and an
+unchanged one is loaded as it is. Builds run at first use; ``build_all``
+starts one ``nvcc`` per source, all at once.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = Path(home) / "bin" / "nvcc"
+    if path.exists():
+        return str(path)
+    raise RuntimeError("nvcc not found (PATH or CUDA_HOME/bin); the CUDA "
+                       "kernels of packppi_torch are built from csrc/ at first use")
+
+
+def _target(name: str) -> Path:
+    h = hashlib.sha256()
+    for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def _start(name: str):
+    """Start nvcc for ``csrc/<name>.cu`` unless its library exists; returns
+    (target, process or None, tmp path)."""
+    target = _target(name)
+    if target.exists():
+        return target, None, None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = target.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return target, proc, tmp
+
+
+def _finish(name: str, target: Path, proc, tmp: Path) -> str:
+    """Wait for one build; returns "" or its error message."""
+    if proc is None:
+        return ""
+    log, _ = proc.communicate()
+    target.with_suffix(".log").write_text(log)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        return f"nvcc failed for csrc/{name}.cu (exit {proc.returncode}):\n{log}"
+    os.replace(tmp, target)
+    return ""
+
+
+def build_all(names) -> dict[str, Path]:
+    """Build every named source in parallel (one nvcc each) and wait for
+    all of them; returns the library paths, or raises if any build failed."""
+    started = {n: _start(n) for n in names}
+    errors = [_finish(n, *s) for n, s in started.items()]
+    if any(errors):
+        raise RuntimeError("\n".join(e for e in errors if e))
+    return {n: s[0] for n, s in started.items()}
+
+
+def build_log(name: str) -> str:
+    """nvcc's output (``-Xptxas -v``: registers, shared memory, spills) for
+    the current build of ``name``, or "" if it was built by another run."""
+    log = _target(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            path = build_all([name])[name]
+            lib = ctypes.CDLL(str(path))
+            lib.packppi_error_string.argtypes = [ctypes.c_int]
+            lib.packppi_error_string.restype = ctypes.c_char_p
+            _LIBS[name] = lib
+        return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error code."""
+    if err != 0:
+        msg = lib.packppi_error_string(err).decode()
+        raise RuntimeError(f"{what} failed: CUDA error {err} ({msg})")
+
+
+def check_operands(name, ref, expect):
+    """Device, dtype, shape and contiguity of every kernel operand."""
+    if not ref.is_contiguous():
+        raise ValueError(f"{name} kernel: its main operand must be contiguous")
+    for arg, (t, shape, dtype) in expect.items():
+        if t.device != ref.device:
+            raise ValueError(f"{name} kernel: {arg} on {t.device}, expected {ref.device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} kernel: {arg} is {t.dtype}, expected {dtype}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name} kernel: {arg} has shape {tuple(t.shape)}, "
+                             f"expected {tuple(shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} kernel: {arg} must be contiguous")
+
+
+def ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(0 if t is None else t.data_ptr())
+
+
+def stream_ptr(device) -> ctypes.c_void_p:
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)

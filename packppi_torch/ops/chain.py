@@ -1,0 +1,107 @@
+"""Post-message chain of one IPMP residual block (CUDA kernel + plain twin).
+
+Over flat rows [N, H] in the stream dtype ``sd = x.dtype`` (also the
+compute dtype of the FFN products):
+
+    [msg *= mask]                              (pre_mask: edge chains)
+    xx = rnd(LN_a(x + msg))                    (residual add in sd, LN in f32)
+    h  = rnd(relu(rnd(xx @ W1 + b1)))          (W1: [4H, H] Linear layout)
+    h  = rnd(h @ W2 + b2)                      (W2: [H, 4H])
+    y  = LN_b(xx + h) [* mask]                 (written in sd)
+
+``rnd`` rounds to sd and back, at the points the unfused flax chain rounds;
+LayerNorm is flax's (eps 1e-6, clamped fast variance). ``chain`` launches
+the CUDA kernel of ``csrc/chain.cu`` for CUDA tensors and runs
+``chain_plain`` for CPU tensors. The kernel replaces
+``packppi_tpu/ops/pallas_layer.py::fused_chain``.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from packppi_torch.ops import _build
+from packppi_torch.ops.precision import LN_EPS, matmul_f32acc, round_to
+
+
+def _ln(x, w, b):
+    m = x.mean(-1, keepdim=True)
+    v = (x * x).mean(-1, keepdim=True) - m * m
+    return (x - m) * torch.rsqrt(torch.clamp(v, min=0.0) + LN_EPS) * w.float() + b.float()
+
+
+def chain_plain(x, msg, mask: Optional[torch.Tensor], lna_w, lna_b, w1, b1, w2, b2,
+                lnb_w, lnb_b, pre_mask: bool):
+    """Plain PyTorch version of the kernel (see the module docstring);
+    ``mask`` is [N] float 0/1 or None."""
+    sd = x.dtype
+    m = msg
+    if mask is not None and pre_mask:
+        m = m * mask[:, None].to(m.dtype)
+    x0 = (x + m.to(sd)).float()
+    xx = round_to(_ln(x0, lna_w, lna_b), sd)
+    h = round_to(F.relu(round_to(matmul_f32acc(xx, w1.t(), sd) + b1.float(), sd)), sd)
+    h = round_to(matmul_f32acc(h, w2.t(), sd) + b2.float(), sd)
+    y = _ln(xx + h, lnb_w, lnb_b)
+    if mask is not None:
+        y = y * mask[:, None].float()
+    return y.to(sd)
+
+
+def chain(x, msg, mask: Optional[torch.Tensor], lna_w, lna_b, w1, b1, w2, b2,
+          lnb_w, lnb_b, pre_mask: bool):
+    """The chain: the CUDA kernel for CUDA tensors, ``chain_plain`` for CPU
+    tensors."""
+    if x.device.type == "cpu":
+        return chain_plain(x, msg, mask, lna_w, lna_b, w1, b1, w2, b2,
+                           lnb_w, lnb_b, pre_mask)
+    return _chain_cuda(x, msg, mask, lna_w, lna_b, w1, b1, w2, b2, lnb_w, lnb_b, pre_mask)
+
+
+# kernel launches on the card; the plain path never touches it
+chain.launches = 0
+
+_H = 128
+
+
+def _chain_cuda(x, msg, mask, lna_w, lna_b, w1, b1, w2, b2, lnb_w, lnb_b, pre_mask):
+    N, H = x.shape
+    sd = x.dtype
+    if sd not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"chain kernel: stream dtype {sd} (float32 or bfloat16)")
+    if H != _H:
+        raise ValueError(f"chain kernel is built for H={_H}, got {H}")
+    if msg.dtype not in (torch.float32, sd):
+        raise TypeError(f"chain kernel: msg is {msg.dtype}, expected float32 or {sd}")
+    f32 = torch.float32
+    expect = {
+        "msg": (msg, (N, H), msg.dtype),
+        "lna_w": (lna_w, (H,), f32), "lna_b": (lna_b, (H,), f32),
+        "w1": (w1, (4 * H, H), f32), "b1": (b1, (4 * H,), f32),
+        "w2": (w2, (H, 4 * H), f32), "b2": (b2, (H,), f32),
+        "lnb_w": (lnb_w, (H,), f32), "lnb_b": (lnb_b, (H,), f32),
+    }
+    if mask is not None:
+        expect["mask"] = (mask, (N,), f32)
+    _build.check_operands("chain", x, expect)
+    out = torch.empty_like(x)
+    lib = _lib()
+    err = lib.packppi_chain(
+        *(_build.ptr(t) for t in (x, msg, mask, lna_w, lna_b, w1, b1, w2, b2,
+                                  lnb_w, lnb_b, out)),
+        N, int(sd == torch.bfloat16), int(msg.dtype == torch.bfloat16), int(pre_mask),
+        _build.stream_ptr(x.device))
+    _build.check(lib, err, "chain kernel launch")
+    chain.launches += 1
+    return out
+
+
+def _lib():
+    lib = _build.load_library("chain")
+    if lib.packppi_chain.argtypes is None:
+        lib.packppi_chain.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.packppi_chain.restype = ctypes.c_int
+    return lib

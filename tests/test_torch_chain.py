@@ -1,0 +1,115 @@
+"""The port's residual chain (plain version, as the wrapper runs it on CPU
+tensors) against the JAX package's Pallas ``fused_chain`` in interpret
+mode: node chain (float32 message, post-mask) and edge chain (message in the
+stream dtype, pre-mask), float32 and bf16.
+
+Tolerances: float32 <= 3e-5 (the JAX package's own fused-vs-unfused bound).
+bf16: the same values are rounded at the same points, but the float32 sums
+feeding each rounding run in another order, so an element can land one
+bf16 ulp away and carry through the FFN; allowed: max |d| <= 2^-6 *
+max|ref| (4 ulps at the largest output), mean |d| <= 2^-16 * max|ref|.
+The mean limit lies between the two readings it must tell apart: the
+sound chain reads 2.7e-7 * max|ref|, the same chain without its rounding
+points 2.7e-4 to 2.9e-4 (``test_chain_bf16_tolerance_rejects_unrounded``).
+
+The JAX kernel is compiled with ``xla_allow_excess_precision`` off: by
+default XLA:CPU drops a float32 -> bf16 -> float32 round trip, so the
+interpreted kernel would skip the very rounding points under test.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from packppi_tpu.ops.pallas_layer import fused_chain
+from packppi_torch.ops.chain import chain, chain_plain
+
+H, N = 128, 300
+BF16_MAX_REL, BF16_MEAN_REL = 2.0 ** -6, 2.0 ** -16
+
+
+@pytest.fixture(scope="module")
+def case():
+    rng = np.random.default_rng(0)
+    f32 = np.float32
+    xavier = lambda i, o: (rng.uniform(-1, 1, (i, o)) * np.sqrt(6 / (i + o))).astype(f32)
+    mask = (rng.uniform(size=N) > 0.2).astype(f32)
+    return dict(
+        x=rng.normal(size=(N, H)).astype(f32), msg=rng.normal(size=(N, H)).astype(f32),
+        mask=mask,
+        # flax layout: kernels [in, out]
+        lna_s=rng.uniform(0.5, 1.5, H).astype(f32), lna_b=rng.normal(0, .1, H).astype(f32),
+        f1=xavier(H, 4 * H), f1b=rng.normal(0, .1, 4 * H).astype(f32),
+        f2=xavier(4 * H, H), f2b=rng.normal(0, .1, H).astype(f32),
+        lnb_s=rng.uniform(0.5, 1.5, H).astype(f32), lnb_b=rng.normal(0, .1, H).astype(f32))
+
+
+def _run_both(c, dtype, edge, use_mask=True):
+    tdt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+    jdt = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}[dtype]
+    t = lambda k: torch.from_numpy(c[k])
+    x = t("x").to(tdt)
+    msg = t("msg").to(tdt) if edge else t("msg")
+    mask = t("mask") if use_mask else None
+    ours = chain(x, msg, mask, t("lna_s"), t("lna_b"), t("f1").T.contiguous(), t("f1b"),
+                 t("f2").T.contiguous(), t("f2b"), t("lnb_s"), t("lnb_b"), pre_mask=edge)
+    j = lambda k: jnp.asarray(c[k])
+    args = (jnp.asarray(c["x"], jdt), jnp.asarray(c["msg"], jdt if edge else jnp.float32),
+            j("mask")[:, None] if use_mask else None,
+            j("lna_s"), j("lna_b"), j("f1"), j("f1b"), j("f2"), j("f2b"), j("lnb_s"), j("lnb_b"))
+    run = jax.jit(lambda *a: fused_chain(*a, compute_dtype=jdt, pre_mask=edge, interpret=True))
+    ref = run.lower(*args).compile(compiler_options={"xla_allow_excess_precision": False})(*args)
+    return ours, np.asarray(ref.astype(jnp.float32))
+
+
+def _bf16_readings(got, ref):
+    """(max |d|, mean |d|) relative to max|ref|."""
+    d = np.abs(got - ref)
+    scale = np.abs(ref).max()
+    return d.max() / scale, d.mean() / scale
+
+
+@pytest.mark.parametrize("edge", [False, True], ids=["node", "edge"])
+def test_chain_f32_matches_pallas_kernel(case, edge):
+    ours, ref = _run_both(case, "float32", edge)
+    assert ours.dtype == torch.float32 and ours.shape == (N, H)
+    np.testing.assert_allclose(ours.numpy(), ref, atol=3e-5, rtol=0)
+
+
+@pytest.mark.parametrize("edge", [False, True], ids=["node", "edge"])
+def test_chain_bf16_matches_pallas_kernel(case, edge):
+    ours, ref = _run_both(case, "bfloat16", edge)
+    assert ours.dtype == torch.bfloat16
+    dmax, dmean = _bf16_readings(ours.float().numpy(), ref)
+    assert dmax <= BF16_MAX_REL and dmean <= BF16_MEAN_REL, (dmax, dmean)
+
+
+@pytest.mark.parametrize("edge", [False, True], ids=["node", "edge"])
+def test_chain_bf16_tolerance_rejects_unrounded(case, edge):
+    """The control: the same chain with no bf16 rounding point (run in
+    float32 on the bf16 inputs, written in bf16) must fail the mean limit."""
+    _, ref = _run_both(case, "bfloat16", edge)
+    t = lambda k: torch.from_numpy(case[k])
+    x = t("x").bfloat16().float()
+    msg = t("msg").bfloat16().float() if edge else t("msg")
+    control = chain_plain(x, msg, t("mask"), t("lna_s"), t("lna_b"), t("f1").T.contiguous(),
+                          t("f1b"), t("f2").T.contiguous(), t("f2b"), t("lnb_s"), t("lnb_b"),
+                          pre_mask=edge).bfloat16()
+    _, dmean = _bf16_readings(control.float().numpy(), ref)
+    assert dmean > 4 * BF16_MEAN_REL, dmean
+
+
+def test_chain_without_mask_matches_pallas_kernel(case):
+    ours, ref = _run_both(case, "float32", edge=False, use_mask=False)
+    np.testing.assert_allclose(ours.numpy(), ref, atol=3e-5, rtol=0)
+
+
+def test_wrapper_takes_plain_version_on_cpu(case):
+    t = lambda k: torch.from_numpy(case[k])
+    args = (t("x"), t("msg"), t("mask"), t("lna_s"), t("lna_b"), t("f1").T.contiguous(),
+            t("f1b"), t("f2").T.contiguous(), t("f2b"), t("lnb_s"), t("lnb_b"))
+    before = chain.launches
+    np.testing.assert_array_equal(chain(*args, pre_mask=True).numpy(),
+                                  chain_plain(*args, pre_mask=True).numpy())
+    assert chain.launches == before      # only kernel launches count
