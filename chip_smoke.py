@@ -16,16 +16,27 @@ fatal on failure:
    node N=768 and edge N=24,576 rows), float32 and bf16, timed with CUDA
    events (L2 flushed before every launch). In bf16 two controls check
    that the tolerance can fail: the plain version without its rounding
-   points, and the kernel's output with its first block's rows zeroed;
+   points, and the kernel's output with its first block's rows zeroed.
+   The clash kernels (forward and gradient, float32) run on a clash-heavy
+   T1124 conformation with a non-uniform cotangent: controls (a column
+   tile dropped; the partner's weight left out of the gradient) must
+   fail; culling on and off, and two runs of one launch, must agree bit
+   for bit; B = 2 and a length that is no multiple of the tile are held
+   too. Then the same check and times on 11 copies of T1124 (L = 8,151);
 4. golden replay: the 1BRS float32 30-step trajectory through the kernels
-   against the reference's ``tests/golden/pipeline_golden.npz`` (5e-4 rad);
+   against the reference's ``tests/golden/pipeline_golden.npz`` (5e-4
+   rad), and its 50-step proximal refinement (mask exact, losses 1e-4,
+   chis 5e-4 rad, accept equal);
 5. the full-length float32 T1124 edge features and network evaluation on
    the card against the same on the CPU;
-6. the main path: the bf16 T1124 30-step pack through the CLI entry point
+6. the main paths: the bf16 T1124 30-step pack through the CLI entry point
    with the reference weights of ``pipeline_golden.npz``, with its time,
-   peak memory and kernel launch counts (5 of each kernel per step);
-7. ten more bf16 T1124 samplings for the latency distribution, and a
-   profile of one network evaluation (device time by kernel, idle share).
+   peak memory and kernel launch counts (5 of each kernel per step); the
+   same with ``--use_proximal`` (51 clash forward and 50 gradient
+   launches more); and ``cli.prox`` on T1124's own side chains;
+7. more bf16 T1124 samplings and proximal refinements for the latency
+   distributions, and profiles of one network evaluation and of one Adam
+   step of the refinement (device time by kernel, idle share).
 
 It then prints the ``kernels`` JSON line, the card's name and power limit,
 and ``{"ok": true, "device": {...}}`` as the last line.
@@ -56,6 +67,15 @@ F32_TOL = 1e-4
 BF16_MAX_REL, BF16_MEAN_REL = 2.0 ** -6, 2.0 ** -16
 ROWS_PER_BLOCK = 64                     # csrc/tile.cuh kRows: edge rows per block
 STEPS = 30
+# clash kernels vs the plain version, float32 max |d|: the sums run in
+# another order (readings here stay under 2e-6 at every size)
+CLASH_FWD_TOL, CLASH_GRAD_TOL = 1e-5, 2e-5
+CLASH_TOL_SOFT = 0.5                    # sc_violation_loss's overlap tolerance
+PROX_STEPS = 50
+# float32 operations per atom pair, for the bound: three differences, three
+# squares and their sum with eps, the root, the reach, the overlap, mask and
+# add (forward); plus the weight sum, the quotient and three products
+CLASH_PAIR_OPS = {"clash_fwd": 17, "clash_bwd": 28}
 
 
 def log(*a):
@@ -95,9 +115,9 @@ def phase_build():
     from packppi_torch.ops import _build
 
     t0 = time.perf_counter()
-    _build.build_all(["message", "chain"])
-    log(f"build: {time.perf_counter() - t0:.3f} s (nvcc, sm_90a, both sources in parallel)")
-    for name in ("message", "chain"):
+    _build.build_all(["message", "chain", "clash"])
+    log(f"build: {time.perf_counter() - t0:.3f} s (nvcc, sm_90a, all sources in parallel)")
+    for name in ("message", "chain", "clash"):
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
@@ -271,6 +291,249 @@ def phase_kernels(torch, timer):
     return records
 
 
+def clash_inputs(torch, copies=1, padded=True, perturbed=True, seed=0):
+    """(positions, exists, radius, residue_index) of T1124 on the card, on a
+    clash-heavy conformation (chis perturbed by a seeded N(0, 0.8)) or the
+    native one; ``copies`` > 1 lays that many copies 120 A apart along x with
+    residue indices offset, as one complex."""
+    import numpy as np
+
+    from packppi_torch.data import stack_batch
+    from packppi_torch.geometry import atom14_coords_from_torsions
+    from packppi_torch.geometry.frames import chem_table
+    from packppi_torch.structure import featurize, from_pdb_file
+
+    feats = featurize(from_pdb_file(T1124, mse_to_met=True))
+    b = stack_batch([feats], "cuda", target_len=None if padded else len(feats["residue_type"]))
+    sc = b.SC_D
+    if perturbed:
+        noise = np.random.default_rng(seed).normal(0, 0.8, tuple(sc.shape)).astype(np.float32)
+        sc = sc + torch.as_tensor(noise, device="cuda") * b.SC_D_mask
+    with torch.no_grad():
+        pos = atom14_coords_from_torsions(b.X, b.residue_type, b.BB_D, sc)
+    ex = b.atom_mask
+    rad = chem_table("vdw_radius_atom14", pos.device)[b.residue_type] * ex
+    ridx = b.residue_index
+    if copies > 1:
+        shift = torch.zeros(copies, 1, 1, 3, device="cuda")
+        shift[:, 0, 0, 0] = 120.0 * torch.arange(copies, device="cuda")
+        pos = (pos + shift).reshape(1, -1, 14, 3)
+        stride = int(ridx.max()) + 100
+        ridx = (ridx + stride * torch.arange(copies, device="cuda")[:, None]).reshape(1, -1)
+        ex, rad = ex.repeat(1, copies, 1), rad.repeat(1, copies, 1)
+    return pos.contiguous(), ex.contiguous(), rad.contiguous(), ridx.contiguous()
+
+
+def count_near_pairs(torch, pos, ex, reach, block=512):
+    """Unordered pairs of existing atoms closer than ``reach``, counted by
+    plain PyTorch in row blocks: the pairs the clash sums cannot do without."""
+    p = pos.reshape(-1, 3)[ex.reshape(-1) > 0]
+    n = 0
+    for s in range(0, len(p), block):
+        n += int((torch.cdist(p[s:s + block], p,
+                              compute_mode="donot_use_mm_for_euclid_dist") < reach).sum())
+    return (n - len(p)) // 2
+
+
+def clash_cost(torch, name, ops, w=None):
+    """(bytes, operations): every input read once, the output written once;
+    the near pairs of this run's tensors at CLASH_PAIR_OPS each."""
+    pos, ex, rad, ridx = ops
+    out = _nbytes(pos) if name == "clash_bwd" else _nbytes(ex)
+    reach = 2 * float(rad.max()) - CLASH_TOL_SOFT
+    near = count_near_pairs(torch, pos[0], ex[0], reach) * pos.shape[0]
+    return sum(_nbytes(t) for t in ops) + _nbytes(w) + out, near * CLASH_PAIR_OPS[name], near, reach
+
+
+def plain_clash_and_grad(torch, ops, w):
+    from packppi_torch.ops.clash import between_residue_clash_plain
+
+    p = ops[0].clone().requires_grad_(True)
+    per_atom = between_residue_clash_plain(p, *ops[1:], CLASH_TOL_SOFT)["per_atom_loss_sum"]
+    (grad,) = torch.autograd.grad((per_atom * w).sum(), p)
+    return per_atom.detach(), grad
+
+
+def check_max(name, got, want, tol):
+    d = (got - want).abs().max().item()
+    ok = bool(got.isfinite().all()) and d <= tol
+    log(f"  {name}: max|d| {d:.6g}  max|ref| {want.abs().max().item():.6g}  (limit {tol:g})  "
+        f"{'ok' if ok else 'OUT OF TOLERANCE'}")
+    if not ok:
+        fail(f"{name} disagrees with its plain version")
+    return d
+
+
+def check_clash(torch, timer, label, ops, seed, reps, plain_reps):
+    """Forward and gradient kernels against the plain version on ``ops``;
+    the bit-for-bit checks; times, bound and the share of live tiles.
+    Returns the two kernels' records."""
+    import numpy as np
+
+    from packppi_torch.ops import clash as C
+
+    pos, ex, rad, ridx = ops
+    B, L = pos.shape[:2]
+    w = torch.as_tensor(np.random.default_rng(seed).uniform(0.1, 1.0, tuple(ex.shape))
+                        .astype(np.float32), device="cuda") * ex
+    want, want_g = plain_clash_and_grad(torch, ops, w)
+    if not (want.sum().item() > 1.0 and want_g.abs().sum().item() > 1e-3):
+        fail(f"{label}: the conformation does not clash; the check would be empty")
+
+    nrow, ncol = -(-14 * L // C.ROWS_PER_BLOCK), -(-14 * L // C.COLS_PER_TILE)
+    live = torch.zeros(B, nrow, dtype=torch.int32, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got, boxes = C.clash_forward_cuda(*ops, CLASH_TOL_SOFT, live_tiles=live)
+    got_g = C.clash_backward_cuda(*ops, w, CLASH_TOL_SOFT, boxes=boxes)
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    err = {"clash_fwd": check_max(f"clash forward {label} {tuple(got.shape)}", got, want,
+                                  CLASH_FWD_TOL),
+           "clash_bwd": check_max(f"clash gradient {label} {tuple(got_g.shape)}", got_g, want_g,
+                                  CLASH_GRAD_TOL)}
+    # bit for bit: culling off (dead tiles add exact zeros) and a second run
+    same = {"forward, culling off": torch.equal(got, C.clash_forward_cuda(
+                *ops, CLASH_TOL_SOFT, cull=False)[0]),
+            "gradient, culling off": torch.equal(got_g, C.clash_backward_cuda(
+                *ops, w, CLASH_TOL_SOFT, cull=False)),
+            "forward, second run": torch.equal(got, C.clash_forward_cuda(*ops, CLASH_TOL_SOFT)[0]),
+            "gradient, second run": torch.equal(got_g, C.clash_backward_cuda(
+                *ops, w, CLASH_TOL_SOFT))}
+    share = live.sum().item() / (B * nrow * ncol)
+    log(f"    bit-identical: {same}; live tiles {live.sum().item()} of {B * nrow * ncol} "
+        f"({share:.4f}); kernels' peak memory {peak:.2f} MiB")
+    if not all(same.values()):
+        fail(f"{label}: clash kernels are not bit-identical: {same}")
+
+    records = {}
+    fns = {"clash_fwd": (lambda: C.clash_forward_cuda(*ops, CLASH_TOL_SOFT),
+                         lambda: C.clash_forward_cuda(*ops, CLASH_TOL_SOFT, cull=False),
+                         lambda: C.between_residue_clash_plain(*ops, CLASH_TOL_SOFT)),
+           "clash_bwd": (lambda: C.clash_backward_cuda(*ops, w, CLASH_TOL_SOFT, boxes=boxes),
+                         lambda: C.clash_backward_cuda(*ops, w, CLASH_TOL_SOFT, cull=False,
+                                                       boxes=boxes),
+                         lambda: plain_clash_and_grad(torch, ops, w))}
+    for name, (kernel, uncut, plain) in fns.items():
+        nb, no, near, reach = clash_cost(torch, name, ops, w if name == "clash_bwd" else None)
+        with torch.no_grad() if name == "clash_fwd" else torch.enable_grad():
+            records[name] = dict(max_abs_err=err[name], ms=timer(kernel, reps),
+                                 uncut_ms=timer(uncut, reps), plain_ms=timer(plain, plain_reps),
+                                 bound=bound_ms(nb, no, "float32"))
+        r = records[name]
+        log(f"  time {name} {label}: kernel {r['ms']:.4f} ms  culling off {r['uncut_ms']:.4f} ms  "
+            f"plain {r['plain_ms']:.4f} ms{' (forward and backward)' if name == 'clash_bwd' else ''}"
+            f"  bound {r['bound'][0]:.6f} ms ({r['bound'][1]}; {nb} bytes, {near} pairs under "
+            f"{reach:.2f} A at {CLASH_PAIR_OPS[name]} operations; all pairs A^2/2 = "
+            f"{(14 * L) ** 2 // 2 * B})")
+    return records, (want, want_g, w)
+
+
+def phase_clash_kernels(torch, timer):
+    """The clash kernels at T1124 shapes (L = 768, A = 10,752) and at 11
+    copies of T1124 (L = 8,151, A = 114,114); returns the T1124 records."""
+    from packppi_torch.ops import clash as C
+
+    ops = clash_inputs(torch)
+    records, (want, want_g, w) = check_clash(torch, timer, "T1124", ops, 1, 20, 3)
+
+    # two wrong answers the tolerances must reject, made with the plain
+    # version: one column tile's atoms dropped; the partner's weight w_b
+    # left out of the gradient (each pair then weighs w_a alone, which is
+    # half the gradient of the unweighted sum times w_a)
+    pos, ex, rad, ridx = ops
+    tile = (14 * pos.shape[1] // C.COLS_PER_TILE) // 2
+    ex_drop = ex.clone().reshape(ex.shape[0], -1)
+    ex_drop[:, tile * C.COLS_PER_TILE:(tile + 1) * C.COLS_PER_TILE] = 0
+    dropped = C.between_residue_clash_plain(pos, ex_drop.reshape(ex.shape), rad, ridx,
+                                            CLASH_TOL_SOFT)["per_atom_loss_sum"]
+    d_drop = (dropped - want).abs().max().item()
+    _, g_unit = plain_clash_and_grad(torch, ops, torch.ones_like(w))
+    d_wb = (0.5 * w[..., None] * g_unit - want_g).abs().max().item()
+    log(f"    controls: column tile {tile} dropped max|d| {d_drop:.4g} (limit {CLASH_FWD_TOL:g}); "
+        f"w_b left out max|d| {d_wb:.4g} (limit {CLASH_GRAD_TOL:g})")
+    if d_drop <= 100 * CLASH_FWD_TOL or d_wb <= 100 * CLASH_GRAD_TOL:
+        fail("the clash tolerances do not reject their controls")
+
+    # B = 2, two conformations: each row equals its own single run, bit for bit
+    native = clash_inputs(torch, perturbed=False)
+    two = tuple(torch.cat([a, b]).contiguous() for a, b in zip(ops, native))
+    w2 = torch.cat([w, w.flip(1)]).contiguous()
+    got2, boxes2 = C.clash_forward_cuda(*two, CLASH_TOL_SOFT)
+    grad2 = C.clash_backward_cuda(*two, w2, CLASH_TOL_SOFT, boxes=boxes2)
+    want2, want_g2 = plain_clash_and_grad(torch, two, w2)
+    check_max("clash forward B=2", got2, want2, CLASH_FWD_TOL)
+    check_max("clash gradient B=2", grad2, want_g2, CLASH_GRAD_TOL)
+    rows_ok = (torch.equal(got2[:1], C.clash_forward_cuda(*ops, CLASH_TOL_SOFT)[0])
+               and torch.equal(got2[1:], C.clash_forward_cuda(*native, CLASH_TOL_SOFT)[0])
+               and torch.equal(grad2[1:], C.clash_backward_cuda(*native, w2[1:].contiguous(),
+                                                                CLASH_TOL_SOFT)))
+    log(f"    B=2 rows equal their single runs bit for bit: {rows_ok}")
+    if not rows_ok:
+        fail("clash kernels: the rows of a batch are not independent")
+
+    # a length that is no multiple of either tile (741 residues, 10,374 atoms)
+    ragged = clash_inputs(torch, padded=False)
+    wr = w[:, :ragged[0].shape[1]].contiguous()
+    want_r, want_gr = plain_clash_and_grad(torch, ragged, wr)
+    got_r, boxes_r = C.clash_forward_cuda(*ragged, CLASH_TOL_SOFT)
+    check_max(f"clash forward L={ragged[0].shape[1]}", got_r, want_r, CLASH_FWD_TOL)
+    check_max(f"clash gradient L={ragged[0].shape[1]}",
+              C.clash_backward_cuda(*ragged, wr, CLASH_TOL_SOFT, boxes=boxes_r), want_gr,
+              CLASH_GRAD_TOL)
+
+    large = clash_inputs(torch, copies=11, padded=False)
+    large_records, _ = check_clash(torch, timer, "11xT1124", large, 2, 20, 1)
+    for name, r in large_records.items():
+        records[name]["large"] = r
+    return records
+
+
+def phase_prox_golden(torch):
+    """The reference's 50-step proximal refinement of its own 1BRS sample,
+    replayed through the clash kernels."""
+    import numpy as np
+
+    from packppi_torch.data import stack_batch
+    from packppi_torch.ops.clash import between_residue_clash as brc
+    from packppi_torch.sampling import proximal_optimize
+    from packppi_torch.structure import featurize, from_pdb_file
+
+    golden = np.load(PIPELINE_GOLDEN)
+    feats = featurize(from_pdb_file(ONE_BRS, mse_to_met=True))
+    batch = stack_batch([feats], "cuda", target_len=len(feats["residue_type"]))
+    f0, b0 = brc.launches_fwd, brc.launches_bwd
+    res = proximal_optimize(batch, torch.as_tensor(golden["final_sc"], device="cuda"),
+                            12.0, 0.5, 1.0, PROX_STEPS)
+    if (brc.launches_fwd - f0, brc.launches_bwd - b0) != (PROX_STEPS + 1, PROX_STEPS):
+        fail("proximal golden replay did not run through the clash kernels")
+    mask_ok = np.array_equal(res.clash_mask.cpu().numpy(), golden["clash_mask"].astype(bool))
+    losses = res.losses.cpu().numpy()
+    d_loss = np.abs(losses - golden["prox_losses"]).max()
+    valid = batch.SC_D_mask[0].cpu().numpy() > 0
+    d = np.abs(res.SC_D[0].cpu().numpy() - golden["prox_final_sc"][0])
+    d_sc = np.minimum(d, 2 * np.pi - d)[valid].max()
+    accepted = bool(losses[-1] < losses[0])
+    log(f"proximal golden replay (1BRS, {PROX_STEPS} steps, kernels): clash mask equal {mask_ok}, "
+        f"losses max|d| {d_loss:.3e} (bound 1e-4), chis {d_sc:.3e} rad (bound 5e-4), accepted "
+        f"{accepted} (reference {bool(golden['accepted'])})")
+    if not mask_ok:
+        # a residue at the mean threshold may fall on the other side on the card
+        from packppi_torch.ops.clash import compute_residue_clash
+        from packppi_torch.sampling.proximal import _row_mean
+
+        with torch.no_grad():
+            prc = compute_residue_clash(batch, torch.as_tensor(golden["final_sc"], device="cuda"))
+            margin = (prc - _row_mean(prc, batch.residue_mask)[:, None])[0].cpu().numpy()
+        for r in np.nonzero(res.clash_mask[0, :, 0].cpu().numpy()
+                            != golden["clash_mask"][0, :, 0].astype(bool))[0]:
+            log(f"    residue {r}: clash minus the mean {margin[r]:.3e}")
+        fail("proximal golden replay selects other residues than the reference")
+    if not (d_loss < 1e-4 and d_sc < 5e-4 and accepted == bool(golden["accepted"])):
+        fail("proximal golden replay out of tolerance")
+
+
 def phase_golden(torch):
     import numpy as np
 
@@ -366,45 +629,88 @@ def phase_network_vs_cpu(torch):
         fail("card and CPU networks disagree")
 
 
-def phase_pack(torch):
-    """The main path: the CLI entry point on T1124, bf16, 30 steps."""
-    from packppi_torch.cli.pack import build_parser, run
+def zero_launches():
     from packppi_torch.ops.chain import chain
+    from packppi_torch.ops.clash import between_residue_clash as brc
     from packppi_torch.ops.message import message
-    from packppi_torch.structure import from_pdb_file
 
-    args = build_parser().parse_args([
-        "--input", str(T1124), "--outdir", str(OUT / "pack_t1124"), "--ckpt",
-        str(PIPELINE_GOLDEN), "--precision", "bfloat16", "--n_steps", str(STEPS),
-        "--seed", "0"])
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    message.launches = 0
-    chain.launches = 0
-    t0 = time.perf_counter()
-    metrics = run(args)
-    wall = time.perf_counter() - t0
-    launches = {"message": message.launches, "chain": chain.launches}
-    peak = torch.cuda.max_memory_allocated() / 2 ** 20
-    log(f"pack T1124 bf16 {STEPS} steps: sampling {metrics['sampling_seconds']:.4f} s, "
-        f"whole run {wall:.3f} s, peak memory {peak:.1f} MiB, launches {launches}")
-    for name, n in launches.items():
-        if n != 5 * STEPS:
-            fail(f"{name} kernel launched {n} times in the pack, expected {5 * STEPS}")
-    inp = from_pdb_file(T1124, mse_to_met=True)
-    out = from_pdb_file(OUT / "pack_t1124" / "structure.pdb")
+    message.launches = chain.launches = brc.launches_fwd = brc.launches_bwd = 0
+
+
+def read_launches():
+    from packppi_torch.ops.chain import chain
+    from packppi_torch.ops.clash import between_residue_clash as brc
+    from packppi_torch.ops.message import message
+
+    return {"message": message.launches, "chain": chain.launches,
+            "clash_fwd": brc.launches_fwd, "clash_bwd": brc.launches_bwd}
+
+
+def check_structure(outdir):
     import numpy as np
 
+    from packppi_torch.structure import from_pdb_file
+
+    inp = from_pdb_file(T1124, mse_to_met=True)
+    out = from_pdb_file(outdir / "structure.pdb")
     if (len(out.aaindex) != len(inp.aaindex) or not np.array_equal(out.aaindex, inp.aaindex)
             or not np.isfinite(out.atom_positions[out.atom_mask > 0]).all()):
-        fail("packed structure does not match the input's residues or is not finite")
-    log(f"  wrote {OUT / 'pack_t1124' / 'structure.pdb'}: {len(out.aaindex)} residues, finite")
+        fail("written structure does not match the input's residues or is not finite")
+    log(f"  wrote {outdir / 'structure.pdb'}: {len(out.aaindex)} residues, finite")
+
+
+def phase_pack(torch):
+    """The main paths through their CLI entry points on T1124: the bf16
+    30-step pack, the same with the proximal refinement, and the standalone
+    refinement of the input's own side chains. Counts are set to 0 before
+    each and read after it; returns the second run's."""
+    from packppi_torch.cli import pack, prox
+
+    common = ["--input", str(T1124), "--ckpt", str(PIPELINE_GOLDEN), "--precision", "bfloat16",
+              "--n_steps", str(STEPS), "--seed", "0"]
+    expect = {"message": 5 * STEPS, "chain": 5 * STEPS, "clash_fwd": 0, "clash_bwd": 0}
+    launches = None
+    for name, extra in (("pack_t1124", []), ("pack_prox_t1124", ["--use_proximal"])):
+        args = pack.build_parser().parse_args(common + ["--outdir", str(OUT / name)] + extra)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        t0 = time.perf_counter()
+        metrics = pack.run(args)
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        log(f"pack T1124 bf16 {STEPS} steps {' '.join(extra)}: sampling "
+            f"{metrics['sampling_seconds']:.4f} s, whole run {wall:.3f} s, peak memory "
+            f"{peak:.1f} MiB, launches {launches}")
+        if extra:
+            expect.update(clash_fwd=PROX_STEPS + 1, clash_bwd=PROX_STEPS)
+            log(f"  proximal {metrics['proximal_seconds']:.4f} s, objective "
+                f"{metrics['proximal_objective_initial']:.6f} -> "
+                f"{metrics['proximal_objective_final']:.6f}, accepted "
+                f"{metrics['proximal_accepted']}")
+        if launches != expect:
+            fail(f"pack {extra}: launches {launches}, expected {expect}")
+        check_structure(OUT / name)
+
+    args = prox.build_parser().parse_args(["--input", str(T1124), "--outdir",
+                                           str(OUT / "prox_t1124")])
+    zero_launches()
+    result = prox.run(args)
+    got = read_launches()
+    log(f"prox T1124 (input's own side chains, {PROX_STEPS} steps): "
+        f"{result['optimize_seconds']:.4f} s, objective {result['objective_initial']:.6f} -> "
+        f"{result['objective_final']:.6f}, accepted {result['accepted']}, launches {got}")
+    if got != {"message": 0, "chain": 0, "clash_fwd": PROX_STEPS + 1, "clash_bwd": PROX_STEPS}:
+        fail(f"prox: launches {got}")
+    check_structure(OUT / "prox_t1124")
     return launches
 
 
-def phase_latency(torch, reps=10):
-    """Repeated bf16 T1124 30-step samplings after the counted run: the
-    latency distribution the single CLI run cannot give."""
+def phase_latency(torch, reps=5, prox_reps=10):
+    """Repeated bf16 T1124 30-step samplings and 50-step proximal
+    refinements (of the last sample) after the counted runs: the latency
+    distributions the single CLI runs cannot give."""
     import numpy as np
 
     from packppi_torch.data import stack_batch
@@ -430,12 +736,52 @@ def phase_latency(torch, reps=10):
     log(f"pack latency T1124 bf16 {STEPS} steps, {reps} runs: median {q[2]:.4f} s, "
         f"quartiles {q[1]:.4f}-{q[3]:.4f} s, min {q[0]:.4f} s, max {q[4]:.4f} s")
 
+    from packppi_torch.sampling import proximal_optimize
 
-def phase_profile(torch):
-    """Where one bf16 T1124 network evaluation spends device time: the
-    profiler's device time by kernel, against the evaluation's wall time
-    measured without the profiler."""
+    times = []
+    for _ in range(prox_reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = proximal_optimize(batch, sc, num_steps=PROX_STEPS).losses.tolist()
+        times.append(time.perf_counter() - t0)
+        if not all(map(np.isfinite, losses)):
+            fail("non-finite objective in a repeated proximal refinement")
+    q = np.percentile(times, [0, 25, 50, 75, 100])
+    log(f"proximal latency T1124 {PROX_STEPS} steps, {prox_reps} runs: median {q[2]:.4f} s, "
+        f"quartiles {q[1]:.4f}-{q[3]:.4f} s, min {q[0]:.4f} s, max {q[4]:.4f} s "
+        f"(objective {losses[0]:.6f} -> {losses[-1]:.6f})")
+    return sc
+
+
+def report_profile(what, prof, wall_ms, reps, unit):
+    dev = lambda e: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+    # kernel events only: an operator's own device time repeats its kernels',
+    # and so does a host annotation mirrored on the device (Optimizer.step)
+    events = prof.key_averages()
+    host_names = {e.key for e in events if not str(e.device_type).endswith("CUDA")}
+    kernels = [e for e in events if str(e.device_type).endswith("CUDA")
+               and e.key not in host_names and not getattr(e, "is_user_annotation", False)]
+    rows = sorted((e for e in kernels if dev(e) > 0), key=dev, reverse=True)
+    busy_ms = sum(dev(e) for e in rows) / reps / 1e3
+    if not rows:
+        log(f"profile: {what} {wall_ms:.4f} ms wall; device time not measured "
+            "(the profiler recorded none)")
+        return
+    log(f"profile: {what} {wall_ms:.4f} ms wall, device busy {busy_ms:.4f} ms, idle share "
+        f"{1 - busy_ms / wall_ms:.3f}, {sum(e.count for e in rows) / reps:.0f} device "
+        f"operations/{unit}")
+    for e in rows[:10]:
+        log(f"  {dev(e) / reps / 1e3:8.4f} ms  {e.count / reps:6.1f} calls/{unit}  {e.key[:90]}")
+
+
+def phase_profile(torch, sc):
+    """Where one bf16 T1124 network evaluation, and one Adam step of the
+    T1124 proximal refinement of the sample ``sc``, spend device time: the
+    profiler's device time by kernel, against the wall time measured
+    without the profiler."""
     from torch.profiler import ProfilerActivity, profile
+
+    from packppi_torch.sampling import proximal_optimize
 
     net, batch = t1124_network(torch, "bfloat16", "cuda")
     reps = 10
@@ -455,19 +801,20 @@ def phase_profile(torch):
             for _ in range(reps):
                 evaluate()
             torch.cuda.synchronize()
-    dev = lambda e: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
-    # kernel events only: an operator's own device time repeats its kernels'
-    kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
-    rows = sorted((e for e in kernels if dev(e) > 0), key=dev, reverse=True)
-    busy_ms = sum(dev(e) for e in rows) / reps / 1e3
-    if not rows:
-        log(f"profile: network evaluation {wall_ms:.4f} ms wall; device time not measured "
-            "(the profiler recorded none)")
-        return
-    log(f"profile: bf16 T1124 network evaluation {wall_ms:.4f} ms wall, device busy "
-        f"{busy_ms:.4f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
-    for e in rows[:10]:
-        log(f"  {dev(e) / reps / 1e3:8.4f} ms  {e.count // reps:4d} calls/eval  {e.key[:90]}")
+    report_profile("bf16 T1124 network evaluation", prof, wall_ms, reps, "eval")
+
+    # the refinement: its steps are alike, so a run of `reps` steps (and the
+    # one forward pass that picks the residues) stands for one step
+    refine = lambda: proximal_optimize(batch, sc, num_steps=reps).losses.tolist()
+    refine()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    refine()
+    wall_ms = (time.perf_counter() - t0) / reps * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        refine()
+        torch.cuda.synchronize()
+    report_profile("T1124 proximal Adam step", prof, wall_ms, reps, "step")
 
 
 def main():
@@ -483,17 +830,22 @@ def main():
     phase_build()
     timer = Timer(torch)
     records = phase_kernels(torch, timer)
+    clash_records = phase_clash_kernels(torch, timer)
     phase_golden(torch)
+    phase_prox_golden(torch)
     phase_network_vs_cpu(torch)
     launches = phase_pack(torch)
-    phase_latency(torch)
-    phase_profile(torch)
+    sc = phase_latency(torch)
+    phase_profile(torch, sc)
 
     kernels = []
     for name, source, replaces in (
             ("message", "packppi_torch/csrc/message.cu", "packppi_tpu/ops/pallas_ipmp.py:249"),
-            ("chain", "packppi_torch/csrc/chain.cu", "packppi_tpu/ops/pallas_layer.py:62")):
-        r = records[(name, "bfloat16", "edge")]         # the main path's dtype, larger pass
+            ("chain", "packppi_torch/csrc/chain.cu", "packppi_tpu/ops/pallas_layer.py:62"),
+            ("clash_fwd", "packppi_torch/csrc/clash.cu", "packppi_tpu/ops/pallas_clash.py:132"),
+            ("clash_bwd", "packppi_torch/csrc/clash.cu", "packppi_tpu/ops/pallas_clash.py:272")):
+        # the main path's dtype and larger pass; the clash kernels at T1124
+        r = clash_records[name] if name in clash_records else records[(name, "bfloat16", "edge")]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],

@@ -1,12 +1,14 @@
 """PackPPI in PyTorch with hand-written CUDA kernels for Hopper (sm_90a).
 
-The side-chain packing path of ``packppi_tpu`` rebuilt on PyTorch: parse and
-featurize a structure, build the kNN graph once, run the 30-step SO(2) ODE
-sampler over ``ChiScoreNetwork``, and rebuild atom14 coordinates. The two
-hot steps of every IPMP layer, the message MLP with in-kernel point geometry
-(``ops.message``) and the residual -> LayerNorm -> FFN -> LayerNorm chain
-(``ops.chain``), run as CUDA kernels from ``csrc/`` on the card and as their
-plain PyTorch versions on CPU tensors.
+The side-chain packing and clash-refinement paths of ``packppi_tpu`` rebuilt
+on PyTorch: parse and featurize a structure, build the kNN graph once, run
+the 30-step SO(2) ODE sampler over ``ChiScoreNetwork``, refine the chis with
+the 50-step proximal clash optimizer, and rebuild atom14 coordinates. The
+hot steps run as CUDA kernels from ``csrc/`` on the card and as their plain
+PyTorch versions on CPU tensors: in every IPMP layer the message MLP with
+in-kernel point geometry (``ops.message``) and the residual -> LayerNorm ->
+FFN -> LayerNorm chain (``ops.chain``); in every optimizer step the
+between-residue clash sums and their gradient (``ops.clash``).
 
 This package imports neither JAX nor ``packppi_tpu``.
 """

@@ -10,4 +10,5 @@ from packppi_torch.chem.tables import (  # noqa: F401
     RESTYPE_ORDER,
     RESTYPES,
     ChemTables,
+    make_atom14_dists_bounds,
 )

@@ -1,4 +1,5 @@
-"""Dense residue-type-indexed chemistry tables (the packing path's subset).
+"""Dense residue-type-indexed chemistry tables (the packing and proximal
+paths' subset).
 
 Plain numpy constants built from ``chem_data.json`` (this package's own
 copy). Row convention: 0..19 are the 20 standard amino acids in the order
@@ -9,6 +10,7 @@ decomposition (backbone, pre-omega, phi, psi, chi1..4).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 from pathlib import Path
 
@@ -25,6 +27,7 @@ RESTYPE_3TO1 = {three: one for one, three in RESTYPE_1TO3.items()}
 ATOM37_TYPES: list[str] = _RAW["atom37_types"]
 ATOM14_NAMES: dict[str, list[str]] = _RAW["atom14_names"]
 NUM_ATOM14 = 14
+_VDW: dict[str, float] = _RAW["van_der_waals_radius"]
 
 
 def _resnames():
@@ -105,6 +108,65 @@ def _build_chi_tables():
     return idx, cmask
 
 
+def _build_vdw_atom14():
+    r = np.zeros((NUM_RESTYPES + 1, NUM_ATOM14), np.float32)
+    for ri, resname in enumerate(_resnames()):
+        for i, a in enumerate(ATOM14_NAMES[resname]):
+            if a:
+                r[ri, i] = _VDW[a[0]]
+    return r
+
+
+@functools.lru_cache(maxsize=None)
+def _virtual_bonds():
+    """Bond-angle records turned into 1-3 atom distances via the law of
+    cosines, with first-order uncertainty propagation. Per residue, returns
+    the union of real bonds and these virtual bonds as (a1, a2, len, std)."""
+    out: dict[str, list[tuple[str, str, float, float]]] = {}
+    for resname in list(_RAW["bonds"]) + ["UNK"]:
+        bonds = [(a1, a2, l, s) for a1, a2, l, s in _RAW["bonds"].get(resname, [])]
+        by_key = {frozenset((a1, a2)): (l, s) for a1, a2, l, s in bonds}
+        virtual = []
+        for a1, a2, a3, gamma, gstd in _RAW["bond_angles"].get(resname, []):
+            l1, s1 = by_key[frozenset((a1, a2))]
+            l2, s2 = by_key[frozenset((a2, a3))]
+            length = np.sqrt(l1 * l1 + l2 * l2 - 2 * l1 * l2 * np.cos(gamma))
+            half_inv = 0.5 / length
+            dg = 2 * l1 * l2 * np.sin(gamma) * half_inv
+            d1 = (2 * l1 - 2 * l2 * np.cos(gamma)) * half_inv
+            d2 = (2 * l2 - 2 * l1 * np.cos(gamma)) * half_inv
+            std = np.sqrt((dg * gstd) ** 2 + (d1 * s1) ** 2 + (d2 * s2) ** 2)
+            virtual.append((a1, a3, float(length), float(std)))
+        out[resname] = bonds + virtual
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def make_atom14_dists_bounds(overlap_tolerance: float = 1.5,
+                             bond_length_tolerance_factor: float = 15.0):
+    """[21,14,14] lower/upper distance bounds within a residue.
+
+    Non-bonded pairs get ``r_vdw(i)+r_vdw(j)-overlap`` as lower bound and
+    1e10 as upper; bonded and angle-coupled (1-3) pairs get
+    ``len +- factor*std``.
+    """
+    lower = np.zeros((NUM_RESTYPES + 1, NUM_ATOM14, NUM_ATOM14), np.float32)
+    upper = np.zeros((NUM_RESTYPES + 1, NUM_ATOM14, NUM_ATOM14), np.float32)
+    vb = _virtual_bonds()
+    for ri, resname in enumerate(_resnames()):
+        names = ATOM14_NAMES[resname]
+        radius = np.array([_VDW[a[0]] if a else 0.0 for a in names])
+        exists = np.array([bool(a) for a in names])
+        pair = exists[:, None] & exists[None, :] & ~np.eye(NUM_ATOM14, dtype=bool)
+        lower[ri][pair] = (radius[:, None] + radius[None, :] - overlap_tolerance)[pair]
+        upper[ri][pair] = 1e10
+        for a1, a2, length, std in vb[resname]:
+            i, j = names.index(a1), names.index(a2)
+            lower[ri, i, j] = lower[ri, j, i] = length - bond_length_tolerance_factor * std
+            upper[ri, i, j] = upper[ri, j, i] = length + bond_length_tolerance_factor * std
+    return {"lower_bound": lower, "upper_bound": upper}
+
+
 def _pad21(rows):
     """Stack 20 rows and append an all-zero 'X' row."""
     arr = np.asarray(rows, np.float32)
@@ -113,7 +175,7 @@ def _pad21(rows):
 
 @dataclasses.dataclass(frozen=True)
 class ChemTables:
-    """The dense tables the packing path reads."""
+    """The dense tables the packing and proximal paths read."""
 
     rigid_group_default_frame: np.ndarray  # [21, 8, 4, 4]
     atom14_to_rigid_group: np.ndarray      # [21, 14] int64
@@ -122,6 +184,7 @@ class ChemTables:
     chi_atom14_indices: np.ndarray         # [21, 7] int64
     chi_mask: np.ndarray                   # [21, 4]
     chi_pi_periodic: np.ndarray            # [21, 4]
+    vdw_radius_atom14: np.ndarray          # [21, 14]
 
     @staticmethod
     def build() -> "ChemTables":
@@ -135,6 +198,7 @@ class ChemTables:
             chi_atom14_indices=chi_idx,
             chi_mask=chi_mask,
             chi_pi_periodic=_pad21(_RAW["chi_pi_periodic"][:NUM_RESTYPES]),
+            vdw_radius_atom14=_build_vdw_atom14(),
         )
 
 

@@ -2,12 +2,15 @@
 
 Parse and featurize a PDB, run the ``n_steps`` ODE reverse diffusion of
 the chi angles, rebuild atom14 coordinates and write ``structure.pdb`` and
-``metrics.json`` (``sampling_seconds``) to ``--outdir``. Runs on the CUDA
-device unless ``--device cpu`` is given.
+``metrics.json`` (``sampling_seconds``) to ``--outdir``. ``--n_samples N``
+packs N noise samples and keeps the least clashing; ``--use_proximal``
+refines the sample with PackPPI-Prox (``proximal_seconds``). Runs on the
+CUDA device unless ``--device cpu`` is given.
 
     python -m packppi_torch.cli.pack --input complex.pdb --outdir out \\
         [--ckpt weights.pt|weights.npz] [--precision bfloat16|float32] \\
-        [--n_steps 30] [--seed 0] [--device cuda|cpu]
+        [--n_steps 30] [--n_samples 1] [--use_proximal] [--seed 0] \\
+        [--device cuda|cpu]
 """
 from __future__ import annotations
 
@@ -31,6 +34,10 @@ def build_parser():
     p.add_argument("--precision", default="bfloat16", choices=["bfloat16", "float32"],
                    help="network compute dtype")
     p.add_argument("--n_steps", type=int, default=30, help="reverse-diffusion steps")
+    p.add_argument("--n_samples", type=int, default=1,
+                   help="pack N noise samples in one batch and keep the least clashing")
+    p.add_argument("--use_proximal", action="store_true",
+                   help="refine the sample with the proximal clash optimizer")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default=None,
                    help="cuda (default) or cpu; without a GPU, cpu must be asked for")
@@ -49,10 +56,12 @@ def merge_output_structure(prot, feats, atom_mask, coords, L):
 
 
 def run(args) -> dict:
-    from packppi_torch.data import stack_batch
+    from packppi_torch.data import ProteinBatch, stack_batch
     from packppi_torch.device import resolve_device
     from packppi_torch.geometry import atom14_coords_from_torsions
     from packppi_torch.models import NetworkConfig, TorsionalDiffusion
+    from packppi_torch.ops.clash import compute_residue_clash
+    from packppi_torch.sampling import proximal_optimize
     from packppi_torch.structure import featurize, from_pdb_file, to_pdb
     from packppi_torch.weights import init_weights, load_weights
 
@@ -63,7 +72,9 @@ def run(args) -> dict:
     prot = from_pdb_file(args.input, mse_to_met=True)
     feats = featurize(prot)
     L = len(feats["residue_type"])
-    batch = stack_batch([feats], device)
+    n_samples = max(1, args.n_samples)
+    # best-of-N: the protein repeated along the batch axis
+    batch = stack_batch([feats] * n_samples, device)
 
     model = TorsionalDiffusion(NetworkConfig(compute_dtype=args.precision))
     if args.ckpt:
@@ -80,13 +91,40 @@ def run(args) -> dict:
         torch.cuda.synchronize(device)
     t_sample = time.perf_counter() - t0
 
-    coords = atom14_coords_from_torsions(batch.X, batch.residue_type, batch.BB_D, sc)
+    if n_samples > 1:
+        with torch.no_grad():
+            per_sample = (compute_residue_clash(batch, sc) * batch.residue_mask).sum(-1)
+        best = int(per_sample.argmin())
+        print(f"best-of-{n_samples}: clash sums {np.round(per_sample.cpu().numpy(), 2)}"
+              f" -> keeping sample {best}")
+        batch = ProteinBatch(*(t[best:best + 1] for t in batch))
+        sc = sc[best:best + 1]
+
+    metrics = {"sampling_seconds": t_sample}
+    if args.use_proximal:
+        cfg = model.sample_cfg
+        t0 = time.perf_counter()
+        res = proximal_optimize(batch, sc, cfg.violation_tolerance_factor,
+                                cfg.clash_overlap_tolerance, cfg.lamda, cfg.num_steps)
+        losses = res.losses.tolist()           # the one read-back; waits for the device
+        metrics.update(proximal_seconds=time.perf_counter() - t0,
+                       proximal_accepted=losses[-1] < losses[0],
+                       proximal_objective_initial=losses[0],
+                       proximal_objective_final=losses[-1])
+        if metrics["proximal_accepted"]:
+            sc = res.SC_D
+        else:
+            print("proximal refinement did not reduce the objective; keeping the sample")
+
+    with torch.no_grad():
+        coords = atom14_coords_from_torsions(batch.X, batch.residue_type, batch.BB_D, sc)
     out_prot = merge_output_structure(prot, feats, batch.atom_mask.cpu().numpy(),
                                       coords.cpu().numpy(), L)
     out_pdb = outdir / "structure.pdb"
     out_pdb.write_text(to_pdb(out_prot))
-    print(f"wrote {out_pdb}  (sampling {t_sample:.3f}s on {device})")
-    metrics = {"sampling_seconds": t_sample}
+    print(f"wrote {out_pdb}  (sampling {t_sample:.3f}s"
+          + (f", proximal {metrics['proximal_seconds']:.3f}s" if args.use_proximal else "")
+          + f" on {device})")
     (outdir / "metrics.json").write_text(json.dumps(metrics, indent=1))
     return metrics
 

@@ -6,6 +6,8 @@ side-chain atom. Each atom's group frame is picked by an index gather.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from packppi_torch.chem import CHEM
@@ -13,8 +15,11 @@ from packppi_torch.geometry.rigid import (Rigid, bb_frames_from_atom14,
                                           compose, from_4x4, rigid_apply)
 
 
-def _table(arr, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(arr, device=like.device)
+@functools.lru_cache(maxsize=None)
+def chem_table(name: str, device: torch.device) -> torch.Tensor:
+    """The constant chemistry table ``CHEM.<name>`` on ``device``, copied
+    there once: the proximal loop rebuilds coordinates at every step."""
+    return torch.as_tensor(getattr(CHEM, name), device=device)
 
 
 def torsion_angles_to_frames(bb: Rigid, sincos: torch.Tensor,
@@ -29,7 +34,7 @@ def torsion_angles_to_frames(bb: Rigid, sincos: torch.Tensor,
     Returns:
         [..., L, 8] frames mapping each rigid group to global coordinates.
     """
-    default = from_4x4(_table(CHEM.rigid_group_default_frame, aatype)[aatype])
+    default = from_4x4(chem_table("rigid_group_default_frame", aatype.device)[aatype])
 
     sin = sincos[..., 0]
     cos = sincos[..., 1]
@@ -70,11 +75,11 @@ def frames_to_atom14_positions(frames: Rigid, aatype: torch.Tensor) -> torch.Ten
     Returns:
         [..., L, 14, 3] atom positions (masked to existing atoms).
     """
-    group = _table(CHEM.atom14_to_rigid_group, aatype)[aatype]       # [..., L, 14]
+    group = chem_table("atom14_to_rigid_group", aatype.device)[aatype]       # [..., L, 14]
     rot = torch.gather(frames.rot, -3, group[..., None, None].expand(*group.shape, 3, 3))
     trans = torch.gather(frames.trans, -2, group[..., None].expand(*group.shape, 3))
-    lit = _table(CHEM.atom14_local_positions, aatype)[aatype]        # [..., L, 14, 3]
-    mask = _table(CHEM.atom14_mask, aatype)[aatype]                  # [..., L, 14]
+    lit = chem_table("atom14_local_positions", aatype.device)[aatype]        # [..., L, 14, 3]
+    mask = chem_table("atom14_mask", aatype.device)[aatype]                  # [..., L, 14]
     return rigid_apply(Rigid(rot, trans), lit) * mask[..., None]
 
 

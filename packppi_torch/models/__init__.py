@@ -4,4 +4,7 @@ from packppi_torch.models.diffusion_net import (  # noqa: F401
     NetworkConfig,
     StaticGraph,
 )
-from packppi_torch.models.torsional_diffusion import TorsionalDiffusion  # noqa: F401
+from packppi_torch.models.torsional_diffusion import (  # noqa: F401
+    SampleConfig,
+    TorsionalDiffusion,
+)

@@ -6,6 +6,7 @@ evaluation with the last layer's edge pass skipped).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
@@ -18,9 +19,21 @@ from packppi_torch.geometry.dihedrals import wrap_angle
 from packppi_torch.models.diffusion_net import ChiScoreNetwork, NetworkConfig
 
 
+@dataclasses.dataclass(frozen=True)
+class SampleConfig:
+    """Settings of the proximal refinement that follows sampling."""
+
+    violation_tolerance_factor: float = 12.0
+    clash_overlap_tolerance: float = 0.5
+    lamda: float = 1.0
+    num_steps: int = 50  # proximal refinement steps
+
+
 class TorsionalDiffusion(nn.Module):
-    def __init__(self, cfg: NetworkConfig = NetworkConfig()):
+    def __init__(self, cfg: NetworkConfig = NetworkConfig(),
+                 sample_cfg: SampleConfig = SampleConfig()):
         super().__init__()
+        self.sample_cfg = sample_cfg
         self.net = ChiScoreNetwork(cfg).eval()
         # both chi periodicities share one sigma(t) and ODE step; the score
         # tables that tell them apart are not read by ODE sampling

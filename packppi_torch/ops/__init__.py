@@ -1,2 +1,2 @@
-"""Graph ops and the two kernels of the packing path (``message``,
-``chain``), each with its plain PyTorch version."""
+"""Graph ops and the kernels of the packing and refinement paths
+(``message``, ``chain``, ``clash``), each with its plain PyTorch version."""

@@ -20,6 +20,8 @@ bad = sorted(m for m in sys.modules
 print(len(names), bad)
 assert not bad, bad
 assert len(names) >= 20, names
+for n in ("packppi_torch.ops.clash", "packppi_torch.sampling.proximal", "packppi_torch.cli.prox"):
+    assert n in names, n
 """
 
 
@@ -50,6 +52,30 @@ def test_pack_cli_without_gpu_raises(tmp_path):
     args = build_parser().parse_args([
         "--input", os.path.join(REPO, "tests", "fixtures", "1brs.pdb"),
         "--outdir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run(args)
+
+
+def test_prox_cli_without_gpu_raises(tmp_path):
+    from packppi_torch.cli.prox import build_parser, run
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the no-GPU refusal cannot be shown")
+    args = build_parser().parse_args([
+        "--input", os.path.join(REPO, "tests", "fixtures", "1brs.pdb"),
+        "--outdir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run(args)
+
+
+def test_pack_cli_with_proximal_without_gpu_raises(tmp_path):
+    from packppi_torch.cli.pack import build_parser, run
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the no-GPU refusal cannot be shown")
+    args = build_parser().parse_args([
+        "--input", os.path.join(REPO, "tests", "fixtures", "1brs.pdb"),
+        "--outdir", str(tmp_path), "--use_proximal", "--n_samples", "2"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run(args)
 

@@ -101,3 +101,100 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     cops[0] = cops[0][:, :64]                               # H must be 128
     with pytest.raises(ValueError, match="H=128"):
         chain(*cops, False)
+
+
+def _clash_operands(device, B=2, L=23, seed=2):
+    """A random crowded cloud: B complexes of L residues in a small box (so
+    many pairs overlap), some atoms absent, residue indices with a chain
+    break, a length that is no multiple of the kernel's tiles."""
+    g = torch.Generator().manual_seed(seed)
+    pos = 9.0 * torch.rand(B, L, 14, 3, generator=g)
+    exists = (torch.rand(B, L, 14, generator=g) > 0.25).float()
+    exists[:, :, :4] = 1.0
+    radius = (1.5 + 0.3 * torch.rand(B, L, 14, generator=g)) * exists
+    ridx = torch.arange(L)[None].repeat(B, 1)
+    ridx[:, L // 2:] += 200
+    return tuple(t.to(device).contiguous() for t in (pos, exists, radius, ridx))
+
+
+def test_clash_kernels_match_plain(cuda):
+    from packppi_torch.ops.clash import between_residue_clash, between_residue_clash_plain
+
+    ops = _clash_operands(cuda)
+    w = torch.rand(ops[1].shape, generator=torch.Generator().manual_seed(3)).to(cuda) * ops[1]
+    before = (between_residue_clash.launches_fwd, between_residue_clash.launches_bwd)
+    pos = ops[0].clone().requires_grad_(True)
+    got = between_residue_clash(pos, *ops[1:], 0.5)
+    (got * w).sum().backward()
+    torch.cuda.synchronize()
+    assert (between_residue_clash.launches_fwd, between_residue_clash.launches_bwd) == (
+        before[0] + 1, before[1] + 1)
+    ref_pos = ops[0].clone().requires_grad_(True)
+    want = between_residue_clash_plain(ref_pos, *ops[1:], 0.5)["per_atom_loss_sum"]
+    (want * w).sum().backward()
+    assert want.sum().item() > 1.0 and ref_pos.grad.abs().sum().item() > 1e-3
+    assert (got - want).abs().max().item() <= 1e-5
+    assert (pos.grad - ref_pos.grad).abs().max().item() <= 2e-5
+
+
+def test_clash_kernels_are_deterministic_and_culling_is_exact(cuda):
+    from packppi_torch.ops.clash import clash_backward_cuda, clash_forward_cuda
+
+    pos, exists, radius, ridx = _clash_operands(cuda, B=1, L=300)
+    # residues strung along x, 4 A apart, as a chain is: tiles far apart in
+    # sequence are far apart in space
+    pos = pos + 4.0 * torch.arange(300, device=cuda)[None, :, None, None] * torch.tensor(
+        [1.0, 0.0, 0.0], device=cuda)
+    w = torch.rand(exists.shape, generator=torch.Generator().manual_seed(4)).to(cuda)
+    nrow = -(-14 * 300 // 32)
+    live = torch.zeros(1, nrow, dtype=torch.int32, device=cuda)
+    a, boxes = clash_forward_cuda(pos, exists, radius, ridx, 0.5, live_tiles=live)
+    b, _ = clash_forward_cuda(pos, exists, radius, ridx, 0.5, cull=False)
+    c, _ = clash_forward_cuda(pos, exists, radius, ridx, 0.5)
+    ga = clash_backward_cuda(pos, exists, radius, ridx, w, 0.5, boxes=boxes)
+    gb = clash_backward_cuda(pos, exists, radius, ridx, w, 0.5, cull=False)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(a, c) and torch.equal(ga, gb)
+    assert a.sum().item() > 0
+    assert 0 < live.sum().item() < nrow * -(-14 * 300 // 128)     # some tiles culled, not all
+
+
+def test_clash_gradient_matches_finite_differences(cuda):
+    """The gradient kernel against central differences of the forward kernel
+    on a tiny input. The loss is piecewise smooth: a pair whose overlap
+    begins or ends within the step puts a kink into the difference, so three
+    quarters of the sampled coordinates must agree (float32 forward, step
+    1e-3: differences resolve about 1e-2) and none may be off by more than
+    one pair's whole weight."""
+    from packppi_torch.ops.clash import clash_backward_cuda, clash_forward_cuda
+
+    pos, exists, radius, ridx = _clash_operands(cuda, B=1, L=5, seed=5)
+    pos = pos * 0.6
+    w = torch.rand(exists.shape, generator=torch.Generator().manual_seed(6)).to(cuda)
+    grad = clash_backward_cuda(pos, exists, radius, ridx, w, 0.5)
+    loss = lambda p: (clash_forward_cuda(p, exists, radius, ridx, 0.5)[0].double() * w).sum()
+    h, errs = 1e-3, []
+    flat = pos.reshape(-1)
+    for i in torch.randperm(flat.numel(), generator=torch.Generator().manual_seed(7))[:60]:
+        if exists.reshape(-1)[i // 3] == 0:
+            continue
+        up, down = flat.clone(), flat.clone()
+        up[i] += h
+        down[i] -= h
+        fd = (loss(up.reshape(pos.shape)) - loss(down.reshape(pos.shape))).item() / (2 * h)
+        errs.append(abs(fd - grad.reshape(-1)[i].item()))
+    errs = np.sort(errs)
+    assert len(errs) > 20 and grad.abs().sum().item() > 1.0
+    assert errs[int(0.75 * len(errs))] <= 2e-2 and errs[-1] <= 2.0, errs
+
+
+def test_clash_kernel_refuses_what_it_does_not_take(cuda):
+    from packppi_torch.ops.clash import between_residue_clash
+
+    ops = list(_clash_operands(cuda))
+    with pytest.raises(TypeError, match="residue_index"):
+        between_residue_clash(ops[0], ops[1], ops[2], ops[3].int(), 0.5)
+    with pytest.raises(TypeError, match="float32"):
+        between_residue_clash(ops[0].double(), *ops[1:], 0.5)
+    with pytest.raises(ValueError, match="contiguous"):
+        between_residue_clash(ops[0].transpose(0, 1).contiguous().transpose(0, 1), *ops[1:], 0.5)
