@@ -9,8 +9,8 @@ fatal on failure:
 
 1. versions: Python, torch, CUDA, nvcc, the card's name and power limit,
    and a content hash of the code (``packppi_torch/`` and this script);
-2. build: every kernel of ``packppi_torch/csrc`` with nvcc for sm_90a, one
-   nvcc per source, all started together;
+2. build: every kernel of ``packppi_torch/csrc`` (four sources) with nvcc
+   for sm_90a, one nvcc per source, all started together;
 3. kernels: each kernel against its plain PyTorch version on the card, on
    the T1124 complex's real graph and activations (L=768, K=32, H=128;
    node N=768 and edge N=24,576 rows), float32 and bf16, timed with CUDA
@@ -22,7 +22,14 @@ fatal on failure:
    tile dropped; the partner's weight left out of the gradient) must
    fail; culling on and off, and two runs of one launch, must agree bit
    for bit; B = 2 and a length that is no multiple of the tile are held
-   too. Then the same check and times on 11 copies of T1124 (L = 8,151);
+   too. Then the same check and times on 11 copies of T1124 (L = 8,151).
+   The feature-message kernel runs at the training shape (4 copies of
+   T1124 padded to L = 1,024: 131,072 edge rows) and at L = 741, node and
+   edge, float32 and bf16 with the same two controls, and row for row
+   against the geometry-in-kernel message kernel on the same features. The
+   two differentiable passes (feature-message and chain: kernel forward,
+   recomputed plain backward) are held, gradient by gradient, to autograd
+   through their plain versions;
 4. golden replay: the 1BRS float32 30-step trajectory through the kernels
    against the reference's ``tests/golden/pipeline_golden.npz`` (5e-4
    rad), and its 50-step proximal refinement (mask exact, losses 1e-4,
@@ -36,13 +43,27 @@ fatal on failure:
    launches more); and ``cli.prox`` on T1124's own side chains;
 7. more bf16 T1124 samplings and proximal refinements for the latency
    distributions, and profiles of one network evaluation and of one Adam
-   step of the refinement (device time by kernel, idle share).
+   step of the refinement (device time by kernel, idle share);
+8. one whole training loss at B = 2, L = 256: the configuration that trains
+   through the kernels against the unfused one, and the card against the
+   CPU, loss and every parameter gradient;
+9. training at full width: 20 float32 steps and 5 in bf16 compute at B = 4,
+   L = 1,024 with random weights from a seed; 5 feature-message and 5 chain
+   launches asserted in every step, finite losses, a falling loss on a
+   fixed draw, a poisoned batch that must change nothing bit for bit, the
+   step's time, peak memory and profile;
+10. the trainer end to end: the crop corpus from 1BRS and 2FTL,
+    ``cli.train_diffusion`` for one epoch and resumed for a second,
+    ``cli.pack`` with its checkpoint; and T1124 packed with the shipped
+    checkpoint ``docs/ckpts/diffusion_crops/torch_state.pt``, with its chi
+    accuracies.
 
 It then prints the ``kernels`` JSON line, the card's name and power limit,
 and ``{"ok": true, "device": {...}}`` as the last line.
 """
 import hashlib
 import json
+import math
 import shutil
 import subprocess
 import sys
@@ -72,6 +93,20 @@ STEPS = 30
 CLASH_FWD_TOL, CLASH_GRAD_TOL = 1e-5, 2e-5
 CLASH_TOL_SOFT = 0.5                    # sc_violation_loss's overlap tolerance
 PROX_STEPS = 50
+SOURCES = ("message", "message_feat", "chain", "clash")
+# the training shape: 4 copies of T1124 padded to 1,024 residues (131,072 edge rows)
+TRAIN_B, TRAIN_L = 4, 1024
+# the two differentiable passes: each gradient against autograd through the
+# plain version, relative to that gradient's max (the reference tests' limit)
+GRAD_REL_TOL = 5e-4
+# one whole loss, card against CPU: a parameter whose gradient is hundreds of
+# times smaller than the network's largest (a first-layer bias behind a
+# LayerNorm: a sum over all edge rows of terms that cancel) shows the two
+# devices' float32 summation orders at up to 7.5e-4 of its own max, so each
+# parameter is held to 2e-3 of its max there, and every difference to 2e-4 of
+# the largest gradient max of the network (readings 4.7e-6 on one device,
+# 4.3e-5 between the two)
+GRAD_REL_TOL_DEVICES, GRAD_GLOBAL_TOL = 2e-3, 2e-4
 # float32 operations per atom pair, for the bound: three differences, three
 # squares and their sum with eps, the root, the reach, the overlap, mask and
 # add (forward); plus the weight sum, the quotient and three products
@@ -115,9 +150,10 @@ def phase_build():
     from packppi_torch.ops import _build
 
     t0 = time.perf_counter()
-    _build.build_all(["message", "chain", "clash"])
-    log(f"build: {time.perf_counter() - t0:.3f} s (nvcc, sm_90a, all sources in parallel)")
-    for name in ("message", "chain", "clash"):
+    _build.build_all(SOURCES)
+    log(f"build: {time.perf_counter() - t0:.3f} s (nvcc, sm_90a, {len(SOURCES)} sources in "
+        "parallel)")
+    for name in SOURCES:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
@@ -160,6 +196,17 @@ def message_cost(ops, pool):
     out = B * L * H * 4 if pool else h_E.numel() // He * H * h_E.element_size()
     return (sum(_nbytes(t) for t in ops) + out,
             2 * B * L * K * (He + G + 2 * H) * H)
+
+
+def message_feat_cost(ops, pool):
+    """(bytes, operations) of the feature-message pass: per_i, pj, h_E, geom,
+    mask and the weights read once, the output written once."""
+    per_i, pj, h_E, geom = ops[:4]
+    B, L, K, He = h_E.shape
+    H = per_i.shape[-1]
+    out = B * L * H * 4 if pool else pj.numel() * pj.element_size()
+    return (sum(_nbytes(t) for t in ops) + out,
+            2 * B * L * K * (He + geom.shape[-1] + 2 * H) * H)
 
 
 def chain_cost(ops):
@@ -289,6 +336,149 @@ def phase_kernels(torch, timer):
         log(f"  time {k} {v} {d}: kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
             f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
     return records
+
+
+def t1124_train_batch(device, copies=TRAIN_B, target_len=TRAIN_L):
+    from packppi_torch.data import stack_batch
+    from packppi_torch.structure import featurize, from_pdb_file
+
+    feats = featurize(from_pdb_file(T1124, mse_to_met=True))
+    return stack_batch([feats] * copies, device, target_len=target_len)
+
+
+def layer0_state(torch, net, batch):
+    """(static graph, h_V, layer 0, frames) of ``net`` on ``batch`` at t = 0.5."""
+    from packppi_torch.geometry import bb_frames_from_atom14
+
+    static = net.encode_static(batch)
+    t = torch.full(batch.residue_mask.shape, 0.5, device=batch.X.device)
+    h_V = net.encoder.encode_nodes(batch.residue_type, batch.BB_D_sincos, batch.SC_D_sincos, t,
+                                   net.cfg.dtype)
+    return static, h_V, net.mpnn.mpnn_layers[0], bb_frames_from_atom14(batch.X)
+
+
+def phase_message_feat(torch, timer):
+    """The feature-message kernel against its plain version at the training
+    shape (B = 4, L = 1,024, K = 32: 131,072 edge rows), node and edge,
+    float32 and bf16 with the two controls; row for row against the
+    geometry-in-kernel message kernel on the same features; and at a length
+    that no block divides (one T1124, L = 741). Returns the records."""
+    from packppi_torch.ops.message import message
+    from packppi_torch.ops.message_feat import message_feat, message_feat_plain
+
+    records = {}
+    for dtype_name in ("float32", "bfloat16"):
+        net, _ = t1124_network(torch, dtype_name, "cuda")
+        for label, batch in (("train", t1124_train_batch("cuda")),
+                             ("L=741", t1124_train_batch("cuda", 1, 741))):
+            with torch.no_grad():
+                static, h_V, layer, frames = layer0_state(torch, net, batch)
+                for variant, pool, mlp, pts in (
+                        ("node", True, layer.node_message_fn, layer.points_fn_node),
+                        ("edge", False, layer.edge_message_fn, layer.points_fn_edge)):
+                    args = (h_V, static.h_E, static.idx, layer._points(pts, h_V), frames,
+                            static.mask_attend)
+                    ops = mlp.feat_operands(*args)
+                    got = message_feat(*ops, pool)
+                    torch.cuda.synchronize()
+                    want = message_feat_plain(*ops, pool)
+                    name = f"message_feat {variant} {dtype_name} {label} {tuple(got.shape)}"
+                    err = check_close(name, got, want, dtype_name)
+                    # the other message kernel computes the same function
+                    check_close(f"  against the message kernel, {variant} {dtype_name} {label}",
+                                got, message(*mlp.operands(*args), pool), dtype_name)
+                    if label != "train":
+                        continue
+                    if dtype_name == "bfloat16":
+                        check_controls(name, got, want,
+                                       message_feat_plain(*upcast(ops), pool).to(got.dtype),
+                                       ROWS_PER_BLOCK // static.idx.shape[-1] if pool
+                                       else ROWS_PER_BLOCK)
+                    nb, no = message_feat_cost(ops, pool)
+                    records[("message_feat", dtype_name, variant)] = dict(
+                        max_abs_err=err, ms=timer(lambda: message_feat(*ops, pool)),
+                        plain_ms=timer(lambda: message_feat_plain(*ops, pool), 5),
+                        bound=bound_ms(nb, no, dtype_name), bytes=nb, operations=no)
+    for (k, d, v), r in records.items():
+        log(f"  time {k} {v} {d} B={TRAIN_B} L={TRAIN_L}: kernel {r['ms']:.4f} ms  plain "
+            f"{r['plain_ms']:.4f} ms  bound {r['bound'][0]:.4f} ms ({r['bound'][1]}; "
+            f"{r['bytes']} bytes, {r['operations']} operations)")
+    return records
+
+
+def grads_of(torch, fn, ops, cot):
+    """Gradients of ``0.5 * sum(cot * fn(ops)^2)`` with respect to every
+    floating operand that is not a mask (those carry requires_grad here)."""
+    leaves = [t.detach().clone().requires_grad_(True) if g else t for t, g in ops]
+    out = fn(*leaves)
+    loss = 0.5 * (cot * out.float() ** 2).sum()
+    return torch.autograd.grad(loss, [t for t, (_, g) in zip(leaves, ops) if g])
+
+
+def check_grads(torch, what, names, got, want):
+    worst = 0.0
+    for name, g, w in zip(names, got, want):
+        scale = w.float().abs().max().item()
+        rel = (g.float() - w.float()).abs().max().item() / max(scale, 1e-30)
+        worst = max(worst, rel)
+        if not (bool(g.isfinite().all()) and rel <= GRAD_REL_TOL):
+            fail(f"{what}: gradient of {name} off by {rel:.3e} of its max {scale:.3e} "
+                 f"(limit {GRAD_REL_TOL:g})")
+    log(f"  {what}: {len(names)} gradients, worst max|d|/max|ref| {worst:.3e} "
+        f"(limit {GRAD_REL_TOL:g})")
+
+
+def phase_function_grads(torch):
+    """The two differentiable passes on the card in float32: the Function's
+    gradients (kernel forward, recomputed plain backward) against autograd
+    through the plain version, for every operand, at the training shape."""
+    import numpy as np
+
+    from packppi_torch.models.ipmp import chain_operands
+    from packppi_torch.ops.chain import chain, chain_plain
+    from packppi_torch.ops.message_feat import message_feat, message_feat_plain
+
+    net, _ = t1124_network(torch, "float32", "cuda")
+    batch = t1124_train_batch("cuda")
+    rng = np.random.default_rng(0)
+    cot_like = lambda t: torch.as_tensor(rng.uniform(0.5, 1.5, tuple(t.shape)).astype(np.float32),
+                                         device="cuda")
+    with torch.no_grad():
+        static, h_V, layer, frames = layer0_state(torch, net, batch)
+    m_names = ("per_i", "pj", "h_E", "geom", "w_in", "b_in", "w_mid", "b_mid", "w_out", "b_out")
+    c_names = ("x", "msg", "lna_w", "lna_b", "w1", "b1", "w2", "b2", "lnb_w", "lnb_b")
+    for variant, pool, mlp, pts in (("node", True, layer.node_message_fn, layer.points_fn_node),
+                                    ("edge", False, layer.edge_message_fn, layer.points_fn_edge)):
+        with torch.no_grad():
+            ops = mlp.feat_operands(h_V, static.h_E, static.idx, layer._points(pts, h_V), frames,
+                                    static.mask_attend)
+            msg = message_feat_plain(*ops, pool)
+        tagged = [(t, i != 4) for i, t in enumerate(ops)]           # operand 4 is the mask
+        cot = cot_like(msg)
+        m0 = message_feat.launches
+        got = grads_of(torch, lambda *a: message_feat(*a, pool), tagged, cot)
+        if message_feat.launches != m0 + 1:
+            fail("message_feat's gradient did not launch the kernel once in its forward")
+        want = grads_of(torch, lambda *a: message_feat_plain(*a, pool), tagged, cot)
+        check_grads(torch, f"message_feat {variant} gradients", m_names, got, want)
+
+        if pool:
+            cops = chain_operands(h_V, msg, batch.residue_mask, layer.norm[0], layer.node_dense,
+                                  layer.norm[1])
+        else:
+            cops = chain_operands(static.h_E, msg, static.mask_attend, layer.norm[2],
+                                  layer.edge_dense, layer.norm[3])
+        tagged = [(t, i != 2) for i, t in enumerate(cops)]          # operand 2 is the mask
+        cot = cot_like(cops[0])
+        c0 = chain.launches
+        got = grads_of(torch, lambda *a: chain(*a, not pool), tagged, cot)
+        if chain.launches != c0 + 1:
+            fail("chain's gradient did not launch the kernel once in its forward")
+        want = grads_of(torch, lambda *a: chain_plain(*a, not pool), tagged, cot)
+        check_grads(torch, f"chain {variant} gradients", c_names, got, want)
+        padded = cops[2] == 0
+        if not bool(got[0][padded].eq(0).all()):
+            fail(f"chain {variant}: masked rows carry a gradient into x")
 
 
 def clash_inputs(torch, copies=1, padded=True, perturbed=True, seed=0):
@@ -633,17 +823,21 @@ def zero_launches():
     from packppi_torch.ops.chain import chain
     from packppi_torch.ops.clash import between_residue_clash as brc
     from packppi_torch.ops.message import message
+    from packppi_torch.ops.message_feat import message_feat
 
-    message.launches = chain.launches = brc.launches_fwd = brc.launches_bwd = 0
+    message.launches = message_feat.launches = chain.launches = 0
+    brc.launches_fwd = brc.launches_bwd = 0
 
 
 def read_launches():
     from packppi_torch.ops.chain import chain
     from packppi_torch.ops.clash import between_residue_clash as brc
     from packppi_torch.ops.message import message
+    from packppi_torch.ops.message_feat import message_feat
 
-    return {"message": message.launches, "chain": chain.launches,
-            "clash_fwd": brc.launches_fwd, "clash_bwd": brc.launches_bwd}
+    return {"message": message.launches, "message_feat": message_feat.launches,
+            "chain": chain.launches, "clash_fwd": brc.launches_fwd,
+            "clash_bwd": brc.launches_bwd}
 
 
 def check_structure(outdir):
@@ -668,7 +862,8 @@ def phase_pack(torch):
 
     common = ["--input", str(T1124), "--ckpt", str(PIPELINE_GOLDEN), "--precision", "bfloat16",
               "--n_steps", str(STEPS), "--seed", "0"]
-    expect = {"message": 5 * STEPS, "chain": 5 * STEPS, "clash_fwd": 0, "clash_bwd": 0}
+    expect = {"message": 5 * STEPS, "message_feat": 0, "chain": 5 * STEPS, "clash_fwd": 0,
+              "clash_bwd": 0}
     launches = None
     for name, extra in (("pack_t1124", []), ("pack_prox_t1124", ["--use_proximal"])):
         args = pack.build_parser().parse_args(common + ["--outdir", str(OUT / name)] + extra)
@@ -701,13 +896,278 @@ def phase_pack(torch):
     log(f"prox T1124 (input's own side chains, {PROX_STEPS} steps): "
         f"{result['optimize_seconds']:.4f} s, objective {result['objective_initial']:.6f} -> "
         f"{result['objective_final']:.6f}, accepted {result['accepted']}, launches {got}")
-    if got != {"message": 0, "chain": 0, "clash_fwd": PROX_STEPS + 1, "clash_bwd": PROX_STEPS}:
+    if got != {"message": 0, "message_feat": 0, "chain": 0, "clash_fwd": PROX_STEPS + 1,
+               "clash_bwd": PROX_STEPS}:
         fail(f"prox: launches {got}")
     check_structure(OUT / "prox_t1124")
     return launches
 
 
-def phase_latency(torch, reps=5, prox_reps=10):
+# the configuration that trains through the kernels
+TRAIN_KNOBS = dict(dropout=0.0, fused_messages=True, fused_messages_train=True,
+                   fused_chain_train=True)
+TRAIN_STEPS, TRAIN_STEPS_BF16 = 20, 5
+CROP_SOURCES = (ONE_BRS, REPO / "tests" / "fixtures" / "2ftl.pdb")
+SHIPPED_CKPT = REPO / "docs" / "ckpts" / "diffusion_crops" / "torch_state.pt"
+
+
+def new_train_state(torch, seed, device="cuda", **cfg):
+    from packppi_torch.models import NetworkConfig, TorsionalDiffusion
+    from packppi_torch.train.diffusion_task import init_state
+
+    return init_state(TorsionalDiffusion(NetworkConfig(**cfg)), seed, device)
+
+
+def param_grads(net):
+    return {k: (p.grad.detach().clone() if p.grad is not None else p.new_zeros(p.shape))
+            for k, p in net.named_parameters()}
+
+
+def compare_param_grads(what, got, want, limit):
+    worst, at, worst_abs = 0.0, "", 0.0
+    largest = max(w.abs().max().item() for w in want.values())
+    for k, w in want.items():
+        scale = max(w.abs().max().item(), 1e-3)
+        d = (got[k].to(w.device) - w).abs().max().item()
+        if not (d <= limit * scale and d <= GRAD_GLOBAL_TOL * largest):
+            fail(f"{what}: gradient of {k} off by {d:.3e}: {d / scale:.3e} of its max (limit "
+                 f"{limit:g}), {d / largest:.3e} of the largest gradient max {largest:.3e} "
+                 f"(limit {GRAD_GLOBAL_TOL:g})")
+        worst_abs = max(worst_abs, d)
+        if d / scale > worst:
+            worst, at = d / scale, k
+    log(f"  {what}: {len(want)} parameter gradients, worst max|d|/max|ref| {worst:.3e} at {at} "
+        f"(limit {limit:g}); worst max|d| {worst_abs:.3e} = {worst_abs / largest:.3e} of the "
+        f"largest gradient max {largest:.3e} (limit {GRAD_GLOBAL_TOL:g})")
+
+
+def phase_loss_grads(torch):
+    """One whole loss at B = 2, L = 256 (two halves of T1124's first 512
+    residues), float32, same weights and draws: the configuration that runs
+    the kernels against the unfused configuration, and the card's against
+    the CPU's, loss and every parameter gradient."""
+    from packppi_torch.data import stack_batch
+    from packppi_torch.structure import featurize, from_pdb_file
+
+    feats = featurize(from_pdb_file(T1124, mse_to_met=True))
+    halves = [{k: v[s:s + 256] for k, v in feats.items()} for s in (0, 256)]
+    batch = stack_batch(halves, "cuda", target_len=256)
+    g = torch.Generator(device="cuda").manual_seed(11)
+    draws = dict(t=torch.rand(2, generator=g, device="cuda"),
+                 noise_pi=torch.randn(batch.SC_D.shape, generator=g, device="cuda"),
+                 noise_2pi=torch.randn(batch.SC_D.shape, generator=g, device="cuda"))
+    results = {}
+    for name, device, cfg in (("kernels", "cuda", TRAIN_KNOBS), ("unfused", "cuda", dict(dropout=0.0)),
+                              ("kernels on the CPU", "cpu", TRAIN_KNOBS)):
+        state = new_train_state(torch, 5, device, **cfg)
+        b = type(batch)(*(t.to(device) for t in batch))
+        zero_launches()
+        loss = state.model.loss(b, None, **{k: v.to(device) for k, v in draws.items()})
+        loss.backward()
+        launches = read_launches()
+        want = 5 if name == "kernels" else 0
+        if (launches["message_feat"], launches["chain"], launches["message"]) != (want, want, 0):
+            fail(f"loss ({name}): launches {launches}")
+        results[name] = (loss.item(), param_grads(state.model.net))
+        log(f"  loss B=2 L=256 float32, {name}: {loss.item():.7f}  launches message_feat "
+            f"{launches['message_feat']}, chain {launches['chain']}")
+    for other, limit in (("unfused", GRAD_REL_TOL), ("kernels on the CPU", GRAD_REL_TOL_DEVICES)):
+        d = abs(results["kernels"][0] - results[other][0])
+        if not d <= 1e-5:
+            fail(f"loss: kernels vs {other} differ by {d:.3e} (limit 1e-5)")
+        compare_param_grads(f"loss gradients, kernels vs {other} (loss |d| {d:.3e})",
+                            results["kernels"][1], results[other][1], limit)
+
+
+def state_snapshot(state):
+    return ([p.detach().clone() for p in state.model.net.parameters()],
+            [{k: (v.clone() if hasattr(v, "clone") else v) for k, v in s.items()}
+             for s in state.optimizer.state.values()])
+
+
+def snapshots_equal(torch, a, b):
+    same = lambda x, y: torch.equal(x, y) if hasattr(x, "shape") else x == y
+    return (all(torch.equal(x, y) for x, y in zip(a[0], b[0])) and len(a[1]) == len(b[1])
+            and all(s.keys() == t.keys() and all(same(s[k], t[k]) for k in s)
+                    for s, t in zip(a[1], b[1])))
+
+
+def run_steps(torch, state, step, batch, n, what):
+    """``n`` training steps with the launch counts of each asserted (5
+    feature-message and 5 chain launches, forward only); returns the losses
+    the wall milliseconds of each step, and the launches summed."""
+    losses, ms, totals = [], [], {}
+    for i in range(n):
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(step(state, batch))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        got = read_launches()
+        if (got["message_feat"], got["chain"], got["message"]) != (5, 5, 0):
+            fail(f"{what}, step {i}: launches {got}, expected 5 message_feat and 5 chain")
+        totals = {k: totals.get(k, 0) + v for k, v in got.items()}
+    losses = [x.item() for x in losses]
+    if not all(map(math.isfinite, losses)):
+        fail(f"{what}: a loss is not finite: {losses}")
+    return losses, ms, totals
+
+
+def phase_train(torch):
+    """Training at full width: B = 4 x L = 1,024 of T1124, published widths,
+    random weights from a seed, the configuration that trains through the
+    kernels. 20 float32 steps and 5 in bf16 compute. Returns the launch
+    counts of the 20 steps."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from packppi_torch.train.diffusion_task import make_train_step
+
+    batch = t1124_train_batch("cuda")
+    state = new_train_state(torch, 0, **TRAIN_KNOBS)
+    n_params = sum(p.numel() for p in state.model.net.parameters())
+    step = make_train_step(state.model, state.optimizer)
+    fixed_loss = lambda: state.model.loss(batch, torch.Generator(device="cuda").manual_seed(123),
+                                          deterministic=True).item()
+    with torch.no_grad():
+        zero_launches()
+        before = fixed_loss()
+        if (read_launches()["message_feat"], read_launches()["chain"]) != (5, 5):
+            fail(f"evaluation loss: launches {read_launches()}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms, totals = run_steps(torch, state, step, batch, TRAIN_STEPS, "float32 training")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    with torch.no_grad():
+        after = fixed_loss()
+    q = np.percentile(ms[-10:], [0, 25, 50, 75, 100])
+    log(f"train B={TRAIN_B} L={TRAIN_L} float32, {n_params} parameters, {TRAIN_STEPS} steps: "
+        f"first step {ms[0]:.1f} ms; last 10: median {q[2]:.2f} ms, quartiles {q[1]:.2f}-{q[3]:.2f}, "
+        f"min {q[0]:.2f}, max {q[4]:.2f}; peak memory {peak:.1f} MiB; launches {totals} "
+        f"(5 message_feat + 5 chain in every step)")
+    log(f"  training losses {losses[0]:.5f} -> {losses[-1]:.5f}; loss on a fixed evaluation draw "
+        f"{before:.6f} -> {after:.6f}")
+    if not after < before:
+        fail("the loss on the fixed evaluation draw did not fall")
+
+    # a poisoned batch: one NaN coordinate; nothing may change, bit for bit
+    snap = state_snapshot(state)
+    X = batch.X.clone()
+    X[0, 17, 1, 0] = float("nan")
+    poisoned = step(state, batch._replace(X=X)).item()
+    unchanged = snapshots_equal(torch, snap, state_snapshot(state))
+    log(f"  poisoned step: loss {poisoned}, parameters and Adam state unchanged bit for bit: "
+        f"{unchanged}; opt_steps {state.opt_steps} of {state.step} steps")
+    if math.isfinite(poisoned) or not unchanged or state.opt_steps != TRAIN_STEPS:
+        fail("the non-finite skip did not leave parameters and optimizer state as they were")
+
+    # where one step's time goes
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(state, batch)
+        torch.cuda.synchronize()
+    report_profile(f"float32 training step B={TRAIN_B} L={TRAIN_L}", prof, q[2], 1, "step")
+    del state, step
+
+    # bf16 compute; parameters, gradients and Adam moments stay float32
+    state = new_train_state(torch, 0, compute_dtype="bfloat16", **TRAIN_KNOBS)
+    step = make_train_step(state.model, state.optimizer)
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms, _ = run_steps(torch, state, step, batch, TRAIN_STEPS_BF16, "bf16 training")
+    f32 = torch.float32
+    dtypes_ok = (all(p.dtype == f32 for p in state.model.net.parameters())
+                 and all(v.dtype == f32 for s in state.optimizer.state.values()
+                         for k, v in s.items() if k != "step"))
+    log(f"train B={TRAIN_B} L={TRAIN_L} bf16 compute, {TRAIN_STEPS_BF16} steps: "
+        f"{' '.join(f'{m:.1f}' for m in ms)} ms; losses {losses[0]:.5f} -> {losses[-1]:.5f}; "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB; parameters and "
+        f"Adam moments float32: {dtypes_ok}")
+    if not dtypes_ok:
+        fail("bf16 compute changed the dtype of parameters or optimizer state")
+    return totals
+
+
+def phase_trainer(torch):
+    """The trainer end to end through its CLI entry point: build the crop
+    corpus, train one epoch, resume from its checkpoint for a second (in a
+    run directory of its own, as the CLI makes them), pack 1BRS with the
+    last checkpoint."""
+    import numpy as np
+
+    from packppi_torch.cli import pack, train_diffusion
+    from packppi_torch.data import crops
+
+    corpus, base = OUT / "crops", OUT / "train_run"
+    for d in (corpus, base):
+        shutil.rmtree(d, ignore_errors=True)
+    t0 = time.perf_counter()
+    n = crops.build([str(p) for p in CROP_SOURCES], str(corpus))
+    log(f"crop corpus: {n} crops of 64 and 96 residues in {time.perf_counter() - t0:.2f} s")
+    argv = ["trainer=debug", f"data.data_dir={corpus}", "data.batch_size=16",
+            "sample.n_diffusion_steps=3", f"output_dir={base}"]
+    argv += [f"model.{k}={str(v).lower()}" for k, v in TRAIN_KNOBS.items()]
+    train_steps, resume = [], []
+    for epochs in (1, 2):
+        zero_launches()
+        t0 = time.perf_counter()
+        (result,) = train_diffusion.main(argv + [f"trainer.max_epochs={epochs}"] + resume)
+        got = read_launches()
+        m, run = result["metrics"], Path(result["run_dir"])
+        resume = [f"ckpt_path={m['last_ckpt']}"]
+        log(f"cli.train_diffusion, max_epochs={epochs}: {time.perf_counter() - t0:.2f} s, "
+            f"epochs_run {m['epochs_run']}, best val/loss {m['best_val_loss']:.5f}, test/loss "
+            f"{m['test_loss']:.5f}, last checkpoint {Path(m['last_ckpt']).name}, launches {got}")
+        if not (got["message_feat"] > 0 and got["chain"] > 0 and got["message"] == 0):
+            fail(f"the trainer did not run through the kernels: {got}")
+        if m["epochs_run"] != epochs:
+            fail("the second invocation did not resume from the first's checkpoint")
+        records = [json.loads(line)
+                   for line in (run / "logs" / "metrics.jsonl").read_text().splitlines()]
+        train_steps += [r["step"] for r in records if "train/loss" in r]
+        index = json.loads((run / "checkpoints" / "index.json").read_text())
+        ok = ((run / "split.json").exists() and index and Path(m["last_ckpt"]).exists()
+              and all(np.isfinite(v) for r in records for v in r.values())
+              and sum("val/loss" in r for r in records) == 1
+              and sum("test/loss" in r for r in records) == 1)
+        log(f"  {run.relative_to(OUT)}: split.json, index.json {sorted(index)}, train/loss, "
+            f"val/loss and test/loss records all finite: {bool(ok)}")
+        if not ok:
+            fail("the trainer's outputs are incomplete")
+    log(f"  train/loss records over both runs: steps {train_steps[0]}-{train_steps[-1]}")
+    if train_steps != list(range(1, len(train_steps) + 1)):
+        fail(f"the resumed run did not take up where the first stopped: steps {train_steps}")
+    args = pack.build_parser().parse_args(["--input", str(ONE_BRS), "--ckpt", m["last_ckpt"],
+                                           "--outdir", str(OUT / "pack_1brs_trained"),
+                                           "--n_steps", "10"])
+    metrics = pack.run(args)
+    if not (OUT / "pack_1brs_trained" / "structure.pdb").exists():
+        fail("cli.pack did not pack with the trainer's checkpoint")
+    log(f"  cli.pack --ckpt {Path(m['last_ckpt']).name} on 1BRS: sampling "
+        f"{metrics['sampling_seconds']:.4f} s")
+
+
+def phase_shipped_checkpoint(torch):
+    """T1124 packed with the converted shipped checkpoint, seed 0: the chi
+    accuracies of the written structure against the input's side chains."""
+    from packppi_torch.cli import pack
+    from packppi_torch.structure import featurize, from_pdb_file
+    from packppi_torch.utils.metrics import chi_metrics
+
+    out = OUT / "pack_t1124_shipped"
+    args = pack.build_parser().parse_args(["--input", str(T1124), "--ckpt", str(SHIPPED_CKPT),
+                                           "--outdir", str(out), "--seed", "0"])
+    pack.run(args)
+    true = featurize(from_pdb_file(T1124, mse_to_met=True))
+    pred = featurize(from_pdb_file(out / "structure.pdb", mse_to_met=True))
+    m = chi_metrics(true["SC_D"], pred["SC_D"], true["SC_D_mask"], true["chi_1pi_periodic_mask"])
+    log("T1124 with docs/ckpts/diffusion_crops/torch_state.pt, bf16, 30 steps, seed 0: chi1-4 "
+        f"accuracy {m['chi_0_acc']:.4f} {m['chi_1_acc']:.4f} {m['chi_2_acc']:.4f} "
+        f"{m['chi_3_acc']:.4f}, total {m['total_acc']:.4f}")
+    if not m["chi_0_acc"] > 0.3:
+        fail("the shipped checkpoint packs T1124 no better than chance")
+
+
+def phase_latency(torch, reps=5, prox_reps=5):
     """Repeated bf16 T1124 30-step samplings and 50-step proximal
     refinements (of the last sample) after the counted runs: the latency
     distributions the single CLI runs cannot give."""
@@ -830,6 +1290,8 @@ def main():
     phase_build()
     timer = Timer(torch)
     records = phase_kernels(torch, timer)
+    records.update(phase_message_feat(torch, timer))
+    phase_function_grads(torch)
     clash_records = phase_clash_kernels(torch, timer)
     phase_golden(torch)
     phase_prox_golden(torch)
@@ -837,18 +1299,32 @@ def main():
     launches = phase_pack(torch)
     sc = phase_latency(torch)
     phase_profile(torch, sc)
+    phase_loss_grads(torch)
+    train_launches = phase_train(torch)
+    phase_trainer(torch)
+    phase_shipped_checkpoint(torch)
 
     kernels = []
     for name, source, replaces in (
             ("message", "packppi_torch/csrc/message.cu", "packppi_tpu/ops/pallas_ipmp.py:249"),
+            ("message_feat", "packppi_torch/csrc/message_feat.cu",
+             "packppi_tpu/ops/pallas_ipmp.py:52"),
             ("chain", "packppi_torch/csrc/chain.cu", "packppi_tpu/ops/pallas_layer.py:62"),
             ("clash_fwd", "packppi_torch/csrc/clash.cu", "packppi_tpu/ops/pallas_clash.py:132"),
             ("clash_bwd", "packppi_torch/csrc/clash.cu", "packppi_tpu/ops/pallas_clash.py:272")):
-        # the main path's dtype and larger pass; the clash kernels at T1124
-        r = clash_records[name] if name in clash_records else records[(name, "bfloat16", "edge")]
+        # each kernel at its main path's dtype and larger pass (packing in
+        # bf16 at T1124, training in float32 at B = 4, L = 1,024); the clash
+        # kernels at T1124. Launches: the packing run's, and for the
+        # feature-message kernel the 20 training steps'
+        if name in clash_records:
+            r = clash_records[name]
+        else:
+            r = records[(name, "float32" if name == "message_feat" else "bfloat16", "edge")]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "launches": train_launches[name] if name == "message_feat" else launches[name],
+            "launches_training": train_launches[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": None})
     log(json.dumps({"kernels": kernels}))

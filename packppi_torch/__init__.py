@@ -1,14 +1,17 @@
 """PackPPI in PyTorch with hand-written CUDA kernels for Hopper (sm_90a).
 
-The side-chain packing and clash-refinement paths of ``packppi_tpu`` rebuilt
-on PyTorch: parse and featurize a structure, build the kNN graph once, run
-the 30-step SO(2) ODE sampler over ``ChiScoreNetwork``, refine the chis with
-the 50-step proximal clash optimizer, and rebuild atom14 coordinates. The
-hot steps run as CUDA kernels from ``csrc/`` on the card and as their plain
-PyTorch versions on CPU tensors: in every IPMP layer the message MLP with
-in-kernel point geometry (``ops.message``) and the residual -> LayerNorm ->
-FFN -> LayerNorm chain (``ops.chain``); in every optimizer step the
-between-residue clash sums and their gradient (``ops.clash``).
+The side-chain packing, clash-refinement and diffusion-training paths of
+``packppi_tpu`` rebuilt on PyTorch: parse and featurize a structure, build
+the kNN graph once, run the 30-step SO(2) ODE sampler over
+``ChiScoreNetwork``, refine the chis with the 50-step proximal clash
+optimizer, and rebuild atom14 coordinates; train the network by SO(2) score
+matching (``cli.train_diffusion``). The hot steps run as CUDA kernels from
+``csrc/`` on the card and as their plain PyTorch versions on CPU tensors: in
+every IPMP layer the message MLP, with the point geometry computed in the
+kernel (``ops.message``) or taken as features (``ops.message_feat``,
+differentiable), and the residual -> LayerNorm -> FFN -> LayerNorm chain
+(``ops.chain``, differentiable); in every optimizer step of the refinement
+the between-residue clash sums and their gradient (``ops.clash``).
 
 This package imports neither JAX nor ``packppi_tpu``.
 """

@@ -91,7 +91,7 @@ chain_kernel(const T* __restrict__ x, const M* __restrict__ msg, const float* __
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         const int c = cg + 32 * q;
-        Hs[c * kLdx + r0 + i] = rnd<T>(fmaxf(rnd<T>(acc[i][q] + b1[hc * kH + c]), 0.f));
+        Hs[c * kLdx + r0 + i] = rnd<T>(relu(rnd<T>(acc[i][q] + b1[hc * kH + c])));
       }
     // acc2 += h[:, slice] . W2[slice, :]
     tile_product<T>(acc2, Hs, kH, w2 + hc * kH, w2, kH, kF, Ws);

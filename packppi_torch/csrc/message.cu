@@ -28,17 +28,9 @@
 // once, and reads the weights through L2 into shared memory per block.
 // Tensor-core products (wgmma) are the next step.
 
-#include "tile.cuh"
+#include "message_mlp.cuh"
 
 namespace packppi {
-
-constexpr int kH = 128;      // hidden width (== He)
-constexpr int kP = 8;        // points per node
-constexpr int kG = 9 * kP;   // geometry features per edge
-constexpr int kIn = kH + kG; // first product's depth: [h_E | geom]
-constexpr size_t kMessageSmem =
-    sizeof(float) * (size_t(kIn) * kLdx + size_t(kH) * kLdx + size_t(kKc) * kLdw) +
-    sizeof(int64_t) * kRows + sizeof(float) * kRows;
 
 template <typename T, bool POOL>
 __global__ void __launch_bounds__(kThreads, 2)
@@ -51,11 +43,9 @@ message_kernel(const float* __restrict__ per_i, const T* __restrict__ per_j,
                const float* __restrict__ b_mid, const float* __restrict__ w_out,
                const float* __restrict__ b_out, void* __restrict__ out_ptr, int L, int K) {
   extern __shared__ __align__(16) float smem[];
-  float* X0 = smem;                     // [kIn][kLdx]  layer-1 input, later layer-3 input
-  float* X1 = X0 + kIn * kLdx;          // [kH][kLdx]   layer-2 input, later the pool tile
-  float* Ws = X1 + kH * kLdx;           // [kKc][kLdw]  staged weights
-  int64_t* jrow = reinterpret_cast<int64_t*>(Ws + kKc * kLdw);  // [kRows] neighbour, -1 = none
-  float* mrow = reinterpret_cast<float*>(jrow + kRows);              // [kRows] edge mask
+  const MessageSmem s(smem);
+  float* X0 = s.X0;
+  int64_t* jrow = s.pjrow;  // node-local neighbour first, its row in per_j after the geometry
 
   const int tid = threadIdx.x;
   const int b = blockIdx.y;
@@ -64,12 +54,11 @@ message_kernel(const float* __restrict__ per_i, const T* __restrict__ per_j,
   const int rows = min(nb, L - node0) * K;   // valid edge rows of this block
   const int64_t erow0 = (int64_t(b) * L + node0) * K;  // first global edge row
   const int64_t nrow0 = int64_t(b) * L;                // first node row of batch b
-  const int ld_in = 2 * kH + kIn;
 
   if (tid < kRows) {
     const bool valid = tid < rows;
     jrow[tid] = valid ? idx[erow0 + tid] : -1;
-    mrow[tid] = valid ? mask[erow0 + tid] : 0.f;
+    s.mrow[tid] = valid ? mask[erow0 + tid] : 0.f;
   }
   // h_E rows, k-major, rounded to the compute type (a no-op for the stream type)
   for (int e = tid; e < kRows * kH; e += kThreads) {
@@ -113,79 +102,11 @@ message_kernel(const float* __restrict__ per_i, const T* __restrict__ per_j,
     for (int q = 0; q < 9; ++q) X0[(kH + at[q]) * kLdx + r] = rnd<T>(f[q]);
   }
 
-  const int cg = tid & 31;
-  const int r0 = (tid >> 5) * 8;
-  float acc[8][4];
-
-  // layer 1: [h_E | geom] . W_e + b_e + per_i + per_j[j], relu
-  zero(acc);
-  tile_product<T>(acc, X0, kIn, w_in + kH, w_in + 2 * kH + kH, kH, ld_in, Ws);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = r0 + i;
-    const int64_t j = jrow[r];
-    const int64_t node = nrow0 + node0 + r / K;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int c = cg + 32 * q;
-      float v = 0.f;
-      if (j >= 0) {
-        v = acc[i][q] + b_in[c];
-        v += per_i[node * kH + c];
-        v += to_f32<T>(per_j[(nrow0 + j) * kH + c]);
-        v = fmaxf(v, 0.f);
-      }
-      X1[c * kLdx + r] = rnd<T>(v);
-    }
-  }
-
-  // layer 2: relu(x . W_1 + b_1)
-  zero(acc);
-  tile_product<T>(acc, X1, kH, w_mid, w_mid, kH, kH, Ws);
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int c = cg + 32 * q;
-      X0[c * kLdx + r0 + i] = rnd<T>(fmaxf(acc[i][q] + b_mid[c], 0.f));
-    }
-
-  // layer 3: x . W_2 + b_2
-  zero(acc);
-  tile_product<T>(acc, X0, kH, w_out, w_out, kH, kH, Ws);
-
-  if (POOL) {
-    // masked rows into the (free) X1 tile row-major, then a fixed-order sum
-    float* Y = X1;  // [kRows][kLdw]
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int c = cg + 32 * q;
-        Y[(r0 + i) * kLdw + c] = (acc[i][q] + b_out[c]) * mrow[r0 + i];
-      }
-    __syncthreads();
-    float* out = static_cast<float*>(out_ptr);
-    const int nodes = rows / K;
-    for (int e = tid; e < nodes * kH; e += kThreads) {
-      const int n = e / kH, c = e % kH;
-      float s = 0.f;
-      for (int k = 0; k < K; ++k) s += Y[(n * K + k) * kLdw + c];
-      out[(nrow0 + node0 + n) * kH + c] = s / float(K);
-    }
-  } else {
-    T* out = static_cast<T*>(out_ptr);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int r = r0 + i;
-      if (r >= rows) continue;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int c = cg + 32 * q;
-        out[(erow0 + r) * kH + c] = from_f32<T>(acc[i][q] + b_out[c]);
-      }
-    }
-  }
+  __syncthreads();  // every thread has read jrow as a neighbour index
+  if (tid < kRows && jrow[tid] >= 0) jrow[tid] += nrow0;
+  // the three products; message_mlp's first barrier publishes X0 and jrow
+  message_mlp<T, POOL>(s, per_i, per_j, w_in, b_in, w_mid, b_mid, w_out, b_out, out_ptr, K, rows,
+                       erow0, nrow0 + node0);
 }
 
 template <typename T, bool POOL>

@@ -1,0 +1,119 @@
+// IPMP message MLP over precomputed edge features.
+//
+// Replaces packppi_tpu/ops/pallas_ipmp.py::_fused_kernel (entry
+// fused_message, differentiable wrapper fused_message_diff). Same function:
+// the neighbour term arrives gathered ([rows, H]) and the point geometry
+// arrives computed ([rows, 9P]); the gather and the frame algebra stay in
+// PyTorch, where training needs their backward. The TPU kernel pads node
+// rows to a multiple of its block for Mosaic; here any number of nodes is
+// taken and the last block guards its tail.
+//
+// Per edge row of one block of whole nodes (kRows = 64 edge rows: 64 / K
+// nodes of K edges):
+//   x = relu([h_E | geom] . W_e + b_e + per_i[node] + pj[row])
+//   x = relu(x . W_1 + b_1)
+//   x = x . W_2 + b_2
+//   pool: out[node] = sum_k mask[node,k] x[node,k] / K (float32), else
+//   out[row] = x in the stream type.
+// h_E, geom and the two hidden activations are rounded to the compute type
+// (bf16 or float32) before their products; sums, biases, per_i and the pj
+// addition are float32 (message_mlp.cuh, shared with message.cu).
+//
+// What bounds it: per edge row 2 * (He + 9P + 2H) * H = 116,736 operations
+// on 1,312 bytes of float32 streams (656 in bf16). On the float32 FMA units
+// (67 TFLOP/s peak) that this first version uses, operations bind in
+// float32; in bf16 on the tensor cores the bytes would. The design reads
+// every stream once into shared memory, keeps both hidden activations there
+// and writes the output once. Tensor-core products (wgmma) fed by TMA are
+// the next step.
+
+#include "message_mlp.cuh"
+
+namespace packppi {
+
+template <typename T, bool POOL>
+__global__ void __launch_bounds__(kThreads, 2)
+message_feat_kernel(const float* __restrict__ per_i, const T* __restrict__ pj,
+                    const T* __restrict__ h_E, const T* __restrict__ geom,
+                    const float* __restrict__ mask, const float* __restrict__ w_in,
+                    const float* __restrict__ b_in, const float* __restrict__ w_mid,
+                    const float* __restrict__ b_mid, const float* __restrict__ w_out,
+                    const float* __restrict__ b_out, void* __restrict__ out_ptr, int64_t N,
+                    int K) {
+  extern __shared__ __align__(16) float smem[];
+  const MessageSmem s(smem);
+
+  const int tid = threadIdx.x;
+  const int nb = kRows / K;                          // whole nodes per block
+  const int64_t node0 = int64_t(blockIdx.x) * nb;    // first node row of this block
+  const int rows = (N - node0 < nb ? int(N - node0) : nb) * K;  // valid edge rows
+  const int64_t erow0 = node0 * K;                   // first edge row
+
+  if (tid < kRows) {
+    const bool valid = tid < rows;
+    s.pjrow[tid] = valid ? erow0 + tid : -1;
+    s.mrow[tid] = valid ? mask[erow0 + tid] : 0.f;
+  }
+  // [h_E | geom] rows, k-major, rounded to the compute type (a no-op for
+  // the stream type); rows past the end are zeros
+  for (int e = tid; e < kRows * kH; e += kThreads) {
+    const int r = e / kH, c = e % kH;
+    const float v = r < rows ? to_f32<T>(h_E[(erow0 + r) * kH + c]) : 0.f;
+    s.X0[c * kLdx + r] = rnd<T>(v);
+  }
+  for (int e = tid; e < kRows * kG; e += kThreads) {
+    const int r = e / kG, c = e % kG;
+    const float v = r < rows ? to_f32<T>(geom[(erow0 + r) * kG + c]) : 0.f;
+    s.X0[(kH + c) * kLdx + r] = rnd<T>(v);
+  }
+  // the three products; message_mlp's first barrier publishes X0 and pjrow
+  message_mlp<T, POOL>(s, per_i, pj, w_in, b_in, w_mid, b_mid, w_out, b_out, out_ptr, K, rows,
+                       erow0, node0);
+}
+
+template <typename T, bool POOL>
+cudaError_t launch(const void* per_i, const void* pj, const void* h_E, const void* geom,
+                   const void* mask, const void* w_in, const void* b_in, const void* w_mid,
+                   const void* b_mid, const void* w_out, const void* b_out, void* out,
+                   int64_t N, int K, cudaStream_t stream) {
+  auto kernel = message_feat_kernel<T, POOL>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         int(kMessageSmem));
+  if (err != cudaSuccess) return err;
+  const int nb = kRows / K;
+  const int64_t blocks = (N + nb - 1) / nb;
+  kernel<<<dim3((unsigned)blocks), kThreads, kMessageSmem, stream>>>(
+      static_cast<const float*>(per_i), static_cast<const T*>(pj), static_cast<const T*>(h_E),
+      static_cast<const T*>(geom), static_cast<const float*>(mask),
+      static_cast<const float*>(w_in), static_cast<const float*>(b_in),
+      static_cast<const float*>(w_mid), static_cast<const float*>(b_mid),
+      static_cast<const float*>(w_out), static_cast<const float*>(b_out), out, N, K);
+  return cudaGetLastError();
+}
+
+}  // namespace packppi
+
+// C entry point (ctypes). N node rows of K edges each. per_i [N,128] f32;
+// pj [N*K,128], h_E [N*K,128] and geom [N*K,72] in the stream type (bf16 if
+// bf16 != 0, else f32); mask [N*K] f32; w_in [128,456], w_mid/w_out
+// [128,128] f32 (Linear layout), biases [128] f32; out [N,128] f32 (pool)
+// or [N*K,128] in the stream type. K <= 64. Returns a cudaError_t.
+extern "C" int packppi_message_feat(const void* per_i, const void* pj, const void* h_E,
+                                    const void* geom, const void* mask, const void* w_in,
+                                    const void* b_in, const void* w_mid, const void* b_mid,
+                                    const void* w_out, const void* b_out, void* out,
+                                    long long N, int K, int bf16, int pool, void* stream) {
+  using namespace packppi;
+  if (K < 1 || K > kRows || N < 1 || (N + kRows / K - 1) / (kRows / K) > 0x7fffffffLL)
+    return int(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define PACKPPI_ARGS per_i, pj, h_E, geom, mask, w_in, b_in, w_mid, b_mid, w_out, b_out, out, \
+                     int64_t(N), K, st
+  cudaError_t err;
+  if (bf16)
+    err = pool ? launch<__nv_bfloat16, true>(PACKPPI_ARGS) : launch<__nv_bfloat16, false>(PACKPPI_ARGS);
+  else
+    err = pool ? launch<float, true>(PACKPPI_ARGS) : launch<float, false>(PACKPPI_ARGS);
+#undef PACKPPI_ARGS
+  return int(err);
+}

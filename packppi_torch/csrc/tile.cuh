@@ -47,6 +47,10 @@ template <typename T> __device__ __forceinline__ float rnd(float v) {
   return to_f32<T>(from_f32<T>(v));
 }
 
+// max(v, 0) that passes a NaN on, as the plain versions' relu does (fmaxf
+// would return 0 and hide a non-finite input from the loss)
+__device__ __forceinline__ float relu(float v) { return v < 0.f ? 0.f : v; }
+
 // acc[i][j] += sum_{k < kdim} X[k * kLdx + r0 + i] * W(k, cg + 32 j), where
 // W(k, c) = w0[c * ldw + k] for k < k_split and w1[c * ldw + k - k_split]
 // beyond (two column blocks of one Linear weight). T is the compute type.

@@ -7,7 +7,7 @@ dict loads with ``load_state_dict(strict=True)``.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -21,15 +21,18 @@ from packppi_torch.models.layers import MLP
 
 @dataclasses.dataclass(frozen=True)
 class NetworkConfig:
-    """The network's widths and numerics. Values this port does not
-    implement raise ``ValueError`` when the network is built."""
+    """The network's widths, numerics and kernel routing (see
+    ``models.ipmp`` for which pass runs where). Parameters, gradients and
+    optimizer state stay float32 whatever ``compute_dtype`` says. Values
+    this port does not implement raise ``ValueError`` when the network is
+    built."""
 
     node_features: int = 128
     edge_features: int = 128
     hidden_dim: int = 128
     num_mpnn_layers: int = 3
     n_points: int = 8
-    dropout: float = 0.1     # training only; inference never applies it
+    dropout: float = 0.1     # train() only; eval() never applies it
     act: str = "relu"
     position_scale: float = 1.0
     use_ipmp: bool = True
@@ -39,6 +42,20 @@ class NetworkConfig:
     compute_dtype: str = "float32"  # "bfloat16" for the fast inference path
     static_edge_dtype: str = "float32"
     geometry_mode: str = "global"
+    # message kernel: "geom_lanes" (point geometry inside the kernel) or True
+    # (the kernel over geometry features computed outside, ops.message_feat)
+    fused_messages: Union[bool, str] = "geom_lanes"
+    # train() too runs the message passes through the (differentiable)
+    # feature-message kernel; needs fused_messages=True
+    fused_messages_train: bool = False
+    # train() too runs the chains through the (differentiable) chain kernel;
+    # needs dropout=0.0, because the kernel applies none
+    fused_chain_train: bool = False
+    # train(): recompute each message-passing layer in the backward
+    remat_layers: bool = False
+    # accepted for the reference's configuration files and ignored: a
+    # gather's backward is index_add_ here whatever this says
+    mxu_gather_grad: Union[bool, str] = False
 
     def validate(self) -> None:
         unsupported = {
@@ -56,6 +73,17 @@ class NetworkConfig:
                              "(float32 or bfloat16)")
         if self.node_features != self.hidden_dim:
             raise ValueError("node_features must equal hidden_dim")
+        if self.fused_messages is not True and self.fused_messages != "geom_lanes":
+            raise ValueError(f"NetworkConfig.fused_messages={self.fused_messages!r} "
+                             "('geom_lanes' or True)")
+        if not isinstance(self.mxu_gather_grad, bool) and self.mxu_gather_grad != "auto":
+            raise ValueError(f"NetworkConfig.mxu_gather_grad={self.mxu_gather_grad!r} "
+                             "(False, True or 'auto')")
+        if self.fused_chain_train and self.dropout != 0.0:
+            raise ValueError(
+                "fused_chain_train requires dropout=0.0: the chain kernel applies no "
+                "dropout, so with dropout active the kernel and the unfused training "
+                "paths would compute different functions")
 
     @property
     def dtype(self) -> torch.dtype:
@@ -77,9 +105,11 @@ class ChiScoreNetwork(nn.Module):
         self.cfg = cfg
         self.encoder = ProteinEncoder(cfg.node_features, cfg.edge_features,
                                       cfg.time_embedding_dim, cfg.num_rbf, cfg.top_k)
-        self.mpnn = MessagePassingStack(cfg.hidden_dim, cfg.num_mpnn_layers,
-                                        cfg.n_points, cfg.edge_features,
-                                        cfg.position_scale)
+        self.mpnn = MessagePassingStack(
+            cfg.hidden_dim, cfg.num_mpnn_layers, cfg.n_points, cfg.edge_features,
+            cfg.position_scale, remat=cfg.remat_layers, dropout=cfg.dropout,
+            fused_messages=cfg.fused_messages, fused_messages_train=cfg.fused_messages_train,
+            fused_chain_train=cfg.fused_chain_train)
         h = cfg.hidden_dim
         self.decoder_score = nn.Sequential(MLP(h, h // 2, h // 4, 2), nn.ReLU(),
                                            MLP(h // 4, h // 8, 4, 2))
@@ -98,9 +128,6 @@ class ChiScoreNetwork(nn.Module):
                 skip_last_edge_update: bool = False):
         """SC_D_noised [B, L, 4] noised chis, t [B, L] diffusion time.
         Returns (score [B, L, 4], h_V [B, L, hidden]), both float32."""
-        if self.training and self.cfg.dropout > 0:
-            raise ValueError("training with dropout is not implemented in packppi_torch; "
-                             "the network is inference-only (call .eval())")
         dtype = self.cfg.dtype
         sc_sincos = torch.stack([torch.sin(SC_D_noised), torch.cos(SC_D_noised)], -1)
         sc_sincos = sc_sincos * batch.SC_D_mask[..., None]

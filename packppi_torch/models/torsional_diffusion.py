@@ -1,8 +1,12 @@
-"""PackPPI-MSC sampling: the score network under the SO(2) ODE schedule.
+"""PackPPI-MSC: the score network under the two SO(2) schedules (pi- and
+2pi-periodic chis), for training and sampling.
 
+``TorsionalDiffusion.loss`` is the score-matching loss of one batch (one
+diffusion time per protein, the score normalised per chi by E[score^2]).
 ``TorsionalDiffusion.sample`` encodes the static graph once and runs the
 ``n_steps`` denoising iterations as a Python loop (each one network
-evaluation with the last layer's edge pass skipped).
+evaluation with the last layer's edge pass skipped), optionally with
+Langevin corrector sub-steps.
 """
 from __future__ import annotations
 
@@ -21,8 +25,11 @@ from packppi_torch.models.diffusion_net import ChiScoreNetwork, NetworkConfig
 
 @dataclasses.dataclass(frozen=True)
 class SampleConfig:
-    """Settings of the proximal refinement that follows sampling."""
+    """The reverse process (annealed temperature; "ode" or "sde") and the
+    proximal refinement that follows sampling."""
 
+    annealed_temp: float = 3.0
+    mode: str = "ode"
     violation_tolerance_factor: float = 12.0
     clash_overlap_tolerance: float = 0.5
     lamda: float = 1.0
@@ -35,17 +42,70 @@ class TorsionalDiffusion(nn.Module):
         super().__init__()
         self.sample_cfg = sample_cfg
         self.net = ChiScoreNetwork(cfg).eval()
-        # both chi periodicities share one sigma(t) and ODE step; the score
-        # tables that tell them apart are not read by ODE sampling
-        self.schedule = SO2Schedule()
+        # both periodicities share sigma(t) and the step; their score tables
+        # differ, and ODE sampling reads neither
+        kw = dict(annealed_temp=sample_cfg.annealed_temp, mode=sample_cfg.mode)
+        self.schedule_pi = SO2Schedule(pi_periodic=True, **kw)
+        self.schedule_2pi = SO2Schedule(pi_periodic=False, **kw)
+
+    def add_chi_noise(self, batch: ProteinBatch, t: torch.Tensor,
+                      generator: Optional[torch.Generator] = None, *,
+                      noise_pi: Optional[torch.Tensor] = None,
+                      noise_2pi: Optional[torch.Tensor] = None, with_score: bool = True):
+        """Noise each chi by its periodicity's schedule at times ``t`` [B, L];
+        returns the noised angles wrapped to [-pi, pi) and the true wrapped
+        score (None with ``with_score=False``, which reads no table).
+        ``noise_pi``/``noise_2pi`` [B, L, 4] replace the standard-normal
+        draws."""
+        m1, m2 = batch.chi_1pi_periodic_mask, batch.chi_2pi_periodic_mask
+        noised, score1 = self.schedule_pi.add_noise(batch.SC_D, t, generator, m1, noise_pi,
+                                                    with_score)
+        noised, score2 = self.schedule_2pi.add_noise(noised, t, generator, m2, noise_2pi,
+                                                     with_score)
+        return wrap_angle(noised), torch.where(m1, score1, score2) if with_score else None
 
     def init_noise(self, batch: ProteinBatch, generator: torch.Generator) -> torch.Tensor:
         """The t=1 starting chis: true chis plus sigma_max noise on every
         present chi, wrapped to [-pi, pi)."""
         t = torch.ones(batch.residue_mask.shape, device=batch.SC_D.device)
-        sc = self.schedule.add_noise(batch.SC_D, t, generator, batch.chi_1pi_periodic_mask)
-        sc = self.schedule.add_noise(sc, t, generator, batch.chi_2pi_periodic_mask)
-        return wrap_angle(sc)
+        return self.add_chi_noise(batch, t, generator, with_score=False)[0]
+
+    def loss(self, batch: ProteinBatch, generator: Optional[torch.Generator] = None,
+             deterministic: bool = False, *, t: Optional[torch.Tensor] = None,
+             noise_pi: Optional[torch.Tensor] = None,
+             noise_2pi: Optional[torch.Tensor] = None, eps: float = 1e-6) -> torch.Tensor:
+        """Score-matching loss, normalised per chi by E[score^2].
+
+        One uniform diffusion time per protein, broadcast over its residues.
+        ``deterministic`` evaluates the network in ``eval()`` mode (no
+        dropout; validation and test), otherwise in ``train()`` mode; the
+        time and noise draws stay random either way. ``t`` [B] and the two
+        standard-normal ``noise_*`` [B, L, 4] replace the draws from
+        ``generator``.
+        """
+        B, L = batch.residue_mask.shape
+        device = batch.SC_D.device
+        if t is None:
+            t = self.schedule_2pi.sample_train_t((B,), generator, device)
+        t = t.to(device=device, dtype=torch.float32)[:, None] * torch.ones(1, L, device=device)
+        sigma = self.schedule_2pi.t_to_sigma(t)[..., None]     # the same map for both
+
+        noised, target = self.add_chi_noise(batch, t, generator, noise_pi=noise_pi,
+                                            noise_2pi=noise_2pi)
+        self.net.train(not deterministic)
+        try:
+            # the stack returns h_V only, so the last layer's edge pass is dead here
+            pred, _ = self.net(batch, noised, t, skip_last_edge_update=True)
+        finally:
+            self.net.eval()
+
+        sn_pi = self.schedule_pi.tables(device).lookup_score_norm(sigma)
+        sn_2pi = self.schedule_2pi.tables(device).lookup_score_norm(sigma)
+        score_norm = torch.where(batch.chi_1pi_periodic_mask, sn_pi, sn_2pi)
+
+        pred = pred * torch.sqrt(score_norm) * batch.SC_D_mask
+        chi_sum = torch.clamp(batch.SC_D_mask.sum(), min=1.0)
+        return torch.sum((target - pred) ** 2 / (score_norm + eps)) / chi_sum
 
     @torch.no_grad()
     def sample(self, batch: ProteinBatch, generator: Optional[torch.Generator] = None,
@@ -55,10 +115,10 @@ class TorsionalDiffusion(nn.Module):
         ``return_trajectory`` also the [n_steps, B, L, 4] network inputs.
 
         ``init_sc`` replaces the t=1 noise (ODE sampling's only randomness),
-        for replaying a recorded trajectory.
+        for replaying a recorded trajectory. SDE steps and
+        ``corrector_steps`` Langevin sub-steps per iteration draw from
+        ``generator``.
         """
-        if corrector_steps:
-            raise ValueError("corrector_steps is not implemented in packppi_torch")
         if init_sc is None:
             if generator is None:
                 raise ValueError("sample needs a generator or init_sc")
@@ -77,9 +137,16 @@ class TorsionalDiffusion(nn.Module):
             t = torch.full(batch.residue_mask.shape, float(time), device=sc.device)
             score, _ = self.net(batch, sc, t, static=static, skip_last_edge_update=True)
             traj.append(sc)
-            sc_next = self.schedule.step(sc, score, float(time), float(dt), m1)
-            sc_next = self.schedule.step(sc_next, score, float(time), float(dt), m2)
+            sc_next = self.schedule_pi.step(sc, score, float(time), float(dt), m1, generator)
+            sc_next = self.schedule_2pi.step(sc_next, score, float(time), float(dt), m2,
+                                             generator)
             sc = wrap_angle(sc_next) * batch.SC_D_mask
+            for _ in range(corrector_steps):
+                # each periodicity's step size from its own masked norms
+                score, _ = self.net(batch, sc, t, static=static, skip_last_edge_update=True)
+                sc_next = self.schedule_pi.step_correct(sc, score, m1, generator)
+                sc_next = self.schedule_2pi.step_correct(sc_next, score, m2, generator)
+                sc = wrap_angle(sc_next) * batch.SC_D_mask
         if return_trajectory:
             return sc, torch.stack(traj)
         return sc

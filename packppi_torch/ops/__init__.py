@@ -1,2 +1,3 @@
-"""Graph ops and the kernels of the packing and refinement paths
-(``message``, ``chain``, ``clash``), each with its plain PyTorch version."""
+"""Graph ops and the kernels of the packing, refinement and training paths
+(``message``, ``message_feat``, ``chain``, ``clash``), each with its plain
+PyTorch version."""

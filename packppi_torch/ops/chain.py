@@ -51,14 +51,45 @@ def chain_plain(x, msg, mask: Optional[torch.Tensor], lna_w, lna_b, w1, b1, w2, 
     return y.to(sd)
 
 
+class _Chain(torch.autograd.Function):
+    """Kernel (or plain, on the CPU) forward; recompute-the-plain backward."""
+
+    @staticmethod
+    def forward(ctx, pre_mask, mask, *ops):
+        ctx.pre_mask, ctx.has_mask = pre_mask, mask is not None
+        ctx.save_for_backward(*ops, *(() if mask is None else (mask,)))
+        if ops[0].device.type == "cpu":
+            return chain_plain(*ops[:2], mask, *ops[2:], pre_mask)
+        return _chain_cuda(*ops[:2], mask, *ops[2:], pre_mask)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        saved = ctx.saved_tensors
+        ops, mask = (saved[:-1], saved[-1]) if ctx.has_mask else (saved, None)
+        need = ctx.needs_input_grad[2:]
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(n) for t, n in zip(ops, need)]
+            # the rounding points inside are dtype round trips that autograd
+            # passes through, as the forward's reference implementation does
+            out = chain_plain(*leaves[:2], mask, *leaves[2:], ctx.pre_mask)
+            grads = iter(torch.autograd.grad(out, [t for t, n in zip(leaves, need) if n],
+                                             grad_out.to(out.dtype)))
+        return (None, None, *(next(grads) if n else None for n in need))
+
+
 def chain(x, msg, mask: Optional[torch.Tensor], lna_w, lna_b, w1, b1, w2, b2,
           lnb_w, lnb_b, pre_mask: bool):
-    """The chain: the CUDA kernel for CUDA tensors, ``chain_plain`` for CPU
-    tensors."""
-    if x.device.type == "cpu":
-        return chain_plain(x, msg, mask, lna_w, lna_b, w1, b1, w2, b2,
-                           lnb_w, lnb_b, pre_mask)
-    return _chain_cuda(x, msg, mask, lna_w, lna_b, w1, b1, w2, b2, lnb_w, lnb_b, pre_mask)
+    """The differentiable chain: the CUDA kernel for CUDA tensors,
+    ``chain_plain`` for CPU tensors. It saves its inputs and no
+    intermediate; its backward recomputes ``chain_plain`` on them and
+    differentiates that (as ``fused_chain_diff`` of the JAX package does), so
+    the [N, 4H] hidden activation is never kept. Gradients reach ``x``,
+    ``msg`` and the eight weights, not ``mask``."""
+    ops = (x, msg, lna_w, lna_b, w1, b1, w2, b2, lnb_w, lnb_b)
+    # the kernel reads raw pointers: contiguous before the launch, so forward
+    # and backward see the same memory
+    return _Chain.apply(pre_mask, None if mask is None else mask.contiguous(),
+                        *(t.contiguous() for t in ops))
 
 
 # kernel launches on the card; the plain path never touches it

@@ -21,11 +21,10 @@ from __future__ import annotations
 import ctypes
 
 import torch
-import torch.nn.functional as F
 
 from packppi_torch.ops import _build
 from packppi_torch.ops.graph import gather_nodes
-from packppi_torch.ops.precision import matmul_f32acc
+from packppi_torch.ops.message_feat import message_feat_plain
 
 GEOM_EPS = 1e-8
 
@@ -79,27 +78,18 @@ def geometry_edge_features(p_local: torch.Tensor, nbr: torch.Tensor,
 
 def message_plain(per_i, per_j, h_E, idx, p_local, rot, trans, pg, mask,
                   w_in, b_in, w_mid, b_mid, w_out, b_out, pool: bool):
-    """Plain PyTorch version of the kernel, at the kernel's cast points.
+    """Plain PyTorch version of the kernel, at the kernel's cast points:
+    the geometry features and the gathered neighbour term through
+    ``message_feat_plain``, which holds the chain of products.
 
     ``w_in`` is the reference's first message layer [H, H + He + H + 9P]
     over ``[h_i | h_E | h_j | geometry]``; its h_i and h_j column blocks
     were already applied per node (``per_i`` float32, ``per_j`` in the
     stream dtype). ``w_mid``/``w_out`` are [H, H] in Linear layout.
     """
-    cd = h_E.dtype
-    H, He = per_i.shape[-1], h_E.shape[-1]
-    K = idx.shape[-1]
-    w = w_in.float()
     geom = geometry_edge_features(p_local, gather_nodes(pg, idx), rot, trans)
-    x = (matmul_f32acc(h_E, w[:, H:H + He].t(), cd)
-         + matmul_f32acc(geom, w[:, 2 * H + He:].t(), cd) + b_in.float())
-    x = x + per_i.float()[:, :, None]
-    x = F.relu(x + gather_nodes(per_j, idx).float())
-    x = F.relu(matmul_f32acc(x, w_mid.float().t(), cd) + b_mid.float())
-    x = matmul_f32acc(x, w_out.float().t(), cd) + b_out.float()
-    if pool:
-        return (x * mask[..., None]).sum(-2) / float(K)
-    return x.to(cd)
+    return message_feat_plain(per_i, gather_nodes(per_j, idx), h_E, geom, mask,
+                              w_in, b_in, w_mid, b_mid, w_out, b_out, pool)
 
 
 def message(per_i, per_j, h_E, idx, p_local, rot, trans, pg, mask,

@@ -1,0 +1,150 @@
+"""IPMP message MLP over precomputed edge features (CUDA kernel + plain twin),
+differentiable.
+
+For every edge row (node i, neighbour slot k) of the kNN graph:
+
+    x = relu(h_E @ W_he + geom @ W_g + b_e + per_i[i] + pj[i, k])
+    x = relu(x @ W_1 + b_1) @ W_2 + b_2
+
+with ``W_he``/``W_g`` the ``[:, H:H+He]`` and ``[:, 2H+He:]`` column blocks of
+the reference's first message layer ``W_in`` [H, H + He + H + 9P]. The
+neighbour term ``pj`` arrives gathered and the point geometry ``geom``
+arrives computed: both stay in PyTorch, where autograd has their backward.
+``pool=True`` returns the masked sum over the K edges divided by K
+([B, L, H] float32); ``pool=False`` returns the edge messages [B, L, K, H]
+in the stream dtype (``h_E.dtype``, also the compute dtype: ``h_E``,
+``geom`` and both hidden activations are rounded to it before their
+products; sums, biases, ``per_i`` and the ``pj`` addition are float32).
+
+``message_feat`` is a ``torch.autograd.Function``: its forward launches the
+CUDA kernel of ``csrc/message_feat.cu`` for CUDA tensors and runs
+``message_feat_plain`` for CPU tensors, and saves its inputs and no
+intermediate; its backward recomputes ``message_feat_plain`` on the saved
+inputs and differentiates that, so a forward pass keeps no [B*L*K, H]
+activation alive. Gradients reach ``per_i``, ``pj``, ``h_E``, ``geom`` and
+the six weights, not ``mask``. The kernel replaces
+``packppi_tpu/ops/pallas_ipmp.py::fused_message`` (under
+``fused_message_diff``), whose backward replays its plain twin in the same
+way.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from packppi_torch.ops import _build
+from packppi_torch.ops.precision import matmul_f32acc
+
+
+def message_feat_plain(per_i, pj, h_E, geom, mask, w_in, b_in, w_mid, b_mid, w_out, b_out,
+                       pool: bool):
+    """Plain PyTorch version of the kernel, at the kernel's cast points.
+
+    ``per_i`` [B, L, H] float32; ``pj`` [B, L, K, H], ``h_E`` [B, L, K, He]
+    and ``geom`` [B, L, K, 9P] (any float dtype; rounded to ``h_E.dtype``);
+    ``mask`` [B, L, K]; ``w_in`` [H, H + He + H + 9P], ``w_mid``/``w_out``
+    [H, H] in Linear layout.
+    """
+    cd = h_E.dtype
+    H, He = per_i.shape[-1], h_E.shape[-1]
+    K = h_E.shape[-2]
+    w = w_in.float()
+    x = (matmul_f32acc(h_E, w[:, H:H + He].t(), cd)
+         + matmul_f32acc(geom, w[:, 2 * H + He:].t(), cd) + b_in.float())
+    x = x + per_i.float()[..., None, :]
+    x = F.relu(x + pj.float())
+    x = F.relu(matmul_f32acc(x, w_mid.float().t(), cd) + b_mid.float())
+    x = matmul_f32acc(x, w_out.float().t(), cd) + b_out.float()
+    if pool:
+        return (x * mask[..., None]).sum(-2) / float(K)
+    return x.to(cd)
+
+
+class _MessageFeat(torch.autograd.Function):
+    """Kernel (or plain, on the CPU) forward; recompute-the-plain backward."""
+
+    @staticmethod
+    def forward(ctx, pool, mask, *ops):
+        ctx.pool = pool
+        ctx.save_for_backward(mask, *ops)
+        per_i, pj, h_E, geom, *weights = ops
+        if h_E.device.type == "cpu":
+            return message_feat_plain(per_i, pj, h_E, geom, mask, *weights, pool)
+        return _message_feat_cuda(per_i, pj, h_E, geom, mask, *weights, pool)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        mask, *ops = ctx.saved_tensors
+        need = ctx.needs_input_grad[2:]
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(n) for t, n in zip(ops, need)]
+            out = message_feat_plain(*leaves[:4], mask, *leaves[4:], ctx.pool)
+            grads = iter(torch.autograd.grad(out, [t for t, n in zip(leaves, need) if n],
+                                             grad_out.to(out.dtype)))
+        return (None, None, *(next(grads) if n else None for n in need))
+
+
+def message_feat(per_i, pj, h_E, geom, mask, w_in, b_in, w_mid, b_mid, w_out, b_out,
+                 pool: bool):
+    """The differentiable message pass over precomputed features: the CUDA
+    kernel for CUDA tensors, ``message_feat_plain`` for CPU tensors (see the
+    module docstring for shapes). ``geom`` is taken in the stream dtype."""
+    sd = h_E.dtype
+    ops = (per_i, pj.to(sd), h_E, geom.to(sd), w_in, b_in, w_mid, b_mid, w_out, b_out)
+    # the kernel reads raw pointers: make every saved operand contiguous
+    # before the launch, so forward and backward see the same memory
+    return _MessageFeat.apply(pool, mask.contiguous(), *(t.contiguous() for t in ops))
+
+
+# kernel launches on the card; the plain path never touches it
+message_feat.launches = 0
+
+_H, _G, _MAX_K = 128, 72, 64
+
+
+def _message_feat_cuda(per_i, pj, h_E, geom, mask, w_in, b_in, w_mid, b_mid, w_out, b_out,
+                       pool):
+    B, L, K, He = h_E.shape
+    sd = h_E.dtype
+    if sd not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"message_feat kernel: stream dtype {sd} (float32 or bfloat16)")
+    if He != _H or per_i.shape[-1] != _H or geom.shape[-1] != _G:
+        raise ValueError(f"message_feat kernel is built for H=He={_H}, 9P={_G}; got "
+                         f"H={per_i.shape[-1]}, He={He}, 9P={geom.shape[-1]}")
+    if K > _MAX_K:
+        raise ValueError(f"message_feat kernel takes K <= {_MAX_K} neighbours, got {K}")
+    f32 = torch.float32
+    expect = {
+        "per_i": (per_i, (B, L, _H), f32),
+        "pj": (pj, (B, L, K, _H), sd),
+        "geom": (geom, (B, L, K, _G), sd),
+        "mask": (mask, (B, L, K), f32),
+        "w_in": (w_in, (_H, 2 * _H + He + _G), f32),
+        "b_in": (b_in, (_H,), f32),
+        "w_mid": (w_mid, (_H, _H), f32),
+        "b_mid": (b_mid, (_H,), f32),
+        "w_out": (w_out, (_H, _H), f32),
+        "b_out": (b_out, (_H,), f32),
+    }
+    _build.check_operands("message_feat", h_E, expect)
+    out = (torch.empty(B, L, _H, device=h_E.device, dtype=f32) if pool
+           else torch.empty(B, L, K, _H, device=h_E.device, dtype=sd))
+    lib = _lib()
+    err = lib.packppi_message_feat(
+        *(_build.ptr(t) for t in (per_i, pj, h_E, geom, mask, w_in, b_in, w_mid, b_mid,
+                                  w_out, b_out, out)),
+        B * L, K, int(sd == torch.bfloat16), int(pool), _build.stream_ptr(h_E.device))
+    _build.check(lib, err, "message_feat kernel launch")
+    message_feat.launches += 1
+    return out
+
+
+def _lib():
+    lib = _build.load_library("message_feat")
+    if lib.packppi_message_feat.argtypes is None:
+        lib.packppi_message_feat.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_longlong]
+                                             + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        lib.packppi_message_feat.restype = ctypes.c_int
+    return lib

@@ -1,0 +1,324 @@
+"""The diffusion training loop: seeded draws, bucketed loaders, per-epoch
+validation on fixed draws, top-k + last checkpoints with resume, EMA,
+early stopping, periodic sampling evaluation and the final test on the
+best checkpoint. One device; ``trainer.n_devices > 1`` raises.
+"""
+from __future__ import annotations
+
+import contextlib
+import json
+import math
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
+import torch
+
+from packppi_torch.train.checkpoints import load_params, save_params
+from packppi_torch.train.diffusion_task import (init_state, make_ema_update, make_optimizer,
+                                                make_train_step)
+from packppi_torch.utils.logging import MetricLogger, get_logger
+
+log = get_logger(__name__)
+
+# tags of the fixed evaluation streams, never advanced by training
+VAL_STREAM, TEST_STREAM, SAMPLE_STREAM = 0x5EED, 0x7E57, 0x5A3D
+
+
+def init_ema(cfg, params: dict, resume: Optional[str]):
+    """``(ema_decay, ema, ema_step)``; ema and ema_step are None when
+    ``trainer.ema_decay`` is 0. The EMA starts as a copy of the parameters
+    (never an alias: it is updated in place), or from the ``_ema`` sidecar of
+    the checkpoint being resumed."""
+    ema_decay = float(cfg.trainer.get("ema_decay", 0.0) or 0.0)
+    if ema_decay <= 0.0:
+        return ema_decay, None, None
+    ema = {k: v.detach().clone() for k, v in params.items()}
+    sidecar = ema_path(resume) if resume else None
+    if sidecar is not None and sidecar.exists():
+        loaded = load_params(sidecar)
+        ema = {k: loaded[k].to(v.device) for k, v in ema.items()}
+    return ema_decay, ema, make_ema_update(ema_decay)
+
+
+def ema_path(ckpt: str) -> Path:
+    p = Path(ckpt)
+    return p.with_name(f"{p.stem}_ema{p.suffix}")
+
+
+class CheckpointManager:
+    """top-k-by-metric + always-last retention over ``<dir>/step_XXXXXXXX.pt``
+    files (an ``_ema`` sidecar beside each when given), indexed in
+    ``index.json``."""
+
+    def __init__(self, directory: str, top_k: int = 3, mode: str = "min"):
+        self.dir = Path(directory)
+        self.dir.mkdir(parents=True, exist_ok=True)
+        self.top_k = top_k
+        self.mode = mode
+        self.index_file = self.dir / "index.json"
+        self.index = json.loads(self.index_file.read_text()) if self.index_file.exists() else {}
+
+    def path(self, name: str) -> Path:
+        return self.dir / f"{name}.pt"
+
+    def save(self, step: int, state: dict, metric: Optional[float] = None,
+             ema: Optional[dict] = None) -> None:
+        name = f"step_{step:08d}"
+        save_params(self.path(name), state)
+        if ema is not None:
+            # params-only sidecar: `cli.pack --ckpt <...>_ema.pt` loads it directly
+            save_params(ema_path(self.path(name)), ema)
+        self.index[name] = {"step": step, "metric": metric}
+        self._prune()
+        self.index_file.write_text(json.dumps(self.index))
+
+    def _scored(self):
+        scored = [(n, m["metric"]) for n, m in self.index.items() if m["metric"] is not None]
+        scored.sort(key=lambda x: x[1], reverse=(self.mode == "max"))
+        return scored
+
+    def _prune(self):
+        keep = {n for n, _ in self._scored()[: self.top_k]}
+        keep.add(max(self.index, key=lambda n: self.index[n]["step"]))
+        for name in list(self.index):
+            if name not in keep:
+                self.path(name).unlink(missing_ok=True)
+                ema_path(self.path(name)).unlink(missing_ok=True)
+                del self.index[name]
+
+    def latest(self) -> Optional[str]:
+        if not self.index:
+            return None
+        return str(self.path(max(self.index, key=lambda n: self.index[n]["step"])))
+
+    def best(self) -> Optional[str]:
+        scored = self._scored()
+        return str(self.path(scored[0][0])) if scored else self.latest()
+
+
+def make_lr(trainer_cfg, steps_per_epoch: int):
+    """The learning rate, or a schedule over optimizer steps: linear warm-up
+    from 0 to ``lr`` over ``warmup_steps``, then a cosine to ``lr / 10`` at
+    the run's last optimizer step."""
+    schedule = trainer_cfg.get("lr_schedule", "constant") or "constant"
+    lr = float(trainer_cfg.lr)
+    if schedule == "constant":
+        return lr
+    if schedule != "cosine":
+        raise ValueError(f"unknown lr_schedule {schedule!r} (constant | cosine)")
+    warmup = int(trainer_cfg.get("warmup_steps", 0))
+    # the horizon counts optimizer steps, not micro-batches
+    accum = max(1, int(trainer_cfg.get("grad_accum_steps", 1)))
+    total = max(trainer_cfg.max_epochs * max(steps_per_epoch // accum, 1), warmup + 1)
+    end = lr * 0.1
+
+    def at(count: int) -> float:
+        if count < warmup:
+            return lr * count / warmup
+        frac = min(max(count - warmup, 0) / (total - warmup), 1.0)
+        return end + (lr - end) * 0.5 * (1.0 + math.cos(math.pi * frac))
+
+    return at
+
+
+class EarlyStopper:
+    """val/loss early stopping with patience counted in validation checks,
+    mode min. Disabled when ``trainer.early_stopping_patience`` <= 0."""
+
+    def __init__(self, trainer_cfg):
+        self.patience = int(trainer_cfg.get("early_stopping_patience", 0) or 0)
+        self.min_delta = float(trainer_cfg.get("early_stopping_min_delta", 0.0) or 0.0)
+        self.min_epochs = int(trainer_cfg.get("min_epochs", 0) or 0)
+        self.best = float("inf")
+        self.stale = 0
+
+    def should_stop(self, epoch: int, val_loss: float) -> bool:
+        """Feed one validation result; True once ``patience`` consecutive
+        checks brought no improvement and ``min_epochs`` have completed.
+        Non-finite losses (epochs without validation) neither improve nor
+        count."""
+        if self.patience <= 0 or not np.isfinite(val_loss):
+            return False
+        if val_loss < self.best - self.min_delta:
+            self.best, self.stale = val_loss, 0
+        else:
+            self.stale += 1
+        return self.stale >= self.patience and (epoch + 1) >= self.min_epochs
+
+
+def eval_generator(seed: int, stream: int, index: int, device) -> torch.Generator:
+    """The fixed generator of evaluation batch ``index`` of one stream: every
+    pass over an unshuffled loader sees the same time and noise draws, so
+    differences in val/loss across epochs come from the parameters alone."""
+    g = torch.Generator(device=device)
+    return g.manual_seed((seed * 0x9E3779B1 + stream * 0x85EBCA6B + index + 1) % (2 ** 63))
+
+
+@contextlib.contextmanager
+def swapped_params(net: torch.nn.Module, params: Optional[dict]):
+    """Evaluate ``net`` on ``params`` (the EMA weights), then put the live
+    parameters back."""
+    if params is None:
+        yield
+        return
+    live = {k: v.detach().clone() for k, v in net.state_dict().items()}
+    net.load_state_dict(params, strict=True)
+    try:
+        yield
+    finally:
+        net.load_state_dict(live, strict=True)
+
+
+def _mean(losses) -> float:
+    return float(torch.stack(losses).mean()) if losses else float("nan")
+
+
+def train_diffusion(cfg, device=None) -> dict:
+    """PackPPI-MSC training from a composed config (``configs/train_diffusion.yaml``)."""
+    from packppi_torch.device import resolve_device
+
+    device = resolve_device(device)
+    n_devices = int(cfg.trainer.get("n_devices") or 1)
+    if n_devices > 1 or int(cfg.trainer.get("model_parallel", 1) or 1) > 1:
+        raise NotImplementedError(
+            "packppi_torch trains on one device; multi-device training is slice 7 of the "
+            "port (ROADMAP.md): set trainer.n_devices=1")
+    # trainer.debug_nans: autograd's anomaly mode for the length of the run
+    with torch.autograd.set_detect_anomaly(bool(cfg.trainer.get("debug_nans"))):
+        return _train_diffusion(cfg, device)
+
+
+def _train_diffusion(cfg, device) -> dict:
+    from packppi_torch.data.complex import ComplexDataset, scan_complex_dir, split_entries
+    from packppi_torch.data.loader import BucketedLoader
+    from packppi_torch.models import NetworkConfig, SampleConfig, TorsionalDiffusion
+    from packppi_torch.utils.metrics import chi_metrics
+
+    out = Path(cfg.output_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    metrics_log = MetricLogger(out / "logs", backends=cfg.get("logger") or ("tensorboard",))
+    (out / "config.json").write_text(json.dumps(cfg.to_dict(), indent=1, default=str))
+
+    # ---- data ---------------------------------------------------------------
+    codes = scan_complex_dir(cfg.data.data_dir, cfg.data.pdb_suffix)
+    if not codes:
+        raise SystemExit(f"no PDBs matching *{cfg.data.pdb_suffix}.pdb in {cfg.data.data_dir}")
+    splits = split_entries(codes, cfg.data.split_fractions, cfg.data.split_seed,
+                           split_file=str(out / "split.json"))
+    cache = Path(cfg.data.data_dir) / cfg.data.cache_dir
+    ds = {k: ComplexDataset(cfg.data.data_dir, v, cache_dir=str(cache),
+                            suffix=cfg.data.pdb_suffix,
+                            len_region=cfg.data.len_region).filtered()
+          for k, v in splits.items()}
+    batch_size = cfg.data.batch_size
+    loaders = {
+        "train": BucketedLoader(ds["train"], batch_size, device, shuffle=True, seed=cfg.seed,
+                                drop_last=True),
+        "val": BucketedLoader(ds["val"], batch_size, device, shuffle=False, prefetch=0),
+    }
+    log.info(f"data: {len(ds['train'])} train / {len(ds['val'])} val / "
+             f"{len(ds['test'])} test complexes")
+    steps_per_epoch = len(loaders["train"])
+    if steps_per_epoch == 0 and loaders["val"].first_batch() is None:
+        raise SystemExit("no full batch available; lower data.batch_size")
+
+    # ---- model / optimizer --------------------------------------------------
+    net_cfg = NetworkConfig(**{k: cfg.model[k] for k in NetworkConfig.__dataclass_fields__
+                               if k in cfg.model})
+    sample_cfg = SampleConfig(
+        annealed_temp=cfg.sample.annealed_temp, mode=cfg.sample.mode,
+        violation_tolerance_factor=cfg.sample.violation_tolerance_factor,
+        clash_overlap_tolerance=cfg.sample.clash_overlap_tolerance,
+        lamda=cfg.sample.lamda, num_steps=cfg.sample.num_steps)
+    model = TorsionalDiffusion(net_cfg, sample_cfg)
+    lr = make_lr(cfg.trainer, steps_per_epoch)
+    state = init_state(model, cfg.seed, device, lambda p: make_optimizer(
+        p, lr=float(cfg.trainer.lr), weight_decay=float(cfg.trainer.weight_decay)))
+    accum = int(cfg.trainer.grad_accum_steps)
+    train_step = make_train_step(model, state.optimizer, lr, accum)
+
+    ckpt_mgr = CheckpointManager(out / "checkpoints", top_k=cfg.trainer.checkpoint_top_k)
+    start_epoch = 0
+    resume = cfg.get("ckpt_path") or ckpt_mgr.latest()
+    if resume:
+        log.info(f"resuming from {resume}")
+        state.load_state_dict(load_params(resume, map_location=device))
+        start_epoch = state.step // max(1, steps_per_epoch)
+        # the loader's shuffle is seeded by the epoch: take it up where it stopped
+        loaders["train"].epoch = start_epoch
+    ema_decay, ema, ema_step = init_ema(cfg, state.params, resume)
+
+    def eval_loss(loader, stream, params):
+        losses = []
+        with torch.no_grad(), swapped_params(model.net, params):
+            for i, batch in enumerate(loader):
+                losses.append(model.loss(batch, eval_generator(cfg.seed, stream, i, device),
+                                         deterministic=True))
+        return losses
+
+    # ---- epochs -------------------------------------------------------------
+    best_val = float("inf")
+    stopper = EarlyStopper(cfg.trainer)
+    epochs_run = 0
+    log_every = cfg.trainer.log_every_steps
+    for epoch in range(start_epoch, cfg.trainer.max_epochs):
+        epochs_run = epoch + 1
+        losses = []
+        for batch in loaders["train"]:
+            losses.append(train_step(state, batch))
+            if ema is not None:
+                ema_step(ema, state.params)
+            if len(losses) % log_every == 0:
+                metrics_log.log(state.step, {"train/loss": _mean(losses[-log_every:])})
+        train_loss = _mean(losses)
+
+        val_loss = float("nan")
+        if (epoch + 1) % cfg.trainer.val_every_epochs == 0 and len(ds["val"]):
+            # with EMA on, validation, sampling and best-checkpoint selection
+            # all evaluate the EMA weights (what inference will use)
+            vlosses = eval_loss(loaders["val"], VAL_STREAM, ema)
+            val_loss = _mean(vlosses)
+            best_val = min(best_val, val_loss) if vlosses else best_val
+            metrics_log.log(state.step, {"val/loss": val_loss, "train/loss_epoch": train_loss})
+
+            if cfg.sample.sample_during_training and (epoch + 1) % cfg.sample.eval_epochs == 0:
+                batch = loaders["val"].first_batch()
+                if batch is not None:
+                    # the same draw at every sampling evaluation: chi metrics
+                    # are comparable from epoch to epoch
+                    with swapped_params(model.net, ema):
+                        sc = model.sample(batch, eval_generator(cfg.seed, SAMPLE_STREAM, 0, device),
+                                          n_steps=cfg.sample.n_diffusion_steps)
+                    metrics_log.log(state.step,
+                                    chi_metrics(batch.SC_D, sc, batch.SC_D_mask,
+                                                batch.chi_1pi_periodic_mask), prefix="val/")
+
+        log.info(f"epoch {epoch}: train {train_loss:.4f} val {val_loss:.4f}")
+        # on the validation cadence and at the end; by cadence, not by
+        # finiteness: an epoch with no validation batch must still save
+        if (epoch + 1) % cfg.trainer.val_every_epochs == 0 or epoch == cfg.trainer.max_epochs - 1:
+            ckpt_mgr.save(state.step, state.state_dict(),
+                          metric=val_loss if np.isfinite(val_loss) else None, ema=ema)
+        if stopper.should_stop(epoch, val_loss):
+            log.info(f"early stopping at epoch {epoch}: no val/loss improvement in "
+                     f"{stopper.patience} validation check(s)")
+            break
+
+    # ---- the held-out test on the best checkpoint ---------------------------
+    test_loss = float("nan")
+    if len(ds["test"]):
+        best = ckpt_mgr.best()
+        test_params = ema
+        if best:
+            state.load_state_dict(load_params(best, map_location=device))
+            if ema is not None and ema_path(best).exists():
+                test_params = {k: v.to(device) for k, v in load_params(ema_path(best)).items()}
+        test_loader = BucketedLoader(ds["test"], batch_size, device, shuffle=False, prefetch=0)
+        test_loss = _mean(eval_loss(test_loader, TEST_STREAM, test_params))
+        metrics_log.log(state.step, {"test/loss": test_loss})
+        log.info(f"test loss (best ckpt): {test_loss:.4f}")
+
+    metrics_log.close()
+    return {"best_val_loss": best_val, "test_loss": test_loss, "epochs_run": epochs_run,
+            "best_ckpt": ckpt_mgr.best(), "last_ckpt": ckpt_mgr.latest()}

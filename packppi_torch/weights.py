@@ -19,8 +19,9 @@ SD_PREFIX = "sd::"
 
 
 def read_state_dict(path: Union[str, Path]) -> dict[str, torch.Tensor]:
-    """A state dict from ``torch.save`` (``.pt``/``.pth``, optionally under a
-    ``state_dict`` key) or an ``.npz`` of reference-named arrays. In an
+    """A state dict from ``torch.save`` (``.pt``/``.pth``; optionally under a
+    ``state_dict`` key, or the ``params`` of a full train state with its
+    ``step``) or an ``.npz`` of reference-named arrays. In an
     ``.npz`` holding any ``sd::``-prefixed key, only those keys are read
     (prefix stripped); other arrays in such files are activations."""
     path = Path(path)
@@ -32,6 +33,8 @@ def read_state_dict(path: Union[str, Path]) -> dict[str, torch.Tensor]:
                         if k.startswith(SD_PREFIX)}
             return {k: torch.tensor(z[k]) for k in keys}
     blob = torch.load(path, map_location="cpu", weights_only=True)
+    if "params" in blob and "step" in blob:      # a full train state
+        return dict(blob["params"])
     return dict(blob.get("state_dict", blob))
 
 

@@ -12,6 +12,11 @@ The mean limit lies between the two readings it must tell apart: the
 sound chain reads 2.7e-7 * max|ref|, the same chain without its rounding
 points 2.7e-4 to 2.9e-4 (``test_chain_bf16_tolerance_rejects_unrounded``).
 
+Gradients: ``chain`` is differentiable (plain forward on the CPU,
+recomputed plain backward); every operand's gradient is held to ``jax.grad``
+through ``fused_chain_diff`` (interpreted) within 5e-4 of that gradient's
+max, the JAX package's own fused-vs-unfused limit.
+
 The JAX kernel is compiled with ``xla_allow_excess_precision`` off: by
 default XLA:CPU drops a float32 -> bf16 -> float32 round trip, so the
 interpreted kernel would skip the very rounding points under test.
@@ -22,7 +27,8 @@ import numpy as np
 import pytest
 import torch
 
-from packppi_tpu.ops.pallas_layer import fused_chain
+import packppi_tpu.ops.pallas_layer as pallas_layer
+from packppi_tpu.ops.pallas_layer import fused_chain, fused_chain_diff
 from packppi_torch.ops.chain import chain, chain_plain
 
 H, N = 128, 300
@@ -113,3 +119,57 @@ def test_wrapper_takes_plain_version_on_cpu(case):
     np.testing.assert_array_equal(chain(*args, pre_mask=True).numpy(),
                                   chain_plain(*args, pre_mask=True).numpy())
     assert chain.launches == before      # only kernel launches count
+
+
+@pytest.mark.parametrize("edge", [False, True], ids=["node", "edge"])
+def test_chain_gradients_match_jax_custom_vjp(case, edge):
+    rng = np.random.default_rng(5)
+    cot = rng.uniform(0.5, 1.5, (N, H)).astype(np.float32)
+    names = ("x", "msg", "lna_s", "lna_b", "f1", "f1b", "f2", "f2b", "lnb_s", "lnb_b")
+    t = lambda k: torch.from_numpy(case[k])
+    ops = [t("x"), t("msg"), t("lna_s"), t("lna_b"), t("f1").T.contiguous(), t("f1b"),
+           t("f2").T.contiguous(), t("f2b"), t("lnb_s"), t("lnb_b")]
+    ops = [o.clone().requires_grad_(True) for o in ops]
+    before = chain.launches
+    out = chain(ops[0], ops[1], t("mask"), *ops[2:], pre_mask=edge)
+    grads = torch.autograd.grad(0.5 * (torch.from_numpy(cot) * out ** 2).sum(), ops)
+    assert chain.launches == before
+
+    def jloss(*a):
+        out = fused_chain_diff(a[0], a[1], jnp.asarray(case["mask"])[:, None], *a[2:],
+                               compute_dtype=jnp.float32, pre_mask=edge)
+        return 0.5 * (jnp.asarray(cot) * out ** 2).sum()
+
+    prev, pallas_layer.INTERPRET = pallas_layer.INTERPRET, True
+    try:
+        want = jax.grad(jloss, argnums=tuple(range(len(names))))(
+            *[jnp.asarray(case[k]) for k in names])
+    finally:
+        pallas_layer.INTERPRET = prev
+    for name, g, w in zip(names, grads, want):
+        g, w = g.numpy(), np.asarray(w)
+        g = g.T if name in ("f1", "f2") else g           # Linear layout -> [in, out]
+        assert np.isfinite(g).all(), name
+        np.testing.assert_allclose(g, w, atol=5e-4 * np.abs(w).max(), rtol=0, err_msg=name)
+    # masked rows pass no gradient into x (the output there is 0 whatever x is)
+    assert not grads[0].numpy()[case["mask"] == 0].any()
+
+
+def test_chain_gradients_are_finite_at_rows_of_zeros():
+    """Padding: a row of zeros has zero variance in both LayerNorms, where
+    the gradient of rsqrt is finite only through eps = 1e-6."""
+    rng = np.random.default_rng(2)
+    f32 = np.float32
+    x = torch.zeros(6, H, requires_grad=True)
+    msg = torch.zeros(6, H, requires_grad=True)
+    w1 = torch.from_numpy((rng.normal(size=(4 * H, H)) * 0.05).astype(f32)).requires_grad_(True)
+    w2 = torch.from_numpy((rng.normal(size=(H, 4 * H)) * 0.05).astype(f32)).requires_grad_(True)
+    ones, zeros = torch.ones(H), torch.zeros(H)
+    mask = torch.tensor([1., 1., 0., 0., 1., 0.])
+    for dtype in (torch.float32, torch.bfloat16):
+        out = chain(x.to(dtype), msg, mask, ones, zeros, w1, torch.zeros(4 * H), w2, zeros,
+                    ones, zeros, pre_mask=False)
+        grads = torch.autograd.grad(out.float().sum() + out.float().pow(2).sum(),
+                                    [x, msg, w1, w2])
+        assert all(bool(g.isfinite().all()) for g in grads), dtype
+        assert not grads[0][mask == 0].any()

@@ -19,8 +19,14 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "packppi_tpu"))
 print(len(names), bad)
 assert not bad, bad
-assert len(names) >= 20, names
-for n in ("packppi_torch.ops.clash", "packppi_torch.sampling.proximal", "packppi_torch.cli.prox"):
+assert len(names) >= 32, names
+for n in ("packppi_torch.ops.clash", "packppi_torch.sampling.proximal", "packppi_torch.cli.prox",
+          "packppi_torch.ops.message_feat", "packppi_torch.train.loop",
+          "packppi_torch.train.diffusion_task", "packppi_torch.train.checkpoints",
+          "packppi_torch.data.complex", "packppi_torch.data.loader", "packppi_torch.data.crops",
+          "packppi_torch.utils.config", "packppi_torch.utils.logging",
+          "packppi_torch.utils.metrics", "packppi_torch.cli._runner",
+          "packppi_torch.cli.train_diffusion"):
     assert n in names, n
 """
 
@@ -90,14 +96,52 @@ def test_unimplemented_config_values_raise():
 
 
 def test_training_mode_with_dropout_raises():
+    """Training mode with dropout runs (the unfused path, two passes with
+    dropout draw different outputs); what raises is asking for the chain
+    kernel in training with dropout on, because the kernel applies none."""
     from packppi_torch.data import stack_batch
-    from packppi_torch.models import ChiScoreNetwork
+    from packppi_torch.models import ChiScoreNetwork, NetworkConfig
     from packppi_torch.structure import featurize, from_pdb_file
+    from packppi_torch.weights import init_weights
+
+    with pytest.raises(ValueError, match="dropout"):
+        ChiScoreNetwork(NetworkConfig(dropout=0.1, fused_chain_train=True))
 
     feats = featurize(from_pdb_file(os.path.join(REPO, "tests", "fixtures", "1brs.pdb"),
                                     chain_id="D"))
     batch = stack_batch([feats], "cpu")
     net = ChiScoreNetwork().train()
-    with pytest.raises(ValueError, match="dropout"):
-        net(batch, batch.SC_D, torch.zeros(batch.residue_mask.shape))
+    init_weights(net, 0)
+    torch.manual_seed(0)
+    t = torch.full(batch.residue_mask.shape, 0.5)
+    a, _ = net(batch, batch.SC_D, t)
+    b, _ = net(batch, batch.SC_D, t)
+    assert torch.isfinite(a).all() and not torch.equal(a, b)
+    net.eval()
+    with torch.no_grad():
+        c, _ = net(batch, batch.SC_D, t)
+        d, _ = net(batch, batch.SC_D, t)
+    assert torch.equal(c, d)
+
+
+def test_train_cli_without_gpu_raises(tmp_path):
+    from packppi_torch.cli.train_diffusion import main
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the no-GPU refusal cannot be shown")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main([f"output_dir={tmp_path}", "trainer=debug"])
+
+
+def test_routing_config_values_are_validated():
+    from packppi_torch.models import ChiScoreNetwork, NetworkConfig
+
+    for bad in (dict(fused_messages=False), dict(fused_messages="geom"),
+                dict(mxu_gather_grad="yes"), dict(mxu_gather_grad=1)):
+        with pytest.raises(ValueError):
+            ChiScoreNetwork(NetworkConfig(**bad))
+    for ok in (dict(mxu_gather_grad="auto"), dict(mxu_gather_grad=True),
+               dict(fused_messages=True, fused_messages_train=True, fused_chain_train=True,
+                    dropout=0.0, remat_layers=True)):
+        ChiScoreNetwork(NetworkConfig(**ok))
 

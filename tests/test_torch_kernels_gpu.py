@@ -89,6 +89,110 @@ def test_chain_kernel_matches_plain(cuda, dtype, msg_dtype, pre_mask):
     _close(got, chain_plain(*ops, pre_mask), dtype)
 
 
+def _message_feat_operands(device, dtype, B=2, L=37, K=20, seed=3):
+    """Random operands of odd sizes (partial last block, K not dividing 64)."""
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=g)
+    w = lambda o, i: r(o, i) / np.sqrt(i)
+    mask = (torch.rand(B, L, K, generator=g) > 0.1).float()
+    ops = (r(B, L, H), r(B, L, K, H).to(dtype), r(B, L, K, H).to(dtype),
+           (3 * r(B, L, K, 9 * P)).to(dtype), mask, w(H, 3 * H + 9 * P), 0.1 * r(H),
+           w(H, H), 0.1 * r(H), w(H, H), 0.1 * r(H))
+    return tuple(t.to(device).contiguous() for t in ops)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("pool", [True, False], ids=["pool", "edge"])
+def test_message_feat_kernel_matches_plain(cuda, dtype, pool):
+    from packppi_torch.ops.message_feat import message_feat, message_feat_plain
+
+    ops = _message_feat_operands(cuda, dtype)
+    before = message_feat.launches
+    got = message_feat(*ops, pool)
+    torch.cuda.synchronize()
+    assert message_feat.launches == before + 1
+    assert got.dtype == (torch.float32 if pool else dtype)
+    _close(got, message_feat_plain(*ops, pool), dtype)
+
+
+def _function_grads(fn, ops, diff):
+    """Gradients of 0.5 * sum(fn(ops)^2) with respect to ``ops[i]``, i in diff."""
+    leaves = [t.detach().clone().requires_grad_(True) if i in diff else t
+              for i, t in enumerate(ops)]
+    out = fn(*leaves)
+    return torch.autograd.grad(0.5 * out.float().pow(2).sum(), [leaves[i] for i in diff])
+
+
+def _grads_close(got, want):
+    """Each gradient within 5e-4 of its max (the limit of the JAX package's
+    fused-vs-unfused gradient tests)."""
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all() and g.dtype == w.dtype
+        assert (g.float() - w.float()).abs().max().item() <= 5e-4 * w.float().abs().max().item()
+
+
+@pytest.mark.parametrize("pool", [True, False], ids=["pool", "edge"])
+def test_message_feat_gradients_match_autograd_through_plain(cuda, pool):
+    """Kernel forward, recomputed plain backward, against autograd through
+    the plain version: every operand but the mask."""
+    from packppi_torch.ops.message_feat import message_feat, message_feat_plain
+
+    ops = _message_feat_operands(cuda, torch.float32)
+    diff = [i for i in range(len(ops)) if i != 4]
+    before = message_feat.launches
+    got = _function_grads(lambda *a: message_feat(*a, pool), ops, diff)
+    assert message_feat.launches == before + 1               # the forward, once; no more
+    _grads_close(got, _function_grads(lambda *a: message_feat_plain(*a, pool), ops, diff))
+
+
+@pytest.mark.parametrize("pre_mask", [False, True], ids=["node", "edge"])
+def test_chain_gradients_match_autograd_through_plain(cuda, pre_mask):
+    from packppi_torch.ops.chain import chain, chain_plain
+
+    ops = _chain_operands(cuda, torch.float32, torch.float32)
+    diff = [i for i in range(len(ops)) if i != 2]
+    before = chain.launches
+    got = _function_grads(lambda *a: chain(*a, pre_mask), ops, diff)
+    assert chain.launches == before + 1
+    _grads_close(got, _function_grads(lambda *a: chain_plain(*a, pre_mask), ops, diff))
+    assert not got[0][ops[2] == 0].any()                     # masked rows: no gradient into x
+
+
+def test_kernels_pass_a_nan_on_as_their_plain_versions_do(cuda):
+    """A non-finite input must reach the loss (the training step skips such a
+    batch): the kernels' relu may not turn a NaN into 0."""
+    from packppi_torch.ops.chain import chain
+    from packppi_torch.ops.message import message
+    from packppi_torch.ops.message_feat import message_feat
+
+    ops = list(_message_feat_operands(cuda, torch.float32))
+    ops[2][1, 5, 3, 7] = float("nan")                       # one h_E entry of edge (1, 5, 3)
+    edge, node = message_feat(*ops, False), message_feat(*ops, True)
+    assert edge[1, 5, 3].isnan().all() and node[1, 5].isnan().all()
+    assert edge.isnan().sum().item() == H and node.isnan().sum().item() == H
+    mops = list(_message_operands(cuda, torch.float32))
+    mops[2][0, 2, 1, 0] = float("nan")
+    assert message(*mops, False)[0, 2, 1].isnan().all()
+    cops = list(_chain_operands(cuda, torch.float32, torch.float32))
+    cops[1][4, 9] = float("nan")                            # one message entry of row 4
+    cops[2][4] = 1.0
+    out = chain(*cops, False)
+    assert out[4].isnan().all() and out.isnan().sum().item() == H
+
+
+def test_message_feat_kernel_refuses_what_it_does_not_take(cuda):
+    from packppi_torch.ops.message_feat import message_feat
+
+    ops = list(_message_feat_operands(cuda, torch.float32))
+    ops[3] = ops[3][..., :64]                               # 9P must be 72
+    with pytest.raises(ValueError, match="9P=72"):
+        message_feat(*ops, True)
+    ops = list(_message_feat_operands(cuda, torch.float32))
+    ops[0] = ops[0].double()                                # per_i must be float32
+    with pytest.raises(TypeError, match="per_i"):
+        message_feat(*ops, True)
+
+
 def test_kernels_refuse_what_they_do_not_take(cuda):
     from packppi_torch.ops.chain import chain
     from packppi_torch.ops.message import message

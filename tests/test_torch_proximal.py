@@ -153,7 +153,9 @@ def test_sample_config_has_the_jax_defaults():
     for f in dataclasses.fields(ours):
         assert getattr(ours, f.name) == getattr(ref, f.name), f.name
     assert {f.name for f in dataclasses.fields(ours)} == {
+        "annealed_temp", "mode",
         "violation_tolerance_factor", "clash_overlap_tolerance", "lamda", "num_steps"}
+    assert {f.name for f in dataclasses.fields(ours)} == {f.name for f in dataclasses.fields(ref)}
 
 
 def _prox(tmp_path, *extra, pdb=PDB):

@@ -65,5 +65,14 @@ def test_sampler_noise_is_seeded_masked_and_wrapped(batch, model):
 
 
 def test_corrector_steps_are_refused(batch, model):
-    with pytest.raises(ValueError, match="corrector"):
-        model.sample(batch, torch.Generator().manual_seed(0), n_steps=1, corrector_steps=1)
+    """Langevin corrector sub-steps draw noise: they are refused without a
+    generator (a replayed ``init_sc`` alone is not enough), and with one
+    they run, move the present chis and leave the absent ones at 0."""
+    init = model.init_noise(batch, torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="generator"):
+        model.sample(batch, None, n_steps=1, corrector_steps=1, init_sc=init)
+    plain = model.sample(batch, None, n_steps=1, init_sc=init)
+    sc = model.sample(batch, torch.Generator().manual_seed(1), n_steps=1, corrector_steps=1,
+                      init_sc=init)
+    assert torch.isfinite(sc).all() and not torch.equal(sc, plain)
+    np.testing.assert_array_equal(sc.numpy()[batch.SC_D_mask.numpy() == 0], 0.0)
