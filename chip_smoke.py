@@ -9,7 +9,7 @@ fatal on failure:
 
 1. versions: Python, torch, CUDA, nvcc, the card's name and power limit,
    and a content hash of the code (``packppi_torch/`` and this script);
-2. build: every kernel of ``packppi_torch/csrc`` (four sources) with nvcc
+2. build: every kernel of ``packppi_torch/csrc`` (five sources) with nvcc
    for sm_90a, one nvcc per source, all started together;
 3. kernels: each kernel against its plain PyTorch version on the card, on
    the T1124 complex's real graph and activations (L=768, K=32, H=128;
@@ -29,7 +29,11 @@ fatal on failure:
    against the geometry-in-kernel message kernel on the same features. The
    two differentiable passes (feature-message and chain: kernel forward,
    recomputed plain backward) are held, gradient by gradient, to autograd
-   through their plain versions;
+   through their plain versions. The attention kernel runs at ESM-2 650M's
+   shapes (H = 20, D = 64): T1124's T = 896, T = 768, B = 2 at T = 763 and
+   T = 2,048, float32 (max |d| <= 1e-5) and bf16 with the two controls (the
+   weights left unrounded; one query tile zeroed), bit for bit across two
+   launches, timed beside ``scaled_dot_product_attention``;
 4. golden replay: the 1BRS float32 30-step trajectory through the kernels
    against the reference's ``tests/golden/pipeline_golden.npz`` (5e-4
    rad), and its 50-step proximal refinement (mask exact, losses 1e-4,
@@ -56,7 +60,16 @@ fatal on failure:
     ``cli.train_diffusion`` for one epoch and resumed for a second,
     ``cli.pack`` with its checkpoint; and T1124 packed with the shipped
     checkpoint ``docs/ckpts/diffusion_crops/torch_state.pt``, with its chi
-    accuracies.
+    accuracies;
+11. PackPPI-AP: ESM-2 650M at full width with random weights from seed 0 on
+    T1124's wild type and LA10A mutant through ``make_extractor`` (33
+    attention launches per extraction asserted; time per extraction, peak
+    memory; the card against the CPU on the same weights and tokens);
+    ``cli.ddg --mode esm`` on T1124 through a weight file written from the
+    same weights (66 launches, a finite ddG); ``cli.ddg --eval_csv`` on the
+    126 SKEMPI mutations in network mode with the converted shipped
+    checkpoints, message and chain launches counted, each prediction held
+    to the JAX package's ``ddg_eval.jsonl`` (2e-3 kcal/mol).
 
 It then prints the ``kernels`` JSON line, the card's name and power limit,
 and ``{"ok": true, "device": {...}}`` as the last line.
@@ -93,7 +106,7 @@ STEPS = 30
 CLASH_FWD_TOL, CLASH_GRAD_TOL = 1e-5, 2e-5
 CLASH_TOL_SOFT = 0.5                    # sc_violation_loss's overlap tolerance
 PROX_STEPS = 50
-SOURCES = ("message", "message_feat", "chain", "clash")
+SOURCES = ("message", "message_feat", "chain", "clash", "attention")
 # the training shape: 4 copies of T1124 padded to 1,024 residues (131,072 edge rows)
 TRAIN_B, TRAIN_L = 4, 1024
 # the two differentiable passes: each gradient against autograd through the
@@ -820,16 +833,18 @@ def phase_network_vs_cpu(torch):
 
 
 def zero_launches():
+    from packppi_torch.ops.attention import mha
     from packppi_torch.ops.chain import chain
     from packppi_torch.ops.clash import between_residue_clash as brc
     from packppi_torch.ops.message import message
     from packppi_torch.ops.message_feat import message_feat
 
-    message.launches = message_feat.launches = chain.launches = 0
+    message.launches = message_feat.launches = chain.launches = mha.launches = 0
     brc.launches_fwd = brc.launches_bwd = 0
 
 
 def read_launches():
+    from packppi_torch.ops.attention import mha
     from packppi_torch.ops.chain import chain
     from packppi_torch.ops.clash import between_residue_clash as brc
     from packppi_torch.ops.message import message
@@ -837,7 +852,7 @@ def read_launches():
 
     return {"message": message.launches, "message_feat": message_feat.launches,
             "chain": chain.launches, "clash_fwd": brc.launches_fwd,
-            "clash_bwd": brc.launches_bwd}
+            "clash_bwd": brc.launches_bwd, "attention": mha.launches}
 
 
 def check_structure(outdir):
@@ -863,7 +878,7 @@ def phase_pack(torch):
     common = ["--input", str(T1124), "--ckpt", str(PIPELINE_GOLDEN), "--precision", "bfloat16",
               "--n_steps", str(STEPS), "--seed", "0"]
     expect = {"message": 5 * STEPS, "message_feat": 0, "chain": 5 * STEPS, "clash_fwd": 0,
-              "clash_bwd": 0}
+              "clash_bwd": 0, "attention": 0}
     launches = None
     for name, extra in (("pack_t1124", []), ("pack_prox_t1124", ["--use_proximal"])):
         args = pack.build_parser().parse_args(common + ["--outdir", str(OUT / name)] + extra)
@@ -897,7 +912,7 @@ def phase_pack(torch):
         f"{result['optimize_seconds']:.4f} s, objective {result['objective_initial']:.6f} -> "
         f"{result['objective_final']:.6f}, accepted {result['accepted']}, launches {got}")
     if got != {"message": 0, "message_feat": 0, "chain": 0, "clash_fwd": PROX_STEPS + 1,
-               "clash_bwd": PROX_STEPS}:
+               "clash_bwd": PROX_STEPS, "attention": 0}:
         fail(f"prox: launches {got}")
     check_structure(OUT / "prox_t1124")
     return launches
@@ -1277,6 +1292,301 @@ def phase_profile(torch, sc):
     report_profile("T1124 proximal Adam step", prof, wall_ms, reps, "step")
 
 
+# PackPPI-AP and ESM-2 650M
+# attention kernel vs plain version, float32 max |d| (sums in another order)
+ATTN_F32_TOL = 1e-5
+# shapes (B, H, T, D, padded keys): T1124 through the ESM extractor (741
+# residues, three chain groups, 783 tokens padded to 896); the same with one
+# inter-chain run fewer (763 tokens in 768); two rows at a length that no
+# 64-key tile divides; and a long sequence
+ATTN_SHAPES = {"T1124": (1, 20, 896, 64, 113), "T=768": (1, 20, 768, 64, 5),
+               "B=2 T=763": (2, 20, 763, 64, 7), "T=2048": (1, 20, 2048, 64, 0)}
+# ESM-2 650M float32, card against CPU on the same weights and tokens:
+# max |d| relative to max|ref|
+ESM_DEVICES_TOL = 1e-3
+ESM_CPU_SECONDS = 60.0        # full depth on the CPU if it takes less than this
+ESM_REPS = 10
+# the port's network-mode predictions against the JAX package's, kcal/mol
+DDG_EVAL_TOL = 2e-3
+AFFINITY_CKPTS = REPO / "docs" / "ckpts" / "affinity_skempi_mini_pretrained"
+SKEMPI_MINI = REPO / "tests" / "fixtures" / "skempi_mini"
+T1124_MUTATION = "LA10A"      # T1124 chain A, residue 10: L -> A
+
+
+def attention_operands(torch, dtype, B, H, T, D, pad, seed=0):
+    """q, k, v ~ N(0, 1) (q scaled by D^-0.5, as ESM-2 scales it) and the
+    key bias with the last ``pad`` keys padded, on the card."""
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn(B, H, T, D, generator=g) for _ in range(3))
+    bias = torch.zeros(B, T)
+    if pad:
+        bias[:, T - pad:] = -1e9
+    return (*(t.to(dtype).to("cuda").contiguous() for t in (q * D ** -0.5, k, v)),
+            bias.to("cuda"))
+
+
+def attention_cost(ops):
+    """(bytes, operations): q, k, v and the bias read once, the float32
+    output written once; the two products' multiply-adds, 4 B H T^2 D."""
+    B, H, T, D = ops[0].shape
+    return sum(_nbytes(t) for t in ops) + B * H * T * D * 4, 4 * B * H * T * T * D
+
+
+def phase_attention(torch, timer):
+    """The attention kernel against its plain version on the card at
+    ``ATTN_SHAPES``, float32 and bf16; in bf16 two controls must fail (the
+    weights left unrounded; the first query tile of one head zeroed); two
+    launches on one input must agree bit for bit. Times of the kernel, the
+    plain version and ``scaled_dot_product_attention`` with the same
+    additive mask (timed only: the port never calls it). Returns records."""
+    import torch.nn.functional as F
+
+    from packppi_torch.ops.attention import mha, mha_plain
+
+    records = {}
+    for label, (B, H, T, D, pad) in ATTN_SHAPES.items():
+        for dtype_name in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype_name)
+            ops = attention_operands(torch, dt, B, H, T, D, pad)
+            got = mha(*ops)
+            again = mha(*ops)
+            torch.cuda.synchronize()
+            want = mha_plain(*ops)
+            name = f"attention {label} {dtype_name} {tuple(got.shape)}"
+            if not torch.equal(got, again):
+                fail(f"{name}: two launches on one input differ")
+            if dtype_name == "float32":
+                err, dmean, scale = readings(got, want)
+                ok = bool(got.isfinite().all()) and err <= ATTN_F32_TOL
+                log(f"  {name}: max|d| {err:.6g}  mean|d| {dmean:.6g}  max|ref| {scale:.6g}  "
+                    f"{'ok' if ok else 'OUT OF TOLERANCE'} (limit {ATTN_F32_TOL:g})")
+                if not ok:
+                    fail(f"{name} disagrees with its plain version")
+            else:
+                err = check_close(name, got, want, dtype_name)
+                q, k, v, bias = ops
+                logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) + bias[:, None, None]
+                unrounded = torch.matmul(torch.softmax(logits, -1), v.float())
+                check_controls(name, got, want, unrounded, 64)
+                del logits, unrounded
+            nb, no = attention_cost(ops)
+            mask = ops[3][:, None, None, :].to(dt)
+            records[("attention", dtype_name, label)] = dict(
+                max_abs_err=err, ms=timer(lambda: mha(*ops)),
+                plain_ms=timer(lambda: mha_plain(*ops), 5),
+                library_ms=timer(lambda: F.scaled_dot_product_attention(
+                    ops[0], ops[1], ops[2], attn_mask=mask, scale=1.0)),
+                bound=bound_ms(nb, no, dtype_name), bytes=nb, operations=no)
+            del ops, got, again, want, mask
+    for (k, d, v), r in records.items():
+        log(f"  time {k} {v} {d}: kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
+            f"sdpa {r['library_ms']:.4f} ms  bound {r['bound'][0]:.4f} ms ({r['bound'][1]}; "
+            f"{r['bytes']} bytes, {r['operations']} operations)")
+    return records
+
+
+def esm2_650m(torch, device, seed=None, weights=None):
+    """ESM-2 650M (33 layers, hidden 1280, 20 heads, attention "auto") on
+    ``device``: random weights from ``seed`` (drawn on the CPU), or a copy
+    of ``weights``, a state dict."""
+    from packppi_torch.models.esm2 import ESM2, ESM2Config, init_esm_weights
+
+    with torch.device("meta"):
+        model = ESM2(ESM2Config(attention_impl="auto"))
+    model = model.to_empty(device=device)
+    if weights is None:
+        init_esm_weights(model, seed)
+    else:
+        model.load_state_dict(weights)
+    return model.eval()
+
+
+def t1124_esm_tokens():
+    """The ESM-2 tokens of T1124's wild type and of its ``T1124_MUTATION``
+    mutant, as the extractor of ``data.esm`` builds them."""
+    from packppi_torch.data.esm import build_chain_separated_sequence
+    from packppi_torch.data.skempi import apply_mutations, parse_mutation
+    from packppi_torch.models.esm2 import tokenize
+    from packppi_torch.structure import featurize, from_pdb_file
+
+    prot = from_pdb_file(T1124, mse_to_met=True)
+    feats = featurize(prot)
+    rt_mut, _ = apply_mutations(prot, [parse_mutation(T1124_MUTATION)])
+    return [tokenize(build_chain_separated_sequence(rt, feats["chain_indices"]))
+            for rt in (feats["residue_type"], rt_mut)]
+
+
+def phase_esm(torch):
+    """ESM-2 650M at full width with random weights from seed 0: T1124's
+    wild type and mutant through ``make_extractor`` with 33 attention
+    launches asserted in each extraction; the time per extraction (median
+    of ``ESM_REPS``) and peak memory; the card against the CPU on the same
+    weights and tokens. Returns the CPU model (its weights feed the next
+    phase)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from packppi_torch.models.esm2 import make_extractor
+
+    t0 = time.perf_counter()
+    cpu_model = esm2_650m(torch, "cpu", seed=0)
+    card = esm2_650m(torch, "cuda", weights=cpu_model.state_dict())
+    n_params = sum(p.numel() for p in card.parameters())
+    log(f"ESM-2 650M: {n_params} parameters, random weights from seed 0, on the CPU and the "
+        f"card in {time.perf_counter() - t0:.2f} s")
+    extract = make_extractor(card)
+    tokens = t1124_esm_tokens()
+    n_layers = card.cfg.num_layers
+    outs = []
+    for what, ids in zip(("wild type", "mutant"), tokens):
+        zero_launches()
+        out = extract(ids)
+        got = read_launches()
+        T = -(-len(ids) // 128) * 128
+        log(f"  extraction of T1124 {what} ({T1124_MUTATION}): {len(ids)} tokens padded to "
+            f"T = {T}, output {out.shape}, launches {got}")
+        if got != {**{k: 0 for k in got}, "attention": n_layers}:
+            fail(f"ESM-2 extraction ({what}): launches {got}, expected {n_layers} attention")
+        if out.shape != (len(ids), card.cfg.hidden_size) or not np.isfinite(out).all():
+            fail(f"ESM-2 extraction ({what}): shape {out.shape} or values not finite")
+        outs.append(out)
+    if np.array_equal(outs[0], outs[1]):
+        fail("the mutant's embeddings equal the wild type's")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    times = []
+    for _ in range(ESM_REPS):
+        t0 = time.perf_counter()
+        extract(tokens[0])                  # returns host numpy: synchronised
+        times.append(time.perf_counter() - t0)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    weights = sum(p.numel() * p.element_size() for p in card.parameters()) / 2 ** 20
+    q = np.percentile(times, [0, 25, 50, 75, 100]) * 1e3
+    log(f"  ESM-2 650M float32 extraction of T1124, {ESM_REPS} runs: median {q[2]:.2f} ms, "
+        f"quartiles {q[1]:.2f}-{q[3]:.2f}, min {q[0]:.2f}, max {q[4]:.2f}; peak memory "
+        f"{weights + peak:.1f} MiB: the weights {weights:.1f} MiB and the extraction's "
+        f"{peak:.1f} MiB above what was resident")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        extract(tokens[0])
+    report_profile("ESM-2 650M float32 extraction of T1124", prof, q[2], 1, "extraction")
+
+    # the card against the CPU, same weights and tokens; depth cut to 4 only
+    # if the CPU would take longer than ESM_CPU_SECONDS
+    ids = tokens[0]
+    T = -(-len(ids) // 128) * 128
+    ids_p = np.full((1, T), card.cfg.pad_token_id, np.int64)
+    ids_p[0, :len(ids)] = ids
+    mask = np.zeros((1, T), np.float32)
+    mask[0, :len(ids)] = 1.0
+    run = lambda m, dev, n: m(torch.from_numpy(ids_p).to(dev), torch.from_numpy(mask).to(dev),
+                              num_layers=n)[0, :len(ids)].cpu()
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        run(cpu_model, "cpu", 1)
+        one = time.perf_counter() - t0
+        depth = n_layers if one * n_layers < ESM_CPU_SECONDS else 4
+        t0 = time.perf_counter()
+        want = run(cpu_model, "cpu", depth)
+        t_cpu = time.perf_counter() - t0
+        got = run(card, "cuda", depth)
+    dmax, dmean, scale = readings(got, want)
+    ok = bool(got.isfinite().all()) and dmax <= ESM_DEVICES_TOL * scale
+    log(f"  card vs CPU, float32, {depth} of {n_layers} layers (CPU {t_cpu:.1f} s; one layer "
+        f"{one:.2f} s): max|d| {dmax:.6g}  mean|d| {dmean:.6g}  max|ref| {scale:.6g}  "
+        f"max|d|/max|ref| {dmax / scale:.3e} (limit {ESM_DEVICES_TOL:g})  "
+        f"{'ok' if ok else 'OUT OF TOLERANCE'}")
+    if not ok:
+        fail("ESM-2 on the card disagrees with ESM-2 on the CPU")
+    del card, extract
+    torch.cuda.empty_cache()
+    return cpu_model
+
+
+def phase_ddg_esm(torch, cpu_model):
+    """``cli.ddg --mode esm`` on T1124 with ``T1124_MUTATION``: the ESM-2
+    weights written from seed 0 into ``smoke_out/`` as a ``.pt`` file,
+    66 attention launches (33 per extraction, wild type and mutant) and no
+    other, a finite ddG. Returns the attention launches of the first call."""
+    import numpy as np
+
+    from packppi_torch.cli import ddg
+
+    cfg = cpu_model.cfg
+    path = OUT / "esm2_650M_seed0.pt"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    fields = {k: getattr(cfg, k) for k in ("vocab_size", "hidden_size", "num_layers",
+                                           "num_heads", "intermediate_size", "layer_norm_eps",
+                                           "token_dropout", "mask_token_id", "pad_token_id")}
+    t0 = time.perf_counter()
+    torch.save({"config": fields, "state_dict": cpu_model.state_dict()}, path)
+    log(f"wrote {path.relative_to(REPO)}: {path.stat().st_size / 2 ** 20:.1f} MiB in "
+        f"{time.perf_counter() - t0:.2f} s")
+    argv = ["--input", str(T1124), "--mutstr", T1124_MUTATION, "--mode", "esm", "--esm_ckpt",
+            str(path), "--outdir", str(OUT / "ddg_esm_t1124"), "--seed", "0"]
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    value = ddg.run_cli(argv)
+    wall = time.perf_counter() - t0
+    got = read_launches()
+    expect = {**{k: 0 for k in got}, "attention": 2 * cfg.num_layers}
+    log(f"cli.ddg --mode esm T1124 {T1124_MUTATION}: ddG {value:.6f} kcal/mol, whole call "
+        f"{wall:.3f} s (reading the weights and building the model included), launches {got}")
+    if got != expect or not np.isfinite(value):
+        fail(f"cli.ddg --mode esm: launches {got} (expected {expect}) or ddG {value}")
+    path.unlink()
+    return got["attention"]
+
+
+def phase_ddg_eval(torch):
+    """``cli.ddg --eval_csv tests/fixtures/skempi_mini`` in network mode on
+    the converted shipped checkpoints: message and chain launches counted
+    (5 of each per backbone or mutation-stack evaluation, four evaluations
+    per batch), each prediction held to the JAX package's in
+    ``ddg_eval.jsonl`` (which ``tools/check_jax_ddg_eval.py`` reproduces
+    with the JAX package), the summary to ``ddg_eval_summary.json``."""
+    from packppi_torch.cli import ddg
+    from packppi_torch.data import bucket_length
+    from packppi_torch.data.skempi import load_skempi_entries
+    from packppi_torch.structure import from_pdb_file
+
+    outdir = OUT / "ddg_eval"
+    argv = ["--eval_csv", str(SKEMPI_MINI), "--mode", "network",
+            "--ckpt", str(AFFINITY_CKPTS / "torch_affinity.pt"),
+            "--pre_ckpt", str(AFFINITY_CKPTS / "torch_backbone.pt"), "--outdir", str(outdir)]
+    entries = load_skempi_entries(SKEMPI_MINI, "PDBs")
+    per_bucket = {}
+    for e in entries:
+        b = bucket_length(len(from_pdb_file(e["pdb_path"], mse_to_met=True).aaindex))
+        per_bucket[b] = per_bucket.get(b, 0) + 1
+    n_batches = sum(-(-n // 4) for n in per_bucket.values())
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    summary = ddg.run_cli(argv)
+    wall = time.perf_counter() - t0
+    got = read_launches()
+    expect = {**{k: 0 for k in got}, "message": 20 * n_batches, "chain": 20 * n_batches}
+    log(f"cli.ddg --eval_csv skempi_mini network: {summary['n']} mutations in {n_batches} "
+        f"batches, {wall:.2f} s; launches {got}; summary {summary}")
+    if got != expect:
+        fail(f"cli.ddg --eval_csv: launches {got}, expected {expect}")
+    mine = [json.loads(line) for line in open(outdir / "ddg_eval.jsonl")]
+    ref = [json.loads(line) for line in open(AFFINITY_CKPTS / "ddg_eval.jsonl")]
+    if [(a["complex"], a["mutstr"]) for a in mine] != [(b["complex"], b["mutstr"]) for b in ref]:
+        fail("cli.ddg --eval_csv evaluated other mutations than the JAX package's file")
+    worst = max(abs(a["ddg_pred"] - b["ddg_pred"]) for a, b in zip(mine, ref))
+    shipped = json.loads((AFFINITY_CKPTS / "ddg_eval_summary.json").read_text())
+    d_summary = {k: abs(summary[k] - shipped[k]) for k in ("rmse", "pearson", "spearman")}
+    log(f"  per mutation against the JAX package's predictions: max |d| {worst:.3e} kcal/mol "
+        f"(limit {DDG_EVAL_TOL:g}); summary against the shipped one (four decimals): "
+        f"{ {k: f'{v:.2e}' for k, v in d_summary.items()} } (limit 5e-4)")
+    if worst > DDG_EVAL_TOL or max(d_summary.values()) >= 5e-4:
+        fail("cli.ddg --eval_csv disagrees with the JAX package's predictions")
+
+
 def main():
     import torch
 
@@ -1286,6 +1596,7 @@ def main():
     sys.path.insert(0, str(REPO))
     import packppi_torch  # noqa: F401  (fails outside a checkout)
 
+    t_start = time.perf_counter()
     phase_versions(torch)
     phase_build()
     timer = Timer(torch)
@@ -1293,6 +1604,7 @@ def main():
     records.update(phase_message_feat(torch, timer))
     phase_function_grads(torch)
     clash_records = phase_clash_kernels(torch, timer)
+    attention_records = phase_attention(torch, timer)
     phase_golden(torch)
     phase_prox_golden(torch)
     phase_network_vs_cpu(torch)
@@ -1303,6 +1615,10 @@ def main():
     train_launches = phase_train(torch)
     phase_trainer(torch)
     phase_shipped_checkpoint(torch)
+    cpu_esm = phase_esm(torch)
+    attention_launches = phase_ddg_esm(torch, cpu_esm)
+    del cpu_esm
+    phase_ddg_eval(torch)
 
     kernels = []
     for name, source, replaces in (
@@ -1311,22 +1627,30 @@ def main():
              "packppi_tpu/ops/pallas_ipmp.py:52"),
             ("chain", "packppi_torch/csrc/chain.cu", "packppi_tpu/ops/pallas_layer.py:62"),
             ("clash_fwd", "packppi_torch/csrc/clash.cu", "packppi_tpu/ops/pallas_clash.py:132"),
-            ("clash_bwd", "packppi_torch/csrc/clash.cu", "packppi_tpu/ops/pallas_clash.py:272")):
+            ("clash_bwd", "packppi_torch/csrc/clash.cu", "packppi_tpu/ops/pallas_clash.py:272"),
+            ("attention", "packppi_torch/csrc/attention.cu",
+             "packppi_tpu/ops/pallas_attention.py:40")):
         # each kernel at its main path's dtype and larger pass (packing in
-        # bf16 at T1124, training in float32 at B = 4, L = 1,024); the clash
-        # kernels at T1124. Launches: the packing run's, and for the
-        # feature-message kernel the 20 training steps'
+        # bf16 at T1124, training in float32 at B = 4, L = 1,024, ESM-2 in
+        # float32 at T1124's 896 tokens); the clash kernels at T1124.
+        # Launches: the packing run's, for the feature-message kernel the 20
+        # training steps', for attention the cli.ddg --mode esm call's
         if name in clash_records:
             r = clash_records[name]
+        elif name == "attention":
+            r = attention_records[("attention", "float32", "T1124")]
         else:
             r = records[(name, "float32" if name == "message_feat" else "bfloat16", "edge")]
+        launches_main = {"message_feat": train_launches["message_feat"],
+                         "attention": attention_launches}.get(name, launches[name])
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": train_launches[name] if name == "message_feat" else launches[name],
+            "launches": launches_main,
             "launches_training": train_launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
-            "library_ms": None})
+            "library_ms": r.get("library_ms")})
+    log(f"whole script: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,0 +1,109 @@
+"""ESM-2 sequence embeddings for PackPPI-AP's ``esm`` mode.
+
+The reference embeds the complex's sequence with ESM-2 650M, chains joined
+by 20 ``<pad>`` tokens and optional ``<mask>`` tokens. Here the embedding
+runs on the port's ``models.esm2.ESM2`` from a local ``.pt`` file
+(``get_esm_extractor``): a HuggingFace-named ``EsmModel`` state dict beside
+the ``ESM2Config`` fields, as ``tools/convert_hf_esm_to_torch.py`` writes
+it from a local HuggingFace copy. Without such a file, embeddings are
+precomputed inputs (``load_precomputed``).
+"""
+from __future__ import annotations
+
+from pathlib import Path
+from typing import Optional, Union
+
+import numpy as np
+
+from packppi_torch.chem import RESTYPES
+
+ESM_DIM = 1280
+_PAD_RUN = 20
+
+
+def build_chain_separated_sequence(residue_types: np.ndarray,
+                                   chain_indices: np.ndarray,
+                                   mask_positions: Optional[np.ndarray] = None) -> str:
+    """Sequence string with '<pad>'*20 between chains and '<mask>' at masked
+    positions (the reference's format)."""
+    parts = []
+    uniq = sorted(set(int(c) for c in chain_indices))
+    for j, c in enumerate(uniq):
+        for i in np.flatnonzero(chain_indices == c):
+            if mask_positions is not None and mask_positions[i]:
+                parts.append("<mask>")
+            else:
+                idx = int(residue_types[i])
+                parts.append(RESTYPES[idx] if idx < len(RESTYPES) else "X")
+        if j != len(uniq) - 1:
+            parts.append("<pad>" * _PAD_RUN)
+    return "".join(parts)
+
+
+def chain_grouped_order(chain_indices: np.ndarray) -> np.ndarray:
+    """Residue indices in the order ``build_chain_separated_sequence`` emits
+    them (sorted chain ids, original order within a chain). Featurization
+    zeroes the chain id of residues with an incomplete backbone, so chain ids
+    need not be non-decreasing; this order maps the embeddings back."""
+    ci = np.asarray(chain_indices)
+    return np.concatenate([np.flatnonzero(ci == c) for c in sorted(set(int(x) for x in ci))])
+
+
+def residue_keep_indices(chain_indices: np.ndarray) -> np.ndarray:
+    """Token indices (after <cls> is stripped) of the residues of the
+    sequence ``build_chain_separated_sequence`` builds: each ``<pad>`` and
+    ``<mask>`` is one token, so the stream is chain 0, 20 pads, chain 1, ...,
+    the last chain, <eos>. (The reference keeps tokens ``[1 : L+1]``, which
+    misaligns every chain after the first; the JAX package and the port
+    drop the pads instead.)"""
+    keep: list[int] = []
+    uniq = sorted(set(int(c) for c in chain_indices))
+    pos = 0
+    for j, c in enumerate(uniq):
+        n = int((np.asarray(chain_indices) == c).sum())
+        keep.extend(range(pos, pos + n))
+        pos += n + (_PAD_RUN if j != len(uniq) - 1 else 0)
+    return np.asarray(keep, dtype=np.int64)
+
+
+def get_esm_extractor(path: Optional[Union[str, Path]], device="cuda"):
+    """A residue-embedding extractor over the ESM-2 weights of ``path`` on
+    ``device``; None when there is no such file.
+
+    ``extract(residue_types, chain_indices, mask_positions=None)`` ->
+    [L, hidden] float32 numpy, row i the embedding of residue i."""
+    if path is None or not Path(path).is_file():
+        return None
+    import torch
+
+    from packppi_torch.models.esm2 import ESM2, ESM2Config, make_extractor, tokenize
+    from packppi_torch.weights import load_esm_state_dict
+
+    blob = torch.load(path, map_location="cpu", weights_only=True)
+    with torch.device("meta"):               # no throwaway initialisation of the weights
+        model = ESM2(ESM2Config(**{**blob["config"], "attention_impl": "auto"}))
+    load_esm_state_dict(model, blob["state_dict"], assign=True)
+    run_tokens = make_extractor(model.to(device).eval())
+
+    def extract(residue_types, chain_indices, mask_positions=None):
+        seq = build_chain_separated_sequence(residue_types, chain_indices, mask_positions)
+        reps = run_tokens(tokenize(seq))[1:-1]          # drop cls/eos
+        # residues only (the pads between chains dropped), mapped back so
+        # row i is residue i whatever the order of the chain ids
+        keep = residue_keep_indices(chain_indices)
+        perm = chain_grouped_order(chain_indices)
+        out = np.empty((len(perm), reps.shape[-1]), np.float32)
+        out[perm] = reps[keep]
+        return out
+
+    return extract
+
+
+def load_precomputed(path: Union[str, Path], entry_key: str) -> Optional[dict]:
+    """Precomputed embeddings from ``<path>/<entry_key>.npz``: arrays keyed
+    'wt' and 'mut' ([L, 1280] each)."""
+    npz = Path(path) / f"{entry_key}.npz"
+    if npz.exists():
+        with np.load(npz) as z:
+            return {k: z[k].astype(np.float32) for k in z.files}
+    return None

@@ -1,4 +1,4 @@
-"""Packing-quality metrics (host-side numpy).
+"""Packing-quality and ddG metrics (host-side numpy).
 
 The chi accuracy and absolute-error definitions replicate the reference's,
 including the quirks that must stay for comparability: accuracy requires
@@ -12,6 +12,14 @@ import numpy as np
 
 def _np(a):
     return a.detach().cpu().numpy() if hasattr(a, "detach") else np.asarray(a)
+
+
+def spearman(p, y) -> float:
+    """Spearman's rho with average ranks for ties (SKEMPI's ddG labels are
+    heavily tied; distinct ranks for equal values would move the result)."""
+    from scipy.stats import rankdata
+
+    return float(np.corrcoef(rankdata(_np(p)), rankdata(_np(y)))[0, 1])
 
 
 def chi_metrics(sc_true, sc_pred, sc_mask, pi_periodic_mask,

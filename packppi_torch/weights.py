@@ -4,7 +4,10 @@ The port's parameter names are the reference checkpoint's (``encoder.*``,
 ``mpnn.mpnn_layers.N.*``, ``decoder_score.{0,2}.*``), so a reference state
 dict loads with ``load_state_dict(strict=True)``. ``from_flax_params`` maps
 the JAX package's flax parameter tree onto those names (the inverse of
-``tools/convert_checkpoint.py::convert_diffusion_state_dict``).
+``tools/convert_checkpoint.py::convert_diffusion_state_dict``), and
+``affinity_from_flax_params`` does the same for the affinity network.
+ESM-2's weights keep HuggingFace ``EsmModel``'s names
+(``esm_from_jax_params``, ``load_esm_state_dict``).
 """
 from __future__ import annotations
 
@@ -95,22 +98,11 @@ def _message_mlp(d, prefix, out, geom_dim):
     _linear(d["Dense_2"], f"{prefix}.W_out", out)
 
 
-def from_flax_params(tree: Mapping) -> dict[str, np.ndarray]:
-    """The JAX package's ``ChiScoreNetwork`` parameter tree (``{'params':
-    ...}`` or the inner dict, leaves as numpy arrays) -> a reference-named
-    state dict of numpy arrays."""
-    p = tree.get("params", tree)
-    out: dict[str, np.ndarray] = {}
-    enc = p["ProteinEncoder_0"]
-    _linear(enc["Dense_0"], "encoder.node_embedding", out)
-    _layernorm(enc["LayerNorm_0"], "encoder.norm_nodes", out)
-    _linear(enc["Dense_1"], "encoder.edge_embedding", out)
-    _layernorm(enc["LayerNorm_1"], "encoder.norm_edges", out)
-
-    stack = p["MessagePassingStack_0"]
+def _ipmp_stack(stack: Mapping, prefix: str, out) -> None:
+    """A flax ``MessagePassingStack`` -> ``{prefix}.mpnn_layers.N.*``."""
     for i in range(len(stack)):
         layer = stack[f"InvariantPointLayer_{i}"]
-        pre = f"mpnn.mpnn_layers.{i}"
+        pre = f"{prefix}.mpnn_layers.{i}"
         _linear(layer["Dense_0"], f"{pre}.points_fn_node", out)
         _linear(layer["Dense_1"], f"{pre}.points_fn_edge", out)
         geom_dim = 3 * np.asarray(layer["Dense_0"]["kernel"]).shape[1]  # 9P from 3P
@@ -121,6 +113,88 @@ def from_flax_params(tree: Mapping) -> dict[str, np.ndarray]:
         _mlp(layer["MLP_1"], f"{pre}.node_dense", out)
         _mlp(layer["MLP_3"], f"{pre}.edge_dense", out)
 
+
+def _encoder(enc: Mapping, prefix: str, out) -> None:
+    _linear(enc["Dense_0"], f"{prefix}.node_embedding", out)
+    _layernorm(enc["LayerNorm_0"], f"{prefix}.norm_nodes", out)
+    _linear(enc["Dense_1"], f"{prefix}.edge_embedding", out)
+    _layernorm(enc["LayerNorm_1"], f"{prefix}.norm_edges", out)
+
+
+def from_flax_params(tree: Mapping) -> dict[str, np.ndarray]:
+    """The JAX package's ``ChiScoreNetwork`` parameter tree (``{'params':
+    ...}`` or the inner dict, leaves as numpy arrays) -> a reference-named
+    state dict of numpy arrays."""
+    p = tree.get("params", tree)
+    out: dict[str, np.ndarray] = {}
+    _encoder(p["ProteinEncoder_0"], "encoder", out)
+    _ipmp_stack(p["MessagePassingStack_0"], "mpnn", out)
     _mlp(p["MLP_0"], "decoder_score.0", out)
     _mlp(p["MLP_1"], "decoder_score.2", out)
     return out
+
+
+def affinity_from_flax_params(tree: Mapping) -> dict[str, np.ndarray]:
+    """The JAX package's ``AffinityNet`` parameter tree -> the reference
+    ``AffinityPrediction`` names (``mutation_encoder.*``, ``mutation_mpnn.*``,
+    ``mutation_fusion.{0,2}.*``, ``seq_embedding.weight``, ``mut_bias.weight``,
+    ``ddg_predictor.{0,2,4}.*``): the inverse of
+    ``tools/convert_checkpoint.py::convert_affinity_state_dict``. In
+    ``linear`` and ``esm`` mode the tree holds the head alone."""
+    p = tree.get("params", tree)
+    out: dict[str, np.ndarray] = {}
+    if "mutation_encoder" in p:
+        _encoder(p["mutation_encoder"], "mutation_encoder", out)
+        _ipmp_stack(p["mutation_mpnn"], "mutation_mpnn", out)
+        for name in ("mut_bias", "seq_embedding"):
+            out[f"{name}.weight"] = np.asarray(p[name]["embedding"])
+        _linear(p["Dense_0"], "mutation_fusion.0", out)
+        _linear(p["Dense_1"], "mutation_fusion.2", out)
+    head = p["DdgHead_0"]
+    for i in range(3):
+        _linear(head[f"Dense_{i}"], f"ddg_predictor.{2 * i}", out)
+    return out
+
+
+# keys of a HuggingFace EsmModel state dict that the port's ESM2 has no use
+# for: the pooler and contact head (not run by extraction), the position-id
+# buffer (no absolute positions in ESM-2) and each layer's rotary frequency
+# buffer (the port builds its rotary tables from the head width)
+_ESM_UNUSED_PREFIXES = ("pooler.", "contact_head.")
+_ESM_UNUSED_KEYS = ("embeddings.position_ids",)
+_ESM_UNUSED_SUFFIXES = (".rotary_embeddings.inv_freq",)
+
+_ESM_LAYER_KEYS = (
+    ("wq", "bq", "attention.self.query"), ("wk", "bk", "attention.self.key"),
+    ("wv", "bv", "attention.self.value"), ("wo", "bo", "attention.output.dense"),
+    ("w1", "b1", "intermediate.dense"), ("w2", "b2", "output.dense"),
+    ("ln1_scale", "ln1_bias", "attention.LayerNorm"), ("ln2_scale", "ln2_bias", "LayerNorm"),
+)
+
+
+def esm_from_jax_params(params: Mapping) -> dict[str, np.ndarray]:
+    """The JAX package's stacked ESM-2 parameters (``convert_hf_esm``: linear
+    kernels [L, in, out], everything else [L, ...]) -> HuggingFace
+    ``EsmModel`` names with Linear weights [out, in]."""
+    out = {"embeddings.word_embeddings.weight": np.asarray(params["embedding"]),
+           "encoder.emb_layer_norm_after.weight": np.asarray(params["final_ln_scale"]),
+           "encoder.emb_layer_norm_after.bias": np.asarray(params["final_ln_bias"])}
+    layers = {k: np.asarray(v) for k, v in params["layers"].items()}
+    for i in range(layers["wq"].shape[0]):
+        for w, b, stem in _ESM_LAYER_KEYS:
+            weight = layers[w][i]
+            out[f"encoder.layer.{i}.{stem}.weight"] = (
+                np.ascontiguousarray(weight.T) if weight.ndim == 2 else weight)
+            out[f"encoder.layer.{i}.{stem}.bias"] = layers[b][i]
+    return out
+
+
+def load_esm_state_dict(module: nn.Module, sd: Mapping, assign: bool = False) -> None:
+    """Load a HuggingFace ``EsmModel`` state dict into the port's ``ESM2``
+    strictly: every parameter present, and no key left over but the unused
+    ones named above. ``assign`` makes the given float32 tensors the
+    module's parameters (a module built on the meta device)."""
+    used = {k: torch.as_tensor(v, dtype=torch.float32) for k, v in sd.items()
+            if not (k.startswith(_ESM_UNUSED_PREFIXES) or k in _ESM_UNUSED_KEYS
+                    or k.endswith(_ESM_UNUSED_SUFFIXES))}
+    module.load_state_dict(used, strict=True, assign=assign)

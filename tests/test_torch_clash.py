@@ -33,6 +33,13 @@ from conftest import FIXTURES, GOLDEN
 TOL = 0.5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _threads():
+    """xdist workers share the machine's cores: two torch threads each."""
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        torch.set_num_threads(min(2, torch.get_num_threads()))
+
+
 def _both_batches(name, padded=False):
     path = os.path.join(FIXTURES, name)
     f = featurize(from_pdb_file(path, mse_to_met=True))

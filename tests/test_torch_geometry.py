@@ -20,6 +20,13 @@ from packppi_torch.structure.featurize import bb_dihedrals
 from conftest import FIXTURES, GOLDEN
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _threads():
+    """xdist workers share the machine's cores: two torch threads each."""
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        torch.set_num_threads(min(2, torch.get_num_threads()))
+
+
 @pytest.fixture(scope="module")
 def t1124():
     return featurize(from_pdb_file(os.path.join(FIXTURES, "t1124.pdb"), mse_to_met=True))

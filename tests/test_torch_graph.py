@@ -17,6 +17,13 @@ from packppi_torch.structure import featurize, from_pdb_file
 from conftest import FIXTURES
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _threads():
+    """xdist workers share the machine's cores: two torch threads each."""
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        torch.set_num_threads(min(2, torch.get_num_threads()))
+
+
 @pytest.fixture(scope="module")
 def batch():
     feats = [featurize(from_pdb_file(os.path.join(FIXTURES, n), mse_to_met=True))

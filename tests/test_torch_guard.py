@@ -19,14 +19,16 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "packppi_tpu"))
 print(len(names), bad)
 assert not bad, bad
-assert len(names) >= 32, names
+assert len(names) >= 53, names
 for n in ("packppi_torch.ops.clash", "packppi_torch.sampling.proximal", "packppi_torch.cli.prox",
           "packppi_torch.ops.message_feat", "packppi_torch.train.loop",
           "packppi_torch.train.diffusion_task", "packppi_torch.train.checkpoints",
           "packppi_torch.data.complex", "packppi_torch.data.loader", "packppi_torch.data.crops",
           "packppi_torch.utils.config", "packppi_torch.utils.logging",
           "packppi_torch.utils.metrics", "packppi_torch.cli._runner",
-          "packppi_torch.cli.train_diffusion"):
+          "packppi_torch.cli.train_diffusion", "packppi_torch.ops.attention",
+          "packppi_torch.models.esm2", "packppi_torch.models.affinity", "packppi_torch.data.esm",
+          "packppi_torch.data.skempi", "packppi_torch.cli.ddg"):
     assert n in names, n
 """
 

@@ -302,3 +302,49 @@ def test_clash_kernel_refuses_what_it_does_not_take(cuda):
         between_residue_clash(ops[0].double(), *ops[1:], 0.5)
     with pytest.raises(ValueError, match="contiguous"):
         between_residue_clash(ops[0].transpose(0, 1).contiguous().transpose(0, 1), *ops[1:], 0.5)
+
+
+def _mha_operands(device, dtype, B, H, T, D, pad=5, seed=8):
+    """q scaled by D^-0.5 as ESM-2 scales it; the last ``pad`` keys padded."""
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn(B, H, T, D, generator=g) for _ in range(3))
+    bias = torch.zeros(B, T)
+    bias[:, T - pad:] = -1e9
+    return (*(t.to(dtype).to(device).contiguous() for t in (q * D ** -0.5, k, v)),
+            bias.to(device))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(1, 3, 763, 64), (2, 2, 100, 16), (1, 2, 37, 32),
+                                   (1, 1, 200, 128)], ids=["ragged", "d16", "short", "d128"])
+def test_mha_kernel_matches_plain(cuda, dtype, shape):
+    """float32: max |d| <= 1e-5; bf16: the limits of the other kernels,
+    relative to max|ref|."""
+    from packppi_torch.ops.attention import mha, mha_plain
+
+    ops = _mha_operands(cuda, dtype, *shape)
+    before = mha.launches
+    got = mha(*ops)
+    torch.cuda.synchronize()
+    assert mha.launches == before + 1 and got.dtype == torch.float32
+    want = mha_plain(*ops)
+    if dtype == torch.float32:
+        assert (got - want).abs().max().item() <= 1e-5
+    else:
+        _close(got, want, dtype)
+    assert torch.equal(got, mha(*ops))
+
+
+def test_mha_kernel_refuses_what_it_does_not_take(cuda):
+    from packppi_torch.ops.attention import mha
+
+    q, k, v, bias = _mha_operands(cuda, torch.float32, 1, 2, 40, 48)
+    with pytest.raises(ValueError, match="head width"):
+        mha(q, k, v, bias)
+    q, k, v, bias = _mha_operands(cuda, torch.float32, 1, 2, 40, 64)
+    with pytest.raises(TypeError, match="bfloat16"):
+        mha(q.half(), k.half(), v.half(), bias)
+    with pytest.raises(TypeError, match="key_bias"):
+        mha(q, k, v, bias.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        mha(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, bias)

@@ -49,6 +49,13 @@ H, P, K, L = 128, 8, 16, 40
 BF16_MAX_REL, BF16_MEAN_REL = 2.0 ** -6, 2.0 ** -16
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _threads():
+    """xdist workers share the machine's cores: two torch threads each."""
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        torch.set_num_threads(min(2, torch.get_num_threads()))
+
+
 @pytest.fixture(scope="module")
 def case():
     """Real backbone frames and kNN graph of 40 residues of 1BRS; node and

@@ -26,6 +26,13 @@ from convert_checkpoint import convert_diffusion_state_dict  # noqa: E402
 NETWORK_GOLDEN = os.path.join(GOLDEN, "network_golden.npz")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _threads():
+    """xdist workers share the machine's cores: two torch threads each."""
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        torch.set_num_threads(min(2, torch.get_num_threads()))
+
+
 @pytest.fixture(scope="module")
 def feats():
     return featurize(from_pdb_file(os.path.join(FIXTURES, "1brs.pdb"), chain_id="D",

@@ -7,6 +7,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from packppi_torch.cli.pack import build_parser, run
 from packppi_torch.structure import from_pdb_file
@@ -15,6 +16,13 @@ from conftest import FIXTURES, GOLDEN
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
 PDB = os.path.join(FIXTURES, "1brs.pdb")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _threads():
+    """xdist workers share the machine's cores: two torch threads each."""
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        torch.set_num_threads(min(2, torch.get_num_threads()))
 
 
 @pytest.mark.parametrize("precision", ["float32", "bfloat16"])

@@ -18,6 +18,13 @@ from conftest import FIXTURES, GOLDEN
 PIPELINE_GOLDEN = os.path.join(GOLDEN, "pipeline_golden.npz")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _threads():
+    """xdist workers share the machine's cores: two torch threads each."""
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        torch.set_num_threads(min(2, torch.get_num_threads()))
+
+
 def _wrapdiff(a, b):
     d = np.abs(a - b)
     return np.minimum(d, 2 * np.pi - d)

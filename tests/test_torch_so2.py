@@ -36,6 +36,33 @@ from conftest import GOLDEN
 PERIODS = [("pi", True), ("2pi", False)]
 
 
+def _settle_jax_table_cache():
+    """Put the JAX package's two SO(2) table files in place before any test
+    runs. That package writes a missing file where it reads it, so under
+    xdist a JAX test in one worker could read a file another worker was
+    still writing (``BadZipFile``, ``EOFError``). Every worker imports this
+    module while collecting, before the first test: one at a time, under a
+    lock, a worker builds each missing file as the JAX package would write
+    it and renames it into place; the others then find it complete."""
+    import fcntl
+
+    cache = jax_so2._cache_dir()
+    with open(cache / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        for PI in (np.pi / 2, np.pi):
+            path = cache / f"so2_{PI:.6f}.npz"
+            if path.exists():
+                continue
+            p, s, sn = jax_so2._build_tables(PI)
+            part = path.with_name(f"{path.name}.{os.getpid()}.part")
+            with open(part, "wb") as f:
+                np.savez_compressed(f, p=p, score=s, score_norm=sn)
+            os.replace(part, path)
+
+
+_settle_jax_table_cache()
+
+
 @pytest.fixture(scope="module", autouse=True)
 def _table_cache(tmp_path_factory):
     """The port's tables are cached under pytest's temporary directory, one
@@ -50,16 +77,8 @@ def _table_cache(tmp_path_factory):
 
 
 def jax_tables(PI):
-    """The JAX package's tables without writing its cache: that cache is
-    written in place, so a reader in another test process could meet half a
-    file. A complete file is read; anything else is built in memory."""
-    path = jax_so2._cache_dir() / f"so2_{PI:.6f}.npz"
-    if path.exists():
-        try:
-            return JaxTables.build(PI)
-        except Exception:  # noqa: BLE001 (a file another process is still writing)
-            pass
-    return JaxTables.build(PI, cache=False)
+    """The JAX package's tables, read from the files put in place above."""
+    return JaxTables.build(PI)
 
 
 def jax_schedule(pi_periodic, **kw):

@@ -19,6 +19,13 @@ from conftest import FIXTURES
 PDBS = ["1brs.pdb", "2ftl.pdb", "t1124.pdb"]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _threads():
+    """xdist workers share the machine's cores: two torch threads each."""
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        torch.set_num_threads(min(2, torch.get_num_threads()))
+
+
 @pytest.fixture(scope="module")
 def parsed():
     """(port, JAX package) parses; the JAX side on its pure-Python parser,
