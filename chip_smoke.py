@@ -9,7 +9,7 @@ fatal on failure:
 
 1. versions: Python, torch, CUDA, nvcc, the card's name and power limit,
    and a content hash of the code (``packppi_torch/`` and this script);
-2. build: every kernel of ``packppi_torch/csrc`` (five sources) with nvcc
+2. build: every kernel of ``packppi_torch/csrc`` (six sources) with nvcc
    for sm_90a, one nvcc per source, all started together;
 3. kernels: each kernel against its plain PyTorch version on the card, on
    the T1124 complex's real graph and activations (L=768, K=32, H=128;
@@ -33,10 +33,20 @@ fatal on failure:
    shapes (H = 20, D = 64): T1124's T = 896, T = 768, B = 2 at T = 763 and
    T = 2,048, float32 (max |d| <= 1e-5) and bf16 with the two controls (the
    weights left unrounded; one query tile zeroed), bit for bit across two
-   launches, timed beside ``scaled_dot_product_attention``;
+   launches, timed beside ``scaled_dot_product_attention``. The five
+   kernels of the variant routings (``message_geom``, ``message_gather``,
+   ``message_chain``, ``layer_node``, ``layer_edge``) run on T1124's graph
+   and activations, node and edge, float32 and bf16 with the two controls,
+   timed beside their plain versions; the gathered-operand and
+   in-kernel-gather routes are held against the message kernel, the folded
+   edge pass against message then chain (bit for bit), the node pass at
+   2, 4, 8 and 16 nodes a block (bit for bit); the gather route at 11 x
+   T1124 (L = 8,151), the fold at K = 24, the layer passes at L = 741;
 4. golden replay: the 1BRS float32 30-step trajectory through the kernels
    against the reference's ``tests/golden/pipeline_golden.npz`` (5e-4
-   rad), and its 50-step proximal refinement (mask exact, losses 1e-4,
+   rad), again under each variant routing (``geom``, ``geom_gather``, the
+   folded edge chain, ``fused_layers``, local geometry) with its launch
+   counts, and its 50-step proximal refinement (mask exact, losses 1e-4,
    chis 5e-4 rad, accept equal);
 5. the full-length float32 T1124 edge features and network evaluation on
    the card against the same on the CPU;
@@ -44,7 +54,12 @@ fatal on failure:
    with the reference weights of ``pipeline_golden.npz``, with its time,
    peak memory and kernel launch counts (5 of each kernel per step); the
    same with ``--use_proximal`` (51 clash forward and 50 gradient
-   launches more); and ``cli.prox`` on T1124's own side chains;
+   launches more); and ``cli.prox`` on T1124's own side chains; the bf16
+   T1124 pack under each variant routing (``TorsionalDiffusion.sample``
+   for the four kernel routings, ``cli.pack --geometry local``) with launch
+   counts, sampling seconds (median of five more), peak memory and a
+   profile of one network evaluation, and each routing's float32 T1124
+   network evaluation against the default routing's (1e-4);
 7. more bf16 T1124 samplings and proximal refinements for the latency
    distributions, and profiles of one network evaluation and of one Adam
    step of the refinement (device time by kernel, idle share);
@@ -106,7 +121,7 @@ STEPS = 30
 CLASH_FWD_TOL, CLASH_GRAD_TOL = 1e-5, 2e-5
 CLASH_TOL_SOFT = 0.5                    # sc_violation_loss's overlap tolerance
 PROX_STEPS = 50
-SOURCES = ("message", "message_feat", "chain", "clash", "attention")
+SOURCES = ("message", "message_feat", "chain", "clash", "attention", "layer")
 # the training shape: 4 copies of T1124 padded to 1,024 residues (131,072 edge rows)
 TRAIN_B, TRAIN_L = 4, 1024
 # the two differentiable passes: each gradient against autograd through the
@@ -820,7 +835,7 @@ def phase_network_vs_cpu(torch):
         sc = nets["cpu"][1].SC_D + torch.randn(nets["cpu"][1].SC_D.shape, generator=g)
         results = {}
         for d, (net, batch) in nets.items():
-            static = StaticGraph(*(t.to(d) for t in statics["cpu"]))
+            static = StaticGraph(*(t.to(d) for t in statics["cpu"][:3]))
             t = torch.full(batch.residue_mask.shape, 0.5, device=d)
             score, h = net(batch, sc.to(d), t, static=static, skip_last_edge_update=True)
             results[d] = (score.cpu(), h.cpu())
@@ -832,27 +847,36 @@ def phase_network_vs_cpu(torch):
         fail("card and CPU networks disagree")
 
 
-def zero_launches():
+def launch_counters():
+    """name -> (object, attribute) of every kernel's launch count."""
     from packppi_torch.ops.attention import mha
     from packppi_torch.ops.chain import chain
     from packppi_torch.ops.clash import between_residue_clash as brc
-    from packppi_torch.ops.message import message
+    from packppi_torch.ops.layer import layer_edge, layer_node
+    from packppi_torch.ops.message import message, message_chain, message_gather, message_geom
     from packppi_torch.ops.message_feat import message_feat
 
-    message.launches = message_feat.launches = chain.launches = mha.launches = 0
-    brc.launches_fwd = brc.launches_bwd = 0
+    return {"message": (message, "launches"), "message_feat": (message_feat, "launches"),
+            "chain": (chain, "launches"), "clash_fwd": (brc, "launches_fwd"),
+            "clash_bwd": (brc, "launches_bwd"), "attention": (mha, "launches"),
+            "message_geom": (message_geom, "launches"),
+            "message_gather": (message_gather, "launches"),
+            "message_chain": (message_chain, "launches"),
+            "layer_node": (layer_node, "launches"), "layer_edge": (layer_edge, "launches")}
+
+
+def zero_launches():
+    for obj, attr in launch_counters().values():
+        setattr(obj, attr, 0)
 
 
 def read_launches():
-    from packppi_torch.ops.attention import mha
-    from packppi_torch.ops.chain import chain
-    from packppi_torch.ops.clash import between_residue_clash as brc
-    from packppi_torch.ops.message import message
-    from packppi_torch.ops.message_feat import message_feat
+    return {name: getattr(obj, attr) for name, (obj, attr) in launch_counters().items()}
 
-    return {"message": message.launches, "message_feat": message_feat.launches,
-            "chain": chain.launches, "clash_fwd": brc.launches_fwd,
-            "clash_bwd": brc.launches_bwd, "attention": mha.launches}
+
+def expect_launches(**counts):
+    """Every kernel's expected count: the given ones, 0 for the rest."""
+    return {name: counts.get(name, 0) for name in launch_counters()}
 
 
 def check_structure(outdir):
@@ -877,8 +901,7 @@ def phase_pack(torch):
 
     common = ["--input", str(T1124), "--ckpt", str(PIPELINE_GOLDEN), "--precision", "bfloat16",
               "--n_steps", str(STEPS), "--seed", "0"]
-    expect = {"message": 5 * STEPS, "message_feat": 0, "chain": 5 * STEPS, "clash_fwd": 0,
-              "clash_bwd": 0, "attention": 0}
+    expect = expect_launches(message=5 * STEPS, chain=5 * STEPS)
     launches = None
     for name, extra in (("pack_t1124", []), ("pack_prox_t1124", ["--use_proximal"])):
         args = pack.build_parser().parse_args(common + ["--outdir", str(OUT / name)] + extra)
@@ -911,8 +934,7 @@ def phase_pack(torch):
     log(f"prox T1124 (input's own side chains, {PROX_STEPS} steps): "
         f"{result['optimize_seconds']:.4f} s, objective {result['objective_initial']:.6f} -> "
         f"{result['objective_final']:.6f}, accepted {result['accepted']}, launches {got}")
-    if got != {"message": 0, "message_feat": 0, "chain": 0, "clash_fwd": PROX_STEPS + 1,
-               "clash_bwd": PROX_STEPS, "attention": 0}:
+    if got != expect_launches(clash_fwd=PROX_STEPS + 1, clash_bwd=PROX_STEPS):
         fail(f"prox: launches {got}")
     check_structure(OUT / "prox_t1124")
     return launches
@@ -1587,6 +1609,362 @@ def phase_ddg_eval(torch):
         fail("cli.ddg --eval_csv disagrees with the JAX package's predictions")
 
 
+# The variant routings of the packing network: kernel rows 4 (message_geom),
+# 5 (message_gather), 1b (message_chain) and 6 (layer_node, layer_edge), and
+# local geometry (message_feat over local features)
+MESSAGE_OPS_PER_ROW = 2 * (128 + 72 + 2 * 128) * 128   # 116,736 per edge row
+CHAIN_OPS_PER_ROW = 2 * 2 * 128 * 512                  # 262,144 per chain row
+# name -> (NetworkConfig fields, FOLD_EDGE_CHAIN, launches per network
+# evaluation with the last edge pass skipped: 3 node and 2 edge passes)
+VARIANTS = {
+    "geom": (dict(fused_messages="geom"), False, dict(message_geom=5, chain=5)),
+    "geom_gather": (dict(fused_messages="geom_gather"), False, dict(message_gather=5, chain=5)),
+    "fold": ({}, True, dict(message=3, chain=3, message_chain=2)),
+    "fused_layers": (dict(fused_layers=True), False, dict(layer_node=3, layer_edge=2)),
+    "local": (dict(fused_messages=True, geometry_mode="local"), False,
+              dict(message_feat=5, chain=5)),
+}
+NODE_BLOCK_SWEEP = (2, 4, 8, 16)
+
+
+class folded_edge_chain:
+    """``packppi_torch.models.ipmp.FOLD_EDGE_CHAIN`` set for a ``with`` block."""
+
+    def __init__(self, on):
+        self.on = on
+
+    def __enter__(self):
+        import packppi_torch.models.ipmp as ipmp
+
+        self.prev, ipmp.FOLD_EDGE_CHAIN = ipmp.FOLD_EDGE_CHAIN, self.on
+
+    def __exit__(self, *exc):
+        import packppi_torch.models.ipmp as ipmp
+
+        ipmp.FOLD_EDGE_CHAIN = self.prev
+
+
+def variant_cases(static, h_V, layer, frames, mask_V):
+    """(kernel, variant, kernel fn, plain fn, operands, rows of a first
+    block, edge rows of messages, chain rows) for the five new kernels on
+    layer 0 of the network."""
+    from packppi_torch.models.ipmp import chain_weights
+    from packppi_torch.ops.layer import (NODES_PER_BLOCK, layer_edge, layer_edge_plain,
+                                         layer_node, layer_node_plain)
+    from packppi_torch.ops.message import (message_chain, message_chain_plain, message_gather,
+                                           message_geom, message_geom_plain, message_plain)
+
+    K = static.idx.shape[-1]
+    edge_rows = static.idx.numel()
+    node_rows = h_V.shape[0] * h_V.shape[1]
+    cases = []
+    for variant, pool, mlp, pts in (("node", True, layer.node_message_fn, layer.points_fn_node),
+                                    ("edge", False, layer.edge_message_fn, layer.points_fn_edge)):
+        args = (h_V, static.h_E, static.idx, layer._points(pts, h_V), frames, static.mask_attend)
+        first = ROWS_PER_BLOCK // K if pool else ROWS_PER_BLOCK
+        bind = lambda f, pool=pool: (lambda *o: f(*o, pool))
+        cases.append(("message_geom", variant, bind(message_geom), bind(message_geom_plain),
+                      mlp.geom_operands(*args), first, edge_rows, 0))
+        cases.append(("message_gather", variant, bind(message_gather), bind(message_plain),
+                      mlp.operands(*args), first, edge_rows, 0))
+        feat = mlp.feat_operands(*args)
+        per_i, pjg, h_E, geom, mask, *msg_w = feat
+        if pool:
+            cw = chain_weights(layer.norm[0], layer.node_dense, layer.norm[1])
+            cases.append(("layer_node", variant, layer_node, layer_node_plain,
+                          (h_V, per_i, pjg, h_E, geom, mask, mask_V, *msg_w, *cw),
+                          NODES_PER_BLOCK, edge_rows, node_rows))
+        else:
+            cw = chain_weights(layer.norm[2], layer.edge_dense, layer.norm[3])
+            cases.append(("message_chain", variant, message_chain, message_chain_plain,
+                          (*mlp.operands(*args), *cw), first, edge_rows, edge_rows))
+            cases.append(("layer_edge", variant, layer_edge, layer_edge_plain,
+                          (h_E, per_i, pjg, geom, mask, *msg_w, *cw), first, edge_rows,
+                          edge_rows))
+    return cases
+
+
+def check_variant(torch, name, fn, plain, ops, first, dtype_name):
+    """One new kernel against its plain version (and, in bf16, the two
+    controls); returns (output, max |d|)."""
+    got = fn(*ops)
+    torch.cuda.synchronize()
+    want = plain(*ops)
+    err = check_close(f"{name} {tuple(got.shape)}", got, want, dtype_name)
+    if dtype_name == "bfloat16":
+        check_controls(name, got, want, plain(*upcast(ops)).to(got.dtype), first)
+    return got, err
+
+
+def check_same_function(torch, name, got, other, dtype_name):
+    """Two kernels that compute one function: within the kernel tolerance,
+    and whether they agree bit for bit."""
+    check_close(name, got, other, dtype_name)
+    log(f"    bit for bit: {torch.equal(got, other)}")
+
+
+def eleven_copies_batch(torch, copies=11):
+    """One structure of ``copies`` T1124s laid 120 A apart along x, residue
+    indices offset (L = 8,151 for 11), on the card."""
+    import numpy as np
+
+    from packppi_torch.data import stack_batch
+    from packppi_torch.structure import featurize, from_pdb_file
+
+    f = featurize(from_pdb_file(T1124, mse_to_met=True))
+    stride = int(f["residue_index"].max()) + 100
+    big = {}
+    for k, v in f.items():
+        parts = [v] * copies
+        if k == "X":
+            parts = [v + np.array([120.0 * c, 0, 0], v.dtype) for c in range(copies)]
+        elif k == "residue_index":
+            parts = [v + stride * c for c in range(copies)]
+        big[k] = np.concatenate(parts, 0)
+    L = len(big["residue_type"])
+    return stack_batch([big], "cuda", target_len=L)
+
+
+def phase_variant_kernels(torch, timer):
+    """The five new kernels against their plain versions on T1124's real graph
+    and activations (L = 768, K = 32), node and edge, float32 and bf16 with
+    the two controls, timed beside the plain versions; the gathered-operand
+    and in-kernel-gather routes against the lanes kernel, the folded edge
+    pass against message-then-chain; the node pass's blocking swept; the
+    gather route at 8,151 residues, the fold at K = 24, the layer passes at
+    L = 741. Returns the records."""
+    from packppi_torch.models.ipmp import chain_operands
+    from packppi_torch.ops.chain import chain
+    from packppi_torch.ops.layer import layer_node
+    from packppi_torch.ops.message import message, message_gather, message_plain
+
+    records = {}
+    for dtype_name in ("float32", "bfloat16"):
+        net, batch = t1124_network(torch, dtype_name, "cuda")
+        with torch.no_grad():
+            static, h_V, layer, frames = layer0_state(torch, net, batch)
+            for name, variant, fn, plain, ops, first, erows, crows in variant_cases(
+                    static, h_V, layer, frames, batch.residue_mask):
+                label = f"{name} {variant} {dtype_name}"
+                got, err = check_variant(torch, label, fn, plain, ops, first, dtype_name)
+                if name in ("message_geom", "message_gather"):
+                    mlp = layer.node_message_fn if variant == "node" else layer.edge_message_fn
+                    lanes = message(*mlp.operands(*message_args(static, h_V, layer, frames,
+                                                                variant)), variant == "node")
+                    check_same_function(torch, f"  {label} against the message kernel", got,
+                                        lanes, dtype_name)
+                if name == "message_chain":
+                    msg = message(*ops[:15], False)
+                    two = chain(*chain_operands(static.h_E, msg, static.mask_attend,
+                                                layer.norm[2], layer.edge_dense, layer.norm[3]),
+                                True).reshape(got.shape)
+                    check_same_function(torch, f"  {label} against message then chain", got, two,
+                                        dtype_name)
+                nb = sum(_nbytes(t) for t in ops) + _nbytes(got)
+                no = MESSAGE_OPS_PER_ROW * erows + CHAIN_OPS_PER_ROW * crows
+                records[(name, dtype_name, variant)] = dict(
+                    max_abs_err=err, ms=timer(lambda: fn(*ops)),
+                    plain_ms=timer(lambda: plain(*ops), 5),
+                    bound=bound_ms(nb, no, dtype_name), bytes=nb, operations=no)
+                if name == "layer_node" and dtype_name == "bfloat16":
+                    for npb in NODE_BLOCK_SWEEP:
+                        alt = layer_node(*ops, nodes_per_block=npb)
+                        same = torch.equal(alt, got)
+                        log(f"    layer_node bf16, {npb} nodes a block: "
+                            f"{timer(lambda: layer_node(*ops, nodes_per_block=npb)):.4f} ms, "
+                            f"equal to the default bit for bit: {same}")
+                        if not same:
+                            fail("layer_node's result depends on its blocking")
+
+    # the gather route at 8,151 residues (where the TPU's one-hot does not fit)
+    net, _ = t1124_network(torch, "bfloat16", "cuda")
+    big = eleven_copies_batch(torch)
+    with torch.no_grad():
+        static, h_V, layer, frames = layer0_state(torch, net, big)
+        for variant, mlp, pool in (("node", layer.node_message_fn, True),
+                                   ("edge", layer.edge_message_fn, False)):
+            ops = mlp.operands(*message_args(static, h_V, layer, frames, variant))
+            got = message_gather(*ops, pool)
+            torch.cuda.synchronize()
+            check_close(f"message_gather {variant} bf16 11xT1124 {tuple(got.shape)}", got,
+                        message_plain(*ops, pool), "bfloat16")
+            log(f"    time: kernel {timer(lambda: message_gather(*ops, pool)):.4f} ms")
+        del static, h_V
+
+        # the fold at K = 24 (no multiple of the 64-row tile), and the layer
+        # passes at a length their node block does not divide
+        for dtype_name in ("float32", "bfloat16"):
+            net, batch = t1124_network(torch, dtype_name, "cuda")
+            static, h_V, layer, frames = layer0_state(torch, net, batch)
+            k24 = static._replace(h_E=static.h_E[:, :, :24].contiguous(),
+                                  idx=static.idx[:, :, :24].contiguous(),
+                                  mask_attend=static.mask_attend[:, :, :24].contiguous())
+            for name, variant, fn, plain, ops, first, _, _ in variant_cases(
+                    k24, h_V, layer, frames, batch.residue_mask):
+                if name == "message_chain":
+                    check_variant(torch, f"{name} {dtype_name} K=24", fn, plain, ops, first,
+                                  dtype_name)
+            b741 = t1124_train_batch("cuda", 1, 741)
+            static, h_V, layer, frames = layer0_state(torch, net, b741)
+            for name, variant, fn, plain, ops, first, _, _ in variant_cases(
+                    static, h_V, layer, frames, b741.residue_mask):
+                if name.startswith("layer_"):
+                    check_variant(torch, f"{name} {dtype_name} L=741", fn, plain, ops, first,
+                                  dtype_name)
+    for (k, d, v), r in records.items():
+        log(f"  time {k} {v} {d} T1124: kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
+            f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]}; {r['bytes']} bytes, "
+            f"{r['operations']} operations)")
+    return records
+
+
+def message_args(static, h_V, layer, frames, variant):
+    pts = layer.points_fn_node if variant == "node" else layer.points_fn_edge
+    return (h_V, static.h_E, static.idx, layer._points(pts, h_V), frames, static.mask_attend)
+
+
+def variant_model(torch, name, dtype_name, weights=PIPELINE_GOLDEN):
+    from packppi_torch.models import NetworkConfig, TorsionalDiffusion
+    from packppi_torch.weights import load_weights
+
+    model = TorsionalDiffusion(NetworkConfig(compute_dtype=dtype_name, **VARIANTS[name][0]))
+    load_weights(model.net, weights)
+    return model.to("cuda")
+
+
+def phase_golden_variants(torch):
+    """The 1BRS float32 30-step golden replay under each variant routing,
+    with its launch counts (5 network passes a step)."""
+    import numpy as np
+
+    from packppi_torch.data import stack_batch
+    from packppi_torch.structure import featurize, from_pdb_file
+
+    golden = np.load(PIPELINE_GOLDEN)
+    feats = featurize(from_pdb_file(ONE_BRS, mse_to_met=True))
+    batch = stack_batch([feats], "cuda", target_len=len(feats["residue_type"]))
+    mask = batch.SC_D_mask[0].cpu().numpy() > 0
+    wrap = lambda d: np.minimum(np.abs(d), 2 * np.pi - np.abs(d))
+    for name, (_, fold, per_eval) in VARIANTS.items():
+        model = variant_model(torch, name, "float32")
+        zero_launches()
+        with folded_edge_chain(fold):
+            sc, traj = model.sample(batch, init_sc=golden["init_sc"], return_trajectory=True)
+        got = read_launches()
+        expect = expect_launches(**{k: v * STEPS for k, v in per_eval.items()})
+        worst = max(wrap(traj[s, 0].cpu().numpy() - golden["traj"][s, 0])[mask].max()
+                    for s in range(STEPS))
+        final = wrap(sc[0].cpu().numpy() - golden["final_sc"][0])[mask].max()
+        log(f"golden replay {name} (1BRS, float32, {STEPS} steps): worst step {worst:.3e} rad, "
+            f"final {final:.3e} rad (bound 5e-4); launches "
+            f"{ {k: v for k, v in got.items() if v} }")
+        if got != expect:
+            fail(f"golden replay {name}: launches {got}, expected {expect}")
+        if not (worst < 5e-4 and final < 5e-4):
+            fail(f"golden replay {name} out of tolerance")
+
+
+def phase_pack_variants(torch, reps=5):
+    """The bf16 T1124 30-step pack under each variant routing: through
+    ``TorsionalDiffusion.sample`` (the function ``cli.pack`` calls) for the
+    four kernel routings and through ``cli.pack --geometry local`` for local
+    geometry; launch counts asserted, the sampling seconds (median of
+    ``reps`` more), peak memory, a profile of one network evaluation; and
+    each routing's float32 T1124 network evaluation against the default
+    one's. Returns the main run's launches per routing."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from packppi_torch.cli import pack
+    from packppi_torch.data import stack_batch
+    from packppi_torch.structure import featurize, from_pdb_file
+
+    batch = stack_batch([featurize(from_pdb_file(T1124, mse_to_met=True))], "cuda")
+    launches = {}
+    for name, (_, fold, per_eval) in VARIANTS.items():
+        model = variant_model(torch, name, "bfloat16")
+        with folded_edge_chain(fold):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero_launches()
+            if name == "local":
+                args = pack.build_parser().parse_args([
+                    "--input", str(T1124), "--ckpt", str(PIPELINE_GOLDEN), "--precision",
+                    "bfloat16", "--n_steps", str(STEPS), "--seed", "0", "--geometry", "local",
+                    "--outdir", str(OUT / "pack_t1124_local")])
+                first = pack.run(args)["sampling_seconds"]
+            else:
+                g = torch.Generator(device="cuda").manual_seed(0)
+                t0 = time.perf_counter()
+                sc = model.sample(batch, g, n_steps=STEPS)
+                torch.cuda.synchronize()
+                first = time.perf_counter() - t0
+                if not bool(torch.isfinite(sc).all()):
+                    fail(f"pack {name}: non-finite chis")
+            got = read_launches()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 20
+            launches[name] = got
+            expect = expect_launches(**{k: v * STEPS for k, v in per_eval.items()})
+            if got != expect:
+                fail(f"pack {name}: launches {got}, expected {expect}")
+            if name == "local":
+                check_structure(OUT / "pack_t1124_local")
+            times = []
+            for seed in range(reps):
+                g = torch.Generator(device="cuda").manual_seed(seed)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                model.sample(batch, g, n_steps=STEPS)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            q = np.percentile(times, [0, 25, 50, 75, 100])
+            log(f"pack T1124 bf16 {STEPS} steps, {name}: first {first:.4f} s; {reps} more: "
+                f"median {q[2]:.4f} s, quartiles {q[1]:.4f}-{q[3]:.4f}, min {q[0]:.4f}, max "
+                f"{q[4]:.4f}; peak memory {peak:.1f} MiB; launches "
+                f"{ {k: v for k, v in got.items() if v} }")
+
+            net = model.net
+            with torch.no_grad():
+                static = net.encode_static(batch)
+                t = torch.full(batch.residue_mask.shape, 0.5, device="cuda")
+                evaluate = lambda: net(batch, batch.SC_D, t, static=static,
+                                       skip_last_edge_update=True)
+                for _ in range(3):
+                    evaluate()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(10):
+                    evaluate()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) / 10 * 1e3
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    for _ in range(10):
+                        evaluate()
+                    torch.cuda.synchronize()
+            report_profile(f"bf16 T1124 network evaluation, {name}", prof, wall_ms, 10, "eval")
+
+    # float32: each routing's evaluation against the default routing's
+    g = torch.Generator().manual_seed(0)
+    sc = (batch.SC_D.cpu() + torch.randn(batch.SC_D.shape, generator=g)).cuda()
+    t = torch.full(batch.residue_mask.shape, 0.5, device="cuda")
+    with torch.no_grad():
+        ref_net, _ = t1124_network(torch, "float32", "cuda")
+        static = ref_net.encode_static(batch)
+        s_ref, h_ref = ref_net(batch, sc, t, static=static, skip_last_edge_update=True)
+        for name, (_, fold, _) in VARIANTS.items():
+            net = variant_model(torch, name, "float32").net
+            with folded_edge_chain(fold):
+                s, h = net(batch, sc, t, static=net.encode_static(batch),
+                           skip_last_edge_update=True)
+            ds = (s - s_ref).abs().max().item()
+            dh = (h - h_ref).abs().max().item()
+            log(f"T1124 float32 network, {name} against geom_lanes: score max|d| {ds:.3e}, "
+                f"h_V max|d| {dh:.3e} (bound 1e-4)")
+            if not (ds <= 1e-4 and dh <= 1e-4):
+                fail(f"the {name} network disagrees with the default routing")
+    return launches
+
+
 def main():
     import torch
 
@@ -1602,13 +1980,16 @@ def main():
     timer = Timer(torch)
     records = phase_kernels(torch, timer)
     records.update(phase_message_feat(torch, timer))
+    records.update(phase_variant_kernels(torch, timer))
     phase_function_grads(torch)
     clash_records = phase_clash_kernels(torch, timer)
     attention_records = phase_attention(torch, timer)
     phase_golden(torch)
+    phase_golden_variants(torch)
     phase_prox_golden(torch)
     phase_network_vs_cpu(torch)
     launches = phase_pack(torch)
+    variant_launches = phase_pack_variants(torch)
     sc = phase_latency(torch)
     phase_profile(torch, sc)
     phase_loss_grads(torch)
@@ -1629,20 +2010,34 @@ def main():
             ("clash_fwd", "packppi_torch/csrc/clash.cu", "packppi_tpu/ops/pallas_clash.py:132"),
             ("clash_bwd", "packppi_torch/csrc/clash.cu", "packppi_tpu/ops/pallas_clash.py:272"),
             ("attention", "packppi_torch/csrc/attention.cu",
-             "packppi_tpu/ops/pallas_attention.py:40")):
+             "packppi_tpu/ops/pallas_attention.py:40"),
+            ("message_geom", "packppi_torch/csrc/message.cu", "packppi_tpu/ops/pallas_ipmp.py:79"),
+            ("message_gather", "packppi_torch/csrc/message.cu",
+             "packppi_tpu/ops/pallas_ipmp.py:398"),
+            ("message_chain", "packppi_torch/csrc/message.cu",
+             "packppi_tpu/ops/pallas_ipmp.py:370"),
+            ("layer_node", "packppi_torch/csrc/layer.cu", "packppi_tpu/ops/pallas_layer.py:315"),
+            ("layer_edge", "packppi_torch/csrc/layer.cu", "packppi_tpu/ops/pallas_layer.py:344")):
         # each kernel at its main path's dtype and larger pass (packing in
         # bf16 at T1124, training in float32 at B = 4, L = 1,024, ESM-2 in
-        # float32 at T1124's 896 tokens); the clash kernels at T1124.
-        # Launches: the packing run's, for the feature-message kernel the 20
-        # training steps', for attention the cli.ddg --mode esm call's
+        # float32 at T1124's 896 tokens); the clash kernels at T1124, the
+        # node pass of the whole layer at T1124's nodes.
+        # Launches: the packing run's (for the new kernels, the pack under
+        # their routing), for the feature-message kernel the 20 training
+        # steps', for attention the cli.ddg --mode esm call's
         if name in clash_records:
             r = clash_records[name]
         elif name == "attention":
             r = attention_records[("attention", "float32", "T1124")]
         else:
-            r = records[(name, "float32" if name == "message_feat" else "bfloat16", "edge")]
-        launches_main = {"message_feat": train_launches["message_feat"],
-                         "attention": attention_launches}.get(name, launches[name])
+            r = records[(name, "float32" if name == "message_feat" else "bfloat16",
+                         "node" if name == "layer_node" else "edge")]
+        routing = {"message_geom": "geom", "message_gather": "geom_gather",
+                   "message_chain": "fold", "layer_node": "fused_layers",
+                   "layer_edge": "fused_layers"}.get(name)
+        launches_main = ({"message_feat": train_launches["message_feat"],
+                          "attention": attention_launches}.get(name, launches[name])
+                         if routing is None else variant_launches[routing][name])
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches_main,

@@ -10,7 +10,7 @@ CUDA device unless ``--device cpu`` is given.
     python -m packppi_torch.cli.pack --input complex.pdb --outdir out \\
         [--ckpt weights.pt|weights.npz] [--precision bfloat16|float32] \\
         [--n_steps 30] [--n_samples 1] [--use_proximal] [--seed 0] \\
-        [--device cuda|cpu]
+        [--geometry global|local] [--device cuda|cpu]
 """
 from __future__ import annotations
 
@@ -39,6 +39,10 @@ def build_parser():
     p.add_argument("--use_proximal", action="store_true",
                    help="refine the sample with the proximal clash optimizer")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--geometry", default="global", choices=["global", "local"],
+                   help="point-geometry layout: 'local' caches static "
+                        "relative frame transforms and gathers bf16-safe "
+                        "local points (see NetworkConfig.geometry_mode)")
     p.add_argument("--device", default=None,
                    help="cuda (default) or cpu; without a GPU, cpu must be asked for")
     return p
@@ -76,7 +80,12 @@ def run(args) -> dict:
     # best-of-N: the protein repeated along the batch axis
     batch = stack_batch([feats] * n_samples, device)
 
-    model = TorsionalDiffusion(NetworkConfig(compute_dtype=args.precision))
+    # local geometry runs the feature-message kernel (the in-kernel-geometry
+    # kernels need global points), as the JAX CLI does
+    local = args.geometry == "local"
+    model = TorsionalDiffusion(NetworkConfig(
+        compute_dtype=args.precision, geometry_mode=args.geometry,
+        fused_messages=True if local else "geom_lanes"))
     if args.ckpt:
         load_weights(model.net, args.ckpt)
     else:

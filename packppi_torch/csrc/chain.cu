@@ -10,7 +10,9 @@
 //   h  = rnd(h . W2 + b2)                  W2 [128, 512]
 //   y  = LN_b(xx + h) [* mask], written in T
 // rnd rounds to T at every point the unfused flax chain rounds; LayerNorm is
-// flax's (eps 1e-6, variance mean(x^2) - mean(x)^2 clamped at 0).
+// flax's (eps 1e-6, variance mean(x^2) - mean(x)^2 clamped at 0). Everything
+// after x0 is csrc/chain_rows.cuh, shared with the folded edge pass
+// (message.cu) and the whole-layer kernels (layer.cu).
 //
 // What bounds it: 2 * 2 * 128 * 512 = 262,144 operations per row on ~768
 // bytes of traffic (bf16), so on tensor cores it would be bound by
@@ -21,117 +23,47 @@
 // shared memory 128 columns at a time while the second product accumulates
 // in registers.
 
-#include "tile.cuh"
+#include "chain_rows.cuh"
 
 namespace packppi {
-
-constexpr int kH = 128;
-constexpr int kF = 4 * kH;  // FFN hidden width
-constexpr size_t kChainSmem = sizeof(float) * (2 * size_t(kH) * kLdx + size_t(kKc) * kLdw);
 
 template <typename T, typename M>
 __global__ void __launch_bounds__(kThreads, 2)
 chain_kernel(const T* __restrict__ x, const M* __restrict__ msg, const float* __restrict__ mask,
-             const float* __restrict__ lna_w, const float* __restrict__ lna_b,
-             const float* __restrict__ w1, const float* __restrict__ b1,
-             const float* __restrict__ w2, const float* __restrict__ b2,
-             const float* __restrict__ lnb_w, const float* __restrict__ lnb_b,
-             T* __restrict__ out, int N, bool pre_mask) {
+             ChainWeights w, T* __restrict__ out, int N, bool pre_mask) {
   extern __shared__ __align__(16) float smem[];
   float* XX = smem;               // [kH][kLdx] xx, k-major (product input and residual)
   float* Hs = XX + kH * kLdx;     // [kH][kLdx] one 128-column slice of the FFN hidden
   float* Ws = Hs + kH * kLdx;     // [kKc][kLdw]
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
   const int64_t row0 = int64_t(blockIdx.x) * kRows;
 
-  // residual + LN_a: warp w owns rows 8w..8w+7, lane owns columns lane + 32q
-  for (int rr = 0; rr < 8; ++rr) {
-    const int r = warp * 8 + rr;
-    const int64_t g = row0 + r;
-    float v[4] = {0.f, 0.f, 0.f, 0.f};
-    if (g < N) {
-      const float mk = mask ? mask[g] : 1.f;
-      float s = 0.f, s2 = 0.f;
+  // x0 = rnd(x + rnd(m)): warp w owns rows 8w..8w+7, lane owns columns lane + 32q
+  float x0[8][4];
+  unsigned valid = 0;
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int c = lane + 32 * q;
-        float m = to_f32<M>(msg[g * kH + c]);
-        if (pre_mask && mask) m = rnd<M>(m * mk);
-        const float x0 = rnd<T>(to_f32<T>(x[g * kH + c]) + rnd<T>(m));
-        v[q] = x0;
-        s += x0;
-        s2 += x0 * x0;
-      }
-      const float mean = warp_sum(s) / float(kH);
-      const float var = fmaxf(warp_sum(s2) / float(kH) - mean * mean, 0.f);
-      const float inv = rsqrtf(var + 1e-6f);
+  for (int i = 0; i < 8; ++i) {
+    const int64_t g = row0 + warp * 8 + i;
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int c = lane + 32 * q;
-        v[q] = rnd<T>((v[q] - mean) * inv * lna_w[c] + lna_b[c]);
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < 4; ++q) XX[(lane + 32 * q) * kLdx + r] = v[q];
-  }
-
-  const int cg = lane;
-  const int r0 = warp * 8;
-  float acc[8][4], acc2[8][4];
-  zero(acc2);
-  for (int hc = 0; hc < kF / kH; ++hc) {
-    // hidden columns hc*128 .. hc*128+127: rnd(relu(rnd(xx . W1 + b1)))
-    zero(acc);
-    tile_product<T>(acc, XX, kH, w1 + size_t(hc) * kH * kH, w1, kH, kH, Ws);
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int c = cg + 32 * q;
-        Hs[c * kLdx + r0 + i] = rnd<T>(relu(rnd<T>(acc[i][q] + b1[hc * kH + c])));
-      }
-    // acc2 += h[:, slice] . W2[slice, :]
-    tile_product<T>(acc2, Hs, kH, w2 + hc * kH, w2, kH, kF, Ws);
-  }
-  __syncthreads();  // every thread is done reading Hs
-
-  // z = xx + rnd(h . W2 + b2), row-major into the Hs tile for LN_b
-  float* Z = Hs;  // [kRows][kLdw]
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int c = cg + 32 * q;
-      Z[(r0 + i) * kLdw + c] = XX[c * kLdx + r0 + i] + rnd<T>(acc2[i][q] + b2[c]);
-    }
-  __syncthreads();
-
-  for (int rr = 0; rr < 8; ++rr) {
-    const int r = warp * 8 + rr;
-    const int64_t g = row0 + r;
-    if (g >= N) break;
-    float v[4], s = 0.f, s2 = 0.f;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      v[q] = Z[r * kLdw + lane + 32 * q];
-      s += v[q];
-      s2 += v[q] * v[q];
-    }
-    const float mean = warp_sum(s) / float(kH);
-    const float var = fmaxf(warp_sum(s2) / float(kH) - mean * mean, 0.f);
-    const float inv = rsqrtf(var + 1e-6f);
+    for (int q = 0; q < 4; ++q) x0[i][q] = 0.f;
+    if (g >= N) continue;
+    valid |= 1u << i;
     const float mk = mask ? mask[g] : 1.f;
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const int c = lane + 32 * q;
-      float y = (v[q] - mean) * inv * lnb_w[c] + lnb_b[c];
-      if (mask) y *= mk;
-      out[g * kH + c] = from_f32<T>(y);
+      float m = to_f32<M>(msg[g * kH + c]);
+      if (pre_mask && mask) m = rnd<M>(m * mk);
+      x0[i][q] = rnd<T>(to_f32<T>(x[g * kH + c]) + rnd<T>(m));
     }
   }
+  chain_rows<T>(x0, valid, XX, Hs, Ws, w, [&](int r, int c, float y) {
+    const int64_t g = row0 + r;
+    if (mask) y *= mask[g];
+    out[g * kH + c] = from_f32<T>(y);
+  });
 }
 
 template <typename T, typename M>
@@ -146,10 +78,10 @@ cudaError_t launch(const void* x, const void* msg, const void* mask, const void*
   const int blocks = (N + kRows - 1) / kRows;
   kernel<<<blocks, kThreads, kChainSmem, stream>>>(
       static_cast<const T*>(x), static_cast<const M*>(msg), static_cast<const float*>(mask),
-      static_cast<const float*>(lna_w), static_cast<const float*>(lna_b),
-      static_cast<const float*>(w1), static_cast<const float*>(b1),
-      static_cast<const float*>(w2), static_cast<const float*>(b2),
-      static_cast<const float*>(lnb_w), static_cast<const float*>(lnb_b),
+      ChainWeights{static_cast<const float*>(lna_w), static_cast<const float*>(lna_b),
+                   static_cast<const float*>(w1), static_cast<const float*>(b1),
+                   static_cast<const float*>(w2), static_cast<const float*>(b2),
+                   static_cast<const float*>(lnb_w), static_cast<const float*>(lnb_b)},
       static_cast<T*>(out), N, pre_mask);
   return cudaGetLastError();
 }

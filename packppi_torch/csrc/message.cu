@@ -1,10 +1,25 @@
-// IPMP message MLP with in-kernel point geometry.
+// IPMP message MLP with in-kernel point geometry, in four routes:
 //
-// Replaces packppi_tpu/ops/pallas_ipmp.py::_geom_lanes_kernel (entry
-// fused_message_geom_lanes). Same function, not the same mechanism: the
-// TPU kernel's lane-major layout, bf16x3 one-hot lane expansion and
-// node-stack transpose exist for Mosaic; here each block loads its own
-// neighbour rows by index.
+//   message_kernel<T, POOL, kLanes>    replaces packppi_tpu/ops/pallas_ipmp.py::
+//       _geom_lanes_kernel (entry fused_message_geom_lanes);
+//   message_kernel<T, POOL, kGather>   replaces ::_geom_gather_kernel (entry
+//       fused_message_geom_gather);
+//   message_geom_kernel<T, POOL>       replaces ::_geom_fused_kernel (entry
+//       fused_message_geom);
+//   message_chain_kernel<T>            replaces _geom_lanes_kernel's with_chain
+//       branch (the edge pass with the residual chain folded in, behind
+//       packppi_tpu/models/ipmp.py::FOLD_EDGE_CHAIN).
+//
+// Same functions, not the same mechanisms: the TPU kernels' lane-major
+// layout, bf16x3 one-hot lane expansion, node-stack transpose and one-hot
+// gathers exist for Mosaic. Here a block loads what it needs by index. The
+// lanes and gather routes of the TPU (neighbour streams gathered outside,
+// or inside by a one-hot product) are both an indexed load on a GPU, so the
+// two share one body and differ in their instantiation only (each has its
+// own entry point and launch count); the geom route takes the neighbour
+// term and global-point planes already gathered ([rows, H] and [rows, 3P]
+// f32: global coordinates of O(100 A) stay float32) and computes node i's
+// global points from its local planes and frame, as _geom_fused_kernel does.
 //
 // Per edge (i, j = idx[i, k]) of one block of whole nodes (kRows = 64 edge
 // rows: 64 / K nodes of K edges):
@@ -14,25 +29,118 @@
 //   x = relu(x . W_1 + b_1)
 //   x = x . W_2 + b_2
 //   pool: out[i] = sum_k mask[i,k] x[i,k] / K (float32), else out[i,k] = x
-//   in the stream type.
+//   in the stream type; the chain route instead runs csrc/chain_rows.cuh on
+//   the tile's rows with the two-kernel boundary's rounding points
+//   (m = rnd(rnd(x) * mask), x0 = rnd(h_E + m)) and writes the new h_E.
 // Products take operands rounded to the compute type (bf16 or float32) and
 // sum in float32 FMAs (tile.cuh). W_e is read straight from the reference
 // layout W_in [H, H + He + H + 9P] over [h_i | h_E | h_j | geom].
 //
 // What bounds it: per edge row it does 2 * (He + 9P + 2H) * H = 116,736
-// operations on ~512 bytes of stream traffic (bf16), so on Hopper's tensor
-// cores it would be bound by memory; this first version runs its products
-// on the float32 FMA units (67 TFLOP/s peak), which bound it instead. The
-// design keeps every intermediate (the [rows, 9P] geometry, both hidden
-// activations) in shared memory, reads h_E once and writes the output
-// once, and reads the weights through L2 into shared memory per block.
+// operations (plus 262,144 for the folded chain) on ~512 bytes of stream
+// traffic (bf16), so on Hopper's tensor cores it would be bound by memory;
+// this first version runs its products on the float32 FMA units (67 TFLOP/s
+// peak), which bound it instead. The design keeps every intermediate (the
+// [rows, 9P] geometry, both hidden activations, the chain's [rows, 4H]
+// hidden) in shared memory, reads h_E once (twice, through L2, in the chain
+// route: once as product input, once as the residual) and writes the output
+// once, and reads the weights through L2 into shared memory per block. The
+// chain route aliases the chain's tiles onto the message's, so it needs no
+// more shared memory than the message and two blocks still fit on an SM.
 // Tensor-core products (wgmma) are the next step.
 
+#include "chain_rows.cuh"
 #include "message_mlp.cuh"
 
 namespace packppi {
 
-template <typename T, bool POOL>
+constexpr int kLanes = 0;   // row 1 of the kernel table (fused_message_geom_lanes)
+constexpr int kGather = 1;  // row 5 (fused_message_geom_gather)
+
+// The nine geometry features of one (edge, point) into the tile's X0 rows,
+// in W_e's feature order, rounded to the compute type.
+template <typename T>
+__device__ __forceinline__ void store_edge_features(float* X0, int r, int p, float plx, float ply,
+                                                    float plz, const float* R, const float* t,
+                                                    float pgx, float pgy, float pgz, float ngx,
+                                                    float ngy, float ngz) {
+  const float dx = ngx - t[0], dy = ngy - t[1], dz = ngz - t[2];
+  // neighbour point in i's frame: R_i^T d (R row-major: R[a * 3 + b])
+  const float nlx = R[0] * dx + R[3] * dy + R[6] * dz;
+  const float nly = R[1] * dx + R[4] * dy + R[7] * dz;
+  const float nlz = R[2] * dx + R[5] * dy + R[8] * dz;
+  const float ddx = pgx - ngx, ddy = pgy - ngy, ddz = pgz - ngz;
+  const float f[9] = {plx, ply, plz, sqrtf(plx * plx + ply * ply + plz * plz + 1e-8f),
+                      nlx, nly, nlz, sqrtf(nlx * nlx + nly * nly + nlz * nlz + 1e-8f),
+                      sqrtf(ddx * ddx + ddy * ddy + ddz * ddz + 1e-8f)};
+  const int at[9] = {3 * p, 3 * p + 1, 3 * p + 2, 3 * kP + p,
+                     4 * kP + 3 * p, 4 * kP + 3 * p + 1, 4 * kP + 3 * p + 2,
+                     7 * kP + p, 8 * kP + p};
+#pragma unroll
+  for (int q = 0; q < 9; ++q) X0[(kH + at[q]) * kLdx + r] = rnd<T>(f[q]);
+}
+
+// Zero geometry features of a row past the end.
+template <typename T>
+__device__ __forceinline__ void zero_edge_features(float* X0, int r, int p) {
+  const int at[9] = {3 * p, 3 * p + 1, 3 * p + 2, 3 * kP + p,
+                     4 * kP + 3 * p, 4 * kP + 3 * p + 1, 4 * kP + 3 * p + 2,
+                     7 * kP + p, 8 * kP + p};
+#pragma unroll
+  for (int q = 0; q < 9; ++q) X0[(kH + at[q]) * kLdx + r] = 0.f;
+}
+
+// The indexed-load tile of the lanes, gather and chain routes: mrow, the
+// h_E rows, the geometry of every (row, point) from pg rows loaded by index,
+// and pjrow = the neighbour's row in the batch's node tables. The block's
+// nodes start at node row nrow0 + node0 (nrow0 = b * L); `rows` valid edge
+// rows start at erow0. Publishes nothing: the first tile_product's barrier
+// does.
+template <typename T>
+__device__ __forceinline__ void load_indexed_tile(const MessageSmem& s, const T* __restrict__ h_E,
+                                                  const int64_t* __restrict__ idx,
+                                                  const float* __restrict__ p_local,
+                                                  const float* __restrict__ rot,
+                                                  const float* __restrict__ trans,
+                                                  const float* __restrict__ pg,
+                                                  const float* __restrict__ mask, int K,
+                                                  int rows, int64_t erow0, int64_t nrow0,
+                                                  int node0) {
+  const int tid = threadIdx.x;
+  int64_t* jrow = s.pjrow;  // node-local neighbour first, its row in per_j after the geometry
+  if (tid < kRows) {
+    const bool valid = tid < rows;
+    jrow[tid] = valid ? idx[erow0 + tid] : -1;
+    s.mrow[tid] = valid ? mask[erow0 + tid] : 0.f;
+  }
+  // h_E rows, k-major, rounded to the compute type (a no-op for the stream type)
+  for (int e = tid; e < kRows * kH; e += kThreads) {
+    const int r = e / kH, c = e % kH;
+    const float v = r < rows ? to_f32<T>(h_E[(erow0 + r) * kH + c]) : 0.f;
+    s.X0[c * kLdx + r] = rnd<T>(v);
+  }
+  __syncthreads();  // jrow
+
+  for (int e = tid; e < kRows * kP; e += kThreads) {
+    const int r = e % kRows, p = e / kRows;
+    const int64_t j = jrow[r];
+    if (j < 0) {
+      zero_edge_features<T>(s.X0, r, p);
+      continue;
+    }
+    const int64_t i = nrow0 + node0 + r / K;
+    const float* pl = p_local + (i * kP + p) * 3;
+    const float* pgi = pg + i * 3 * kP;
+    const float* pgj = pg + (nrow0 + j) * 3 * kP;
+    store_edge_features<T>(s.X0, r, p, pl[0], pl[1], pl[2], rot + i * 9, trans + i * 3, pgi[p],
+                           pgi[kP + p], pgi[2 * kP + p], pgj[p], pgj[kP + p], pgj[2 * kP + p]);
+  }
+
+  __syncthreads();  // every thread has read jrow as a neighbour index
+  if (tid < kRows && jrow[tid] >= 0) jrow[tid] += nrow0;
+}
+
+template <typename T, bool POOL, int ROUTE>
 __global__ void __launch_bounds__(kThreads, 2)
 message_kernel(const float* __restrict__ per_i, const T* __restrict__ per_j,
                const T* __restrict__ h_E, const int64_t* __restrict__ idx,
@@ -44,80 +152,138 @@ message_kernel(const float* __restrict__ per_i, const T* __restrict__ per_j,
                const float* __restrict__ b_out, void* __restrict__ out_ptr, int L, int K) {
   extern __shared__ __align__(16) float smem[];
   const MessageSmem s(smem);
-  float* X0 = s.X0;
-  int64_t* jrow = s.pjrow;  // node-local neighbour first, its row in per_j after the geometry
-
-  const int tid = threadIdx.x;
-  const int b = blockIdx.y;
   const int nb = kRows / K;                  // whole nodes per block
   const int node0 = blockIdx.x * nb;
   const int rows = min(nb, L - node0) * K;   // valid edge rows of this block
-  const int64_t erow0 = (int64_t(b) * L + node0) * K;  // first global edge row
-  const int64_t nrow0 = int64_t(b) * L;                // first node row of batch b
+  const int64_t nrow0 = int64_t(blockIdx.y) * L;       // first node row of batch b
+  const int64_t erow0 = (nrow0 + node0) * K;           // first global edge row
 
-  if (tid < kRows) {
-    const bool valid = tid < rows;
-    jrow[tid] = valid ? idx[erow0 + tid] : -1;
-    s.mrow[tid] = valid ? mask[erow0 + tid] : 0.f;
-  }
-  // h_E rows, k-major, rounded to the compute type (a no-op for the stream type)
-  for (int e = tid; e < kRows * kH; e += kThreads) {
-    const int r = e / kH, c = e % kH;
-    const float v = r < rows ? to_f32<T>(h_E[(erow0 + r) * kH + c]) : 0.f;
-    X0[c * kLdx + r] = rnd<T>(v);
-  }
-  __syncthreads();  // jrow
-
-  // the 9P geometry features of every (row, point)
-  for (int e = tid; e < kRows * kP; e += kThreads) {
-    const int r = e % kRows, p = e / kRows;
-    const int64_t j = jrow[r];
-    float f[9] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (j >= 0) {
-      const int64_t i = nrow0 + node0 + r / K;
-      const float* pl = p_local + (i * kP + p) * 3;
-      const float* R = rot + i * 9;
-      const float* t = trans + i * 3;
-      const float* pgi = pg + i * 3 * kP;
-      const float* pgj = pg + (nrow0 + j) * 3 * kP;
-      const float plx = pl[0], ply = pl[1], plz = pl[2];
-      const float ngx = pgj[p], ngy = pgj[kP + p], ngz = pgj[2 * kP + p];
-      const float dx = ngx - t[0], dy = ngy - t[1], dz = ngz - t[2];
-      // neighbour point in i's frame: R_i^T d (R row-major: R[a * 3 + b])
-      const float nlx = R[0] * dx + R[3] * dy + R[6] * dz;
-      const float nly = R[1] * dx + R[4] * dy + R[7] * dz;
-      const float nlz = R[2] * dx + R[5] * dy + R[8] * dz;
-      const float ddx = pgi[p] - ngx, ddy = pgi[kP + p] - ngy, ddz = pgi[2 * kP + p] - ngz;
-      f[0] = plx; f[1] = ply; f[2] = plz;
-      f[3] = sqrtf(plx * plx + ply * ply + plz * plz + 1e-8f);
-      f[4] = nlx; f[5] = nly; f[6] = nlz;
-      f[7] = sqrtf(nlx * nlx + nly * nly + nlz * nlz + 1e-8f);
-      f[8] = sqrtf(ddx * ddx + ddy * ddy + ddz * ddz + 1e-8f);
-    }
-    // feature order of W_e's geometry rows
-    const int at[9] = {3 * p, 3 * p + 1, 3 * p + 2, 3 * kP + p,
-                       4 * kP + 3 * p, 4 * kP + 3 * p + 1, 4 * kP + 3 * p + 2,
-                       7 * kP + p, 8 * kP + p};
-#pragma unroll
-    for (int q = 0; q < 9; ++q) X0[(kH + at[q]) * kLdx + r] = rnd<T>(f[q]);
-  }
-
-  __syncthreads();  // every thread has read jrow as a neighbour index
-  if (tid < kRows && jrow[tid] >= 0) jrow[tid] += nrow0;
-  // the three products; message_mlp's first barrier publishes X0 and jrow
+  load_indexed_tile<T>(s, h_E, idx, p_local, rot, trans, pg, mask, K, rows, erow0, nrow0, node0);
+  // the three products; their first barrier publishes X0 and jrow
   message_mlp<T, POOL>(s, per_i, per_j, w_in, b_in, w_mid, b_mid, w_out, b_out, out_ptr, K, rows,
                        erow0, nrow0 + node0);
 }
 
+// Row 4: the neighbour term pjg and the neighbour global-point planes ng
+// arrive gathered ([N*K, H] in T, [N*K, 3P] f32); node i's global points are
+// computed here from its local planes pl [N, 3P], R and t, in the order of
+// _geom_fused_kernel:105-107. N = B*L node rows, flattened.
 template <typename T, bool POOL>
+__global__ void __launch_bounds__(kThreads, 2)
+message_geom_kernel(const float* __restrict__ per_i, const T* __restrict__ pjg,
+                    const T* __restrict__ h_E, const float* __restrict__ pl,
+                    const float* __restrict__ ng, const float* __restrict__ rot,
+                    const float* __restrict__ trans, const float* __restrict__ mask,
+                    const float* __restrict__ w_in, const float* __restrict__ b_in,
+                    const float* __restrict__ w_mid, const float* __restrict__ b_mid,
+                    const float* __restrict__ w_out, const float* __restrict__ b_out,
+                    void* __restrict__ out_ptr, int64_t N, int K) {
+  extern __shared__ __align__(16) float smem[];
+  const MessageSmem s(smem);
+  const int tid = threadIdx.x;
+  const int nb = kRows / K;
+  const int64_t node0 = int64_t(blockIdx.x) * nb;
+  const int rows = (N - node0 < nb ? int(N - node0) : nb) * K;
+  const int64_t erow0 = node0 * K;
+
+  if (tid < kRows) {
+    const bool valid = tid < rows;
+    s.pjrow[tid] = valid ? erow0 + tid : -1;
+    s.mrow[tid] = valid ? mask[erow0 + tid] : 0.f;
+  }
+  for (int e = tid; e < kRows * kH; e += kThreads) {
+    const int r = e / kH, c = e % kH;
+    const float v = r < rows ? to_f32<T>(h_E[(erow0 + r) * kH + c]) : 0.f;
+    s.X0[c * kLdx + r] = rnd<T>(v);
+  }
+  for (int e = tid; e < kRows * kP; e += kThreads) {
+    const int r = e % kRows, p = e / kRows;
+    if (r >= rows) {
+      zero_edge_features<T>(s.X0, r, p);
+      continue;
+    }
+    const int64_t i = node0 + r / K;
+    const float* pli = pl + i * 3 * kP;
+    const float* R = rot + i * 9;
+    const float* t = trans + i * 3;
+    const float plx = pli[p], ply = pli[kP + p], plz = pli[2 * kP + p];
+    const float pgx = R[0] * plx + R[1] * ply + R[2] * plz + t[0];
+    const float pgy = R[3] * plx + R[4] * ply + R[5] * plz + t[1];
+    const float pgz = R[6] * plx + R[7] * ply + R[8] * plz + t[2];
+    const float* ngj = ng + (erow0 + r) * 3 * kP;
+    store_edge_features<T>(s.X0, r, p, plx, ply, plz, R, t, pgx, pgy, pgz, ngj[p], ngj[kP + p],
+                           ngj[2 * kP + p]);
+  }
+  message_mlp<T, POOL>(s, per_i, pjg, w_in, b_in, w_mid, b_mid, w_out, b_out, out_ptr, K, rows,
+                       erow0, node0);
+}
+
+// Row 1b: the lanes route's edge tile, then the edge chain on the same 64
+// rows without leaving the block; writes the new h_E [B*L*K, H] in T.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+message_chain_kernel(const float* __restrict__ per_i, const T* __restrict__ per_j,
+                     const T* __restrict__ h_E, const int64_t* __restrict__ idx,
+                     const float* __restrict__ p_local, const float* __restrict__ rot,
+                     const float* __restrict__ trans, const float* __restrict__ pg,
+                     const float* __restrict__ mask, const float* __restrict__ w_in,
+                     const float* __restrict__ b_in, const float* __restrict__ w_mid,
+                     const float* __restrict__ b_mid, const float* __restrict__ w_out,
+                     const float* __restrict__ b_out, ChainWeights cw, T* __restrict__ out,
+                     int L, int K) {
+  extern __shared__ __align__(16) float smem[];
+  const MessageSmem s(smem);
+  const int nb = kRows / K;
+  const int node0 = blockIdx.x * nb;
+  const int rows = min(nb, L - node0) * K;
+  const int64_t nrow0 = int64_t(blockIdx.y) * L;
+  const int64_t erow0 = (nrow0 + node0) * K;
+
+  load_indexed_tile<T>(s, h_E, idx, p_local, rot, trans, pg, mask, K, rows, erow0, nrow0, node0);
+  float acc[8][4];
+  message_products<T>(s, acc, per_i, per_j, w_in, b_in, w_mid, b_mid, w_out, K, nrow0 + node0);
+
+  // the two-kernel boundary: the message rounds to T, pre_mask multiplies
+  // in T (a 0/1 mask: exact), the residual adds in T
+  const int cg = threadIdx.x & 31;
+  const int r0 = (threadIdx.x >> 5) * 8;
+  unsigned valid = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = r0 + i;
+    if (r < rows) valid |= 1u << i;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int c = cg + 32 * q;
+      float x0 = 0.f;
+      if (r < rows) {
+        const float m = rnd<T>(rnd<T>(acc[i][q] + b_out[c]) * s.mrow[r]);
+        x0 = rnd<T>(to_f32<T>(h_E[(erow0 + r) * kH + c]) + m);
+      }
+      acc[i][q] = x0;
+    }
+  }
+  // the chain's tiles alias the message's (X0 >= kH rows, X1, Ws); its
+  // first barrier waits for layer 3's last reads of X0
+  chain_rows<T>(acc, valid, s.X0, s.X1, s.Ws, cw, [&](int r, int c, float y) {
+    out[(erow0 + r) * kH + c] = from_f32<T>(y * s.mrow[r]);
+  });
+}
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              int(kMessageSmem));
+}
+
+template <typename T, bool POOL, int ROUTE>
 cudaError_t launch(const void* per_i, const void* per_j, const void* h_E, const void* idx,
                    const void* p_local, const void* rot, const void* trans, const void* pg,
                    const void* mask, const void* w_in, const void* b_in, const void* w_mid,
                    const void* b_mid, const void* w_out, const void* b_out, void* out, int B,
                    int L, int K, cudaStream_t stream) {
-  auto kernel = message_kernel<T, POOL>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         int(kMessageSmem));
+  auto kernel = message_kernel<T, POOL, ROUTE>;
+  cudaError_t err = allow_smem(kernel);
   if (err != cudaSuccess) return err;
   const int nb = kRows / K;
   dim3 grid((L + nb - 1) / nb, B);
@@ -133,14 +299,83 @@ cudaError_t launch(const void* per_i, const void* per_j, const void* h_E, const 
   return cudaGetLastError();
 }
 
+template <typename T, bool POOL>
+cudaError_t launch_geom(const void* per_i, const void* pjg, const void* h_E, const void* pl,
+                        const void* ng, const void* rot, const void* trans, const void* mask,
+                        const void* w_in, const void* b_in, const void* w_mid,
+                        const void* b_mid, const void* w_out, const void* b_out, void* out,
+                        int64_t N, int K, cudaStream_t stream) {
+  auto kernel = message_geom_kernel<T, POOL>;
+  cudaError_t err = allow_smem(kernel);
+  if (err != cudaSuccess) return err;
+  const int nb = kRows / K;
+  const int64_t blocks = (N + nb - 1) / nb;
+  kernel<<<dim3((unsigned)blocks), kThreads, kMessageSmem, stream>>>(
+      static_cast<const float*>(per_i), static_cast<const T*>(pjg), static_cast<const T*>(h_E),
+      static_cast<const float*>(pl), static_cast<const float*>(ng),
+      static_cast<const float*>(rot), static_cast<const float*>(trans),
+      static_cast<const float*>(mask), static_cast<const float*>(w_in),
+      static_cast<const float*>(b_in), static_cast<const float*>(w_mid),
+      static_cast<const float*>(b_mid), static_cast<const float*>(w_out),
+      static_cast<const float*>(b_out), out, N, K);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_chain(const void* per_i, const void* per_j, const void* h_E, const void* idx,
+                         const void* p_local, const void* rot, const void* trans,
+                         const void* pg, const void* mask, const void* w_in, const void* b_in,
+                         const void* w_mid, const void* b_mid, const void* w_out,
+                         const void* b_out, const ChainWeights& cw, void* out, int B, int L,
+                         int K, cudaStream_t stream) {
+  auto kernel = message_chain_kernel<T>;
+  cudaError_t err = allow_smem(kernel);
+  if (err != cudaSuccess) return err;
+  const int nb = kRows / K;
+  dim3 grid((L + nb - 1) / nb, B);
+  kernel<<<grid, kThreads, kMessageSmem, stream>>>(
+      static_cast<const float*>(per_i), static_cast<const T*>(per_j),
+      static_cast<const T*>(h_E), static_cast<const int64_t*>(idx),
+      static_cast<const float*>(p_local), static_cast<const float*>(rot),
+      static_cast<const float*>(trans), static_cast<const float*>(pg),
+      static_cast<const float*>(mask), static_cast<const float*>(w_in),
+      static_cast<const float*>(b_in), static_cast<const float*>(w_mid),
+      static_cast<const float*>(b_mid), static_cast<const float*>(w_out),
+      static_cast<const float*>(b_out), cw, static_cast<T*>(out), L, K);
+  return cudaGetLastError();
+}
+
+template <int ROUTE>
+int message_entry(const void* per_i, const void* per_j, const void* h_E, const void* idx,
+                  const void* p_local, const void* rot, const void* trans, const void* pg,
+                  const void* mask, const void* w_in, const void* b_in, const void* w_mid,
+                  const void* b_mid, const void* w_out, const void* b_out, void* out, int B,
+                  int L, int K, int bf16, int pool, void* stream) {
+  if (K < 1 || K > kRows || B < 1 || L < 1) return int(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define PACKPPI_ARGS per_i, per_j, h_E, idx, p_local, rot, trans, pg, mask, w_in, b_in, \
+                     w_mid, b_mid, w_out, b_out, out, B, L, K, s
+  cudaError_t err;
+  if (bf16)
+    err = pool ? launch<__nv_bfloat16, true, ROUTE>(PACKPPI_ARGS)
+               : launch<__nv_bfloat16, false, ROUTE>(PACKPPI_ARGS);
+  else
+    err = pool ? launch<float, true, ROUTE>(PACKPPI_ARGS) : launch<float, false, ROUTE>(PACKPPI_ARGS);
+#undef PACKPPI_ARGS
+  return int(err);
+}
+
 }  // namespace packppi
 
-// C entry point (ctypes). Shapes: per_i [B,L,128] f32; per_j [B,L,128] and
-// h_E [B,L,K,128] in the stream type (bf16 if bf16 != 0, else f32); idx
-// [B,L,K] int64; p_local [B,L,8,3], rot [B,L,3,3], trans [B,L,3], pg
-// [B,L,24], mask [B,L,K] f32; w_in [128,456], w_mid/w_out [128,128] f32
-// (Linear layout), biases [128] f32; out [B,L,128] f32 (pool) or
-// [B,L,K,128] in the stream type. K <= 64. Returns a cudaError_t.
+// C entry points (ctypes); each returns a cudaError_t. Weights: w_in
+// [128,456], w_mid/w_out [128,128] f32 (Linear layout), biases [128] f32.
+// Stream tensors are bf16 if bf16 != 0, else f32. K <= 64.
+//
+// packppi_message (row 1) and packppi_message_gather (row 5): per_i
+// [B,L,128] f32; per_j [B,L,128] and h_E [B,L,K,128] in the stream type; idx
+// [B,L,K] int64 (node index within the batch row); p_local [B,L,8,3], rot
+// [B,L,3,3], trans [B,L,3], pg [B,L,24], mask [B,L,K] f32; out [B,L,128]
+// f32 (pool) or [B,L,K,128] in the stream type.
 extern "C" int packppi_message(const void* per_i, const void* per_j, const void* h_E,
                                const void* idx, const void* p_local, const void* rot,
                                const void* trans, const void* pg, const void* mask,
@@ -148,16 +383,74 @@ extern "C" int packppi_message(const void* per_i, const void* per_j, const void*
                                const void* b_mid, const void* w_out, const void* b_out,
                                void* out, int B, int L, int K, int bf16, int pool,
                                void* stream) {
+  return packppi::message_entry<packppi::kLanes>(per_i, per_j, h_E, idx, p_local, rot, trans,
+                                                  pg, mask, w_in, b_in, w_mid, b_mid, w_out,
+                                                  b_out, out, B, L, K, bf16, pool, stream);
+}
+
+extern "C" int packppi_message_gather(const void* per_i, const void* per_j, const void* h_E,
+                                      const void* idx, const void* p_local, const void* rot,
+                                      const void* trans, const void* pg, const void* mask,
+                                      const void* w_in, const void* b_in, const void* w_mid,
+                                      const void* b_mid, const void* w_out, const void* b_out,
+                                      void* out, int B, int L, int K, int bf16, int pool,
+                                      void* stream) {
+  return packppi::message_entry<packppi::kGather>(per_i, per_j, h_E, idx, p_local, rot, trans,
+                                                   pg, mask, w_in, b_in, w_mid, b_mid, w_out,
+                                                   b_out, out, B, L, K, bf16, pool, stream);
+}
+
+// packppi_message_geom (row 4), over N = B*L node rows: per_i [N,128] f32;
+// pjg [N*K,128] and h_E [N*K,128] in the stream type; pl [N,24] local point
+// planes [x | y | z], ng [N*K,24] gathered neighbour global-point planes,
+// rot [N,9] (row-major), trans [N,3], mask [N*K] f32; out [N,128] f32
+// (pool) or [N*K,128] in the stream type.
+extern "C" int packppi_message_geom(const void* per_i, const void* pjg, const void* h_E,
+                                    const void* pl, const void* ng, const void* rot,
+                                    const void* trans, const void* mask, const void* w_in,
+                                    const void* b_in, const void* w_mid, const void* b_mid,
+                                    const void* w_out, const void* b_out, void* out,
+                                    long long N, int K, int bf16, int pool, void* stream) {
   using namespace packppi;
-  if (K < 1 || K > kRows || B < 1 || L < 1) return int(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define PACKPPI_ARGS per_i, per_j, h_E, idx, p_local, rot, trans, pg, mask, w_in, b_in, \
-                     w_mid, b_mid, w_out, b_out, out, B, L, K, s
+  if (K < 1 || K > kRows || N < 1 || (N + kRows / K - 1) / (kRows / K) > 0x7fffffffLL)
+    return int(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define PACKPPI_ARGS per_i, pjg, h_E, pl, ng, rot, trans, mask, w_in, b_in, w_mid, b_mid, \
+                     w_out, b_out, out, int64_t(N), K, st
   cudaError_t err;
   if (bf16)
-    err = pool ? launch<__nv_bfloat16, true>(PACKPPI_ARGS) : launch<__nv_bfloat16, false>(PACKPPI_ARGS);
+    err = pool ? launch_geom<__nv_bfloat16, true>(PACKPPI_ARGS)
+               : launch_geom<__nv_bfloat16, false>(PACKPPI_ARGS);
   else
-    err = pool ? launch<float, true>(PACKPPI_ARGS) : launch<float, false>(PACKPPI_ARGS);
+    err = pool ? launch_geom<float, true>(PACKPPI_ARGS) : launch_geom<float, false>(PACKPPI_ARGS);
+#undef PACKPPI_ARGS
+  return int(err);
+}
+
+// packppi_message_chain (row 1b): packppi_message's operands (edge pass),
+// then the chain's: LayerNorm weights [128], w1 [512,128], b1 [512], w2
+// [128,512], b2 [128], all f32; out [B,L,K,128] in the stream type, the
+// updated h_E.
+extern "C" int packppi_message_chain(const void* per_i, const void* per_j, const void* h_E,
+                                     const void* idx, const void* p_local, const void* rot,
+                                     const void* trans, const void* pg, const void* mask,
+                                     const void* w_in, const void* b_in, const void* w_mid,
+                                     const void* b_mid, const void* w_out, const void* b_out,
+                                     const void* lna_w, const void* lna_b, const void* w1,
+                                     const void* b1, const void* w2, const void* b2,
+                                     const void* lnb_w, const void* lnb_b, void* out, int B,
+                                     int L, int K, int bf16, void* stream) {
+  using namespace packppi;
+  if (K < 1 || K > kRows || B < 1 || L < 1) return int(cudaErrorInvalidValue);
+  const ChainWeights cw{static_cast<const float*>(lna_w), static_cast<const float*>(lna_b),
+                        static_cast<const float*>(w1), static_cast<const float*>(b1),
+                        static_cast<const float*>(w2), static_cast<const float*>(b2),
+                        static_cast<const float*>(lnb_w), static_cast<const float*>(lnb_b)};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define PACKPPI_ARGS per_i, per_j, h_E, idx, p_local, rot, trans, pg, mask, w_in, b_in, \
+                     w_mid, b_mid, w_out, b_out, cw, out, B, L, K, s
+  const cudaError_t err = bf16 ? launch_chain<__nv_bfloat16>(PACKPPI_ARGS)
+                               : launch_chain<float>(PACKPPI_ARGS);
 #undef PACKPPI_ARGS
   return int(err);
 }

@@ -43,29 +43,12 @@ message_feat_kernel(const float* __restrict__ per_i, const T* __restrict__ pj,
   extern __shared__ __align__(16) float smem[];
   const MessageSmem s(smem);
 
-  const int tid = threadIdx.x;
   const int nb = kRows / K;                          // whole nodes per block
   const int64_t node0 = int64_t(blockIdx.x) * nb;    // first node row of this block
   const int rows = (N - node0 < nb ? int(N - node0) : nb) * K;  // valid edge rows
   const int64_t erow0 = node0 * K;                   // first edge row
 
-  if (tid < kRows) {
-    const bool valid = tid < rows;
-    s.pjrow[tid] = valid ? erow0 + tid : -1;
-    s.mrow[tid] = valid ? mask[erow0 + tid] : 0.f;
-  }
-  // [h_E | geom] rows, k-major, rounded to the compute type (a no-op for
-  // the stream type); rows past the end are zeros
-  for (int e = tid; e < kRows * kH; e += kThreads) {
-    const int r = e / kH, c = e % kH;
-    const float v = r < rows ? to_f32<T>(h_E[(erow0 + r) * kH + c]) : 0.f;
-    s.X0[c * kLdx + r] = rnd<T>(v);
-  }
-  for (int e = tid; e < kRows * kG; e += kThreads) {
-    const int r = e / kG, c = e % kG;
-    const float v = r < rows ? to_f32<T>(geom[(erow0 + r) * kG + c]) : 0.f;
-    s.X0[(kH + c) * kLdx + r] = rnd<T>(v);
-  }
+  load_feature_tile<T>(s, h_E, geom, mask, erow0, rows);
   // the three products; message_mlp's first barrier publishes X0 and pjrow
   message_mlp<T, POOL>(s, per_i, pj, w_in, b_in, w_mid, b_mid, w_out, b_out, out_ptr, K, rows,
                        erow0, node0);

@@ -1,7 +1,8 @@
 // The three products of the IPMP message MLP over one tile of kRows edge
 // rows, shared by message.cu (geometry computed in the kernel, neighbour
-// term loaded by index) and message_feat.cu (geometry and neighbour term
-// loaded as they arrive):
+// term loaded by index or as it arrives gathered; alone or with the edge
+// chain folded in), message_feat.cu and layer.cu (geometry and neighbour
+// term loaded as they arrive):
 //
 //   x = relu([h_E | geom] . W_e + b_e + per_i[node] + pj[row])
 //   x = relu(x . W_1 + b_1)
@@ -20,7 +21,6 @@
 
 namespace packppi {
 
-constexpr int kH = 128;      // hidden width (== He)
 constexpr int kP = 8;        // points per node
 constexpr int kG = 9 * kP;   // geometry features per edge
 constexpr int kIn = kH + kG; // first product's depth: [h_E | geom]
@@ -45,23 +45,23 @@ struct MessageSmem {
   }
 };
 
-// `rows` valid edge rows of whole nodes start at edge row `erow0` and node
-// row `node0` (both global). Every thread of the block calls this.
-template <typename T, bool POOL>
-__device__ __forceinline__ void message_mlp(const MessageSmem& s, const float* __restrict__ per_i,
-                                            const T* __restrict__ pj,
-                                            const float* __restrict__ w_in,
-                                            const float* __restrict__ b_in,
-                                            const float* __restrict__ w_mid,
-                                            const float* __restrict__ b_mid,
-                                            const float* __restrict__ w_out,
-                                            const float* __restrict__ b_out,
-                                            void* __restrict__ out_ptr, int K, int rows,
-                                            int64_t erow0, int64_t node0) {
+// Layers 1-3 over the tile: leaves x . W_2 (without b_2) of row r0 + i,
+// column cg + 32 q in acc[i][q] (tile_product's map). The tile's nodes start
+// at node row `node0` (global). Ends without a barrier: other warps may
+// still be reading X0. Every thread of the block calls this.
+template <typename T>
+__device__ __forceinline__ void message_products(const MessageSmem& s, float (&acc)[8][4],
+                                                 const float* __restrict__ per_i,
+                                                 const T* __restrict__ pj,
+                                                 const float* __restrict__ w_in,
+                                                 const float* __restrict__ b_in,
+                                                 const float* __restrict__ w_mid,
+                                                 const float* __restrict__ b_mid,
+                                                 const float* __restrict__ w_out, int K,
+                                                 int64_t node0) {
   const int tid = threadIdx.x;
   const int cg = tid & 31;
   const int r0 = (tid >> 5) * 8;
-  float acc[8][4];
 
   // layer 1: [h_E | geom] . W_e + b_e + per_i + pj, relu
   zero(acc);
@@ -96,29 +96,61 @@ __device__ __forceinline__ void message_mlp(const MessageSmem& s, const float* _
       s.X0[c * kLdx + r0 + i] = rnd<T>(relu(acc[i][q] + b_mid[c]));
     }
 
-  // layer 3: x . W_2 + b_2
+  // layer 3: x . W_2
   zero(acc);
   tile_product<T>(acc, s.X0, kH, w_out, w_out, kH, kH, s.Ws);
+}
 
-  if (POOL) {
-    // masked rows into the (free) X1 tile row-major, then a fixed-order sum
-    float* Y = s.X1;  // [kRows][kLdw]
+// The node pool of the tile, for its `rows / K` nodes: the fixed-order sum
+// over k of mask[n, k] (acc + b_2), divided by K (the message kernels'
+// pool), or times the float 1/K with `reciprocal` (the whole-layer node
+// pass, pallas_layer.py:331). The masked rows go row-major into X1, which
+// layer 3 no longer reads; `out` points at the tile's first node, kH floats
+// a node (device or shared memory).
+__device__ __forceinline__ void pool_tile(const MessageSmem& s, const float (&acc)[8][4],
+                                          const float* __restrict__ b_out, float* out,
+                                          int K, int rows, bool reciprocal) {
+  const int tid = threadIdx.x;
+  const int cg = tid & 31;
+  const int r0 = (tid >> 5) * 8;
+  float* Y = s.X1;  // [kRows][kLdw]
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int c = cg + 32 * q;
-        Y[(r0 + i) * kLdw + c] = (acc[i][q] + b_out[c]) * s.mrow[r0 + i];
-      }
-    __syncthreads();
-    float* out = static_cast<float*>(out_ptr);
-    const int nodes = rows / K;
-    for (int e = tid; e < nodes * kH; e += kThreads) {
-      const int n = e / kH, c = e % kH;
-      float sum = 0.f;
-      for (int k = 0; k < K; ++k) sum += Y[(n * K + k) * kLdw + c];
-      out[(node0 + n) * kH + c] = sum / float(K);
+    for (int q = 0; q < 4; ++q) {
+      const int c = cg + 32 * q;
+      Y[(r0 + i) * kLdw + c] = (acc[i][q] + b_out[c]) * s.mrow[r0 + i];
     }
+  __syncthreads();
+  const int nodes = rows / K;
+  for (int e = tid; e < nodes * kH; e += kThreads) {
+    const int n = e / kH, c = e % kH;
+    float sum = 0.f;
+    for (int k = 0; k < K; ++k) sum += Y[(n * K + k) * kLdw + c];
+    out[n * kH + c] = reciprocal ? sum * (1.f / float(K)) : sum / float(K);
+  }
+}
+
+// `rows` valid edge rows of whole nodes start at edge row `erow0` and node
+// row `node0` (both global). Every thread of the block calls this.
+template <typename T, bool POOL>
+__device__ __forceinline__ void message_mlp(const MessageSmem& s, const float* __restrict__ per_i,
+                                            const T* __restrict__ pj,
+                                            const float* __restrict__ w_in,
+                                            const float* __restrict__ b_in,
+                                            const float* __restrict__ w_mid,
+                                            const float* __restrict__ b_mid,
+                                            const float* __restrict__ w_out,
+                                            const float* __restrict__ b_out,
+                                            void* __restrict__ out_ptr, int K, int rows,
+                                            int64_t erow0, int64_t node0) {
+  const int tid = threadIdx.x;
+  const int cg = tid & 31;
+  const int r0 = (tid >> 5) * 8;
+  float acc[8][4];
+  message_products<T>(s, acc, per_i, pj, w_in, b_in, w_mid, b_mid, w_out, K, node0);
+  if (POOL) {
+    pool_tile(s, acc, b_out, static_cast<float*>(out_ptr) + node0 * kH, K, rows, false);
   } else {
     T* out = static_cast<T*>(out_ptr);
 #pragma unroll
@@ -131,6 +163,34 @@ __device__ __forceinline__ void message_mlp(const MessageSmem& s, const float* _
         out[(erow0 + r) * kH + c] = from_f32<T>(acc[i][q] + b_out[c]);
       }
     }
+  }
+}
+
+// Fills the tile from precomputed streams (message_feat.cu, layer.cu):
+// pjrow = the edge row itself (the neighbour term arrives gathered), mrow,
+// and X0 = [h_E | geom] rows, k-major, rounded to the compute type (a no-op
+// for the stream type); rows past `rows` are zeros. Publishes nothing: the
+// first tile_product's barrier does.
+template <typename T>
+__device__ __forceinline__ void load_feature_tile(const MessageSmem& s, const T* __restrict__ h_E,
+                                                  const T* __restrict__ geom,
+                                                  const float* __restrict__ mask,
+                                                  int64_t erow0, int rows) {
+  const int tid = threadIdx.x;
+  if (tid < kRows) {
+    const bool valid = tid < rows;
+    s.pjrow[tid] = valid ? erow0 + tid : -1;
+    s.mrow[tid] = valid ? mask[erow0 + tid] : 0.f;
+  }
+  for (int e = tid; e < kRows * kH; e += kThreads) {
+    const int r = e / kH, c = e % kH;
+    const float v = r < rows ? to_f32<T>(h_E[(erow0 + r) * kH + c]) : 0.f;
+    s.X0[c * kLdx + r] = rnd<T>(v);
+  }
+  for (int e = tid; e < kRows * kG; e += kThreads) {
+    const int r = e / kG, c = e % kG;
+    const float v = r < rows ? to_f32<T>(geom[(erow0 + r) * kG + c]) : 0.f;
+    s.X0[(kH + c) * kLdx + r] = rnd<T>(v);
   }
 }
 

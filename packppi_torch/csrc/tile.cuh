@@ -26,6 +26,7 @@ namespace packppi {
 constexpr int kThreads = 256;
 constexpr int kRows = 64;
 constexpr int kCols = 128;
+constexpr int kH = kCols;         // hidden width of the IPMP streams (== He)
 constexpr int kLdx = kRows + 4;   // k-major activation stride: float4-aligned rows
 constexpr int kKc = 32;           // weight rows of k staged per chunk
 constexpr int kLdw = kCols + 1;   // staged weight stride: conflict-free transposing stores

@@ -14,9 +14,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from packppi_torch.data.batch import ProteinBatch
+from packppi_torch.geometry.rigid import bb_frames_from_atom14, scale_translation
 from packppi_torch.models.encoder import ProteinEncoder
-from packppi_torch.models.ipmp import MessagePassingStack
+from packppi_torch.models.ipmp import MessagePassingStack, relative_frame_transforms
 from packppi_torch.models.layers import MLP
+
+GLOBAL_POINT_KERNELS = ("geom", "geom_lanes", "geom_gather")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,10 +44,21 @@ class NetworkConfig:
     top_k: int = 32
     compute_dtype: str = "float32"  # "bfloat16" for the fast inference path
     static_edge_dtype: str = "float32"
+    # "global": geometry features from gathered global neighbour points
+    # (float32); "local": from gathered local points (in the stream dtype)
+    # and static relative frame transforms cached by encode_static. Local is
+    # incompatible with the global-point kernels ("geom", "geom_lanes",
+    # "geom_gather", fused_layers), as in the JAX package
     geometry_mode: str = "global"
-    # message kernel: "geom_lanes" (point geometry inside the kernel) or True
-    # (the kernel over geometry features computed outside, ops.message_feat)
+    # message kernel: "geom_lanes" (point geometry inside the kernel,
+    # neighbour rows loaded by index), "geom_gather" (the same through the
+    # kernel that replaces the in-kernel-gather TPU kernel), "geom" (the
+    # neighbour streams gathered outside the kernel) or True (the kernel over
+    # geometry features computed outside, ops.message_feat)
     fused_messages: Union[bool, str] = "geom_lanes"
+    # eval(): each IPMP layer as two kernels (ops.layer), superseding
+    # fused_messages; train() routing is unchanged
+    fused_layers: bool = False
     # train() too runs the message passes through the (differentiable)
     # feature-message kernel; needs fused_messages=True
     fused_messages_train: bool = False
@@ -59,7 +73,6 @@ class NetworkConfig:
 
     def validate(self) -> None:
         unsupported = {
-            "geometry_mode": (self.geometry_mode, "global"),
             "use_ipmp": (self.use_ipmp, True),
             "static_edge_dtype": (self.static_edge_dtype, "float32"),
             "act": (self.act, "relu"),
@@ -73,9 +86,17 @@ class NetworkConfig:
                              "(float32 or bfloat16)")
         if self.node_features != self.hidden_dim:
             raise ValueError("node_features must equal hidden_dim")
-        if self.fused_messages is not True and self.fused_messages != "geom_lanes":
+        if self.geometry_mode not in ("global", "local"):
+            raise ValueError(f"NetworkConfig.geometry_mode={self.geometry_mode!r} "
+                             "('global' or 'local')")
+        if not (self.fused_messages is True or self.fused_messages in GLOBAL_POINT_KERNELS):
             raise ValueError(f"NetworkConfig.fused_messages={self.fused_messages!r} "
-                             "('geom_lanes' or True)")
+                             "(True, 'geom', 'geom_lanes' or 'geom_gather')")
+        if self.geometry_mode == "local" and (
+                self.fused_messages in GLOBAL_POINT_KERNELS or self.fused_layers):
+            raise ValueError(
+                "geometry_mode='local' is incompatible with the global-point kernels "
+                "(fused_messages='geom'/'geom_lanes'/'geom_gather' / fused_layers)")
         if not isinstance(self.mxu_gather_grad, bool) and self.mxu_gather_grad != "auto":
             raise ValueError(f"NetworkConfig.mxu_gather_grad={self.mxu_gather_grad!r} "
                              "(False, True or 'auto')")
@@ -96,6 +117,9 @@ class StaticGraph(NamedTuple):
     h_E: torch.Tensor          # [B, L, K, F] in the compute dtype
     idx: torch.Tensor          # [B, L, K] int64
     mask_attend: torch.Tensor  # [B, L, K] float32
+    # local mode: the relative frame transforms (R_rel [B, L, K, 9], t_rel
+    # [B, L, K, 3]); None in global mode
+    rel: Optional[tuple] = None
 
 
 class ChiScoreNetwork(nn.Module):
@@ -107,9 +131,10 @@ class ChiScoreNetwork(nn.Module):
                                       cfg.time_embedding_dim, cfg.num_rbf, cfg.top_k)
         self.mpnn = MessagePassingStack(
             cfg.hidden_dim, cfg.num_mpnn_layers, cfg.n_points, cfg.edge_features,
-            cfg.position_scale, remat=cfg.remat_layers, dropout=cfg.dropout,
+            cfg.position_scale, remat=cfg.remat_layers,
+            geometry_local=cfg.geometry_mode == "local", dropout=cfg.dropout,
             fused_messages=cfg.fused_messages, fused_messages_train=cfg.fused_messages_train,
-            fused_chain_train=cfg.fused_chain_train)
+            fused_chain_train=cfg.fused_chain_train, fused_layers=cfg.fused_layers)
         h = cfg.hidden_dim
         self.decoder_score = nn.Sequential(MLP(h, h // 2, h // 4, 2), nn.ReLU(),
                                            MLP(h // 4, h // 8, 4, 2))
@@ -121,7 +146,14 @@ class ChiScoreNetwork(nn.Module):
                                              batch.residue_mask, batch.residue_index,
                                              self.cfg.dtype)
         mask_attend = MessagePassingStack.attend_mask(batch.residue_mask, idx)
-        return StaticGraph(h_E, idx, mask_attend)
+        rel = None
+        if self.cfg.geometry_mode == "local":
+            # the backbone does not move while sampling: the per-edge
+            # relative frame transforms are static too
+            frames = scale_translation(bb_frames_from_atom14(batch.X),
+                                       1.0 / self.cfg.position_scale)
+            rel = relative_frame_transforms(frames, idx)
+        return StaticGraph(h_E, idx, mask_attend, rel)
 
     def forward(self, batch: ProteinBatch, SC_D_noised: torch.Tensor, t: torch.Tensor,
                 static: Optional[StaticGraph] = None,
@@ -136,7 +168,7 @@ class ChiScoreNetwork(nn.Module):
         h_V = self.encoder.encode_nodes(batch.residue_type, batch.BB_D_sincos,
                                         sc_sincos, t, dtype)
         h_V = self.mpnn(h_V, static.h_E, static.idx, batch.X, batch.residue_mask,
-                        skip_last_edge_update, static.mask_attend)
+                        skip_last_edge_update, static.mask_attend, static.rel)
 
         dec1, _, dec2 = self.decoder_score
         score = dec2(F.relu(dec1(h_V, dtype)), dtype)

@@ -33,6 +33,17 @@ def _ln(x, w, b):
     return (x - m) * torch.rsqrt(torch.clamp(v, min=0.0) + LN_EPS) * w.float() + b.float()
 
 
+def chain_tail_plain(x0, lna_w, lna_b, w1, b1, w2, b2, lnb_w, lnb_b, sd):
+    """The chain from the float32 residual sum ``x0`` [N, H] to
+    ``LN_b(xx + h)`` (float32, before any mask), rounding to the stream
+    dtype ``sd`` at the kernel's points; shared by ``chain_plain`` and the
+    whole-layer passes of ``ops.layer``."""
+    xx = round_to(_ln(x0, lna_w, lna_b), sd)
+    h = round_to(F.relu(round_to(matmul_f32acc(xx, w1.t(), sd) + b1.float(), sd)), sd)
+    h = round_to(matmul_f32acc(h, w2.t(), sd) + b2.float(), sd)
+    return _ln(xx + h, lnb_w, lnb_b)
+
+
 def chain_plain(x, msg, mask: Optional[torch.Tensor], lna_w, lna_b, w1, b1, w2, b2,
                 lnb_w, lnb_b, pre_mask: bool):
     """Plain PyTorch version of the kernel (see the module docstring);
@@ -42,10 +53,7 @@ def chain_plain(x, msg, mask: Optional[torch.Tensor], lna_w, lna_b, w1, b1, w2, 
     if mask is not None and pre_mask:
         m = m * mask[:, None].to(m.dtype)
     x0 = (x + m.to(sd)).float()
-    xx = round_to(_ln(x0, lna_w, lna_b), sd)
-    h = round_to(F.relu(round_to(matmul_f32acc(xx, w1.t(), sd) + b1.float(), sd)), sd)
-    h = round_to(matmul_f32acc(h, w2.t(), sd) + b2.float(), sd)
-    y = _ln(xx + h, lnb_w, lnb_b)
+    y = chain_tail_plain(x0, lna_w, lna_b, w1, b1, w2, b2, lnb_w, lnb_b, sd)
     if mask is not None:
         y = y * mask[:, None].float()
     return y.to(sd)
@@ -107,17 +115,11 @@ def _chain_cuda(x, msg, mask, lna_w, lna_b, w1, b1, w2, b2, lnb_w, lnb_b, pre_ma
         raise ValueError(f"chain kernel is built for H={_H}, got {H}")
     if msg.dtype not in (torch.float32, sd):
         raise TypeError(f"chain kernel: msg is {msg.dtype}, expected float32 or {sd}")
-    f32 = torch.float32
-    expect = {
-        "msg": (msg, (N, H), msg.dtype),
-        "lna_w": (lna_w, (H,), f32), "lna_b": (lna_b, (H,), f32),
-        "w1": (w1, (4 * H, H), f32), "b1": (b1, (4 * H,), f32),
-        "w2": (w2, (H, 4 * H), f32), "b2": (b2, (H,), f32),
-        "lnb_w": (lnb_w, (H,), f32), "lnb_b": (lnb_b, (H,), f32),
-    }
+    expect = {"msg": (msg, (N, H), msg.dtype)}
     if mask is not None:
-        expect["mask"] = (mask, (N,), f32)
+        expect["mask"] = (mask, (N,), torch.float32)
     _build.check_operands("chain", x, expect)
+    check_chain_weights("chain", x, lna_w, lna_b, w1, b1, w2, b2, lnb_w, lnb_b)
     out = torch.empty_like(x)
     lib = _lib()
     err = lib.packppi_chain(
@@ -128,6 +130,18 @@ def _chain_cuda(x, msg, mask, lna_w, lna_b, w1, b1, w2, b2, lnb_w, lnb_b, pre_ma
     _build.check(lib, err, "chain kernel launch")
     chain.launches += 1
     return out
+
+
+def check_chain_weights(name, ref, lna_w, lna_b, w1, b1, w2, b2, lnb_w, lnb_b):
+    """Device, dtype, shape and contiguity of the chain's eight weights (the
+    chain, folded-edge and whole-layer kernels take them alike)."""
+    f32, H = torch.float32, _H
+    _build.check_operands(name, ref, {
+        "lna_w": (lna_w, (H,), f32), "lna_b": (lna_b, (H,), f32),
+        "w1": (w1, (4 * H, H), f32), "b1": (b1, (4 * H,), f32),
+        "w2": (w2, (H, 4 * H), f32), "b2": (b2, (H,), f32),
+        "lnb_w": (lnb_w, (H,), f32), "lnb_b": (lnb_b, (H,), f32),
+    })
 
 
 def _lib():

@@ -1,0 +1,164 @@
+"""One whole IPMP layer in two passes (CUDA kernels + plain twins).
+
+Over the message operands of ``ops.message_feat`` (``per_i`` float32, the
+neighbour term ``pjg`` gathered and the geometry ``geom`` computed, both in
+the stream dtype ``sd``) and the chain's weights, with ``sd`` also the
+compute dtype:
+
+* ``layer_node``: the message of every edge, masked, pooled as
+  ``sum * (1/K)``; ``x0 = h_V + rnd(pooled)``; then the chain
+  (``ops.chain.chain_tail_plain``) and ``* mask_V``. Out [B, L, H] in sd.
+* ``layer_edge``: ``x0 = h_E + rnd(message * mask)``, the message masked in
+  float32; then the chain and ``* mask``. Out [B, L, K, H] in sd.
+
+``rnd`` rounds to sd. Unlike the message-then-chain path, the residual sum
+``x0`` is not rounded before the first LayerNorm: these are the rounding
+points of ``packppi_tpu/ops/pallas_layer.py::_node_kernel`` and
+``_edge_kernel``, which the kernels of ``csrc/layer.cu`` replace (entry
+``fused_ipmp_layer``). Each wrapper launches its kernel for CUDA tensors
+and runs its plain twin for CPU tensors, and counts its launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from packppi_torch.ops import _build
+from packppi_torch.ops.chain import chain_tail_plain, check_chain_weights
+from packppi_torch.ops.message_feat import message_rows_plain
+from packppi_torch.ops.precision import round_to
+
+# nodes a block of the node kernel pools before it runs one chain on them
+# (csrc/layer.cu, "Blocking"); at most 16. At T1124 in bf16 (L = 768, K =
+# 32) a node pass took 0.5566 / 0.3658 / 0.4546 / 0.7405 ms with 2 / 4 / 8 /
+# 16 nodes a block (chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W)
+NODES_PER_BLOCK = 4
+
+
+def layer_node_plain(h_V, per_i, pjg, h_E, geom, mask, mask_V,
+                     w_in, b_in, w_mid, b_mid, w_out, b_out,
+                     lna_w, lna_b, w1, b1, w2, b2, lnb_w, lnb_b):
+    """Plain version of the node pass: ``h_V`` [B, L, H] in sd, ``mask``
+    [B, L, K], ``mask_V`` [B, L] float 0/1."""
+    sd = h_V.dtype
+    H, K = h_V.shape[-1], h_E.shape[-2]
+    x = message_rows_plain(per_i, pjg, h_E, geom, w_in, b_in, w_mid, b_mid, w_out, b_out)
+    pooled = (x * mask[..., None]).sum(-2) * (1.0 / K)
+    x0 = h_V.float() + round_to(pooled, sd)
+    y = chain_tail_plain(x0.reshape(-1, H), lna_w, lna_b, w1, b1, w2, b2, lnb_w, lnb_b, sd)
+    return (y.reshape(h_V.shape) * mask_V[..., None].float()).to(sd)
+
+
+def layer_edge_plain(h_E, per_i, pjg, geom, mask,
+                     w_in, b_in, w_mid, b_mid, w_out, b_out,
+                     lna_w, lna_b, w1, b1, w2, b2, lnb_w, lnb_b):
+    """Plain version of the edge pass: ``h_E`` [B, L, K, H] in sd (the
+    message's input and the residual), ``mask`` [B, L, K]."""
+    sd = h_E.dtype
+    H = h_E.shape[-1]
+    x = message_rows_plain(per_i, pjg, h_E, geom, w_in, b_in, w_mid, b_mid, w_out, b_out)
+    x0 = h_E.float() + round_to(x * mask[..., None], sd)
+    y = chain_tail_plain(x0.reshape(-1, H), lna_w, lna_b, w1, b1, w2, b2, lnb_w, lnb_b, sd)
+    return (y.reshape(h_E.shape) * mask[..., None].float()).to(sd)
+
+
+def layer_node(h_V, per_i, pjg, h_E, geom, mask, mask_V,
+               w_in, b_in, w_mid, b_mid, w_out, b_out,
+               lna_w, lna_b, w1, b1, w2, b2, lnb_w, lnb_b, nodes_per_block=None):
+    """The node pass: the CUDA kernel for CUDA tensors, ``layer_node_plain``
+    for CPU tensors. ``nodes_per_block`` (1-16) sets the kernel's blocking
+    only (default ``NODES_PER_BLOCK``)."""
+    ops = (h_V, per_i, pjg, h_E, geom, mask, mask_V, w_in, b_in, w_mid, b_mid, w_out, b_out,
+           lna_w, lna_b, w1, b1, w2, b2, lnb_w, lnb_b)
+    if h_E.device.type == "cpu":
+        return layer_node_plain(*ops)
+    return _layer_node_cuda(ops, NODES_PER_BLOCK if nodes_per_block is None else nodes_per_block)
+
+
+def layer_edge(h_E, per_i, pjg, geom, mask,
+               w_in, b_in, w_mid, b_mid, w_out, b_out,
+               lna_w, lna_b, w1, b1, w2, b2, lnb_w, lnb_b):
+    """The edge pass: the CUDA kernel for CUDA tensors, ``layer_edge_plain``
+    for CPU tensors."""
+    ops = (h_E, per_i, pjg, geom, mask, w_in, b_in, w_mid, b_mid, w_out, b_out,
+           lna_w, lna_b, w1, b1, w2, b2, lnb_w, lnb_b)
+    if h_E.device.type == "cpu":
+        return layer_edge_plain(*ops)
+    return _layer_edge_cuda(ops)
+
+
+# kernel launches on the card; the plain path never touches them
+layer_node.launches = 0
+layer_edge.launches = 0
+
+_H, _G, _MAX_K, _MAX_NODES = 128, 72, 64, 16
+_F32 = torch.float32
+
+
+def _message_expect(name, h_E, per_i, pjg, geom, mask, w_in, b_in, w_mid, b_mid, w_out, b_out):
+    """Checks the message operands; returns (B, L, K, sd)."""
+    B, L, K, He = h_E.shape
+    sd = h_E.dtype
+    if sd not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name} kernel: stream dtype {sd} (float32 or bfloat16)")
+    if He != _H or per_i.shape[-1] != _H or geom.shape[-1] != _G:
+        raise ValueError(f"{name} kernel is built for H=He={_H}, 9P={_G}; got "
+                         f"H={per_i.shape[-1]}, He={He}, 9P={geom.shape[-1]}")
+    if K > _MAX_K:
+        raise ValueError(f"{name} kernel takes K <= {_MAX_K} neighbours, got {K}")
+    _build.check_operands(name, h_E, {
+        "per_i": (per_i, (B, L, _H), _F32),
+        "pjg": (pjg, (B, L, K, _H), sd),
+        "geom": (geom, (B, L, K, _G), sd),
+        "mask": (mask, (B, L, K), _F32),
+        "w_in": (w_in, (_H, 2 * _H + He + _G), _F32),
+        "b_in": (b_in, (_H,), _F32),
+        "w_mid": (w_mid, (_H, _H), _F32),
+        "b_mid": (b_mid, (_H,), _F32),
+        "w_out": (w_out, (_H, _H), _F32),
+        "b_out": (b_out, (_H,), _F32),
+    })
+    return B, L, K, sd
+
+
+def _layer_node_cuda(ops, nodes_per_block):
+    h_V, per_i, pjg, h_E, geom, mask, mask_V, *weights = ops
+    B, L, K, sd = _message_expect("layer_node", h_E, per_i, pjg, geom, mask, *weights[:6])
+    check_chain_weights("layer_node", h_E, *weights[6:])
+    _build.check_operands("layer_node", h_E, {"h_V": (h_V, (B, L, _H), sd),
+                                              "mask_V": (mask_V, (B, L), _F32)})
+    if not 1 <= nodes_per_block <= _MAX_NODES:
+        raise ValueError(f"layer_node kernel: nodes_per_block {nodes_per_block} "
+                         f"(1 to {_MAX_NODES})")
+    out = torch.empty_like(h_V)
+    lib = _lib()
+    err = lib.packppi_layer_node(*(_build.ptr(t) for t in ops + (out,)), B * L, K,
+                                 nodes_per_block, int(sd == torch.bfloat16),
+                                 _build.stream_ptr(h_E.device))
+    _build.check(lib, err, "layer_node kernel launch")
+    layer_node.launches += 1
+    return out
+
+
+def _layer_edge_cuda(ops):
+    h_E, per_i, pjg, geom, mask, *weights = ops
+    B, L, K, sd = _message_expect("layer_edge", h_E, per_i, pjg, geom, mask, *weights[:6])
+    check_chain_weights("layer_edge", h_E, *weights[6:])
+    out = torch.empty_like(h_E)
+    lib = _lib()
+    err = lib.packppi_layer_edge(*(_build.ptr(t) for t in ops + (out,)), B * L, K,
+                                 int(sd == torch.bfloat16), _build.stream_ptr(h_E.device))
+    _build.check(lib, err, "layer_edge kernel launch")
+    layer_edge.launches += 1
+    return out
+
+
+def _lib():
+    lib = _build.load_library("layer")
+    if lib.packppi_layer_node.argtypes is None:
+        ptrs, ints, stream = [ctypes.c_void_p], [ctypes.c_int], [ctypes.c_void_p]
+        lib.packppi_layer_node.argtypes = ptrs * 22 + [ctypes.c_longlong] + ints * 3 + stream
+        lib.packppi_layer_edge.argtypes = ptrs * 20 + [ctypes.c_longlong] + ints * 2 + stream
+        lib.packppi_layer_node.restype = lib.packppi_layer_edge.restype = ctypes.c_int
+    return lib

@@ -11,10 +11,23 @@ For every edge (i, j=idx[i, k]) of the kNN graph:
 [B, L, K, H] in the stream dtype (``h_E.dtype``, also the compute dtype:
 operands are rounded to it before each product, sums stay float32).
 
-``message`` launches the CUDA kernel of ``csrc/message.cu`` for CUDA
-tensors and runs ``message_plain`` for CPU tensors; nothing else picks the
-plain version. The kernel replaces
-``packppi_tpu/ops/pallas_ipmp.py::fused_message_geom_lanes``.
+Four entry points, each launching its own kernel of ``csrc/message.cu``
+for CUDA tensors and running its plain twin for CPU tensors (nothing else
+picks the plain version), each with its own count of launches:
+
+* ``message``: the per-node tables ``per_j`` and ``pg`` and ``idx``; the
+  kernel loads neighbour rows by index. Replaces
+  ``packppi_tpu/ops/pallas_ipmp.py::fused_message_geom_lanes``.
+* ``message_gather``: the same function and operands in its own
+  instantiation. Replaces ``::fused_message_geom_gather``, whose one-hot
+  in-kernel gathers are an indexed load on a GPU.
+* ``message_geom``: the neighbour term and the neighbour global-point
+  planes arrive gathered (``pjg`` in the stream dtype, ``ng`` float32), node
+  i's points as local planes with its frame. Replaces
+  ``::fused_message_geom``.
+* ``message_chain``: ``message``'s edge pass with the residual chain of
+  ``ops.chain`` folded in (``pre_mask``); returns the new h_E. Replaces
+  ``_geom_lanes_kernel``'s ``with_chain`` branch.
 """
 from __future__ import annotations
 
@@ -23,6 +36,7 @@ import ctypes
 import torch
 
 from packppi_torch.ops import _build
+from packppi_torch.ops.chain import check_chain_weights, chain_plain
 from packppi_torch.ops.graph import gather_nodes
 from packppi_torch.ops.message_feat import message_feat_plain
 
@@ -92,6 +106,33 @@ def message_plain(per_i, per_j, h_E, idx, p_local, rot, trans, pg, mask,
                               w_in, b_in, w_mid, b_mid, w_out, b_out, pool)
 
 
+def message_geom_plain(per_i, pjg, h_E, pl, ng, rot9, trans, mask,
+                       w_in, b_in, w_mid, b_mid, w_out, b_out, pool: bool):
+    """Plain version of the gathered-operand kernel: ``pjg`` [B, L, K, H] in
+    the stream dtype, ``pl`` [B, L, 3P] local point planes ``[x | y | z]``,
+    ``ng`` [B, L, K, 3P] gathered neighbour global-point planes, ``rot9``
+    [B, L, 9] row-major, ``trans`` [B, L, 3], all float32."""
+    B, L, G3 = pl.shape
+    P = G3 // 3
+    p_local = torch.stack([pl[..., :P], pl[..., P:2 * P], pl[..., 2 * P:]], -1)
+    geom = geometry_edge_features(p_local, ng, rot9.reshape(B, L, 3, 3), trans)
+    return message_feat_plain(per_i, pjg, h_E, geom, mask, w_in, b_in, w_mid, b_mid,
+                              w_out, b_out, pool)
+
+
+def message_chain_plain(per_i, per_j, h_E, idx, p_local, rot, trans, pg, mask,
+                        w_in, b_in, w_mid, b_mid, w_out, b_out,
+                        lna_w, lna_b, w1, b1, w2, b2, lnb_w, lnb_b):
+    """Plain version of the folded edge pass: ``message_plain`` (edge)
+    followed by ``chain_plain(pre_mask=True)``; [B, L, K, H] in the stream
+    dtype."""
+    msg = message_plain(per_i, per_j, h_E, idx, p_local, rot, trans, pg, mask,
+                        w_in, b_in, w_mid, b_mid, w_out, b_out, False)
+    H = h_E.shape[-1]
+    return chain_plain(h_E.reshape(-1, H), msg.reshape(-1, H), mask.reshape(-1).float(),
+                       lna_w, lna_b, w1, b1, w2, b2, lnb_w, lnb_b, True).reshape(h_E.shape)
+
+
 def message(per_i, per_j, h_E, idx, p_local, rot, trans, pg, mask,
             w_in, b_in, w_mid, b_mid, w_out, b_out, pool: bool):
     """The message pass: the CUDA kernel for CUDA tensors, ``message_plain``
@@ -99,60 +140,172 @@ def message(per_i, per_j, h_E, idx, p_local, rot, trans, pg, mask,
     if h_E.device.type == "cpu":
         return message_plain(per_i, per_j, h_E, idx, p_local, rot, trans, pg, mask,
                              w_in, b_in, w_mid, b_mid, w_out, b_out, pool)
-    return _message_cuda(per_i, per_j, h_E, idx, p_local, rot, trans, pg, mask,
-                         w_in, b_in, w_mid, b_mid, w_out, b_out, pool)
+    out = _indexed_cuda("packppi_message", per_i, per_j, h_E, idx, p_local, rot, trans, pg,
+                        mask, w_in, b_in, w_mid, b_mid, w_out, b_out, pool)
+    message.launches += 1
+    return out
 
 
-# kernel launches on the card; the plain path never touches it
+def message_gather(per_i, per_j, h_E, idx, p_local, rot, trans, pg, mask,
+                   w_in, b_in, w_mid, b_mid, w_out, b_out, pool: bool):
+    """``message``'s function and operands through the kernel that replaces
+    ``fused_message_geom_gather``; ``message_plain`` for CPU tensors."""
+    if h_E.device.type == "cpu":
+        return message_plain(per_i, per_j, h_E, idx, p_local, rot, trans, pg, mask,
+                             w_in, b_in, w_mid, b_mid, w_out, b_out, pool)
+    out = _indexed_cuda("packppi_message_gather", per_i, per_j, h_E, idx, p_local, rot, trans,
+                        pg, mask, w_in, b_in, w_mid, b_mid, w_out, b_out, pool)
+    message_gather.launches += 1
+    return out
+
+
+def message_geom(per_i, pjg, h_E, pl, ng, rot9, trans, mask,
+                 w_in, b_in, w_mid, b_mid, w_out, b_out, pool: bool):
+    """The message pass over gathered neighbour streams: the CUDA kernel for
+    CUDA tensors, ``message_geom_plain`` for CPU tensors."""
+    if h_E.device.type == "cpu":
+        return message_geom_plain(per_i, pjg, h_E, pl, ng, rot9, trans, mask,
+                                  w_in, b_in, w_mid, b_mid, w_out, b_out, pool)
+    return _message_geom_cuda(per_i, pjg, h_E, pl, ng, rot9, trans, mask,
+                              w_in, b_in, w_mid, b_mid, w_out, b_out, pool)
+
+
+def message_chain(per_i, per_j, h_E, idx, p_local, rot, trans, pg, mask,
+                  w_in, b_in, w_mid, b_mid, w_out, b_out,
+                  lna_w, lna_b, w1, b1, w2, b2, lnb_w, lnb_b):
+    """The edge pass with the chain folded in: the CUDA kernel for CUDA
+    tensors, ``message_chain_plain`` for CPU tensors. Returns the new h_E."""
+    ops = (per_i, per_j, h_E, idx, p_local, rot, trans, pg, mask, w_in, b_in, w_mid, b_mid,
+           w_out, b_out)
+    chain_w = (lna_w, lna_b, w1, b1, w2, b2, lnb_w, lnb_b)
+    if h_E.device.type == "cpu":
+        return message_chain_plain(*ops, *chain_w)
+    return _message_chain_cuda(ops, chain_w)
+
+
+# kernel launches on the card; the plain path never touches them
 message.launches = 0
+message_gather.launches = 0
+message_geom.launches = 0
+message_chain.launches = 0
 
 _H, _P, _MAX_K = 128, 8, 64
+_F32 = torch.float32
 
 
-def _message_cuda(per_i, per_j, h_E, idx, p_local, rot, trans, pg, mask,
-                  w_in, b_in, w_mid, b_mid, w_out, b_out, pool):
-    B, L, K, He = h_E.shape
+def _stream_dtype(name, h_E):
     sd = h_E.dtype
     if sd not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"message kernel: stream dtype {sd} (float32 or bfloat16)")
-    if He != _H or per_i.shape[-1] != _H or p_local.shape[2] != _P:
-        raise ValueError(f"message kernel is built for H=He={_H}, P={_P}; got "
-                         f"H={per_i.shape[-1]}, He={He}, P={p_local.shape[2]}")
+        raise TypeError(f"{name} kernel: stream dtype {sd} (float32 or bfloat16)")
+    return sd
+
+
+def _check_widths(name, He, H, K, P):
+    if He != _H or H != _H or P != _P:
+        raise ValueError(f"{name} kernel is built for H=He={_H}, P={_P}; got "
+                         f"H={H}, He={He}, P={P}")
     if K > _MAX_K:
-        raise ValueError(f"message kernel takes K <= {_MAX_K} neighbours, got {K}")
-    G = 9 * _P
+        raise ValueError(f"{name} kernel takes K <= {_MAX_K} neighbours, got {K}")
+
+
+def _weights_expect(w_in, b_in, w_mid, b_mid, w_out, b_out, He):
+    return {
+        "w_in": (w_in, (_H, 2 * _H + He + 9 * _P), _F32),
+        "b_in": (b_in, (_H,), _F32),
+        "w_mid": (w_mid, (_H, _H), _F32),
+        "b_mid": (b_mid, (_H,), _F32),
+        "w_out": (w_out, (_H, _H), _F32),
+        "b_out": (b_out, (_H,), _F32),
+    }
+
+
+def _indexed_expect(name, per_i, per_j, h_E, idx, p_local, rot, trans, pg, mask,
+                    w_in, b_in, w_mid, b_mid, w_out, b_out):
+    """Checks the operands of the indexed-load routes; returns (B, L, K, sd)."""
+    B, L, K, He = h_E.shape
+    sd = _stream_dtype(name, h_E)
+    _check_widths(name, He, per_i.shape[-1], K, p_local.shape[2])
     expect = {
-        "per_i": (per_i, (B, L, _H), torch.float32),
+        "per_i": (per_i, (B, L, _H), _F32),
         "per_j": (per_j, (B, L, _H), sd),
         "idx": (idx, (B, L, K), torch.int64),
-        "p_local": (p_local, (B, L, _P, 3), torch.float32),
-        "rot": (rot, (B, L, 3, 3), torch.float32),
-        "trans": (trans, (B, L, 3), torch.float32),
-        "pg": (pg, (B, L, 3 * _P), torch.float32),
-        "mask": (mask, (B, L, K), torch.float32),
-        "w_in": (w_in, (_H, 2 * _H + He + G), torch.float32),
-        "b_in": (b_in, (_H,), torch.float32),
-        "w_mid": (w_mid, (_H, _H), torch.float32),
-        "b_mid": (b_mid, (_H,), torch.float32),
-        "w_out": (w_out, (_H, _H), torch.float32),
-        "b_out": (b_out, (_H,), torch.float32),
+        "p_local": (p_local, (B, L, _P, 3), _F32),
+        "rot": (rot, (B, L, 3, 3), _F32),
+        "trans": (trans, (B, L, 3), _F32),
+        "pg": (pg, (B, L, 3 * _P), _F32),
+        "mask": (mask, (B, L, K), _F32),
+        **_weights_expect(w_in, b_in, w_mid, b_mid, w_out, b_out, He),
     }
-    _build.check_operands("message", h_E, expect)
-    out = (torch.empty(B, L, _H, device=h_E.device, dtype=torch.float32) if pool
+    _build.check_operands(name, h_E, expect)
+    return B, L, K, sd
+
+
+def _indexed_cuda(entry, per_i, per_j, h_E, idx, p_local, rot, trans, pg, mask,
+                  w_in, b_in, w_mid, b_mid, w_out, b_out, pool):
+    ops = (per_i, per_j, h_E, idx, p_local, rot, trans, pg, mask, w_in, b_in, w_mid, b_mid,
+           w_out, b_out)
+    B, L, K, sd = _indexed_expect(entry[len("packppi_"):], *ops)
+    out = (torch.empty(B, L, _H, device=h_E.device, dtype=_F32) if pool
            else torch.empty(B, L, K, _H, device=h_E.device, dtype=sd))
     lib = _lib()
-    err = lib.packppi_message(
-        *(_build.ptr(t) for t in (per_i, per_j, h_E, idx, p_local, rot, trans, pg, mask,
-                                  w_in, b_in, w_mid, b_mid, w_out, b_out, out)),
-        B, L, K, int(sd == torch.bfloat16), int(pool), _build.stream_ptr(h_E.device))
-    _build.check(lib, err, "message kernel launch")
-    message.launches += 1
+    err = getattr(lib, entry)(*(_build.ptr(t) for t in ops + (out,)),
+                              B, L, K, int(sd == torch.bfloat16), int(pool),
+                              _build.stream_ptr(h_E.device))
+    _build.check(lib, err, f"{entry[len('packppi_'):]} kernel launch")
+    return out
+
+
+def _message_geom_cuda(per_i, pjg, h_E, pl, ng, rot9, trans, mask,
+                       w_in, b_in, w_mid, b_mid, w_out, b_out, pool):
+    B, L, K, He = h_E.shape
+    sd = _stream_dtype("message_geom", h_E)
+    _check_widths("message_geom", He, per_i.shape[-1], K, pl.shape[-1] // 3)
+    expect = {
+        "per_i": (per_i, (B, L, _H), _F32),
+        "pjg": (pjg, (B, L, K, _H), sd),
+        "pl": (pl, (B, L, 3 * _P), _F32),
+        "ng": (ng, (B, L, K, 3 * _P), _F32),
+        "rot9": (rot9, (B, L, 9), _F32),
+        "trans": (trans, (B, L, 3), _F32),
+        "mask": (mask, (B, L, K), _F32),
+        **_weights_expect(w_in, b_in, w_mid, b_mid, w_out, b_out, He),
+    }
+    _build.check_operands("message_geom", h_E, expect)
+    out = (torch.empty(B, L, _H, device=h_E.device, dtype=_F32) if pool
+           else torch.empty(B, L, K, _H, device=h_E.device, dtype=sd))
+    lib = _lib()
+    err = lib.packppi_message_geom(
+        *(_build.ptr(t) for t in (per_i, pjg, h_E, pl, ng, rot9, trans, mask, w_in, b_in,
+                                  w_mid, b_mid, w_out, b_out, out)),
+        B * L, K, int(sd == torch.bfloat16), int(pool), _build.stream_ptr(h_E.device))
+    _build.check(lib, err, "message_geom kernel launch")
+    message_geom.launches += 1
+    return out
+
+
+def _message_chain_cuda(ops, chain_w):
+    h_E = ops[2]
+    B, L, K, sd = _indexed_expect("message_chain", *ops)
+    check_chain_weights("message_chain", h_E, *chain_w)
+    out = torch.empty_like(h_E)
+    lib = _lib()
+    err = lib.packppi_message_chain(*(_build.ptr(t) for t in ops + chain_w + (out,)),
+                                    B, L, K, int(sd == torch.bfloat16),
+                                    _build.stream_ptr(h_E.device))
+    _build.check(lib, err, "message_chain kernel launch")
+    message_chain.launches += 1
     return out
 
 
 def _lib():
     lib = _build.load_library("message")
     if lib.packppi_message.argtypes is None:
-        lib.packppi_message.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        lib.packppi_message.restype = ctypes.c_int
+        ptrs, ints, stream = [ctypes.c_void_p], [ctypes.c_int], [ctypes.c_void_p]
+        for entry in (lib.packppi_message, lib.packppi_message_gather):
+            entry.argtypes = ptrs * 16 + ints * 5 + stream
+        lib.packppi_message_geom.argtypes = ptrs * 15 + [ctypes.c_longlong] + ints * 3 + stream
+        lib.packppi_message_chain.argtypes = ptrs * 24 + ints * 4 + stream
+        for entry in (lib.packppi_message, lib.packppi_message_gather, lib.packppi_message_geom,
+                      lib.packppi_message_chain):
+            entry.restype = ctypes.c_int
     return lib

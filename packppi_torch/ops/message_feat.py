@@ -38,28 +38,34 @@ from packppi_torch.ops import _build
 from packppi_torch.ops.precision import matmul_f32acc
 
 
-def message_feat_plain(per_i, pj, h_E, geom, mask, w_in, b_in, w_mid, b_mid, w_out, b_out,
-                       pool: bool):
-    """Plain PyTorch version of the kernel, at the kernel's cast points.
+def message_rows_plain(per_i, pj, h_E, geom, w_in, b_in, w_mid, b_mid, w_out, b_out):
+    """The message of every edge row, float32 [B, L, K, H], before any pool
+    or cast, at the kernel's cast points.
 
     ``per_i`` [B, L, H] float32; ``pj`` [B, L, K, H], ``h_E`` [B, L, K, He]
     and ``geom`` [B, L, K, 9P] (any float dtype; rounded to ``h_E.dtype``);
-    ``mask`` [B, L, K]; ``w_in`` [H, H + He + H + 9P], ``w_mid``/``w_out``
-    [H, H] in Linear layout.
+    ``w_in`` [H, H + He + H + 9P], ``w_mid``/``w_out`` [H, H] in Linear
+    layout.
     """
     cd = h_E.dtype
     H, He = per_i.shape[-1], h_E.shape[-1]
-    K = h_E.shape[-2]
     w = w_in.float()
     x = (matmul_f32acc(h_E, w[:, H:H + He].t(), cd)
          + matmul_f32acc(geom, w[:, 2 * H + He:].t(), cd) + b_in.float())
     x = x + per_i.float()[..., None, :]
     x = F.relu(x + pj.float())
     x = F.relu(matmul_f32acc(x, w_mid.float().t(), cd) + b_mid.float())
-    x = matmul_f32acc(x, w_out.float().t(), cd) + b_out.float()
+    return matmul_f32acc(x, w_out.float().t(), cd) + b_out.float()
+
+
+def message_feat_plain(per_i, pj, h_E, geom, mask, w_in, b_in, w_mid, b_mid, w_out, b_out,
+                       pool: bool):
+    """Plain PyTorch version of the kernel, at the kernel's cast points
+    (``message_rows_plain``; ``mask`` [B, L, K])."""
+    x = message_rows_plain(per_i, pj, h_E, geom, w_in, b_in, w_mid, b_mid, w_out, b_out)
     if pool:
-        return (x * mask[..., None]).sum(-2) / float(K)
-    return x.to(cd)
+        return (x * mask[..., None]).sum(-2) / float(h_E.shape[-2])
+    return x.to(h_E.dtype)
 
 
 class _MessageFeat(torch.autograd.Function):

@@ -19,7 +19,7 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "packppi_tpu"))
 print(len(names), bad)
 assert not bad, bad
-assert len(names) >= 53, names
+assert len(names) >= 54, names
 for n in ("packppi_torch.ops.clash", "packppi_torch.sampling.proximal", "packppi_torch.cli.prox",
           "packppi_torch.ops.message_feat", "packppi_torch.train.loop",
           "packppi_torch.train.diffusion_task", "packppi_torch.train.checkpoints",
@@ -28,7 +28,7 @@ for n in ("packppi_torch.ops.clash", "packppi_torch.sampling.proximal", "packppi
           "packppi_torch.utils.metrics", "packppi_torch.cli._runner",
           "packppi_torch.cli.train_diffusion", "packppi_torch.ops.attention",
           "packppi_torch.models.esm2", "packppi_torch.models.affinity", "packppi_torch.data.esm",
-          "packppi_torch.data.skempi", "packppi_torch.cli.ddg"):
+          "packppi_torch.data.skempi", "packppi_torch.cli.ddg", "packppi_torch.ops.layer"):
     assert n in names, n
 """
 
@@ -64,6 +64,18 @@ def test_pack_cli_without_gpu_raises(tmp_path):
         run(args)
 
 
+def test_pack_cli_local_geometry_without_gpu_raises(tmp_path):
+    from packppi_torch.cli.pack import build_parser, run
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the no-GPU refusal cannot be shown")
+    args = build_parser().parse_args([
+        "--input", os.path.join(REPO, "tests", "fixtures", "1brs.pdb"),
+        "--outdir", str(tmp_path), "--geometry", "local"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run(args)
+
+
 def test_prox_cli_without_gpu_raises(tmp_path):
     from packppi_torch.cli.prox import build_parser, run
 
@@ -91,10 +103,13 @@ def test_pack_cli_with_proximal_without_gpu_raises(tmp_path):
 def test_unimplemented_config_values_raise():
     from packppi_torch.models import ChiScoreNetwork, NetworkConfig
 
-    for bad in (dict(geometry_mode="local"), dict(use_ipmp=False),
-                dict(static_edge_dtype="bfloat16"), dict(act="gelu")):
+    for bad in (dict(use_ipmp=False), dict(static_edge_dtype="bfloat16"), dict(act="gelu")):
         with pytest.raises(ValueError, match="not implemented"):
             ChiScoreNetwork(NetworkConfig(**bad))
+    # local geometry is implemented; with a global-point kernel it is refused
+    with pytest.raises(ValueError, match="incompatible"):
+        ChiScoreNetwork(NetworkConfig(geometry_mode="local"))
+    ChiScoreNetwork(NetworkConfig(geometry_mode="local", fused_messages=True))
 
 
 def test_training_mode_with_dropout_raises():
@@ -138,12 +153,15 @@ def test_train_cli_without_gpu_raises(tmp_path):
 def test_routing_config_values_are_validated():
     from packppi_torch.models import ChiScoreNetwork, NetworkConfig
 
-    for bad in (dict(fused_messages=False), dict(fused_messages="geom"),
+    for bad in (dict(fused_messages=False), dict(fused_messages="geom_aos"),
+                dict(fused_messages=1), dict(geometry_mode="frame"),
                 dict(mxu_gather_grad="yes"), dict(mxu_gather_grad=1)):
         with pytest.raises(ValueError):
             ChiScoreNetwork(NetworkConfig(**bad))
     for ok in (dict(mxu_gather_grad="auto"), dict(mxu_gather_grad=True),
                dict(fused_messages=True, fused_messages_train=True, fused_chain_train=True,
-                    dropout=0.0, remat_layers=True)):
+                    dropout=0.0, remat_layers=True),
+               dict(fused_messages="geom"), dict(fused_messages="geom_gather"),
+               dict(fused_layers=True), dict(geometry_mode="local", fused_messages=True)):
         ChiScoreNetwork(NetworkConfig(**ok))
 

@@ -207,6 +207,98 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         chain(*cops, False)
 
 
+def _chain_weights(device, seed=4):
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=g)
+    w = (1 + 0.1 * r(H), 0.1 * r(H), r(4 * H, H) / np.sqrt(H), 0.1 * r(4 * H),
+         r(H, 4 * H) / np.sqrt(4 * H), 0.1 * r(H), 1 + 0.1 * r(H), 0.1 * r(H))
+    return tuple(t.to(device).contiguous() for t in w)
+
+
+def _geom_operands(ops):
+    """``message``'s operands gathered for ``message_geom``: the neighbour
+    term and global-point planes per edge, the local planes, R row-major."""
+    from packppi_torch.ops.graph import gather_nodes
+
+    per_i, per_j, h_E, idx, p_local, rot, trans, pg, mask, *w = ops
+    B, L = idx.shape[:2]
+    pl = torch.cat([p_local[..., 0], p_local[..., 1], p_local[..., 2]], -1).contiguous()
+    return (per_i, gather_nodes(per_j, idx).contiguous(), h_E, pl,
+            gather_nodes(pg, idx).contiguous(), rot.reshape(B, L, 9).contiguous(), trans, mask,
+            *w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("pool", [True, False], ids=["pool", "edge"])
+def test_message_geom_and_gather_kernels_match_plain(cuda, dtype, pool):
+    """B = 2, L = 37, K = 20: a partial last block, K no divisor of 64."""
+    from packppi_torch.ops.message import (message, message_gather, message_geom,
+                                           message_geom_plain, message_plain)
+
+    ops = _message_operands(cuda, dtype)
+    gops = _geom_operands(ops)
+    before = (message_geom.launches, message_gather.launches)
+    geom, gather = message_geom(*gops, pool), message_gather(*ops, pool)
+    torch.cuda.synchronize()
+    assert (message_geom.launches, message_gather.launches) == (before[0] + 1, before[1] + 1)
+    assert geom.dtype == gather.dtype == (torch.float32 if pool else dtype)
+    _close(geom, message_geom_plain(*gops, pool), dtype)
+    _close(gather, message_plain(*ops, pool), dtype)
+    _close(geom, message(*ops, pool), dtype)            # one function, three routes
+    assert torch.equal(gather, message(*ops, pool))     # one body, two instantiations
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("K", [20, 24])
+def test_message_chain_kernel_matches_plain_and_two_kernels(cuda, dtype, K):
+    from packppi_torch.ops.chain import chain
+    from packppi_torch.ops.message import message, message_chain, message_chain_plain
+
+    ops = _message_operands(cuda, dtype, K=K)
+    cw = _chain_weights(cuda)
+    before = message_chain.launches
+    got = message_chain(*ops, *cw)
+    torch.cuda.synchronize()
+    assert message_chain.launches == before + 1 and got.dtype == dtype
+    _close(got, message_chain_plain(*ops, *cw), dtype)
+    msg = message(*ops, False)
+    two = chain(ops[2].reshape(-1, H), msg.reshape(-1, H), ops[8].reshape(-1), *cw, True)
+    assert torch.equal(got.reshape(-1, H), two)         # the two-kernel path, bit for bit
+
+
+def _layer_operands(device, dtype, pool):
+    ops = _message_feat_operands(device, dtype)
+    per_i, pj, h_E, geom, mask, *w = ops
+    cw = _chain_weights(device)
+    if not pool:
+        return (h_E, per_i, pj, geom, mask, *w, *cw)
+    g = torch.Generator().manual_seed(6)
+    B, L = per_i.shape[:2]
+    h_V = torch.randn(B, L, H, generator=g).to(device, dtype)
+    mask_V = (torch.rand(B, L, generator=g) > 0.1).float().to(device)
+    return (h_V, per_i, pj, h_E, geom, mask, mask_V, *w, *cw)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("pool", [True, False], ids=["node", "edge"])
+def test_layer_kernels_match_plain(cuda, dtype, pool):
+    """B = 2, L = 37, K = 20; the node pass at three blockings, bit for bit."""
+    from packppi_torch.ops.layer import layer_edge, layer_edge_plain, layer_node, layer_node_plain
+
+    ops = _layer_operands(cuda, dtype, pool)
+    fn, plain = (layer_node, layer_node_plain) if pool else (layer_edge, layer_edge_plain)
+    before = fn.launches
+    got = fn(*ops)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1 and got.dtype == dtype
+    _close(got, plain(*ops), dtype)
+    if pool:
+        for npb in (1, 3, 16):
+            assert torch.equal(layer_node(*ops, nodes_per_block=npb), got)
+        with pytest.raises(ValueError, match="nodes_per_block"):
+            layer_node(*ops, nodes_per_block=17)
+
+
 def _clash_operands(device, B=2, L=23, seed=2):
     """A random crowded cloud: B complexes of L residues in a small box (so
     many pairs overlap), some atoms absent, residue indices with a chain
