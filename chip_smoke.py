@@ -10,7 +10,9 @@ fatal on failure:
 1. versions: Python, torch, CUDA, nvcc, the card's name and power limit,
    and a content hash of the code (``packppi_torch/`` and this script);
 2. build: every kernel of ``packppi_torch/csrc`` (six sources) with nvcc
-   for sm_90a, one nvcc per source, all started together;
+   for sm_90a, one nvcc per source, all started together; ptxas's lines
+   (registers, shared memory, spills) of the tensor-core kernels
+   (attention, chain) and the registers and spills of the others;
 3. kernels: each kernel against its plain PyTorch version on the card, on
    the T1124 complex's real graph and activations (L=768, K=32, H=128;
    node N=768 and edge N=24,576 rows), float32 and bf16, timed with CUDA
@@ -26,7 +28,10 @@ fatal on failure:
    The feature-message kernel runs at the training shape (4 copies of
    T1124 padded to L = 1,024: 131,072 edge rows) and at L = 741, node and
    edge, float32 and bf16 with the same two controls, and row for row
-   against the geometry-in-kernel message kernel on the same features. The
+   against the geometry-in-kernel message kernel on the same features; the
+   chain kernel after it at the same shape (4,096 node and 131,072 edge
+   rows), timed. The chain and attention kernels' times come with their
+   achieved TFLOP/s and share of the bound. The
    two differentiable passes (feature-message and chain: kernel forward,
    recomputed plain backward) are held, gradient by gradient, to autograd
    through their plain versions. The attention kernel runs at ESM-2 650M's
@@ -39,7 +44,8 @@ fatal on failure:
    and activations, node and edge, float32 and bf16 with the two controls,
    timed beside their plain versions; the gathered-operand and
    in-kernel-gather routes are held against the message kernel, the folded
-   edge pass against message then chain (bit for bit), the node pass at
+   edge pass against message then chain (within the limits: the fold keeps
+   the FMA chain body, the chain kernel runs on tensor cores), the node pass at
    2, 4, 8 and 16 nodes a block (bit for bit); the gather route at 11 x
    T1124 (L = 8,151), the fold at K = 24, the layer passes at L = 741;
 4. golden replay: the 1BRS float32 30-step trajectory through the kernels
@@ -106,7 +112,11 @@ OUT = REPO / "smoke_out"
 
 # NVIDIA H100 SXM data sheet, dense, at the full 700 W power limit
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}   # tensor-core bf16; fp32 FMA
+# bf16 on the tensor cores; float32-accurate products on the tensor cores
+# (3xTF32: three TF32 products, 495 TFLOP/s, for each), the least time the
+# card needs for them whatever computes them (the FMA units' 67 TFLOP/s is
+# slower), so no kernel can read above 100% of its bound
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 495e12 / 3}
 
 # kernel vs plain version on the card: float32 max |d|; bf16 relative to
 # max|ref|. The bf16 mean limit lies between the sound kernels' readings
@@ -122,6 +132,7 @@ CLASH_FWD_TOL, CLASH_GRAD_TOL = 1e-5, 2e-5
 CLASH_TOL_SOFT = 0.5                    # sc_violation_loss's overlap tolerance
 PROX_STEPS = 50
 SOURCES = ("message", "message_feat", "chain", "clash", "attention", "layer")
+TENSOR_CORE_SOURCES = ("attention", "chain")     # products on tensor cores (csrc/mma.cuh)
 # the training shape: 4 copies of T1124 padded to 1,024 residues (131,072 edge rows)
 TRAIN_B, TRAIN_L = 4, 1024
 # the two differentiable passes: each gradient against autograd through the
@@ -183,12 +194,20 @@ def phase_build():
         "parallel)")
     for name in SOURCES:
         for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
+            # every ptxas line (entry, registers, shared memory, spills) of the
+            # tensor-core kernels; registers and spills of the others
+            if ("registers" in line or "spill" in line
+                    or (name in TENSOR_CORE_SOURCES and "ptxas" in line)):
                 log(f"  {name}: {line.strip()}")
 
 
 class Timer:
-    """Mean CUDA-event time of one launch, with L2 flushed before each."""
+    """Mean CUDA-event time of one launch, with L2 flushed before each. A
+    spin of the card after the flush keeps it busy while the host prepares
+    the launch, so the wrapper's host time does not show up as idle time
+    between the two events."""
+
+    SPIN_CYCLES = 1_000_000        # about 0.5 ms at the H100's clock
 
     def __init__(self, torch):
         self.torch = torch
@@ -201,6 +220,7 @@ class Timer:
         times = []
         for _ in range(reps):
             self.flush.zero_()
+            torch.cuda._sleep(self.SPIN_CYCLES)
             e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             e0.record()
             fn()
@@ -247,6 +267,12 @@ def bound_ms(nbytes, nops, dtype):
     t_bytes = nbytes / PEAK_BYTES_PER_S
     t_ops = nops / PEAK_OPS_PER_S[dtype]
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def rate_line(r):
+    """Achieved TFLOP/s and share of the bound of one timed record."""
+    return (f"{r['operations'] / (r['ms'] * 1e-3) / 1e12:.2f} TFLOP/s, "
+            f"{100 * r['bound'][0] / r['ms']:.1f}% of bound")
 
 
 def readings(got, want):
@@ -359,10 +385,11 @@ def phase_kernels(torch, timer):
                 records[("chain", dtype_name, variant)] = dict(
                     max_abs_err=err, ms=timer(lambda: chain(*cops, not pool)),
                     plain_ms=timer(lambda: chain_plain(*cops, not pool)),
-                    bound=bound_ms(nb, no, dtype_name))
+                    bound=bound_ms(nb, no, dtype_name), operations=no)
     for (k, d, v), r in records.items():
+        rate = f"; {rate_line(r)}" if k == "chain" else ""
         log(f"  time {k} {v} {d}: kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
-            f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
+            f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]}{rate})")
     return records
 
 
@@ -427,11 +454,38 @@ def phase_message_feat(torch, timer):
                         max_abs_err=err, ms=timer(lambda: message_feat(*ops, pool)),
                         plain_ms=timer(lambda: message_feat_plain(*ops, pool), 5),
                         bound=bound_ms(nb, no, dtype_name), bytes=nb, operations=no)
+                    # the chain after this message, as a training step runs it
+                    records[("chain", dtype_name, f"train {variant}")] = train_chain(
+                        torch, timer, layer, h_V, static, batch, want, pool, dtype_name)
     for (k, d, v), r in records.items():
+        rate = f"; {rate_line(r)}" if k == "chain" else ""
         log(f"  time {k} {v} {d} B={TRAIN_B} L={TRAIN_L}: kernel {r['ms']:.4f} ms  plain "
             f"{r['plain_ms']:.4f} ms  bound {r['bound'][0]:.4f} ms ({r['bound'][1]}; "
-            f"{r['bytes']} bytes, {r['operations']} operations)")
+            f"{r['bytes']} bytes, {r['operations']} operations{rate})")
     return records
+
+
+def train_chain(torch, timer, layer, h_V, static, batch, msg, pool, dtype_name):
+    """The chain kernel against its plain version at the training shape
+    (node: 4,096 rows, edge: 131,072), with its time, bound and rate."""
+    from packppi_torch.models.ipmp import chain_operands
+    from packppi_torch.ops.chain import chain, chain_plain
+
+    if pool:
+        cops = chain_operands(h_V, msg, batch.residue_mask, layer.norm[0], layer.node_dense,
+                              layer.norm[1])
+    else:
+        cops = chain_operands(static.h_E, msg, static.mask_attend, layer.norm[2],
+                              layer.edge_dense, layer.norm[3])
+    got = chain(*cops, not pool)
+    torch.cuda.synchronize()
+    err = check_close(f"chain {'node' if pool else 'edge'} {dtype_name} B={TRAIN_B} "
+                      f"L={TRAIN_L} {tuple(got.shape)}", got, chain_plain(*cops, not pool),
+                      dtype_name)
+    nb, no = chain_cost(cops)
+    return dict(max_abs_err=err, ms=timer(lambda: chain(*cops, not pool)),
+                plain_ms=timer(lambda: chain_plain(*cops, not pool), 5),
+                bound=bound_ms(nb, no, dtype_name), bytes=nb, operations=no)
 
 
 def grads_of(torch, fn, ops, cot):
@@ -1403,7 +1457,7 @@ def phase_attention(torch, timer):
     for (k, d, v), r in records.items():
         log(f"  time {k} {v} {d}: kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
             f"sdpa {r['library_ms']:.4f} ms  bound {r['bound'][0]:.4f} ms ({r['bound'][1]}; "
-            f"{r['bytes']} bytes, {r['operations']} operations)")
+            f"{r['bytes']} bytes, {r['operations']} operations; {rate_line(r)})")
     return records
 
 

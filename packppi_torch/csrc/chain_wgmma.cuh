@@ -1,0 +1,261 @@
+// The residual chain's FFN and second LayerNorm in bf16 on wgmma, over one
+// tile of 64 rows, by KS warpgroups of 4 warps that split the FFN's four
+// hidden slices between them (KS = 4 where there are too few tiles to fill
+// the card, else 1). From xx = rnd(LN_a(x0)) in shared memory:
+//   h  = rnd(relu(rnd(xx . W1 + b1)))      W1 [512, 128] Linear layout
+//   h  = rnd(h . W2 + b2)                  W2 [128, 512]
+//   y  = LN_b(xx + h)                      handed to store(row, col, y, y')
+// with every rounding point of csrc/chain_rows.cuh (the FMA body that the
+// folded edge pass and the whole-layer kernels keep).
+//
+// The products are wgmma m64n128k16 (bf16 operands, float32 sums: the TPU
+// kernel's "bf16 operands, f32 accumulate"; csrc/mma.cuh). The hidden is
+// made 128 columns at a time into a [64, 128] accumulator from xx in shared
+// memory (128-byte swizzle); rounded to bf16 it is, register for register,
+// the A fragment of the second product, so it never leaves the registers;
+// the second product's [64, 128] sum stays in registers across the slices
+// (with KS > 1 the other warpgroups' sums are added to the first's through
+// shared memory, in a fixed order). A thread holds whole quads of its two
+// rows' 128 columns, so LN_b needs only quad shuffles.
+//
+// The weights come as one bf16 copy (ops/chain.py makes it once per weight
+// version) already in the order and swizzle of the shared-memory panels: 16
+// panels of [128 n][64 k], slice by slice W1 (k 0-63, 64-127) then W2. One
+// thread of each warpgroup streams its slices' panels by bulk copies of the
+// TMA unit through a ring of kStages panels, each completing on an
+// mbarrier; both k halves of a product are multiplied in one batch of
+// wgmma, then their stages take the next two panels. A tile reads 256 KB of
+// bf16 weights from L2 and converts nothing. A small ring keeps the block small: with KS = 1 three blocks
+// fit an SM (at most 168 registers a thread), and while one forms its xx or
+// stores its rows the others multiply. With KS = 4 a warpgroup's one slice
+// needs at most 128 registers (the first product's sum is dead once it is
+// the second's A fragments).
+#pragma once
+
+#include "chain_rows.cuh"
+#include "mma.cuh"
+
+namespace packppi {
+
+constexpr int kPanelK = 64;                                // k of one swizzled panel
+constexpr int kPanels = 2 * (kF / kH) * (kH / kPanelK);    // 16 weight panels a tile
+constexpr int kPanelBytes = kH * kPanelK * 2;              // [128 n][64 k] bf16: 16 KB
+constexpr int kStages = 2;
+constexpr int kTileRows = 64;
+
+template <int KS>
+struct ChainWg {
+  static constexpr int kThreads = 128 * KS;
+  static constexpr int kPanelsWg = kPanels / KS;             // a warpgroup's panels
+  static constexpr uint32_t kActBytes = uint32_t(kTileRows) * kH * 2;  // [2][64][64] bf16
+  static constexpr uint32_t kRingBytes = uint32_t(kStages) * kPanelBytes;  // one warpgroup's
+  // xx, the rings, their mbarriers, and slack to align the base to 1,024
+  static constexpr size_t kBytes = kActBytes + KS * (kRingBytes + 8 * kStages) + 1024;
+  static constexpr int kMinBlocks = KS == 1 ? 3 : 1;            // blocks an SM
+  static_assert(KS == 1 || kRingBytes >= kTileRows * kH * 4, "ring holds a [64, 128] sum");
+};
+
+// byte offset of bf16 element (r, c) of the [64, 128] xx tile: two
+// 64-column panels of 64 swizzled rows
+__device__ __forceinline__ uint32_t act_offset(int r, int c) {
+  return uint32_t(c >> 6) * uint32_t(kTileRows * 128) + sw128_offset(r, c & 63);
+}
+
+template <int KS>
+__device__ __forceinline__ unsigned char* wg_ring(unsigned char* smem, int wg) {
+  return smem + ChainWg<KS>::kActBytes + wg * ChainWg<KS>::kRingBytes;
+}
+
+template <int KS>
+__device__ __forceinline__ uint64_t* wg_bars(unsigned char* smem, int wg) {
+  return reinterpret_cast<uint64_t*>(smem + ChainWg<KS>::kActBytes +
+                                     KS * ChainWg<KS>::kRingBytes) + wg * kStages;
+}
+
+// panel i of warpgroup wg's ring: weight panel wg * kPanelsWg + i into
+// stage i % kStages (by one thread)
+template <int KS>
+__device__ __forceinline__ void request_panel(unsigned char* smem, const __nv_bfloat16* wpack,
+                                              int wg, int i) {
+  const int s = i % kStages;
+  uint64_t* bar = wg_bars<KS>(smem, wg) + s;
+  mbar_expect_tx(bar, kPanelBytes);
+  bulk_copy(wg_ring<KS>(smem, wg) + s * kPanelBytes,
+            reinterpret_cast<const unsigned char*>(wpack) +
+                size_t(wg * ChainWg<KS>::kPanelsWg + i) * kPanelBytes,
+            kPanelBytes, bar);
+}
+
+// smem: kBytes - 1024 bytes at 1,024-byte alignment. Called by every
+// thread before xx is formed: the first thread of each warpgroup sets up
+// its ring's mbarriers and requests its first kStages panels, which then
+// load while xx is formed.
+template <int KS>
+__device__ __forceinline__ void chain_wgmma_prefetch(unsigned char* smem,
+                                                     const __nv_bfloat16* wpack) {
+  if (threadIdx.x % 128 == 0) {
+    const int wg = threadIdx.x / 128;
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) mbar_init(wg_bars<KS>(smem, wg) + s, 1);
+    fence_mbar_init();
+#pragma unroll
+    for (int i = 0; i < kStages; ++i) request_panel<KS>(smem, wpack, wg, i);
+  }
+  __syncthreads();  // the mbarriers are set up before anyone waits on them
+}
+
+// the 128 threads of warpgroup wg (named barrier wg + 1; 0 is the block's)
+template <int KS>
+__device__ __forceinline__ void wg_sync(int wg) {
+  if constexpr (KS == 1) {
+    __syncthreads();
+  } else {
+    switch (wg) {
+      case 0: asm volatile("bar.sync 1, 128;\n" ::: "memory"); break;
+      case 1: asm volatile("bar.sync 2, 128;\n" ::: "memory"); break;
+      case 2: asm volatile("bar.sync 3, 128;\n" ::: "memory"); break;
+      default: asm volatile("bar.sync 4, 128;\n" ::: "memory"); break;
+    }
+  }
+}
+
+// The first kActBytes of smem hold xx (rows >= nvalid zeros), written by
+// every thread after chain_wgmma_prefetch. store(row, col, y, y1) takes
+// columns col and col + 1 of a row < nvalid.
+template <int KS, typename Store>
+__device__ __forceinline__ void chain_ffn_wgmma(unsigned char* smem, const ChainWeights& w,
+                                                const __nv_bfloat16* wpack, int nvalid,
+                                                Store store) {
+  using C = ChainWg<KS>;
+  const unsigned char* XX = smem;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wg = warp >> 2;
+  const int r0 = (warp & 3) * 16 + g;  // the thread's rows r0 and r0 + 8
+  const uint32_t xx_s = smem_u32(XX);
+  const uint32_t ring_s = smem_u32(wg_ring<KS>(smem, wg));
+  uint64_t* full = wg_bars<KS>(smem, wg);
+  fence_proxy_async();  // xx, written through the generic proxy, for wgmma
+  __syncthreads();
+
+  // the warpgroup's panel i (its stage), once its bytes have landed
+  auto wait_panel = [&](int i) {
+    mbar_wait(&full[i % kStages], (i / kStages) & 1);
+    return ring_s + uint32_t(i % kStages) * kPanelBytes;
+  };
+  // the warpgroup is done with its panels i and i + 1: their stages take
+  // panels i + kStages and i + 1 + kStages
+  auto release = [&](int i) {
+    wg_sync<KS>(wg);
+    if (threadIdx.x % 128 == 0) {
+#pragma unroll
+      for (int k = i; k < i + 2; ++k)
+        if (k + kStages < C::kPanelsWg) request_panel<KS>(smem, wpack, wg, k + kStages);
+    }
+  };
+
+  float acc[64], acc2[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc2[i] = 0.f;
+  for (int sl = 0; sl < kF / kH / KS; ++sl) {
+    const int hc = wg * (kF / kH / KS) + sl;  // the hidden slice
+    // acc = xx . W1[hc * 128 .., :]^T over both k halves (panels 4 sl, 4 sl + 1)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    {
+      const uint32_t b_s[2] = {wait_panel(4 * sl), wait_panel(4 * sl + 1)};
+      wgmma_fence();
+#pragma unroll
+      for (int kp = 0; kp < 2; ++kp)
+#pragma unroll
+        for (int j = 0; j < kPanelK / 16; ++j)
+          wgmma_m64n128k16_bf16(acc,
+                                sw128_desc(xx_s + uint32_t(kp) * (kTileRows * 128) + 32 * j),
+                                sw128_desc(b_s[kp] + 32 * j));
+      wgmma_commit();
+      wgmma_wait<0>();
+      release(4 * sl);
+    }
+    // h = rnd(relu(rnd(acc + b1))) as A fragments: k-step s of the second
+    // product takes hidden columns 16 s .. 16 s + 15, i.e. the accumulator's
+    // column tiles 2 s and 2 s + 1
+    uint32_t ha[8][4];
+#pragma unroll
+    for (int s = 0; s < 8; ++s)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int j = 2 * s + half, col = hc * kH + 8 * j + 2 * t;
+        const float b0 = w.b1[col], b1 = w.b1[col + 1];
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          ha[s][2 * half + r] = pack_bf16(
+              rnd<__nv_bfloat16>(relu(rnd<__nv_bfloat16>(acc[4 * j + 2 * r] + b0))),
+              rnd<__nv_bfloat16>(relu(rnd<__nv_bfloat16>(acc[4 * j + 2 * r + 1] + b1))));
+      }
+    // acc2 += h . W2[:, hc * 128 ..]^T (panels 4 sl + 2, 4 sl + 3)
+    {
+      const uint32_t b_s[2] = {wait_panel(4 * sl + 2), wait_panel(4 * sl + 3)};
+      wgmma_fence();
+#pragma unroll
+      for (int kp = 0; kp < 2; ++kp)
+#pragma unroll
+        for (int j = 0; j < kPanelK / 16; ++j)
+          wgmma_m64n128k16_bf16_rs(acc2, ha[4 * kp + j], sw128_desc(b_s[kp] + 32 * j));
+      wgmma_commit();
+      wgmma_wait<0>();
+      release(4 * sl + 2);
+    }
+  }
+
+  if constexpr (KS > 1) {
+    // the other warpgroups' sums, each through its own (finished) ring, into
+    // the first's, in the order of the slices: thread i of each warpgroup
+    // holds the same elements
+    const int i = threadIdx.x % 128;
+    if (wg > 0) {
+      float* part = reinterpret_cast<float*>(wg_ring<KS>(smem, wg));
+#pragma unroll
+      for (int e = 0; e < 64; ++e) part[e * 128 + i] = acc2[e];
+    }
+    __syncthreads();
+    if (wg > 0) return;
+#pragma unroll
+    for (int k = 1; k < KS; ++k) {
+      const float* part = reinterpret_cast<const float*>(wg_ring<KS>(smem, k));
+#pragma unroll
+      for (int e = 0; e < 64; ++e) acc2[e] += part[e * 128 + i];
+    }
+  }
+
+  // z = xx + rnd(h . W2 + b2); LN_b over the quad's 128 columns
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    float s = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = 8 * j + 2 * t;
+      const __nv_bfloat162 xv = *reinterpret_cast<const __nv_bfloat162*>(XX + act_offset(row, col));
+      float& z0 = acc2[4 * j + 2 * r];
+      float& z1 = acc2[4 * j + 2 * r + 1];
+      z0 = __low2float(xv) + rnd<__nv_bfloat16>(z0 + w.b2[col]);
+      z1 = __high2float(xv) + rnd<__nv_bfloat16>(z1 + w.b2[col + 1]);
+      s += z0 + z1;
+      s2 += z0 * z0 + z1 * z1;
+    }
+    s = quad_sum(s);
+    s2 = quad_sum(s2);
+    if (row >= nvalid) continue;
+    const float mean = s / float(kH);
+    const float rs = rsqrtf(fmaxf(s2 / float(kH) - mean * mean, 0.f) + 1e-6f);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = 8 * j + 2 * t;
+      store(row, col, (acc2[4 * j + 2 * r] - mean) * rs * w.lnb_w[col] + w.lnb_b[col],
+            (acc2[4 * j + 2 * r + 1] - mean) * rs * w.lnb_w[col + 1] + w.lnb_b[col + 1]);
+    }
+  }
+}
+
+}  // namespace packppi

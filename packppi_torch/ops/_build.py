@@ -126,6 +126,14 @@ def check_operands(name, ref, expect):
             raise ValueError(f"{name} kernel: {arg} must be contiguous")
 
 
+def check_aligned(name, **tensors):
+    """The kernels copy these operands 16 bytes at a time: each must start
+    on a 16-byte boundary (a fresh allocation does; a view may not)."""
+    for arg, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} kernel: {arg} must start on a 16-byte boundary")
+
+
 def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(0 if t is None else t.data_ptr())
 

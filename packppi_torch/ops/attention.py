@@ -53,6 +53,7 @@ def _mha_cuda(q, k, v, key_bias):
     _build.check_operands("attention", q, {
         "k": (k, (B, H, T, D), dt), "v": (v, (B, H, T, D), dt),
         "key_bias": (key_bias, (B, T), torch.float32)})
+    _build.check_aligned("attention", q=q, k=k, v=v)
     out = torch.empty(B, H, T, D, dtype=torch.float32, device=q.device)
     lib = _lib()
     err = lib.packppi_mha(*(_build.ptr(t) for t in (q, k, v, key_bias, out)),

@@ -13,13 +13,17 @@ compute dtype of the FFN products):
 LayerNorm is flax's (eps 1e-6, clamped fast variance). ``chain`` launches
 the CUDA kernel of ``csrc/chain.cu`` for CUDA tensors and runs
 ``chain_plain`` for CPU tensors. The kernel replaces
-``packppi_tpu/ops/pallas_layer.py::fused_chain``.
+``packppi_tpu/ops/pallas_layer.py::fused_chain``. In bf16 it reads W1 and
+W2 as one bf16 copy in the layout of its shared-memory panels
+(``pack_chain_weights``), made once for each version of the two weights.
 """
 from __future__ import annotations
 
 import ctypes
+import weakref
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -120,16 +124,70 @@ def _chain_cuda(x, msg, mask, lna_w, lna_b, w1, b1, w2, b2, lnb_w, lnb_b, pre_ma
         expect["mask"] = (mask, (N,), torch.float32)
     _build.check_operands("chain", x, expect)
     check_chain_weights("chain", x, lna_w, lna_b, w1, b1, w2, b2, lnb_w, lnb_b)
+    _build.check_aligned("chain", w1=w1, w2=w2)
+    wpack = _packed_weights(w1, w2) if sd == torch.bfloat16 else None
     out = torch.empty_like(x)
     lib = _lib()
     err = lib.packppi_chain(
         *(_build.ptr(t) for t in (x, msg, mask, lna_w, lna_b, w1, b1, w2, b2,
-                                  lnb_w, lnb_b, out)),
+                                  lnb_w, lnb_b, wpack, out)),
         N, int(sd == torch.bfloat16), int(msg.dtype == torch.bfloat16), int(pre_mask),
         _build.stream_ptr(x.device))
     _build.check(lib, err, "chain kernel launch")
     chain.launches += 1
     return out
+
+
+_PANELS, _PANEL_K = 16, 64
+
+
+def _panel_index(device):
+    """For each bf16 element of the packed weights, its index in
+    ``cat(W1.flatten(), W2.flatten())``. Panel c (16 of [128 n][64 k]) is,
+    slice by slice (hc = c // 4), W1 (k halves c % 2) then W2: W1[128 hc +
+    n, 64 (c % 2) + k] or W2[n, 128 hc + 64 (c % 2) + k]. Within a panel,
+    row n is 128 bytes, its 16-byte piece p stored at p ^ (n % 8): the
+    128-byte swizzle that the kernel's wgmma descriptors read."""
+    c, n, k = np.meshgrid(np.arange(_PANELS), np.arange(_H), np.arange(_PANEL_K), indexing="ij")
+    hc, second, kp = c // 4, (c // 2) % 2, c % 2
+    src = np.where(second == 0, (_H * hc + n) * _H + _PANEL_K * kp + k,
+                   4 * _H * _H + n * 4 * _H + _H * hc + _PANEL_K * kp + k)
+    dst = c * _H * _PANEL_K + n * _PANEL_K + (((k >> 3) ^ (n & 7)) << 3) + (k & 7)
+    index = np.empty(src.size, np.int64)
+    index[dst.ravel()] = src.ravel()
+    return torch.from_numpy(index).to(device)
+
+
+def pack_chain_weights(w1, w2):
+    """W1 [512, 128] and W2 [128, 512] (float32) as the bf16 panels that the
+    bf16 chain kernel streams into shared memory as they are (see
+    ``_panel_index``)."""
+    index = _PANEL_INDEX.get(w1.device)
+    if index is None:
+        index = _PANEL_INDEX[w1.device] = _panel_index(w1.device)
+    return torch.cat([w1.reshape(-1), w2.reshape(-1)]).to(torch.bfloat16)[index]
+
+
+_PANEL_INDEX: dict = {}
+# (id(w1), id(w2)) -> (weakref w1, weakref w2, their versions, packed copy)
+_PACKED: dict = {}
+
+
+def _packed_weights(w1, w2):
+    """``pack_chain_weights`` of the two tensors, made again only when
+    either is another tensor or was written in place since (its
+    ``_version``), so a chain over weights that do not change launches no
+    extra operation."""
+    if w1.is_inference() or w2.is_inference():      # no version counter to go by
+        return pack_chain_weights(w1, w2)
+    key, version = (id(w1), id(w2)), (w1._version, w2._version)
+    hit = _PACKED.get(key)
+    if hit is not None and hit[0]() is w1 and hit[1]() is w2 and hit[2] == version:
+        return hit[3]
+    drop = lambda _, key=key: _PACKED.pop(key, None)
+    packed = pack_chain_weights(w1, w2)
+    _PACKED[key] = (weakref.ref(w1, drop), weakref.ref(w2, drop), version, packed)
+    return packed
 
 
 def check_chain_weights(name, ref, lna_w, lna_b, w1, b1, w2, b2, lnb_w, lnb_b):
@@ -147,6 +205,6 @@ def check_chain_weights(name, ref, lna_w, lna_b, w1, b1, w2, b2, lnb_w, lnb_b):
 def _lib():
     lib = _build.load_library("chain")
     if lib.packppi_chain.argtypes is None:
-        lib.packppi_chain.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.packppi_chain.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         lib.packppi_chain.restype = ctypes.c_int
     return lib

@@ -182,3 +182,36 @@ def test_chain_gradients_are_finite_at_rows_of_zeros():
                                     [x, msg, w1, w2])
         assert all(bool(g.isfinite().all()) for g in grads), dtype
         assert not grads[0][mask == 0].any()
+
+
+def test_pack_chain_weights_lays_out_the_wgmma_panels():
+    """The bf16 kernel's copy of W1 and W2: 16 panels of [128 n][64 k],
+    slice by slice W1 then W2, each row's 16-byte pieces swizzled by n % 8."""
+    from packppi_torch.ops.chain import pack_chain_weights
+
+    g = torch.Generator().manual_seed(0)
+    w1, w2 = torch.randn(512, 128, generator=g), torch.randn(128, 512, generator=g)
+    packed = pack_chain_weights(w1, w2)
+    assert packed.dtype == torch.bfloat16 and packed.shape == (16 * 128 * 64,)
+    n, p = torch.arange(128)[:, None], torch.arange(8)[None, :]
+    panels = packed.reshape(16, 128, 8, 8)[:, n, p ^ (n % 8)].reshape(16, 128, 64)
+    for hc in range(4):
+        for kp in range(2):
+            k = slice(64 * kp, 64 * kp + 64)
+            assert torch.equal(panels[4 * hc + kp], w1[128 * hc:128 * hc + 128, k].bfloat16())
+            k = slice(128 * hc + 64 * kp, 128 * hc + 64 * kp + 64)
+            assert torch.equal(panels[4 * hc + 2 + kp], w2[:, k].bfloat16())
+
+
+def test_packed_weights_are_made_again_only_after_a_write():
+    from packppi_torch.ops.chain import _packed_weights, pack_chain_weights
+
+    g = torch.Generator().manual_seed(1)
+    w1, w2 = torch.randn(512, 128, generator=g), torch.randn(128, 512, generator=g)
+    first = _packed_weights(w1, w2)
+    assert _packed_weights(w1, w2) is first
+    with torch.no_grad():
+        w2.mul_(-1.0)                                   # an optimizer step writes in place
+    again = _packed_weights(w1, w2)
+    assert again is not first and torch.equal(again, pack_chain_weights(w1, w2))
+    assert _packed_weights(w1.clone(), w2) is not again   # another tensor, the same values
