@@ -11,8 +11,9 @@ fatal on failure:
    and a content hash of the code (``packppi_torch/`` and this script);
 2. build: every kernel of ``packppi_torch/csrc`` (six sources) with nvcc
    for sm_90a, one nvcc per source, all started together; ptxas's lines
-   (registers, shared memory, spills) of the tensor-core kernels
-   (attention, chain) and the registers and spills of the others;
+   (registers, shared memory, spills) of the sources with tensor-core
+   kernels (attention, chain, message, message_feat) and the registers and
+   spills of the others;
 3. kernels: each kernel against its plain PyTorch version on the card, on
    the T1124 complex's real graph and activations (L=768, K=32, H=128;
    node N=768 and edge N=24,576 rows), float32 and bf16, timed with CUDA
@@ -118,11 +119,13 @@ PEAK_BYTES_PER_S = 3.35e12
 # slower), so no kernel can read above 100% of its bound
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 495e12 / 3}
 
-# kernel vs plain version on the card: float32 max |d|; bf16 relative to
-# max|ref|. The bf16 mean limit lies between the sound kernels' readings
+# kernel vs plain version on the card: float32 max |d| (readings up to
+# 1.34e-5, the message kernels' float32 edge pass on T1124, whose products
+# are 3xTF32 on tensor cores; plain TF32 would read about 1e-3); bf16
+# relative to max|ref|. The bf16 mean limit lies between the sound kernels' readings
 # (<= 2.5e-7) and the plain versions without their rounding points (2.9e-4
 # to 6.0e-4 here at T1124); the max limit rejects a dropped block's rows.
-F32_TOL = 1e-4
+F32_TOL = 2e-5
 BF16_MAX_REL, BF16_MEAN_REL = 2.0 ** -6, 2.0 ** -16
 ROWS_PER_BLOCK = 64                     # csrc/tile.cuh kRows: edge rows per block
 STEPS = 30
@@ -132,7 +135,8 @@ CLASH_FWD_TOL, CLASH_GRAD_TOL = 1e-5, 2e-5
 CLASH_TOL_SOFT = 0.5                    # sc_violation_loss's overlap tolerance
 PROX_STEPS = 50
 SOURCES = ("message", "message_feat", "chain", "clash", "attention", "layer")
-TENSOR_CORE_SOURCES = ("attention", "chain")     # products on tensor cores (csrc/mma.cuh)
+# products on tensor cores (csrc/mma.cuh): every ptxas line of these is printed
+TENSOR_CORE_SOURCES = ("attention", "chain", "message", "message_feat")
 # the training shape: 4 copies of T1124 padded to 1,024 residues (131,072 edge rows)
 TRAIN_B, TRAIN_L = 4, 1024
 # the two differentiable passes: each gradient against autograd through the
@@ -364,7 +368,7 @@ def phase_kernels(torch, timer):
                 records[("message", dtype_name, variant)] = dict(
                     max_abs_err=err, ms=timer(lambda: message(*ops, pool)),
                     plain_ms=timer(lambda: message_plain(*ops, pool)),
-                    bound=bound_ms(nb, no, dtype_name))
+                    bound=bound_ms(nb, no, dtype_name), operations=no)
 
                 if pool:
                     cops = chain_operands(h_V, want, batch.residue_mask, layer.norm[0],
@@ -387,7 +391,7 @@ def phase_kernels(torch, timer):
                     plain_ms=timer(lambda: chain_plain(*cops, not pool)),
                     bound=bound_ms(nb, no, dtype_name), operations=no)
     for (k, d, v), r in records.items():
-        rate = f"; {rate_line(r)}" if k == "chain" else ""
+        rate = f"; {rate_line(r)}"
         log(f"  time {k} {v} {d}: kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
             f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]}{rate})")
     return records
@@ -458,7 +462,7 @@ def phase_message_feat(torch, timer):
                     records[("chain", dtype_name, f"train {variant}")] = train_chain(
                         torch, timer, layer, h_V, static, batch, want, pool, dtype_name)
     for (k, d, v), r in records.items():
-        rate = f"; {rate_line(r)}" if k == "chain" else ""
+        rate = f"; {rate_line(r)}"
         log(f"  time {k} {v} {d} B={TRAIN_B} L={TRAIN_L}: kernel {r['ms']:.4f} ms  plain "
             f"{r['plain_ms']:.4f} ms  bound {r['bound'][0]:.4f} ms ({r['bound'][1]}; "
             f"{r['bytes']} bytes, {r['operations']} operations{rate})")

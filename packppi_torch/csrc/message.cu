@@ -33,37 +33,51 @@
 //   the tile's rows with the two-kernel boundary's rounding points
 //   (m = rnd(rnd(x) * mask), x0 = rnd(h_E + m)) and writes the new h_E.
 // Products take operands rounded to the compute type (bf16 or float32) and
-// sum in float32 FMAs (tile.cuh). W_e is read straight from the reference
-// layout W_in [H, H + He + H + 9P] over [h_i | h_E | h_j | geom].
+// sum in float32. The lanes and gather routes run them on tensor cores
+// (csrc/message_tc.cuh: bf16 on wgmma, float32 in 3xTF32 on mma.sync) over
+// a packed copy of the weights made once per weight version
+// (ops/message_feat.py::pack_message_weights). The geom and chain routes
+// still run the FMA body (csrc/message_mlp.cuh, tile.cuh), reading W_e
+// straight from the reference layout W_in [H, H + He + H + 9P] over
+// [h_i | h_E | h_j | geom].
 //
-// What bounds it: per edge row it does 2 * (He + 9P + 2H) * H = 116,736
-// operations (plus 262,144 for the folded chain) on ~512 bytes of stream
-// traffic (bf16), so on Hopper's tensor cores it would be bound by memory;
-// this first version runs its products on the float32 FMA units (67 TFLOP/s
-// peak), which bound it instead. The design keeps every intermediate (the
-// [rows, 9P] geometry, both hidden activations, the chain's [rows, 4H]
-// hidden) in shared memory, reads h_E once (twice, through L2, in the chain
-// route: once as product input, once as the residual) and writes the output
-// once, and reads the weights through L2 into shared memory per block. The
-// chain route aliases the chain's tiles onto the message's, so it needs no
-// more shared memory than the message and two blocks still fit on an SM.
-// Tensor-core products (wgmma) are the next step.
+// What bounds it: per edge row 2 * (He + 9P + 2H) * H = 116,736 operations
+// (plus 262,144 for the folded chain) on ~512 bytes of stream traffic
+// (bf16). On the tensor cores in bf16 that is memory-bound: T1124's 24,576
+// edge rows take 0.0042 ms at 3.35 TB/s, 0.0029 ms of operations at 989
+// TFLOP/s. In float32 (3xTF32, 165 TFLOP/s float32-accurate) operations
+// bind. The design keeps every intermediate (the [rows, 9P] geometry, both
+// hidden activations, the chain's [rows, 4H] hidden) on chip, reads h_E
+// once (twice, through L2, in the chain route: once as product input, once
+// as the residual), writes the output once, and streams the weights from L2
+// into shared memory once a tile; in bf16 three 64-row blocks share an SM,
+// so one block's indexed loads and geometry overlap the others' products.
+// The chain route aliases the chain's tiles onto the FMA message's, so it
+// needs no more shared memory than that message and two blocks still fit on
+// an SM.
 
 #include "chain_rows.cuh"
-#include "message_mlp.cuh"
+#include "message_tc.cuh"
 
 namespace packppi {
 
 constexpr int kLanes = 0;   // row 1 of the kernel table (fused_message_geom_lanes)
 constexpr int kGather = 1;  // row 5 (fused_message_geom_gather)
 
-// The nine geometry features of one (edge, point) into the tile's X0 rows,
-// in W_e's feature order, rounded to the compute type.
-template <typename T>
-__device__ __forceinline__ void store_edge_features(float* X0, int r, int p, float plx, float ply,
-                                                    float plz, const float* R, const float* t,
-                                                    float pgx, float pgy, float pgz, float ngx,
-                                                    float ngy, float ngz) {
+// geometry column of feature q (0-8) of point p: [p xyz (3P) | |p| (P) |
+// neighbour point in i's frame xyz (3P) | its norm (P) | |pg_i - pg_j| (P)]
+__device__ __forceinline__ int geom_column(int p, int q) {
+  return q < 3 ? 3 * p + q : q == 3 ? 3 * kP + p : q < 7 ? 4 * kP + 3 * p + q - 4
+                                                          : q == 7 ? 7 * kP + p : 8 * kP + p;
+}
+
+// The nine geometry features of one (edge, point), in W_e's feature order:
+// put(c, v) takes geometry column c (0 .. 9P - 1) and its float32 value.
+template <typename Put>
+__device__ __forceinline__ void edge_features(Put put, int p, float plx, float ply, float plz,
+                                              const float* R, const float* t, float pgx,
+                                              float pgy, float pgz, float ngx, float ngy,
+                                              float ngz) {
   const float dx = ngx - t[0], dy = ngy - t[1], dz = ngz - t[2];
   // neighbour point in i's frame: R_i^T d (R row-major: R[a * 3 + b])
   const float nlx = R[0] * dx + R[3] * dy + R[6] * dz;
@@ -73,21 +87,26 @@ __device__ __forceinline__ void store_edge_features(float* X0, int r, int p, flo
   const float f[9] = {plx, ply, plz, sqrtf(plx * plx + ply * ply + plz * plz + 1e-8f),
                       nlx, nly, nlz, sqrtf(nlx * nlx + nly * nly + nlz * nlz + 1e-8f),
                       sqrtf(ddx * ddx + ddy * ddy + ddz * ddz + 1e-8f)};
-  const int at[9] = {3 * p, 3 * p + 1, 3 * p + 2, 3 * kP + p,
-                     4 * kP + 3 * p, 4 * kP + 3 * p + 1, 4 * kP + 3 * p + 2,
-                     7 * kP + p, 8 * kP + p};
 #pragma unroll
-  for (int q = 0; q < 9; ++q) X0[(kH + at[q]) * kLdx + r] = rnd<T>(f[q]);
+  for (int q = 0; q < 9; ++q) put(geom_column(p, q), f[q]);
+}
+
+// The FMA body's tile: the features of (row r, point p) into X0, rounded
+// to the compute type.
+template <typename T>
+__device__ __forceinline__ void store_edge_features(float* X0, int r, int p, float plx, float ply,
+                                                    float plz, const float* R, const float* t,
+                                                    float pgx, float pgy, float pgz, float ngx,
+                                                    float ngy, float ngz) {
+  edge_features([&](int c, float v) { X0[(kH + c) * kLdx + r] = rnd<T>(v); }, p, plx, ply, plz,
+                R, t, pgx, pgy, pgz, ngx, ngy, ngz);
 }
 
 // Zero geometry features of a row past the end.
 template <typename T>
 __device__ __forceinline__ void zero_edge_features(float* X0, int r, int p) {
-  const int at[9] = {3 * p, 3 * p + 1, 3 * p + 2, 3 * kP + p,
-                     4 * kP + 3 * p, 4 * kP + 3 * p + 1, 4 * kP + 3 * p + 2,
-                     7 * kP + p, 8 * kP + p};
 #pragma unroll
-  for (int q = 0; q < 9; ++q) X0[(kH + at[q]) * kLdx + r] = 0.f;
+  for (int q = 0; q < 9; ++q) X0[(kH + geom_column(p, q)) * kLdx + r] = 0.f;
 }
 
 // The indexed-load tile of the lanes, gather and chain routes: mrow, the
@@ -140,28 +159,76 @@ __device__ __forceinline__ void load_indexed_tile(const MessageSmem& s, const T*
   if (tid < kRows && jrow[tid] >= 0) jrow[tid] += nrow0;
 }
 
+// The indexed-load tile of the lanes and gather routes on tensor cores:
+// load_indexed_tile's function into message_tc.cuh's tile (h_E rows by
+// asynchronous 16-byte copies, the geometry rounded to T).
+template <typename T>
+__device__ __forceinline__ void load_indexed_tile_tc(const MessageTile<T>& s,
+                                                     const T* __restrict__ h_E,
+                                                     const int64_t* __restrict__ idx,
+                                                     const float* __restrict__ p_local,
+                                                     const float* __restrict__ rot,
+                                                     const float* __restrict__ trans,
+                                                     const float* __restrict__ pg,
+                                                     const float* __restrict__ mask, int K,
+                                                     int rows, int64_t erow0, int64_t nrow0,
+                                                     int node0) {
+  const int tid = threadIdx.x;
+  int64_t* jrow = s.pjrow();  // node-local neighbour first, its row in per_j after the geometry
+  if (tid < kRows) {
+    const bool valid = tid < rows;
+    jrow[tid] = valid ? idx[erow0 + tid] : -1;
+    s.mrow()[tid] = valid ? mask[erow0 + tid] : 0.f;
+  }
+  tile_rows(s, h_E, kH, 0, erow0, rows);
+  cp_async_commit();
+  tile_zero_pad(s);
+  __syncthreads();  // jrow
+
+  for (int e = tid; e < kRows * kP; e += MessageTc<T>::kThreads) {
+    const int r = e % kRows, p = e / kRows;
+    const int64_t j = jrow[r];
+    if (j < 0) {
+#pragma unroll
+      for (int q = 0; q < 9; ++q) tile_put(s, r, kH + geom_column(p, q), 0.f);
+      continue;
+    }
+    const int64_t i = nrow0 + node0 + r / K;
+    const float* pl = p_local + (i * kP + p) * 3;
+    const float* pgi = pg + i * 3 * kP;
+    const float* pgj = pg + (nrow0 + j) * 3 * kP;
+    edge_features([&](int c, float v) { tile_put(s, r, kH + c, v); }, p, pl[0], pl[1], pl[2],
+                  rot + i * 9, trans + i * 3, pgi[p], pgi[kP + p], pgi[2 * kP + p], pgj[p],
+                  pgj[kP + p], pgj[2 * kP + p]);
+  }
+
+  __syncthreads();  // every thread has read jrow as a neighbour index
+  if (tid < kRows && jrow[tid] >= 0) jrow[tid] += nrow0;
+  tile_publish<T>();
+}
+
 template <typename T, bool POOL, int ROUTE>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(MessageTc<T>::kThreads, MessageTc<T>::kMinBlocks)
 message_kernel(const float* __restrict__ per_i, const T* __restrict__ per_j,
                const T* __restrict__ h_E, const int64_t* __restrict__ idx,
                const float* __restrict__ p_local, const float* __restrict__ rot,
                const float* __restrict__ trans, const float* __restrict__ pg,
-               const float* __restrict__ mask, const float* __restrict__ w_in,
-               const float* __restrict__ b_in, const float* __restrict__ w_mid,
-               const float* __restrict__ b_mid, const float* __restrict__ w_out,
+               const float* __restrict__ mask, const void* __restrict__ wpack,
+               const float* __restrict__ b_in, const float* __restrict__ b_mid,
                const float* __restrict__ b_out, void* __restrict__ out_ptr, int L, int K) {
-  extern __shared__ __align__(16) float smem[];
-  const MessageSmem s(smem);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const MessageTile<T> s(smem_raw);
   const int nb = kRows / K;                  // whole nodes per block
   const int node0 = blockIdx.x * nb;
   const int rows = min(nb, L - node0) * K;   // valid edge rows of this block
   const int64_t nrow0 = int64_t(blockIdx.y) * L;       // first node row of batch b
   const int64_t erow0 = (nrow0 + node0) * K;           // first global edge row
 
-  load_indexed_tile<T>(s, h_E, idx, p_local, rot, trans, pg, mask, K, rows, erow0, nrow0, node0);
-  // the three products; their first barrier publishes X0 and jrow
-  message_mlp<T, POOL>(s, per_i, per_j, w_in, b_in, w_mid, b_mid, w_out, b_out, out_ptr, K, rows,
-                       erow0, nrow0 + node0);
+  message_tc_prefetch(s, wpack);  // the first weight units load while the tile is formed
+  load_indexed_tile_tc<T>(s, h_E, idx, p_local, rot, trans, pg, mask, K, rows, erow0, nrow0,
+                          node0);
+  message_tc<T, POOL>(s, per_i, per_j, wpack, b_in, b_mid, b_out, out_ptr, K, rows, erow0,
+                      nrow0 + node0);
 }
 
 // Row 4: the neighbour term pjg and the neighbour global-point planes ng
@@ -279,23 +346,22 @@ cudaError_t allow_smem(Kernel kernel) {
 template <typename T, bool POOL, int ROUTE>
 cudaError_t launch(const void* per_i, const void* per_j, const void* h_E, const void* idx,
                    const void* p_local, const void* rot, const void* trans, const void* pg,
-                   const void* mask, const void* w_in, const void* b_in, const void* w_mid,
-                   const void* b_mid, const void* w_out, const void* b_out, void* out, int B,
-                   int L, int K, cudaStream_t stream) {
+                   const void* mask, const void* wpack, const void* b_in, const void* b_mid,
+                   const void* b_out, void* out, int B, int L, int K, cudaStream_t stream) {
   auto kernel = message_kernel<T, POOL, ROUTE>;
-  cudaError_t err = allow_smem(kernel);
+  constexpr size_t kBytes = MessageTcBytes<T>::kTotal;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(kBytes));
   if (err != cudaSuccess) return err;
   const int nb = kRows / K;
   dim3 grid((L + nb - 1) / nb, B);
-  kernel<<<grid, kThreads, kMessageSmem, stream>>>(
+  kernel<<<grid, MessageTc<T>::kThreads, kBytes, stream>>>(
       static_cast<const float*>(per_i), static_cast<const T*>(per_j),
       static_cast<const T*>(h_E), static_cast<const int64_t*>(idx),
       static_cast<const float*>(p_local), static_cast<const float*>(rot),
       static_cast<const float*>(trans), static_cast<const float*>(pg),
-      static_cast<const float*>(mask), static_cast<const float*>(w_in),
-      static_cast<const float*>(b_in), static_cast<const float*>(w_mid),
-      static_cast<const float*>(b_mid), static_cast<const float*>(w_out),
-      static_cast<const float*>(b_out), out, L, K);
+      static_cast<const float*>(mask), wpack, static_cast<const float*>(b_in),
+      static_cast<const float*>(b_mid), static_cast<const float*>(b_out), out, L, K);
   return cudaGetLastError();
 }
 
@@ -348,13 +414,13 @@ cudaError_t launch_chain(const void* per_i, const void* per_j, const void* h_E, 
 template <int ROUTE>
 int message_entry(const void* per_i, const void* per_j, const void* h_E, const void* idx,
                   const void* p_local, const void* rot, const void* trans, const void* pg,
-                  const void* mask, const void* w_in, const void* b_in, const void* w_mid,
-                  const void* b_mid, const void* w_out, const void* b_out, void* out, int B,
-                  int L, int K, int bf16, int pool, void* stream) {
-  if (K < 1 || K > kRows || B < 1 || L < 1) return int(cudaErrorInvalidValue);
+                  const void* mask, const void* wpack, const void* b_in, const void* b_mid,
+                  const void* b_out, void* out, int B, int L, int K, int bf16, int pool,
+                  void* stream) {
+  if (K < 1 || K > kRows || B < 1 || L < 1 || !wpack) return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define PACKPPI_ARGS per_i, per_j, h_E, idx, p_local, rot, trans, pg, mask, w_in, b_in, \
-                     w_mid, b_mid, w_out, b_out, out, B, L, K, s
+#define PACKPPI_ARGS per_i, per_j, h_E, idx, p_local, rot, trans, pg, mask, wpack, b_in, b_mid, \
+                     b_out, out, B, L, K, s
   cudaError_t err;
   if (bf16)
     err = pool ? launch<__nv_bfloat16, true, ROUTE>(PACKPPI_ARGS)
@@ -367,39 +433,41 @@ int message_entry(const void* per_i, const void* per_j, const void* h_E, const v
 
 }  // namespace packppi
 
-// C entry points (ctypes); each returns a cudaError_t. Weights: w_in
-// [128,456], w_mid/w_out [128,128] f32 (Linear layout), biases [128] f32.
-// Stream tensors are bf16 if bf16 != 0, else f32. K <= 64.
+// C entry points (ctypes); each returns a cudaError_t. Stream tensors are
+// bf16 if bf16 != 0, else f32. K <= 64.
 //
 // packppi_message (row 1) and packppi_message_gather (row 5): per_i
 // [B,L,128] f32; per_j [B,L,128] and h_E [B,L,K,128] in the stream type; idx
 // [B,L,K] int64 (node index within the batch row); p_local [B,L,8,3], rot
-// [B,L,3,3], trans [B,L,3], pg [B,L,24], mask [B,L,K] f32; out [B,L,128]
-// f32 (pool) or [B,L,K,128] in the stream type.
+// [B,L,3,3], trans [B,L,3], pg [B,L,24], mask [B,L,K] f32; wpack the
+// message weights packed for the stream type
+// (ops/message_feat.py::pack_message_weights, message_tc.cuh); biases [128]
+// f32; out [B,L,128] f32 (pool) or [B,L,K,128] in the stream type.
 extern "C" int packppi_message(const void* per_i, const void* per_j, const void* h_E,
                                const void* idx, const void* p_local, const void* rot,
                                const void* trans, const void* pg, const void* mask,
-                               const void* w_in, const void* b_in, const void* w_mid,
-                               const void* b_mid, const void* w_out, const void* b_out,
-                               void* out, int B, int L, int K, int bf16, int pool,
-                               void* stream) {
+                               const void* wpack, const void* b_in, const void* b_mid,
+                               const void* b_out, void* out, int B, int L, int K, int bf16,
+                               int pool, void* stream) {
   return packppi::message_entry<packppi::kLanes>(per_i, per_j, h_E, idx, p_local, rot, trans,
-                                                  pg, mask, w_in, b_in, w_mid, b_mid, w_out,
-                                                  b_out, out, B, L, K, bf16, pool, stream);
+                                                  pg, mask, wpack, b_in, b_mid, b_out, out, B, L,
+                                                  K, bf16, pool, stream);
 }
 
 extern "C" int packppi_message_gather(const void* per_i, const void* per_j, const void* h_E,
                                       const void* idx, const void* p_local, const void* rot,
                                       const void* trans, const void* pg, const void* mask,
-                                      const void* w_in, const void* b_in, const void* w_mid,
-                                      const void* b_mid, const void* w_out, const void* b_out,
-                                      void* out, int B, int L, int K, int bf16, int pool,
-                                      void* stream) {
+                                      const void* wpack, const void* b_in, const void* b_mid,
+                                      const void* b_out, void* out, int B, int L, int K,
+                                      int bf16, int pool, void* stream) {
   return packppi::message_entry<packppi::kGather>(per_i, per_j, h_E, idx, p_local, rot, trans,
-                                                   pg, mask, w_in, b_in, w_mid, b_mid, w_out,
-                                                   b_out, out, B, L, K, bf16, pool, stream);
+                                                   pg, mask, wpack, b_in, b_mid, b_out, out, B,
+                                                   L, K, bf16, pool, stream);
 }
 
+// The FMA routes take the weights as they are: w_in [128,456], w_mid/w_out
+// [128,128] f32 (Linear layout), biases [128] f32.
+//
 // packppi_message_geom (row 4), over N = B*L node rows: per_i [N,128] f32;
 // pjg [N*K,128] and h_E [N*K,128] in the stream type; pl [N,24] local point
 // planes [x | y | z], ng [N*K,24] gathered neighbour global-point planes,

@@ -15,62 +15,71 @@
 //   x = x . W_2 + b_2
 //   pool: out[node] = sum_k mask[node,k] x[node,k] / K (float32), else
 //   out[row] = x in the stream type.
-// h_E, geom and the two hidden activations are rounded to the compute type
-// (bf16 or float32) before their products; sums, biases, per_i and the pj
-// addition are float32 (message_mlp.cuh, shared with message.cu).
+// h_E, geom and the two hidden activations are in the compute type (bf16
+// or float32) as product operands; sums, biases, per_i and the pj addition
+// are float32 (csrc/message_tc.cuh, shared with message.cu's message_kernel).
 //
 // What bounds it: per edge row 2 * (He + 9P + 2H) * H = 116,736 operations
-// on 1,312 bytes of float32 streams (656 in bf16). On the float32 FMA units
-// (67 TFLOP/s peak) that this first version uses, operations bind in
-// float32; in bf16 on the tensor cores the bytes would. The design reads
-// every stream once into shared memory, keeps both hidden activations there
-// and writes the output once. Tensor-core products (wgmma) fed by TMA are
-// the next step.
+// on 1,312 bytes of float32 streams (656 in bf16). At the training shape
+// (131,072 edge rows) float32 is bound by operations on the tensor cores
+// (3xTF32, 165 TFLOP/s float32-accurate: 0.0927 ms), bf16 by bytes (0.0366
+// ms). The products run on tensor cores (message_tc.cuh: bf16 on wgmma,
+// float32 in 3xTF32 on mma.sync) over a packed copy of the weights; the
+// block copies its h_E and geometry rows into shared memory once, by
+// asynchronous 16-byte copies, keeps both hidden activations on chip and
+// writes the output once.
 
-#include "message_mlp.cuh"
+#include "message_tc.cuh"
 
 namespace packppi {
 
 template <typename T, bool POOL>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(MessageTc<T>::kThreads, MessageTc<T>::kMinBlocks)
 message_feat_kernel(const float* __restrict__ per_i, const T* __restrict__ pj,
                     const T* __restrict__ h_E, const T* __restrict__ geom,
-                    const float* __restrict__ mask, const float* __restrict__ w_in,
-                    const float* __restrict__ b_in, const float* __restrict__ w_mid,
-                    const float* __restrict__ b_mid, const float* __restrict__ w_out,
+                    const float* __restrict__ mask, const void* __restrict__ wpack,
+                    const float* __restrict__ b_in, const float* __restrict__ b_mid,
                     const float* __restrict__ b_out, void* __restrict__ out_ptr, int64_t N,
                     int K) {
-  extern __shared__ __align__(16) float smem[];
-  const MessageSmem s(smem);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const MessageTile<T> s(smem_raw);
 
   const int nb = kRows / K;                          // whole nodes per block
   const int64_t node0 = int64_t(blockIdx.x) * nb;    // first node row of this block
   const int rows = (N - node0 < nb ? int(N - node0) : nb) * K;  // valid edge rows
   const int64_t erow0 = node0 * K;                   // first edge row
 
-  load_feature_tile<T>(s, h_E, geom, mask, erow0, rows);
-  // the three products; message_mlp's first barrier publishes X0 and pjrow
-  message_mlp<T, POOL>(s, per_i, pj, w_in, b_in, w_mid, b_mid, w_out, b_out, out_ptr, K, rows,
-                       erow0, node0);
+  message_tc_prefetch(s, wpack);  // the first weight units load while the tile is formed
+  const int tid = threadIdx.x;
+  if (tid < kRows) {
+    const bool valid = tid < rows;
+    s.pjrow()[tid] = valid ? erow0 + tid : -1;       // the neighbour term arrives gathered
+    s.mrow()[tid] = valid ? mask[erow0 + tid] : 0.f;
+  }
+  tile_rows(s, h_E, kH, 0, erow0, rows);
+  tile_rows(s, geom, kG, kH, erow0, rows);
+  cp_async_commit();
+  tile_zero_pad(s);
+  tile_publish<T>();
+  message_tc<T, POOL>(s, per_i, pj, wpack, b_in, b_mid, b_out, out_ptr, K, rows, erow0, node0);
 }
 
 template <typename T, bool POOL>
 cudaError_t launch(const void* per_i, const void* pj, const void* h_E, const void* geom,
-                   const void* mask, const void* w_in, const void* b_in, const void* w_mid,
-                   const void* b_mid, const void* w_out, const void* b_out, void* out,
-                   int64_t N, int K, cudaStream_t stream) {
+                   const void* mask, const void* wpack, const void* b_in, const void* b_mid,
+                   const void* b_out, void* out, int64_t N, int K, cudaStream_t stream) {
   auto kernel = message_feat_kernel<T, POOL>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         int(kMessageSmem));
+  constexpr size_t kBytes = MessageTcBytes<T>::kTotal;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(kBytes));
   if (err != cudaSuccess) return err;
   const int nb = kRows / K;
   const int64_t blocks = (N + nb - 1) / nb;
-  kernel<<<dim3((unsigned)blocks), kThreads, kMessageSmem, stream>>>(
+  kernel<<<dim3((unsigned)blocks), MessageTc<T>::kThreads, kBytes, stream>>>(
       static_cast<const float*>(per_i), static_cast<const T*>(pj), static_cast<const T*>(h_E),
-      static_cast<const T*>(geom), static_cast<const float*>(mask),
-      static_cast<const float*>(w_in), static_cast<const float*>(b_in),
-      static_cast<const float*>(w_mid), static_cast<const float*>(b_mid),
-      static_cast<const float*>(w_out), static_cast<const float*>(b_out), out, N, K);
+      static_cast<const T*>(geom), static_cast<const float*>(mask), wpack,
+      static_cast<const float*>(b_in), static_cast<const float*>(b_mid),
+      static_cast<const float*>(b_out), out, N, K);
   return cudaGetLastError();
 }
 
@@ -78,20 +87,21 @@ cudaError_t launch(const void* per_i, const void* pj, const void* h_E, const voi
 
 // C entry point (ctypes). N node rows of K edges each. per_i [N,128] f32;
 // pj [N*K,128], h_E [N*K,128] and geom [N*K,72] in the stream type (bf16 if
-// bf16 != 0, else f32); mask [N*K] f32; w_in [128,456], w_mid/w_out
-// [128,128] f32 (Linear layout), biases [128] f32; out [N,128] f32 (pool)
-// or [N*K,128] in the stream type. K <= 64. Returns a cudaError_t.
+// bf16 != 0, else f32; h_E and geom 16-byte aligned); mask [N*K] f32; wpack
+// the message weights packed for the stream type
+// (ops/message_feat.py::pack_message_weights, message_tc.cuh); biases [128]
+// f32; out [N,128] f32 (pool) or [N*K,128] in the stream type. K <= 64.
+// Returns a cudaError_t.
 extern "C" int packppi_message_feat(const void* per_i, const void* pj, const void* h_E,
-                                    const void* geom, const void* mask, const void* w_in,
-                                    const void* b_in, const void* w_mid, const void* b_mid,
-                                    const void* w_out, const void* b_out, void* out,
-                                    long long N, int K, int bf16, int pool, void* stream) {
+                                    const void* geom, const void* mask, const void* wpack,
+                                    const void* b_in, const void* b_mid, const void* b_out,
+                                    void* out, long long N, int K, int bf16, int pool,
+                                    void* stream) {
   using namespace packppi;
-  if (K < 1 || K > kRows || N < 1 || (N + kRows / K - 1) / (kRows / K) > 0x7fffffffLL)
+  if (K < 1 || K > kRows || N < 1 || (N + kRows / K - 1) / (kRows / K) > 0x7fffffffLL || !wpack)
     return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define PACKPPI_ARGS per_i, pj, h_E, geom, mask, w_in, b_in, w_mid, b_mid, w_out, b_out, out, \
-                     int64_t(N), K, st
+#define PACKPPI_ARGS per_i, pj, h_E, geom, mask, wpack, b_in, b_mid, b_out, out, int64_t(N), K, st
   cudaError_t err;
   if (bf16)
     err = pool ? launch<__nv_bfloat16, true>(PACKPPI_ARGS) : launch<__nv_bfloat16, false>(PACKPPI_ARGS);

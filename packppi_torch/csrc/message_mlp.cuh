@@ -1,8 +1,9 @@
-// The three products of the IPMP message MLP over one tile of kRows edge
-// rows, shared by message.cu (geometry computed in the kernel, neighbour
-// term loaded by index or as it arrives gathered; alone or with the edge
-// chain folded in), message_feat.cu and layer.cu (geometry and neighbour
-// term loaded as they arrive):
+// The three products of the IPMP message MLP on the float32 FMA units
+// (tile.cuh's tile_product) over one tile of kRows edge rows, shared by
+// message.cu's geom and chain routes (message_geom_kernel, the edge pass
+// with the chain folded in) and layer.cu (geometry and neighbour term
+// loaded as they arrive); the lanes and gather routes and message_feat.cu
+// run the same function on tensor cores (message_tc.cuh):
 //
 //   x = relu([h_E | geom] . W_e + b_e + per_i[node] + pj[row])
 //   x = relu(x . W_1 + b_1)
@@ -166,7 +167,7 @@ __device__ __forceinline__ void message_mlp(const MessageSmem& s, const float* _
   }
 }
 
-// Fills the tile from precomputed streams (message_feat.cu, layer.cu):
+// Fills the tile from precomputed streams (layer.cu):
 // pjrow = the edge row itself (the neighbour term arrives gathered), mrow,
 // and X0 = [h_E | geom] rows, k-major, rounded to the compute type (a no-op
 // for the stream type); rows past `rows` are zeros. Publishes nothing: the

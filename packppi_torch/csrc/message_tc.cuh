@@ -1,0 +1,563 @@
+// The three products of the IPMP message MLP on tensor cores, over one tile
+// of kRows = 64 edge rows of whole nodes (64 / K nodes of K edges), for the
+// kernels whose streams are in the compute type T (message.cu
+// message_kernel, message_feat.cu):
+//
+//   x = relu([h_E | geom] . W_e + b_e + per_i[node] + pj[row])
+//   x = relu(x . W_1 + b_1)
+//   x = x . W_2 + b_2
+//   pool: out[node] = sum_k mask[node,k] x[node,k] / K (float32, summed over
+//   k in order), else out[row] = x in the stream type.
+//
+// The same function and rounding points as the FMA body of message_mlp.cuh
+// (which message_geom_kernel, the fold and the layer kernels still run):
+// product operands are T's values, sums, biases, per_i and the pj addition
+// float32, relu passes a NaN on. The first product's depth He + 9P = 200 is
+// padded to kIn1 = 208 (a bf16 k-step) with zero operand columns and zero
+// weight rows.
+//
+// bf16 (MessageTc<__nv_bfloat16>): one warpgroup, wgmma m64n128k16 (bf16
+// operands, float32 sums). The tile's [h_E | geom] rows are A from shared
+// memory in the 128-byte swizzle (four [64][64] panels, the fourth read to
+// k 208 only). Layer 1's accumulator, plus b_e, per_i and pj, through relu
+// and rounded to bf16, is register for register the A fragment of the
+// second product, and the second's of the third (csrc/chain_wgmma.cuh's
+// register-A form), so the hidden activations never go to shared memory.
+// float32 (MessageTc<float>): 8 warps, mma.sync m16n8k8 in 3xTF32
+// (csrc/mma.cuh); each warp owns a 32 x 32 block of each [64, 128] product.
+// A is read from shared memory and split into TF32 parts as it is loaded;
+// each 16-k weight chunk's partial is summed from zero and added to the
+// running sum with a round-to-nearest add (the tensor core sums toward
+// zero); the hidden activations go through shared memory.
+//
+// The weights come as one packed copy per weight version
+// (ops/message_feat.py::pack_message_weights): [W_e | W_1 | W_2] over
+// k = 208 + 128 + 128, W_e being W_in's h_E and geometry column blocks. In
+// bf16, eight [128 n][64 k] panels in the 128-byte swizzle that the wgmma
+// descriptors read (the fourth W_e panel holds k 192-255, of which 192-207
+// are read: 128 KB copied, 116 KB read); in float32, 29 chunks of 16 k
+// holding each weight's TF32 high and low parts, split once when the copy
+// is made (not in every block), in the order of the mma.sync B fragments
+// (one 16-byte shared-memory load gives a lane both parts of both
+// registers). One thread streams them
+// by bulk copies of the TMA unit into a ring of kStages 16 KB stages, each
+// completing on an mbarrier; the first stages load while the tile is formed.
+//
+// Shared memory: the A tile (bf16 32 KB, float32 54 KB, later the hidden
+// rows and the pool tile), the ring, the per-row tables and the mbarriers:
+// bf16 66 KB, three blocks an SM, so that while one block forms its tile
+// (indexed loads, geometry) or stores its rows the others multiply; float32
+// 102 KB, two blocks an SM.
+//
+// Use: message_tc_prefetch by every thread first; then the caller fills the
+// tile (tile_rows, tile_put, tile_zero_pad and the pjrow / mrow tables, see
+// MessageTile) and calls tile_publish; then message_tc.
+#pragma once
+
+#include <type_traits>
+
+#include "message_mlp.cuh"
+#include "mma.cuh"
+
+namespace packppi {
+
+constexpr int kIn1 = kIn + 8;                 // first product's depth, padded: 208
+constexpr int kMsgDepth = kIn1 + 2 * kH;      // k rows of the packed weights: 464
+constexpr uint32_t kMsgUnitBytes = 16384;     // one panel (bf16) or chunk (float32)
+
+template <typename T>
+struct MessageTc;
+
+template <>
+struct MessageTc<__nv_bfloat16> {
+  static constexpr int kThreads = 128;
+  static constexpr int kMinBlocks = 3;
+  static constexpr int kStages = 2;
+  static constexpr int kUnits = 8;                                  // W_e 4, W_1 2, W_2 2 panels
+  static constexpr uint32_t kPanelA = uint32_t(kRows) * 128;        // one [64][64] A panel
+  static constexpr uint32_t kActBytes = 4 * kPanelA;
+  static constexpr int kLdY = kH + 8;                               // pool tile row (floats)
+  // byte offset of element (r, k) of the A tile
+  __device__ static uint32_t a_offset(int r, int k) {
+    return uint32_t(k >> 6) * kPanelA + sw128_offset(r, k & 63);
+  }
+};
+
+template <>
+struct MessageTc<float> {
+  static constexpr int kThreads = 256;
+  static constexpr int kMinBlocks = 2;
+  static constexpr int kStages = 3;
+  static constexpr int kChunkK = 16;
+  static constexpr int kUnits = kMsgDepth / kChunkK;                // 29 chunks
+  static constexpr int kLdA = kIn1 + 4;                             // A row (floats)
+  static constexpr int kLdH = kH + 4;                               // hidden and pool rows
+  static constexpr int kLdY = kLdH;
+  static constexpr uint32_t kActBytes = uint32_t(kRows) * kLdA * 4;
+  __device__ static uint32_t a_offset(int r, int k) { return uint32_t(r * kLdA + k) * 4u; }
+};
+
+template <typename T>
+struct MessageTcBytes {
+  using C = MessageTc<T>;
+  static constexpr uint32_t kRing = C::kActBytes;                   // offsets from the base
+  static constexpr uint32_t kPjrow = kRing + C::kStages * kMsgUnitBytes;
+  static constexpr uint32_t kMrow = kPjrow + kRows * 8;
+  static constexpr uint32_t kBars = kMrow + kRows * 4;
+  // and slack to align the base to 1,024 (the swizzled panels)
+  static constexpr size_t kTotal = kBars + C::kStages * 8 + 1024;
+  static_assert(kRows * C::kLdY * 4 <= kPjrow, "the pool tile fits the tile and the ring");
+  static_assert(kMsgUnitBytes == (std::is_same<T, float>::value ? 16 * kH * 8 : kH * 64 * 2),
+                "a ring stage is one panel or one chunk");
+};
+
+// The block's shared memory: the A tile, the ring, pjrow (row of the
+// neighbour term in pj, -1 for a row past the end), mrow (edge mask), the
+// mbarriers.
+template <typename T>
+struct MessageTile {
+  using B = MessageTcBytes<T>;
+  unsigned char* base;
+  __device__ explicit MessageTile(unsigned char* raw)
+      : base(raw + ((1024 - (smem_u32(raw) & 1023)) & 1023)) {}
+  __device__ unsigned char* ring() const { return base + B::kRing; }
+  __device__ int64_t* pjrow() const { return reinterpret_cast<int64_t*>(base + B::kPjrow); }
+  __device__ float* mrow() const { return reinterpret_cast<float*>(base + B::kMrow); }
+  __device__ uint64_t* bars() const { return reinterpret_cast<uint64_t*>(base + B::kBars); }
+};
+
+// Weight unit i (panel or chunk) into stage i % kStages, by one thread.
+template <typename T>
+__device__ __forceinline__ void message_tc_request(const MessageTile<T>& s, const void* wpack,
+                                                   int i) {
+  const int st = i % MessageTc<T>::kStages;
+  uint64_t* bar = s.bars() + st;
+  mbar_expect_tx(bar, kMsgUnitBytes);
+  bulk_copy(s.ring() + st * kMsgUnitBytes,
+            static_cast<const unsigned char*>(wpack) + size_t(i) * kMsgUnitBytes, kMsgUnitBytes,
+            bar);
+}
+
+// The first thread sets up the ring's mbarriers and requests the first
+// kStages units. A barrier must follow before anyone waits (tile_publish's).
+template <typename T>
+__device__ __forceinline__ void message_tc_prefetch(const MessageTile<T>& s, const void* wpack) {
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i < MessageTc<T>::kStages; ++i) mbar_init(s.bars() + i, 1);
+    fence_mbar_init();
+#pragma unroll
+    for (int i = 0; i < MessageTc<T>::kStages; ++i) message_tc_request(s, wpack, i);
+  }
+}
+
+// Unit i, once its bytes have landed: its stage's shared-memory address.
+template <typename T>
+__device__ __forceinline__ uint32_t message_tc_wait(const MessageTile<T>& s, int i) {
+  constexpr int kStages = MessageTc<T>::kStages;
+  mbar_wait(s.bars() + i % kStages, (i / kStages) & 1);
+  return smem_u32(s.ring()) + uint32_t(i % kStages) * kMsgUnitBytes;
+}
+
+// Every thread is done with units first .. last: their stages take the units
+// kStages further on.
+template <typename T>
+__device__ __forceinline__ void message_tc_release(const MessageTile<T>& s, const void* wpack,
+                                                   int first, int last) {
+  constexpr int kStages = MessageTc<T>::kStages;
+  __syncthreads();
+  if (threadIdx.x == 0)
+    for (int i = first; i <= last; ++i)
+      if (i + kStages < MessageTc<T>::kUnits) message_tc_request(s, wpack, i + kStages);
+}
+
+// The tile's rows of a stream [*, width] in T (h_E, precomputed geometry),
+// from edge row erow0, into A columns k0 .. k0 + width - 1, by asynchronous
+// 16-byte copies; rows past `rows` zeros. width * sizeof(T) and the
+// stream's base address are multiples of 16.
+template <typename T>
+__device__ __forceinline__ void tile_rows(const MessageTile<T>& s, const T* __restrict__ src,
+                                          int width, int k0, int64_t erow0, int rows) {
+  constexpr int kPer = 16 / int(sizeof(T));  // values a copy
+  const int pieces = width / kPer;
+  for (int e = threadIdx.x; e < kRows * pieces; e += MessageTc<T>::kThreads) {
+    const int r = e / pieces, k = k0 + (e % pieces) * kPer;
+    const bool valid = r < rows;
+    // a row past the end copies nothing (src must still be a valid address)
+    cp_async16(s.base + MessageTc<T>::a_offset(r, k),
+               src + (valid ? (erow0 + r) * width + (k - k0) : 0), valid);
+  }
+}
+
+// one value of the A tile, rounded to T
+template <typename T>
+__device__ __forceinline__ void tile_put(const MessageTile<T>& s, int r, int k, float v) {
+  *reinterpret_cast<T*>(s.base + MessageTc<T>::a_offset(r, k)) = from_f32<T>(v);
+}
+
+// columns kIn .. kIn1 - 1 of every row: zeros (threads 0-63)
+template <typename T>
+__device__ __forceinline__ void tile_zero_pad(const MessageTile<T>& s) {
+  const int r = threadIdx.x;
+  if (r >= kRows) return;
+#pragma unroll
+  for (int k = kIn; k < kIn1; k += 16 / int(sizeof(T)))
+    *reinterpret_cast<uint4*>(s.base + MessageTc<T>::a_offset(r, k)) = make_uint4(0, 0, 0, 0);
+}
+
+// The tile's pieces have landed and every write is visible to the products
+// (wgmma reads the A tile through the async proxy).
+template <typename T>
+__device__ __forceinline__ void tile_publish() {
+  cp_async_wait<0>();
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) fence_proxy_async();
+  __syncthreads();
+}
+
+// The node pool from the masked rows Y [kRows][ldy] (float32): the sum over
+// k in order, divided by K.
+__device__ __forceinline__ void message_tc_pool(const float* Y, int ldy, float* __restrict__ out,
+                                                int K, int rows, int threads) {
+  const int nodes = rows / K;
+  for (int e = threadIdx.x; e < nodes * kH; e += threads) {
+    const int n = e / kH, c = e % kH;
+    float sum = 0.f;
+    for (int k = 0; k < K; ++k) sum += Y[(n * K + k) * ldy + c];
+    out[n * kH + c] = sum / float(K);
+  }
+}
+
+// ---------------------------------------------------------------- bf16 (wgmma)
+
+template <bool POOL>
+__device__ __forceinline__ void message_tc_bf16(const MessageTile<__nv_bfloat16>& s,
+                                                const float* __restrict__ per_i,
+                                                const __nv_bfloat16* __restrict__ pj,
+                                                const void* __restrict__ wpack,
+                                                const float* __restrict__ b_in,
+                                                const float* __restrict__ b_mid,
+                                                const float* __restrict__ b_out,
+                                                void* __restrict__ out_ptr, int K, int rows,
+                                                int64_t erow0, int64_t node0) {
+  using C = MessageTc<__nv_bfloat16>;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int t = lane & 3;
+  const int r0 = warp * 16 + (lane >> 2);  // the thread's rows r0 and r0 + 8
+  const uint32_t a_s = smem_u32(s.base);
+  const int64_t* pjrow = s.pjrow();
+  auto wait = [&](int i) { return message_tc_wait(s, i); };
+
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  // layer 1, k 0-127: A panels 0 and 1 against weight panels 0 and 1
+  {
+    const uint32_t w0 = wait(0), w1 = wait(1);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      wgmma_m64n128k16_bf16(acc, sw128_desc(a_s + 32 * j), sw128_desc(w0 + 32 * j));
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      wgmma_m64n128k16_bf16(acc, sw128_desc(a_s + C::kPanelA + 32 * j), sw128_desc(w1 + 32 * j));
+    wgmma_commit();
+    wgmma_wait<0>();
+    message_tc_release(s, wpack, 0, 1);
+  }
+  // k 128-207: A panel 2 and the first k-step of panel 3
+  {
+    const uint32_t w2 = wait(2), w3 = wait(3);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      wgmma_m64n128k16_bf16(acc, sw128_desc(a_s + 2 * C::kPanelA + 32 * j),
+                            sw128_desc(w2 + 32 * j));
+    wgmma_m64n128k16_bf16(acc, sw128_desc(a_s + 3 * C::kPanelA), sw128_desc(w3));
+    wgmma_commit();
+    wgmma_wait<0>();
+    message_tc_release(s, wpack, 2, 3);
+  }
+  // relu(acc + b_e + per_i + pj), rounded, as A fragments: k-step q of the
+  // next product takes columns 16 q .. 16 q + 15, the accumulator's column
+  // tiles 2 q and 2 q + 1
+  uint32_t ha[8][4];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + 8 * h;
+    const int64_t j = pjrow[r];
+    const float* pi = per_i + (node0 + r / K) * kH;
+    const __nv_bfloat16* pr = pj + j * kH;
+#pragma unroll
+    for (int jt = 0; jt < 16; ++jt) {
+      const int col = 8 * jt + 2 * t;
+      float v0 = 0.f, v1 = 0.f;
+      if (j >= 0) {
+        const float2 b = __ldg(reinterpret_cast<const float2*>(b_in + col));
+        const float2 p = *reinterpret_cast<const float2*>(pi + col);
+        const __nv_bfloat162 q = *reinterpret_cast<const __nv_bfloat162*>(pr + col);
+        v0 = relu(acc[4 * jt + 2 * h] + b.x + p.x + __low2float(q));
+        v1 = relu(acc[4 * jt + 2 * h + 1] + b.y + p.y + __high2float(q));
+      }
+      ha[jt >> 1][2 * (jt & 1) + h] = pack_bf16(v0, v1);
+    }
+  }
+
+  // layer 2: relu(x . W_1 + b_1), rounded, as A fragments
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  {
+    const uint32_t w4 = wait(4), w5 = wait(5);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < 4; ++j) wgmma_m64n128k16_bf16_rs(acc, ha[j], sw128_desc(w4 + 32 * j));
+#pragma unroll
+    for (int j = 0; j < 4; ++j) wgmma_m64n128k16_bf16_rs(acc, ha[4 + j], sw128_desc(w5 + 32 * j));
+    wgmma_commit();
+    wgmma_wait<0>();
+    message_tc_release(s, wpack, 4, 5);
+  }
+#pragma unroll
+  for (int jt = 0; jt < 16; ++jt) {
+    const float2 b = __ldg(reinterpret_cast<const float2*>(b_mid + 8 * jt + 2 * t));
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      ha[jt >> 1][2 * (jt & 1) + h] =
+          pack_bf16(relu(acc[4 * jt + 2 * h] + b.x), relu(acc[4 * jt + 2 * h + 1] + b.y));
+  }
+
+  // layer 3: x . W_2
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  {
+    const uint32_t w6 = wait(6), w7 = wait(7);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < 4; ++j) wgmma_m64n128k16_bf16_rs(acc, ha[j], sw128_desc(w6 + 32 * j));
+#pragma unroll
+    for (int j = 0; j < 4; ++j) wgmma_m64n128k16_bf16_rs(acc, ha[4 + j], sw128_desc(w7 + 32 * j));
+    wgmma_commit();
+    wgmma_wait<0>();
+  }
+
+  if constexpr (POOL) {
+    __syncthreads();  // every warp's products are done: the tile and the ring are free
+    float* Y = reinterpret_cast<float*>(s.base);
+    const float* mrow = s.mrow();
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 8 * h;
+      const float m = mrow[r];
+#pragma unroll
+      for (int jt = 0; jt < 16; ++jt) {
+        const int col = 8 * jt + 2 * t;
+        const float2 b = __ldg(reinterpret_cast<const float2*>(b_out + col));
+        *reinterpret_cast<float2*>(Y + r * C::kLdY + col) =
+            make_float2((acc[4 * jt + 2 * h] + b.x) * m, (acc[4 * jt + 2 * h + 1] + b.y) * m);
+      }
+    }
+    __syncthreads();
+    message_tc_pool(Y, C::kLdY, static_cast<float*>(out_ptr) + node0 * kH, K, rows, C::kThreads);
+  } else {
+    __nv_bfloat16* out = static_cast<__nv_bfloat16*>(out_ptr);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 8 * h;
+      if (r >= rows) continue;
+      __nv_bfloat16* o = out + (erow0 + r) * kH;
+#pragma unroll
+      for (int jt = 0; jt < 16; ++jt) {
+        const int col = 8 * jt + 2 * t;
+        const float2 b = __ldg(reinterpret_cast<const float2*>(b_out + col));
+        *reinterpret_cast<uint32_t*>(o + col) =
+            pack_bf16(acc[4 * jt + 2 * h] + b.x, acc[4 * jt + 2 * h + 1] + b.y);
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------ float32 (3xTF32 mma)
+
+// acc = A . W over `chunks` weight chunks from chunk c0 on (A [kRows][lda]
+// floats at the tile's base, columns 16 i .. for chunk c0 + i): each chunk's
+// 3xTF32 partial from zero, then one round-to-nearest add. Warp w owns rows
+// 32 (w / 4) .., columns 32 (w % 4) ... Ends with every thread done reading
+// A (the last chunk's barrier).
+__device__ __forceinline__ void message_tc_f32_product(float (&acc)[2][4][4],
+                                                       const MessageTile<float>& s,
+                                                       const void* wpack, int lda, int c0,
+                                                       int chunks) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr0 = (warp >> 2) * 32, nt0 = (warp & 3) * 4;
+  const float* A = reinterpret_cast<const float*>(s.base);
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+  for (int i = 0; i < chunks; ++i) {
+    const int c = c0 + i;
+    const uint4* st = reinterpret_cast<const uint4*>(s.ring() + (c % MessageTc<float>::kStages) *
+                                                                    kMsgUnitBytes);
+    message_tc_wait(s, c);
+    float p[2][4][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) p[mt][nt][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+      uint32_t ah[2][4], al[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const float* ar = A + (wr0 + 16 * mt + g) * lda + 16 * i + 8 * ks + t;
+        split_tf32(ar[0], ah[mt][0], al[mt][0]);
+        split_tf32(ar[8 * lda], ah[mt][1], al[mt][1]);
+        split_tf32(ar[4], ah[mt][2], al[mt][2]);
+        split_tf32(ar[8 * lda + 4], ah[mt][3], al[mt][3]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        // (hi b0, hi b1, lo b0, lo b1) of n-tile nt0 + nt, k-step ks
+        const uint4 b = st[(ks * 16 + nt0 + nt) * 32 + lane];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) mma_3xtf32(p[mt][nt], ah[mt], al[mt], b.x, b.y, b.z, b.w);
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][nt][e] += p[mt][nt][e];
+    message_tc_release(s, wpack, c, c);
+  }
+}
+
+template <bool POOL>
+__device__ __forceinline__ void message_tc_f32(const MessageTile<float>& s,
+                                               const float* __restrict__ per_i,
+                                               const float* __restrict__ pj,
+                                               const void* __restrict__ wpack,
+                                               const float* __restrict__ b_in,
+                                               const float* __restrict__ b_mid,
+                                               const float* __restrict__ b_out,
+                                               void* __restrict__ out_ptr, int K, int rows,
+                                               int64_t erow0, int64_t node0) {
+  using C = MessageTc<float>;
+  constexpr int kLdH = C::kLdH;
+  constexpr int kChunks1 = kIn1 / C::kChunkK, kChunksH = kH / C::kChunkK;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr0 = (warp >> 2) * 32, wc0 = (warp & 3) * 32;
+  float* act = reinterpret_cast<float*>(s.base);
+  const int64_t* pjrow = s.pjrow();
+  float acc[2][4][4];
+
+  // layer 1: relu(A . W_e + b_e + per_i + pj) into the (consumed) A tile
+  message_tc_f32_product(acc, s, wpack, C::kLdA, 0, kChunks1);
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = wr0 + 16 * mt + g + 8 * h;
+      const int64_t j = pjrow[r];
+      const float* pi = per_i + (node0 + r / K) * kH;
+      const float* pr = pj + j * kH;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int col = wc0 + 8 * nt + 2 * t;
+        float v0 = 0.f, v1 = 0.f;
+        if (j >= 0) {
+          const float2 b = __ldg(reinterpret_cast<const float2*>(b_in + col));
+          const float2 p = *reinterpret_cast<const float2*>(pi + col);
+          const float2 q = *reinterpret_cast<const float2*>(pr + col);
+          v0 = relu(acc[mt][nt][2 * h] + b.x + p.x + q.x);
+          v1 = relu(acc[mt][nt][2 * h + 1] + b.y + p.y + q.y);
+        }
+        *reinterpret_cast<float2*>(act + r * kLdH + col) = make_float2(v0, v1);
+      }
+    }
+  __syncthreads();
+
+  // layer 2: relu(x . W_1 + b_1), in place
+  message_tc_f32_product(acc, s, wpack, kLdH, kChunks1, kChunksH);
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = wr0 + 16 * mt + g + 8 * h;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int col = wc0 + 8 * nt + 2 * t;
+        const float2 b = __ldg(reinterpret_cast<const float2*>(b_mid + col));
+        *reinterpret_cast<float2*>(act + r * kLdH + col) =
+            make_float2(relu(acc[mt][nt][2 * h] + b.x), relu(acc[mt][nt][2 * h + 1] + b.y));
+      }
+    }
+  __syncthreads();
+
+  // layer 3: x . W_2 + b_2
+  message_tc_f32_product(acc, s, wpack, kLdH, kChunks1 + kChunksH, kChunksH);
+  if constexpr (POOL) {
+    const float* mrow = s.mrow();
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = wr0 + 16 * mt + g + 8 * h;
+        const float m = mrow[r];
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const int col = wc0 + 8 * nt + 2 * t;
+          const float2 b = __ldg(reinterpret_cast<const float2*>(b_out + col));
+          *reinterpret_cast<float2*>(act + r * kLdH + col) =
+              make_float2((acc[mt][nt][2 * h] + b.x) * m, (acc[mt][nt][2 * h + 1] + b.y) * m);
+        }
+      }
+    __syncthreads();
+    message_tc_pool(act, kLdH, static_cast<float*>(out_ptr) + node0 * kH, K, rows, C::kThreads);
+  } else {
+    float* out = static_cast<float*>(out_ptr);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = wr0 + 16 * mt + g + 8 * h;
+        if (r >= rows) continue;
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const int col = wc0 + 8 * nt + 2 * t;
+          const float2 b = __ldg(reinterpret_cast<const float2*>(b_out + col));
+          *reinterpret_cast<float2*>(out + (erow0 + r) * kH + col) =
+              make_float2(acc[mt][nt][2 * h] + b.x, acc[mt][nt][2 * h + 1] + b.y);
+        }
+      }
+  }
+}
+
+// The three products, the bias and neighbour terms and the output of the
+// tile: `rows` valid edge rows of whole nodes from edge row erow0 and node
+// row node0 (both global). Every thread of the block calls this after
+// tile_publish.
+template <typename T, bool POOL>
+__device__ __forceinline__ void message_tc(const MessageTile<T>& s, const float* __restrict__ per_i,
+                                           const T* __restrict__ pj, const void* __restrict__ wpack,
+                                           const float* __restrict__ b_in,
+                                           const float* __restrict__ b_mid,
+                                           const float* __restrict__ b_out,
+                                           void* __restrict__ out_ptr, int K, int rows,
+                                           int64_t erow0, int64_t node0) {
+  if constexpr (std::is_same<T, float>::value)
+    message_tc_f32<POOL>(s, per_i, pj, wpack, b_in, b_mid, b_out, out_ptr, K, rows, erow0, node0);
+  else
+    message_tc_bf16<POOL>(s, per_i, pj, wpack, b_in, b_mid, b_out, out_ptr, K, rows, erow0, node0);
+}
+
+}  // namespace packppi

@@ -1,5 +1,6 @@
 // Shared pieces of the packppi_torch kernels: the element types, the
-// rounding to the compute type, and one block-level product
+// rounding to the compute type, and one block-level product on the float32
+// FMA units
 //
 //     acc[rows][cols] += X[rows][0:kdim] . W[0:kdim][cols]
 //
@@ -15,6 +16,13 @@
 // cg, cg+32, cg+64, cg+96 (cg = lane): the weight reads of a warp are 32
 // consecutive floats (no bank conflicts) and the activation reads are
 // warp-wide broadcasts.
+//
+// tile_product is the FMA body that remains: message_mlp.cuh's
+// message_products (message.cu's message_geom_kernel and
+// message_chain_kernel, layer.cu's two passes) and chain_rows.cuh (the
+// fold and the layer passes) call it. The lanes and gather message
+// kernels, message_feat, the chain and attention run on tensor cores
+// (message_tc.cuh, chain_wgmma.cuh, chain_mma.cuh, mma.cuh).
 #pragma once
 
 #include <cuda_bf16.h>

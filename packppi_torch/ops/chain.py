@@ -20,7 +20,6 @@ W2 as one bf16 copy in the layout of its shared-memory panels
 from __future__ import annotations
 
 import ctypes
-import weakref
 from typing import Optional
 
 import numpy as np
@@ -28,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from packppi_torch.ops import _build
+from packppi_torch.ops.packing import packed
 from packppi_torch.ops.precision import LN_EPS, matmul_f32acc, round_to
 
 
@@ -169,25 +169,13 @@ def pack_chain_weights(w1, w2):
 
 
 _PANEL_INDEX: dict = {}
-# (id(w1), id(w2)) -> (weakref w1, weakref w2, their versions, packed copy)
-_PACKED: dict = {}
 
 
 def _packed_weights(w1, w2):
     """``pack_chain_weights`` of the two tensors, made again only when
-    either is another tensor or was written in place since (its
-    ``_version``), so a chain over weights that do not change launches no
-    extra operation."""
-    if w1.is_inference() or w2.is_inference():      # no version counter to go by
-        return pack_chain_weights(w1, w2)
-    key, version = (id(w1), id(w2)), (w1._version, w2._version)
-    hit = _PACKED.get(key)
-    if hit is not None and hit[0]() is w1 and hit[1]() is w2 and hit[2] == version:
-        return hit[3]
-    drop = lambda _, key=key: _PACKED.pop(key, None)
-    packed = pack_chain_weights(w1, w2)
-    _PACKED[key] = (weakref.ref(w1, drop), weakref.ref(w2, drop), version, packed)
-    return packed
+    either is another tensor or was written in place since
+    (``ops.packing.packed``)."""
+    return packed(pack_chain_weights, w1, w2)
 
 
 def check_chain_weights(name, ref, lna_w, lna_b, w1, b1, w2, b2, lnb_w, lnb_b):

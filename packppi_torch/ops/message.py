@@ -16,7 +16,9 @@ for CUDA tensors and running its plain twin for CPU tensors (nothing else
 picks the plain version), each with its own count of launches:
 
 * ``message``: the per-node tables ``per_j`` and ``pg`` and ``idx``; the
-  kernel loads neighbour rows by index. Replaces
+  kernel loads neighbour rows by index and runs its products on tensor
+  cores over the packed weights of ``ops.message_feat.pack_message_weights``.
+  Replaces
   ``packppi_tpu/ops/pallas_ipmp.py::fused_message_geom_lanes``.
 * ``message_gather``: the same function and operands in its own
   instantiation. Replaces ``::fused_message_geom_gather``, whose one-hot
@@ -38,7 +40,7 @@ import torch
 from packppi_torch.ops import _build
 from packppi_torch.ops.chain import check_chain_weights, chain_plain
 from packppi_torch.ops.graph import gather_nodes
-from packppi_torch.ops.message_feat import message_feat_plain
+from packppi_torch.ops.message_feat import message_feat_plain, pack_message_weights
 
 GEOM_EPS = 1e-8
 
@@ -244,14 +246,17 @@ def _indexed_cuda(entry, per_i, per_j, h_E, idx, p_local, rot, trans, pg, mask,
                   w_in, b_in, w_mid, b_mid, w_out, b_out, pool):
     ops = (per_i, per_j, h_E, idx, p_local, rot, trans, pg, mask, w_in, b_in, w_mid, b_mid,
            w_out, b_out)
-    B, L, K, sd = _indexed_expect(entry[len("packppi_"):], *ops)
+    name = entry[len("packppi_"):]
+    B, L, K, sd = _indexed_expect(name, *ops)
+    _build.check_aligned(name, per_i=per_i, per_j=per_j, h_E=h_E)
+    wpack = pack_message_weights(w_in, w_mid, w_out, sd)
     out = (torch.empty(B, L, _H, device=h_E.device, dtype=_F32) if pool
            else torch.empty(B, L, K, _H, device=h_E.device, dtype=sd))
     lib = _lib()
-    err = getattr(lib, entry)(*(_build.ptr(t) for t in ops + (out,)),
+    err = getattr(lib, entry)(*(_build.ptr(t) for t in ops[:9] + (wpack, b_in, b_mid, b_out, out)),
                               B, L, K, int(sd == torch.bfloat16), int(pool),
                               _build.stream_ptr(h_E.device))
-    _build.check(lib, err, f"{entry[len('packppi_'):]} kernel launch")
+    _build.check(lib, err, f"{name} kernel launch")
     return out
 
 
@@ -302,7 +307,7 @@ def _lib():
     if lib.packppi_message.argtypes is None:
         ptrs, ints, stream = [ctypes.c_void_p], [ctypes.c_int], [ctypes.c_void_p]
         for entry in (lib.packppi_message, lib.packppi_message_gather):
-            entry.argtypes = ptrs * 16 + ints * 5 + stream
+            entry.argtypes = ptrs * 14 + ints * 5 + stream
         lib.packppi_message_geom.argtypes = ptrs * 15 + [ctypes.c_longlong] + ints * 3 + stream
         lib.packppi_message_chain.argtypes = ptrs * 24 + ints * 4 + stream
         for entry in (lib.packppi_message, lib.packppi_message_gather, lib.packppi_message_geom,

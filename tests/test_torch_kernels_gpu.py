@@ -229,6 +229,84 @@ def test_message_feat_kernel_refuses_what_it_does_not_take(cuda):
         message_feat(*ops, True)
 
 
+def _tc_message_case(kernel, device, dtype, **shape):
+    """(wrapper, plain version, operands) of one of the three kernels on
+    the tensor-core message body."""
+    from packppi_torch.ops.message import message, message_gather, message_plain
+    from packppi_torch.ops.message_feat import message_feat, message_feat_plain
+
+    if kernel == "message_feat":
+        return message_feat, message_feat_plain, _message_feat_operands(device, dtype, **shape)
+    fn = message if kernel == "message" else message_gather
+    return fn, message_plain, _message_operands(device, dtype, **shape)
+
+
+TC_KERNELS = ["message", "message_gather", "message_feat"]
+
+
+@pytest.mark.parametrize("K", [16, 20, 24, 32, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("pool", [True, False], ids=["pool", "edge"])
+@pytest.mark.parametrize("kernel", TC_KERNELS)
+def test_tensor_core_message_kernels_match_plain(cuda, kernel, pool, dtype, K):
+    """B = 2, L = 37: every K leaves a partial last tile (or, at K = 64,
+    one node a tile); K = 20 and 24 leave rows of each tile unused."""
+    fn, plain, ops = _tc_message_case(kernel, cuda, dtype, K=K)
+    before = fn.launches
+    got = fn(*ops, pool)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert got.dtype == (torch.float32 if pool else dtype)
+    assert got.shape == ((2, 37, H) if pool else (2, 37, K, H))
+    _close(got, plain(*ops, pool), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("pool", [True, False], ids=["pool", "edge"])
+def test_message_gather_kernel_at_eleven_copies_of_t1124_length(cuda, pool, dtype):
+    """L = 8,151 (11 x T1124), K = 32, B = 1."""
+    fn, plain, ops = _tc_message_case("message_gather", cuda, dtype, B=1, L=8151, K=32)
+    got = fn(*ops, pool)
+    torch.cuda.synchronize()
+    _close(got, plain(*ops, pool), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("pool", [True, False], ids=["pool", "edge"])
+@pytest.mark.parametrize("kernel", TC_KERNELS)
+def test_tensor_core_message_kernels_repeat_their_bits(cuda, kernel, pool, dtype):
+    fn, _, ops = _tc_message_case(kernel, cuda, dtype)
+    assert torch.equal(fn(*ops, pool), fn(*ops, pool))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("kernel", TC_KERNELS)
+def test_tensor_core_message_kernels_pass_a_nan_on(cuda, kernel, dtype):
+    """One NaN h_E entry of edge (1, 5, 3): that edge's message and its
+    node's pooled message are NaN, nothing else is."""
+    fn, _, ops = _tc_message_case(kernel, cuda, dtype)
+    ops = list(ops)
+    ops[2][1, 5, 3, 7] = float("nan")
+    edge, node = fn(*ops, False), fn(*ops, True)
+    assert edge[1, 5, 3].isnan().all() and node[1, 5].isnan().all()
+    assert edge.isnan().sum().item() == H and node.isnan().sum().item() == H
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("kernel", TC_KERNELS)
+def test_tensor_core_message_kernels_follow_weights_written_in_place(cuda, kernel, dtype):
+    """The kernels read a packed copy of W_in, W_1 and W_2, made again when
+    any of them is written in place (as an optimizer step writes it)."""
+    fn, plain, ops = _tc_message_case(kernel, cuda, dtype)
+    at = 7 if kernel == "message_feat" else 11                # w_mid
+    first = fn(*ops, False)
+    with torch.no_grad():
+        ops[at].mul_(-1.0)
+    got = fn(*ops, False)
+    _close(got, plain(*ops, False), dtype)
+    assert not torch.equal(got, first)
+
+
 def test_kernels_refuse_what_they_do_not_take(cuda):
     from packppi_torch.ops.chain import chain
     from packppi_torch.ops.message import message
