@@ -12,8 +12,8 @@ fatal on failure:
 2. build: every kernel of ``packppi_torch/csrc`` (six sources) with nvcc
    for sm_90a, one nvcc per source, all started together; ptxas's lines
    (registers, shared memory, spills) of the sources with tensor-core
-   kernels (attention, chain, message, message_feat) and the registers and
-   spills of the others;
+   kernels (attention, chain, layer, message, message_feat) and the
+   registers and spills of the others;
 3. kernels: each kernel against its plain PyTorch version on the card, on
    the T1124 complex's real graph and activations (L=768, K=32, H=128;
    node N=768 and edge N=24,576 rows), float32 and bf16, timed with CUDA
@@ -45,10 +45,12 @@ fatal on failure:
    and activations, node and edge, float32 and bf16 with the two controls,
    timed beside their plain versions; the gathered-operand and
    in-kernel-gather routes are held against the message kernel, the folded
-   edge pass against message then chain (within the limits: the fold keeps
-   the FMA chain body, the chain kernel runs on tensor cores), the node pass at
-   2, 4, 8 and 16 nodes a block (bit for bit); the gather route at 11 x
-   T1124 (L = 8,151), the fold at K = 24, the layer passes at L = 741;
+   edge pass against message then chain (bit for bit: both run one
+   tensor-core message body and one chain body in the same form), the node
+   pass at 2, 4, 8 and 16 nodes a block (bit for bit); the gather route at
+   11 x T1124 (L = 8,151), the fold at K = 24, the layer passes at L = 741;
+   the SASS of the fold's and the layer passes' kernels (tensor-core
+   products: HGMMA in bf16, HMMA in float32);
 4. golden replay: the 1BRS float32 30-step trajectory through the kernels
    against the reference's ``tests/golden/pipeline_golden.npz`` (5e-4
    rad), again under each variant routing (``geom``, ``geom_gather``, the
@@ -136,7 +138,7 @@ CLASH_TOL_SOFT = 0.5                    # sc_violation_loss's overlap tolerance
 PROX_STEPS = 50
 SOURCES = ("message", "message_feat", "chain", "clash", "attention", "layer")
 # products on tensor cores (csrc/mma.cuh): every ptxas line of these is printed
-TENSOR_CORE_SOURCES = ("attention", "chain", "message", "message_feat")
+TENSOR_CORE_SOURCES = ("attention", "chain", "layer", "message", "message_feat")
 # the training shape: 4 copies of T1124 padded to 1,024 residues (131,072 edge rows)
 TRAIN_B, TRAIN_L = 4, 1024
 # the two differentiable passes: each gradient against autograd through the
@@ -1754,11 +1756,14 @@ def check_variant(torch, name, fn, plain, ops, first, dtype_name):
     return got, err
 
 
-def check_same_function(torch, name, got, other, dtype_name):
+def check_same_function(torch, name, got, other, dtype_name, bits=False):
     """Two kernels that compute one function: within the kernel tolerance,
-    and whether they agree bit for bit."""
+    and whether they agree bit for bit (which ``bits`` requires)."""
     check_close(name, got, other, dtype_name)
-    log(f"    bit for bit: {torch.equal(got, other)}")
+    same = torch.equal(got, other)
+    log(f"    bit for bit: {same}")
+    if bits and not same:
+        fail(f"{name}: not bit for bit")
 
 
 def eleven_copies_batch(torch, copies=11):
@@ -1816,8 +1821,9 @@ def phase_variant_kernels(torch, timer):
                     two = chain(*chain_operands(static.h_E, msg, static.mask_attend,
                                                 layer.norm[2], layer.edge_dense, layer.norm[3]),
                                 True).reshape(got.shape)
+                    # T1124's edge pass: 384 tiles, so chain.cu runs the fold's form
                     check_same_function(torch, f"  {label} against message then chain", got, two,
-                                        dtype_name)
+                                        dtype_name, bits=True)
                 nb = sum(_nbytes(t) for t in ops) + _nbytes(got)
                 no = MESSAGE_OPS_PER_ROW * erows + CHAIN_OPS_PER_ROW * crows
                 records[(name, dtype_name, variant)] = dict(
@@ -1876,6 +1882,41 @@ def phase_variant_kernels(torch, timer):
     return records
 
 
+# the kernels that run a message tile and then the chain, and the product
+# instruction each must show: HGMMA (wgmma) in bf16, HMMA (mma.sync) in float32
+FUSED_KERNELS = {"message": ("message_chain_kernel",),
+                 "layer": ("layer_node_kernel", "layer_edge_kernel")}
+
+
+def phase_sass():
+    """SASS instruction counts (``tools/sass_counts.py``) of the fold's and
+    the whole-layer passes' kernels; fails where a product is not on tensor
+    cores. FFMA remain for the geometry, the LayerNorms and the pool."""
+    import re
+
+    sys.path.insert(0, str(REPO / "tools"))
+    from sass_counts import counts
+    from packppi_torch.ops import _build
+
+    paths = _build.build_all(list(FUSED_KERNELS))
+    seen = 0
+    for source, names in FUSED_KERNELS.items():
+        for fn, c in counts(paths[source]).items():
+            for name in names:
+                m = re.search(rf"{name}I(13__nv_bfloat16|f)E", fn)
+                if not m:
+                    continue
+                seen += 1
+                dtype = "float32" if m.group(1) == "f" else "bfloat16"
+                unit = "HMMA" if dtype == "float32" else "HGMMA"
+                log(f"  sass {name} {dtype}: HGMMA {c['HGMMA']}, HMMA {c['HMMA']}, "
+                    f"FFMA {c['FFMA']}")
+                if c[unit] == 0:
+                    fail(f"{name} {dtype} has no {unit}: its products are not on tensor cores")
+    if seen != 6:
+        fail(f"sass: found {seen} of the 6 instantiations of {FUSED_KERNELS}")
+
+
 def message_args(static, h_V, layer, frames, variant):
     pts = layer.points_fn_node if variant == "node" else layer.points_fn_edge
     return (h_V, static.h_E, static.idx, layer._points(pts, h_V), frames, static.mask_attend)
@@ -1922,8 +1963,9 @@ def phase_golden_variants(torch):
             fail(f"golden replay {name} out of tolerance")
 
 
-def phase_pack_variants(torch, reps=5):
-    """The bf16 T1124 30-step pack under each variant routing: through
+def phase_pack_variants(torch, reps=5, names=tuple(VARIANTS)):
+    """The bf16 T1124 30-step pack under each variant routing (of
+    ``names``): through
     ``TorsionalDiffusion.sample`` (the function ``cli.pack`` calls) for the
     four kernel routings and through ``cli.pack --geometry local`` for local
     geometry; launch counts asserted, the sampling seconds (median of
@@ -1939,7 +1981,8 @@ def phase_pack_variants(torch, reps=5):
 
     batch = stack_batch([featurize(from_pdb_file(T1124, mse_to_met=True))], "cuda")
     launches = {}
-    for name, (_, fold, per_eval) in VARIANTS.items():
+    for name in names:
+        _, fold, per_eval = VARIANTS[name]
         model = variant_model(torch, name, "bfloat16")
         with folded_edge_chain(fold):
             torch.cuda.synchronize()
@@ -2009,7 +2052,8 @@ def phase_pack_variants(torch, reps=5):
         ref_net, _ = t1124_network(torch, "float32", "cuda")
         static = ref_net.encode_static(batch)
         s_ref, h_ref = ref_net(batch, sc, t, static=static, skip_last_edge_update=True)
-        for name, (_, fold, _) in VARIANTS.items():
+        for name in names:
+            fold = VARIANTS[name][1]
             net = variant_model(torch, name, "float32").net
             with folded_edge_chain(fold):
                 s, h = net(batch, sc, t, static=net.encode_static(batch),
@@ -2039,6 +2083,7 @@ def main():
     records = phase_kernels(torch, timer)
     records.update(phase_message_feat(torch, timer))
     records.update(phase_variant_kernels(torch, timer))
+    phase_sass()
     phase_function_grads(torch)
     clash_records = phase_clash_kernels(torch, timer)
     attention_records = phase_attention(torch, timer)

@@ -10,11 +10,11 @@
 //   h  = rnd(h . W2 + b2)                  W2 [128, 512]
 //   y  = LN_b(xx + h) [* mask], written in T
 // rnd rounds to T at every point the unfused flax chain rounds; LayerNorm is
-// flax's (eps 1e-6, variance mean(x^2) - mean(x)^2 clamped at 0). The FFN
-// and LN_b run on tensor cores: bf16 on wgmma (csrc/chain_wgmma.cuh),
-// float32 in 3xTF32 on mma.sync (csrc/chain_mma.cuh); the folded edge pass
-// (message.cu) and the whole-layer kernels (layer.cu) keep the FMA body of
-// csrc/chain_rows.cuh, with the same rounding points.
+// flax's (eps 1e-6, variance mean(x^2) - mean(x)^2 clamped at 0). A block
+// forms its rows' x0 in shared memory; from there the chain is the one the
+// folded edge pass (message.cu) and the whole-layer kernels (layer.cu) run,
+// instruction for instruction: bf16 on wgmma (csrc/chain_wgmma.cuh), float32
+// in 3xTF32 on mma.sync (csrc/chain_mma.cuh).
 //
 // What bounds it: 2 * 2 * 128 * 512 = 262,144 operations per row against
 // 512-768 bytes of row traffic (bf16) and the weights read once: at T1124's
@@ -35,14 +35,13 @@
 
 namespace packppi {
 
-// x0 = rnd(x + rnd(m)), xx = rnd(LN_a(x0)) for the R rows of a tile from
-// row0: warp w of kWarps takes rows w, w + kWarps, ..., loading up to 8 rows
-// together; lane owns columns lane + 32 q; rows past N are zeros.
-// put(r, c, v) writes xx.
+// x0 = rnd(x + rnd(m)) for the R rows of a tile from row0: warp w of kWarps
+// takes rows w, w + kWarps, ..., loading up to 8 rows together; lane owns
+// columns lane + 32 q; rows past N are zeros. put(r, c, x0) writes x0
+// (rounded to T, so a tile of T holds it exactly).
 template <typename T, typename M, int R, int kWarps, typename Put>
-__device__ __forceinline__ void residual_ln(const T* __restrict__ x, const M* __restrict__ msg,
-                                            const float* __restrict__ mask,
-                                            const ChainWeights& w, int64_t row0, int N,
+__device__ __forceinline__ void residual_x0(const T* __restrict__ x, const M* __restrict__ msg,
+                                            const float* __restrict__ mask, int64_t row0, int N,
                                             bool pre_mask, Put put) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -64,23 +63,12 @@ __device__ __forceinline__ void residual_ln(const T* __restrict__ x, const M* __
 #pragma unroll
     for (int b = 0; b < kBatch; ++b) {
       const int r = rb + kWarps * b;
-      float v[4] = {0.f, 0.f, 0.f, 0.f};
-      if (row0 + r < N) {
-        float x0[4];
+      const bool in = row0 + r < N;
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const float m = pre_mask && mask ? rnd<M>(mv[b][q] * mk[b]) : mv[b][q];
-          x0[q] = rnd<T>(xv[b][q] + rnd<T>(m));
-        }
-        const float2 st = ln_stats(x0);
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int c = lane + 32 * q;
-          v[q] = rnd<T>((x0[q] - st.x) * st.y * w.lna_w[c] + w.lna_b[c]);
-        }
+      for (int q = 0; q < 4; ++q) {
+        const float m = pre_mask && mask ? rnd<M>(mv[b][q] * mk[b]) : mv[b][q];
+        put(r, lane + 32 * q, in ? rnd<T>(xv[b][q] + rnd<T>(m)) : 0.f);
       }
-#pragma unroll
-      for (int q = 0; q < 4; ++q) put(r, lane + 32 * q, v[q]);
     }
   }
 }
@@ -99,12 +87,12 @@ chain_wgmma_kernel(const __nv_bfloat16* __restrict__ x, const M* __restrict__ ms
   const int64_t row0 = int64_t(blockIdx.x) * kTileRows;
 
   chain_wgmma_prefetch<KS>(smem, wpack);  // the first panels load while xx is formed
-  residual_ln<__nv_bfloat16, M, kTileRows, C::kThreads / 32>(
-      x, msg, mask, w, row0, N, pre_mask, [&](int r, int c, float v) {
-        *reinterpret_cast<__nv_bfloat16*>(smem + act_offset(r, c)) = __float2bfloat16_rn(v);
-      });
+  auto at = [&](int r, int c) { return reinterpret_cast<__nv_bfloat16*>(smem + act_offset(r, c)); };
+  residual_x0<__nv_bfloat16, M, kTileRows, C::kThreads / 32>(
+      x, msg, mask, row0, N, pre_mask, [&](int r, int c, float v) { *at(r, c) = __float2bfloat16_rn(v); });
   const int nvalid = N - row0 < kTileRows ? int(N - row0) : kTileRows;
-  chain_ffn_wgmma<KS>(smem, w, wpack, nvalid, [&](int r, int c, float y0, float y1) {
+  chain_wgmma<KS>(smem, w, wpack, nvalid, [&](int r, int c) { return __bfloat162float(*at(r, c)); },
+                  [&](int r, int c, float y0, float y1) {
     const int64_t g = row0 + r;
     if (mask) {
       y0 *= mask[g];
@@ -128,10 +116,11 @@ chain_f32_kernel(const float* __restrict__ x, const float* __restrict__ msg,
 
   float4 pre[4];
   fetch_w(pre, w, 0);  // the first weight chunk is in flight while xx is formed
-  residual_ln<float, float, R, kThreads / 32>(x, msg, mask, w, row0, N, pre_mask,
+  residual_x0<float, float, R, kThreads / 32>(x, msg, mask, row0, N, pre_mask,
                                               [&](int r, int c, float v) { XX[r * C::kLdA + c] = v; });
   const int nvalid = N - row0 < R ? int(N - row0) : R;
-  chain_ffn_mma<R>(smem, pre, w, nvalid, [&](int r, int c, float y0, float y1) {
+  chain_mma<R>(smem, pre, w, nvalid, [&](int r, int c) { return XX[r * C::kLdA + c]; },
+               [&](int r, int c, float y0, float y1) {
     const int64_t g = row0 + r;
     if (mask) {
       y0 *= mask[g];

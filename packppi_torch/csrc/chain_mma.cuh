@@ -1,11 +1,16 @@
-// The residual chain's FFN and second LayerNorm in float32 on tensor cores,
-// over one tile of R rows (R = 16 or 64). From xx = rnd(LN_a(x0)) in
-// shared memory:
+// The residual chain in float32 on tensor cores, over one tile of R rows
+// (R = 16 or 64). From x0 rows in shared memory (chain_mma):
+//   xx = LN_a(x0)                          csrc/chain_common.cuh
 //   h  = relu(xx . W1 + b1)                W1 [512, 128] Linear layout
 //   h  = h . W2 + b2                       W2 [128, 512]
 //   y  = LN_b(xx + h)                      handed to store(row, col, y, y')
-// (in float32 every rounding point of csrc/chain_rows.cuh is the identity;
-// bf16 runs on wgmma, csrc/chain_wgmma.cuh).
+// (in float32 every rounding point of the bf16 chain is the identity; bf16
+// runs on wgmma, csrc/chain_wgmma.cuh). chain.cu, message.cu's
+// message_chain_kernel (R = 64) and layer.cu's two passes (edge R = 64,
+// node R = 16) all run it through chain_mma<R>. R can change a row's bits
+// (the products' sums do not depend on it, but LN_b's row sums add the
+// partial sums of CW column warps, 4 at R = 64 and 8 at R = 16, in another
+// grouping), so equal bits need equal x0 and equal R.
 //
 // The products run in 3xTF32 on mma.sync m16n8k8 (csrc/mma.cuh), each
 // weight chunk's partial summed from zero and added to the running sum. 8
@@ -23,7 +28,7 @@
 // `stats`.
 #pragma once
 
-#include "chain_rows.cuh"
+#include "chain_common.cuh"
 #include "mma.cuh"
 
 namespace packppi {
@@ -248,6 +253,21 @@ __device__ __forceinline__ void chain_ffn_mma(unsigned char* smem, float4 (&pre)
               (acc2[mt][nt][2 * r + 1] - mean) * rs * w.lnb_w[col + 1] + w.lnb_b[col + 1]);
       }
     }
+}
+
+// The chain of one tile: every thread calls this once x0 is in shared
+// memory (x0(r, c) reads it, as in ln_a_rows), with chunk 0 of the weights
+// in pre (fetch_w). smem is ChainMma<R>::kBytes; xx is formed in place into
+// its first [R][kLdA] floats, which x0 may occupy (each lane overwrites
+// only the values it read).
+template <int R, typename X0, typename Store>
+__device__ __forceinline__ void chain_mma(unsigned char* smem, float4 (&pre)[4],
+                                          const ChainWeights& w, int nvalid, X0 x0, Store store) {
+  float* XX = reinterpret_cast<float*>(smem);
+  __syncthreads();  // x0 is written
+  ln_a_rows<float, R, kThreads / 32>(w, nvalid, x0,
+                                     [&](int r, int c, float v) { XX[r * ChainMma<R>::kLdA + c] = v; });
+  chain_ffn_mma<R>(smem, pre, w, nvalid, store);
 }
 
 }  // namespace packppi

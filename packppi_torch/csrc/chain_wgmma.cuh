@@ -1,12 +1,15 @@
-// The residual chain's FFN and second LayerNorm in bf16 on wgmma, over one
-// tile of 64 rows, by KS warpgroups of 4 warps that split the FFN's four
-// hidden slices between them (KS = 4 where there are too few tiles to fill
-// the card, else 1). From xx = rnd(LN_a(x0)) in shared memory:
+// The residual chain in bf16 on wgmma, over one tile of 64 rows, by KS
+// warpgroups of 4 warps that split the FFN's four hidden slices between them
+// (chain.cu takes KS = 4 where there are too few tiles to fill the card,
+// else 1; the folded edge pass and the whole-layer passes always take 1).
+// From x0 rows in shared memory (chain_wgmma):
+//   xx = rnd(LN_a(x0))                     csrc/chain_common.cuh
 //   h  = rnd(relu(rnd(xx . W1 + b1)))      W1 [512, 128] Linear layout
 //   h  = rnd(h . W2 + b2)                  W2 [128, 512]
 //   y  = LN_b(xx + h)                      handed to store(row, col, y, y')
-// with every rounding point of csrc/chain_rows.cuh (the FMA body that the
-// folded edge pass and the whole-layer kernels keep).
+// rnd rounds to bf16 at every point the unfused flax chain rounds. chain.cu,
+// message.cu's message_chain_kernel and layer.cu's two passes all run the
+// chain through chain_wgmma<KS>, so for equal x0 and KS they give equal bits.
 //
 // The products are wgmma m64n128k16 (bf16 operands, float32 sums: the TPU
 // kernel's "bf16 operands, f32 accumulate"; csrc/mma.cuh). The hidden is
@@ -32,7 +35,7 @@
 // the second's A fragments).
 #pragma once
 
-#include "chain_rows.cuh"
+#include "chain_common.cuh"
 #include "mma.cuh"
 
 namespace packppi {
@@ -256,6 +259,22 @@ __device__ __forceinline__ void chain_ffn_wgmma(unsigned char* smem, const Chain
             (acc2[4 * j + 2 * r + 1] - mean) * rs * w.lnb_w[col + 1] + w.lnb_b[col + 1]);
     }
   }
+}
+
+// The chain of one tile: every thread calls this once x0 is in shared
+// memory (x0(r, c) reads it, as in ln_a_rows), after chain_wgmma_prefetch.
+// xx is formed in place into the first kActBytes of smem, which x0 may
+// occupy (each lane overwrites only the values it read).
+template <int KS, typename X0, typename Store>
+__device__ __forceinline__ void chain_wgmma(unsigned char* smem, const ChainWeights& w,
+                                            const __nv_bfloat16* wpack, int nvalid, X0 x0,
+                                            Store store) {
+  __syncthreads();  // x0 is written
+  ln_a_rows<__nv_bfloat16, kTileRows, ChainWg<KS>::kThreads / 32>(
+      w, nvalid, x0, [&](int r, int c, float v) {
+        *reinterpret_cast<__nv_bfloat16*>(smem + act_offset(r, c)) = __float2bfloat16_rn(v);
+      });
+  chain_ffn_wgmma<KS>(smem, w, wpack, nvalid, store);
 }
 
 }  // namespace packppi

@@ -29,35 +29,36 @@
 //   x = relu(x . W_1 + b_1)
 //   x = x . W_2 + b_2
 //   pool: out[i] = sum_k mask[i,k] x[i,k] / K (float32), else out[i,k] = x
-//   in the stream type; the chain route instead runs csrc/chain_rows.cuh on
-//   the tile's rows with the two-kernel boundary's rounding points
-//   (m = rnd(rnd(x) * mask), x0 = rnd(h_E + m)) and writes the new h_E.
+//   in the stream type; the chain route instead runs the residual chain on
+//   the tile's edge rows with the two-kernel boundary's rounding points
+//   (m = rnd(rnd(x) * mask), x0 = rnd(h_E + m)) and writes the new h_E
+//   (csrc/message_chain.cuh).
 // Products take operands rounded to the compute type (bf16 or float32) and
-// sum in float32. The lanes and gather routes run them on tensor cores
-// (csrc/message_tc.cuh: bf16 on wgmma, float32 in 3xTF32 on mma.sync) over
-// a packed copy of the weights made once per weight version
-// (ops/message_feat.py::pack_message_weights). The geom and chain routes
-// still run the FMA body (csrc/message_mlp.cuh, tile.cuh), reading W_e
-// straight from the reference layout W_in [H, H + He + H + 9P] over
+// sum in float32. The lanes, gather and chain routes run them on tensor
+// cores (csrc/message_tc.cuh: bf16 on wgmma, float32 in 3xTF32 on mma.sync)
+// over a packed copy of the weights made once per weight version
+// (ops/message_feat.py::pack_message_weights), the chain route's chain too
+// (csrc/chain_wgmma.cuh over ops/chain.py::pack_chain_weights in bf16,
+// csrc/chain_mma.cuh in float32), as chain.cu runs it. The geom route still
+// runs the FMA body (csrc/message_mlp.cuh, tile.cuh), reading W_e straight
+// from the reference layout W_in [H, H + He + H + 9P] over
 // [h_i | h_E | h_j | geom].
 //
 // What bounds it: per edge row 2 * (He + 9P + 2H) * H = 116,736 operations
 // (plus 262,144 for the folded chain) on ~512 bytes of stream traffic
 // (bf16). On the tensor cores in bf16 that is memory-bound: T1124's 24,576
 // edge rows take 0.0042 ms at 3.35 TB/s, 0.0029 ms of operations at 989
-// TFLOP/s. In float32 (3xTF32, 165 TFLOP/s float32-accurate) operations
-// bind. The design keeps every intermediate (the [rows, 9P] geometry, both
-// hidden activations, the chain's [rows, 4H] hidden) on chip, reads h_E
-// once (twice, through L2, in the chain route: once as product input, once
-// as the residual), writes the output once, and streams the weights from L2
-// into shared memory once a tile; in bf16 three 64-row blocks share an SM,
-// so one block's indexed loads and geometry overlap the others' products.
-// The chain route aliases the chain's tiles onto the FMA message's, so it
-// needs no more shared memory than that message and two blocks still fit on
-// an SM.
+// TFLOP/s (the fold: 0.0094 ms of operations). In float32 (3xTF32, 165
+// TFLOP/s float32-accurate) operations bind. The design keeps every
+// intermediate (the [rows, 9P] geometry, both hidden activations, the
+// chain's [rows, 4H] hidden) on chip, reads h_E once (in float32 twice,
+// through L2, in the chain route: once as product input, once as the
+// residual), writes the output once, and streams the weights from L2 into
+// shared memory once a tile; in bf16 three 64-row blocks share an SM, so one
+// block's indexed loads and geometry overlap the others' products, the chain
+// route included (its chain aliases the message's shared memory).
 
-#include "chain_rows.cuh"
-#include "message_tc.cuh"
+#include "message_chain.cuh"
 
 namespace packppi {
 
@@ -110,58 +111,10 @@ __device__ __forceinline__ void zero_edge_features(float* X0, int r, int p) {
 }
 
 // The indexed-load tile of the lanes, gather and chain routes: mrow, the
-// h_E rows, the geometry of every (row, point) from pg rows loaded by index,
-// and pjrow = the neighbour's row in the batch's node tables. The block's
-// nodes start at node row nrow0 + node0 (nrow0 = b * L); `rows` valid edge
-// rows start at erow0. Publishes nothing: the first tile_product's barrier
-// does.
-template <typename T>
-__device__ __forceinline__ void load_indexed_tile(const MessageSmem& s, const T* __restrict__ h_E,
-                                                  const int64_t* __restrict__ idx,
-                                                  const float* __restrict__ p_local,
-                                                  const float* __restrict__ rot,
-                                                  const float* __restrict__ trans,
-                                                  const float* __restrict__ pg,
-                                                  const float* __restrict__ mask, int K,
-                                                  int rows, int64_t erow0, int64_t nrow0,
-                                                  int node0) {
-  const int tid = threadIdx.x;
-  int64_t* jrow = s.pjrow;  // node-local neighbour first, its row in per_j after the geometry
-  if (tid < kRows) {
-    const bool valid = tid < rows;
-    jrow[tid] = valid ? idx[erow0 + tid] : -1;
-    s.mrow[tid] = valid ? mask[erow0 + tid] : 0.f;
-  }
-  // h_E rows, k-major, rounded to the compute type (a no-op for the stream type)
-  for (int e = tid; e < kRows * kH; e += kThreads) {
-    const int r = e / kH, c = e % kH;
-    const float v = r < rows ? to_f32<T>(h_E[(erow0 + r) * kH + c]) : 0.f;
-    s.X0[c * kLdx + r] = rnd<T>(v);
-  }
-  __syncthreads();  // jrow
-
-  for (int e = tid; e < kRows * kP; e += kThreads) {
-    const int r = e % kRows, p = e / kRows;
-    const int64_t j = jrow[r];
-    if (j < 0) {
-      zero_edge_features<T>(s.X0, r, p);
-      continue;
-    }
-    const int64_t i = nrow0 + node0 + r / K;
-    const float* pl = p_local + (i * kP + p) * 3;
-    const float* pgi = pg + i * 3 * kP;
-    const float* pgj = pg + (nrow0 + j) * 3 * kP;
-    store_edge_features<T>(s.X0, r, p, pl[0], pl[1], pl[2], rot + i * 9, trans + i * 3, pgi[p],
-                           pgi[kP + p], pgi[2 * kP + p], pgj[p], pgj[kP + p], pgj[2 * kP + p]);
-  }
-
-  __syncthreads();  // every thread has read jrow as a neighbour index
-  if (tid < kRows && jrow[tid] >= 0) jrow[tid] += nrow0;
-}
-
-// The indexed-load tile of the lanes and gather routes on tensor cores:
-// load_indexed_tile's function into message_tc.cuh's tile (h_E rows by
-// asynchronous 16-byte copies, the geometry rounded to T).
+// h_E rows (asynchronous 16-byte copies), the geometry of every (row, point)
+// from pg rows loaded by index, rounded to T, and pjrow = the neighbour's
+// row in the batch's node tables. The block's nodes start at node row
+// nrow0 + node0 (nrow0 = b * L); `rows` valid edge rows start at erow0.
 template <typename T>
 __device__ __forceinline__ void load_indexed_tile_tc(const MessageTile<T>& s,
                                                      const T* __restrict__ h_E,
@@ -285,62 +238,32 @@ message_geom_kernel(const float* __restrict__ per_i, const T* __restrict__ pjg,
                        erow0, node0);
 }
 
-// Row 1b: the lanes route's edge tile, then the edge chain on the same 64
-// rows without leaving the block; writes the new h_E [B*L*K, H] in T.
+// Row 1b: the lanes route's edge tile and message, then the edge chain on
+// the same 64 rows without leaving the block; writes the new h_E
+// [B*L*K, H] in T.
 template <typename T>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(EdgeChain<T>::kThreads, EdgeChain<T>::kMinBlocks)
 message_chain_kernel(const float* __restrict__ per_i, const T* __restrict__ per_j,
                      const T* __restrict__ h_E, const int64_t* __restrict__ idx,
                      const float* __restrict__ p_local, const float* __restrict__ rot,
                      const float* __restrict__ trans, const float* __restrict__ pg,
-                     const float* __restrict__ mask, const float* __restrict__ w_in,
-                     const float* __restrict__ b_in, const float* __restrict__ w_mid,
-                     const float* __restrict__ b_mid, const float* __restrict__ w_out,
-                     const float* __restrict__ b_out, ChainWeights cw, T* __restrict__ out,
-                     int L, int K) {
-  extern __shared__ __align__(16) float smem[];
-  const MessageSmem s(smem);
+                     const float* __restrict__ mask, const void* __restrict__ wpack,
+                     const float* __restrict__ b_in, const float* __restrict__ b_mid,
+                     const float* __restrict__ b_out, ChainWeights cw,
+                     const __nv_bfloat16* __restrict__ cpack, T* __restrict__ out, int L, int K) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const MessageTile<T> s(smem_raw, EdgeChain<T>::kTables);
   const int nb = kRows / K;
   const int node0 = blockIdx.x * nb;
   const int rows = min(nb, L - node0) * K;
   const int64_t nrow0 = int64_t(blockIdx.y) * L;
   const int64_t erow0 = (nrow0 + node0) * K;
 
-  load_indexed_tile<T>(s, h_E, idx, p_local, rot, trans, pg, mask, K, rows, erow0, nrow0, node0);
-  float acc[8][4];
-  message_products<T>(s, acc, per_i, per_j, w_in, b_in, w_mid, b_mid, w_out, K, nrow0 + node0);
-
-  // the two-kernel boundary: the message rounds to T, pre_mask multiplies
-  // in T (a 0/1 mask: exact), the residual adds in T
-  const int cg = threadIdx.x & 31;
-  const int r0 = (threadIdx.x >> 5) * 8;
-  unsigned valid = 0;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = r0 + i;
-    if (r < rows) valid |= 1u << i;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int c = cg + 32 * q;
-      float x0 = 0.f;
-      if (r < rows) {
-        const float m = rnd<T>(rnd<T>(acc[i][q] + b_out[c]) * s.mrow[r]);
-        x0 = rnd<T>(to_f32<T>(h_E[(erow0 + r) * kH + c]) + m);
-      }
-      acc[i][q] = x0;
-    }
-  }
-  // the chain's tiles alias the message's (X0 >= kH rows, X1, Ws); its
-  // first barrier waits for layer 3's last reads of X0
-  chain_rows<T>(acc, valid, s.X0, s.X1, s.Ws, cw, [&](int r, int c, float y) {
-    out[(erow0 + r) * kH + c] = from_f32<T>(y * s.mrow[r]);
-  });
-}
-
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              int(kMessageSmem));
+  message_tc_prefetch(s, wpack);  // the first weight units load while the tile is formed
+  load_indexed_tile_tc<T>(s, h_E, idx, p_local, rot, trans, pg, mask, K, rows, erow0, nrow0,
+                          node0);
+  edge_chain<T, true>(s, per_i, per_j, h_E, wpack, b_in, b_mid, b_out, cw, cpack, out, K, rows,
+                      erow0, nrow0 + node0);
 }
 
 template <typename T, bool POOL, int ROUTE>
@@ -372,7 +295,8 @@ cudaError_t launch_geom(const void* per_i, const void* pjg, const void* h_E, con
                         const void* b_mid, const void* w_out, const void* b_out, void* out,
                         int64_t N, int K, cudaStream_t stream) {
   auto kernel = message_geom_kernel<T, POOL>;
-  cudaError_t err = allow_smem(kernel);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         int(kMessageSmem));
   if (err != cudaSuccess) return err;
   const int nb = kRows / K;
   const int64_t blocks = (N + nb - 1) / nb;
@@ -390,24 +314,25 @@ cudaError_t launch_geom(const void* per_i, const void* pjg, const void* h_E, con
 template <typename T>
 cudaError_t launch_chain(const void* per_i, const void* per_j, const void* h_E, const void* idx,
                          const void* p_local, const void* rot, const void* trans,
-                         const void* pg, const void* mask, const void* w_in, const void* b_in,
-                         const void* w_mid, const void* b_mid, const void* w_out,
-                         const void* b_out, const ChainWeights& cw, void* out, int B, int L,
-                         int K, cudaStream_t stream) {
+                         const void* pg, const void* mask, const void* wpack, const void* b_in,
+                         const void* b_mid, const void* b_out, const ChainWeights& cw,
+                         const void* cpack, void* out, int B, int L, int K,
+                         cudaStream_t stream) {
   auto kernel = message_chain_kernel<T>;
-  cudaError_t err = allow_smem(kernel);
+  constexpr size_t kBytes = EdgeChain<T>::kBytes;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(kBytes));
   if (err != cudaSuccess) return err;
   const int nb = kRows / K;
   dim3 grid((L + nb - 1) / nb, B);
-  kernel<<<grid, kThreads, kMessageSmem, stream>>>(
+  kernel<<<grid, EdgeChain<T>::kThreads, kBytes, stream>>>(
       static_cast<const float*>(per_i), static_cast<const T*>(per_j),
       static_cast<const T*>(h_E), static_cast<const int64_t*>(idx),
       static_cast<const float*>(p_local), static_cast<const float*>(rot),
       static_cast<const float*>(trans), static_cast<const float*>(pg),
-      static_cast<const float*>(mask), static_cast<const float*>(w_in),
-      static_cast<const float*>(b_in), static_cast<const float*>(w_mid),
-      static_cast<const float*>(b_mid), static_cast<const float*>(w_out),
-      static_cast<const float*>(b_out), cw, static_cast<T*>(out), L, K);
+      static_cast<const float*>(mask), wpack, static_cast<const float*>(b_in),
+      static_cast<const float*>(b_mid), static_cast<const float*>(b_out), cw,
+      static_cast<const __nv_bfloat16*>(cpack), static_cast<T*>(out), L, K);
   return cudaGetLastError();
 }
 
@@ -465,7 +390,7 @@ extern "C" int packppi_message_gather(const void* per_i, const void* per_j, cons
                                                    L, K, bf16, pool, stream);
 }
 
-// The FMA routes take the weights as they are: w_in [128,456], w_mid/w_out
+// The FMA route takes the weights as they are: w_in [128,456], w_mid/w_out
 // [128,128] f32 (Linear layout), biases [128] f32.
 //
 // packppi_message_geom (row 4), over N = B*L node rows: per_i [N,128] f32;
@@ -495,28 +420,31 @@ extern "C" int packppi_message_geom(const void* per_i, const void* pjg, const vo
   return int(err);
 }
 
-// packppi_message_chain (row 1b): packppi_message's operands (edge pass),
-// then the chain's: LayerNorm weights [128], w1 [512,128], b1 [512], w2
-// [128,512], b2 [128], all f32; out [B,L,K,128] in the stream type, the
-// updated h_E.
+// packppi_message_chain (row 1b): packppi_message's operands (edge pass,
+// the message weights packed as there), then the chain's: LayerNorm weights
+// [128], w1 [512,128], b1 [512], w2 [128,512], b2 [128], all f32; cpack,
+// for bf16 only, w1 and w2 as the chain kernel's bf16 panels
+// (ops/chain.py::pack_chain_weights; the kernel then reads w1 and w2 no
+// more); out [B,L,K,128] in the stream type, the updated h_E.
 extern "C" int packppi_message_chain(const void* per_i, const void* per_j, const void* h_E,
                                      const void* idx, const void* p_local, const void* rot,
                                      const void* trans, const void* pg, const void* mask,
-                                     const void* w_in, const void* b_in, const void* w_mid,
-                                     const void* b_mid, const void* w_out, const void* b_out,
-                                     const void* lna_w, const void* lna_b, const void* w1,
-                                     const void* b1, const void* w2, const void* b2,
-                                     const void* lnb_w, const void* lnb_b, void* out, int B,
-                                     int L, int K, int bf16, void* stream) {
+                                     const void* wpack, const void* b_in, const void* b_mid,
+                                     const void* b_out, const void* lna_w, const void* lna_b,
+                                     const void* w1, const void* b1, const void* w2,
+                                     const void* b2, const void* lnb_w, const void* lnb_b,
+                                     const void* cpack, void* out, int B, int L, int K, int bf16,
+                                     void* stream) {
   using namespace packppi;
-  if (K < 1 || K > kRows || B < 1 || L < 1) return int(cudaErrorInvalidValue);
+  if (K < 1 || K > kRows || B < 1 || L < 1 || !wpack || (bf16 && !cpack))
+    return int(cudaErrorInvalidValue);
   const ChainWeights cw{static_cast<const float*>(lna_w), static_cast<const float*>(lna_b),
                         static_cast<const float*>(w1), static_cast<const float*>(b1),
                         static_cast<const float*>(w2), static_cast<const float*>(b2),
                         static_cast<const float*>(lnb_w), static_cast<const float*>(lnb_b)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define PACKPPI_ARGS per_i, per_j, h_E, idx, p_local, rot, trans, pg, mask, w_in, b_in, \
-                     w_mid, b_mid, w_out, b_out, cw, out, B, L, K, s
+#define PACKPPI_ARGS per_i, per_j, h_E, idx, p_local, rot, trans, pg, mask, wpack, b_in, b_mid, \
+                     b_out, cw, cpack, out, B, L, K, s
   const cudaError_t err = bf16 ? launch_chain<__nv_bfloat16>(PACKPPI_ARGS)
                                : launch_chain<float>(PACKPPI_ARGS);
 #undef PACKPPI_ARGS

@@ -50,17 +50,7 @@ message_feat_kernel(const float* __restrict__ per_i, const T* __restrict__ pj,
   const int64_t erow0 = node0 * K;                   // first edge row
 
   message_tc_prefetch(s, wpack);  // the first weight units load while the tile is formed
-  const int tid = threadIdx.x;
-  if (tid < kRows) {
-    const bool valid = tid < rows;
-    s.pjrow()[tid] = valid ? erow0 + tid : -1;       // the neighbour term arrives gathered
-    s.mrow()[tid] = valid ? mask[erow0 + tid] : 0.f;
-  }
-  tile_rows(s, h_E, kH, 0, erow0, rows);
-  tile_rows(s, geom, kG, kH, erow0, rows);
-  cp_async_commit();
-  tile_zero_pad(s);
-  tile_publish<T>();
+  tile_features(s, h_E, geom, mask, erow0, rows);
   message_tc<T, POOL>(s, per_i, pj, wpack, b_in, b_mid, b_out, out_ptr, K, rows, erow0, node0);
 }
 

@@ -1,9 +1,7 @@
 // The three products of the IPMP message MLP on the float32 FMA units
-// (tile.cuh's tile_product) over one tile of kRows edge rows, shared by
-// message.cu's geom and chain routes (message_geom_kernel, the edge pass
-// with the chain folded in) and layer.cu (geometry and neighbour term
-// loaded as they arrive); the lanes and gather routes and message_feat.cu
-// run the same function on tensor cores (message_tc.cuh):
+// (tile.cuh's tile_product) over one tile of kRows edge rows, for
+// message.cu's geom route (message_geom_kernel, row 4) alone; every other
+// message kernel runs the same function on tensor cores (message_tc.cuh):
 //
 //   x = relu([h_E | geom] . W_e + b_e + per_i[node] + pj[row])
 //   x = relu(x . W_1 + b_1)
@@ -103,14 +101,12 @@ __device__ __forceinline__ void message_products(const MessageSmem& s, float (&a
 }
 
 // The node pool of the tile, for its `rows / K` nodes: the fixed-order sum
-// over k of mask[n, k] (acc + b_2), divided by K (the message kernels'
-// pool), or times the float 1/K with `reciprocal` (the whole-layer node
-// pass, pallas_layer.py:331). The masked rows go row-major into X1, which
-// layer 3 no longer reads; `out` points at the tile's first node, kH floats
-// a node (device or shared memory).
+// over k of mask[n, k] (acc + b_2), divided by K. The masked rows go
+// row-major into X1, which layer 3 no longer reads; `out` points at the
+// tile's first node, kH floats a node.
 __device__ __forceinline__ void pool_tile(const MessageSmem& s, const float (&acc)[8][4],
                                           const float* __restrict__ b_out, float* out,
-                                          int K, int rows, bool reciprocal) {
+                                          int K, int rows) {
   const int tid = threadIdx.x;
   const int cg = tid & 31;
   const int r0 = (tid >> 5) * 8;
@@ -128,7 +124,7 @@ __device__ __forceinline__ void pool_tile(const MessageSmem& s, const float (&ac
     const int n = e / kH, c = e % kH;
     float sum = 0.f;
     for (int k = 0; k < K; ++k) sum += Y[(n * K + k) * kLdw + c];
-    out[n * kH + c] = reciprocal ? sum * (1.f / float(K)) : sum / float(K);
+    out[n * kH + c] = sum / float(K);
   }
 }
 
@@ -151,7 +147,7 @@ __device__ __forceinline__ void message_mlp(const MessageSmem& s, const float* _
   float acc[8][4];
   message_products<T>(s, acc, per_i, pj, w_in, b_in, w_mid, b_mid, w_out, K, node0);
   if (POOL) {
-    pool_tile(s, acc, b_out, static_cast<float*>(out_ptr) + node0 * kH, K, rows, false);
+    pool_tile(s, acc, b_out, static_cast<float*>(out_ptr) + node0 * kH, K, rows);
   } else {
     T* out = static_cast<T*>(out_ptr);
 #pragma unroll
@@ -164,34 +160,6 @@ __device__ __forceinline__ void message_mlp(const MessageSmem& s, const float* _
         out[(erow0 + r) * kH + c] = from_f32<T>(acc[i][q] + b_out[c]);
       }
     }
-  }
-}
-
-// Fills the tile from precomputed streams (layer.cu):
-// pjrow = the edge row itself (the neighbour term arrives gathered), mrow,
-// and X0 = [h_E | geom] rows, k-major, rounded to the compute type (a no-op
-// for the stream type); rows past `rows` are zeros. Publishes nothing: the
-// first tile_product's barrier does.
-template <typename T>
-__device__ __forceinline__ void load_feature_tile(const MessageSmem& s, const T* __restrict__ h_E,
-                                                  const T* __restrict__ geom,
-                                                  const float* __restrict__ mask,
-                                                  int64_t erow0, int rows) {
-  const int tid = threadIdx.x;
-  if (tid < kRows) {
-    const bool valid = tid < rows;
-    s.pjrow[tid] = valid ? erow0 + tid : -1;
-    s.mrow[tid] = valid ? mask[erow0 + tid] : 0.f;
-  }
-  for (int e = tid; e < kRows * kH; e += kThreads) {
-    const int r = e / kH, c = e % kH;
-    const float v = r < rows ? to_f32<T>(h_E[(erow0 + r) * kH + c]) : 0.f;
-    s.X0[c * kLdx + r] = rnd<T>(v);
-  }
-  for (int e = tid; e < kRows * kG; e += kThreads) {
-    const int r = e / kG, c = e % kG;
-    const float v = r < rows ? to_f32<T>(geom[(erow0 + r) * kG + c]) : 0.f;
-    s.X0[(kH + c) * kLdx + r] = rnd<T>(v);
   }
 }
 

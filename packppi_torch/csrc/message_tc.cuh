@@ -1,20 +1,24 @@
 // The three products of the IPMP message MLP on tensor cores, over one tile
 // of kRows = 64 edge rows of whole nodes (64 / K nodes of K edges), for the
 // kernels whose streams are in the compute type T (message.cu
-// message_kernel, message_feat.cu):
+// message_kernel and message_chain_kernel, message_feat.cu, layer.cu):
 //
 //   x = relu([h_E | geom] . W_e + b_e + per_i[node] + pj[row])
 //   x = relu(x . W_1 + b_1)
 //   x = x . W_2 + b_2
-//   pool: out[node] = sum_k mask[node,k] x[node,k] / K (float32, summed over
-//   k in order), else out[row] = x in the stream type.
 //
-// The same function and rounding points as the FMA body of message_mlp.cuh
-// (which message_geom_kernel, the fold and the layer kernels still run):
-// product operands are T's values, sums, biases, per_i and the pj addition
-// float32, relu passes a NaN on. The first product's depth He + 9P = 200 is
+// message_tc_rows hands x, float32, to the caller's rows(r, c, x, x') in
+// the accumulator's own layout, after a barrier past which the tile and the
+// ring are free. On it: message_tc's two endings (pool: out[node] = sum_k
+// mask[node,k] x[node,k] / K, float32, summed over k in order; else out[row]
+// = x in the stream type), the whole-layer node pass's pool (the same sum
+// times 1/K, into shared memory) and the edge rows of the folded edge pass
+// and of the whole-layer edge pass, which go on into the residual chain.
+// Product operands are T's values; sums, biases, per_i and the pj addition
+// float32; relu passes a NaN on. The first product's depth He + 9P = 200 is
 // padded to kIn1 = 208 (a bf16 k-step) with zero operand columns and zero
-// weight rows.
+// weight rows. (message_geom_kernel alone still runs the same function on
+// the FMA units, csrc/message_mlp.cuh.)
 //
 // bf16 (MessageTc<__nv_bfloat16>): one warpgroup, wgmma m64n128k16 (bf16
 // operands, float32 sums). The tile's [h_E | geom] rows are A from shared
@@ -22,7 +26,8 @@
 // k 208 only). Layer 1's accumulator, plus b_e, per_i and pj, through relu
 // and rounded to bf16, is register for register the A fragment of the
 // second product, and the second's of the third (csrc/chain_wgmma.cuh's
-// register-A form), so the hidden activations never go to shared memory.
+// register-A form), so the hidden activations never go to shared memory;
+// A panels 2-3 are free from layer 2 on, panels 0-1 keep the h_E rows.
 // float32 (MessageTc<float>): 8 warps, mma.sync m16n8k8 in 3xTF32
 // (csrc/mma.cuh); each warp owns a 32 x 32 block of each [64, 128] product.
 // A is read from shared memory and split into TF32 parts as it is loaded;
@@ -44,14 +49,16 @@
 // completing on an mbarrier; the first stages load while the tile is formed.
 //
 // Shared memory: the A tile (bf16 32 KB, float32 54 KB, later the hidden
-// rows and the pool tile), the ring, the per-row tables and the mbarriers:
-// bf16 66 KB, three blocks an SM, so that while one block forms its tile
-// (indexed loads, geometry) or stores its rows the others multiply; float32
-// 102 KB, two blocks an SM.
+// rows and the pool tile), the ring, then the tables (the per-row pjrow and
+// mrow, the mbarriers; a kernel that needs more room at the base puts them
+// further on): bf16 66 KB, three blocks an SM, so that while one block
+// forms its tile (indexed loads, geometry) or stores its rows the others
+// multiply; float32 102 KB, two blocks an SM.
 //
 // Use: message_tc_prefetch by every thread first; then the caller fills the
 // tile (tile_rows, tile_put, tile_zero_pad and the pjrow / mrow tables, see
-// MessageTile) and calls tile_publish; then message_tc.
+// MessageTile; tile_features for precomputed streams) and calls
+// tile_publish; then message_tc or message_tc_rows.
 #pragma once
 
 #include <type_traits>
@@ -97,33 +104,38 @@ struct MessageTc<float> {
   __device__ static uint32_t a_offset(int r, int k) { return uint32_t(r * kLdA + k) * 4u; }
 };
 
+constexpr uint32_t align16(uint32_t n) { return (n + 15u) & ~15u; }
+
 template <typename T>
 struct MessageTcBytes {
   using C = MessageTc<T>;
   static constexpr uint32_t kRing = C::kActBytes;                   // offsets from the base
-  static constexpr uint32_t kPjrow = kRing + C::kStages * kMsgUnitBytes;
-  static constexpr uint32_t kMrow = kPjrow + kRows * 8;
-  static constexpr uint32_t kBars = kMrow + kRows * 4;
-  // and slack to align the base to 1,024 (the swizzled panels)
-  static constexpr size_t kTotal = kBars + C::kStages * 8 + 1024;
-  static_assert(kRows * C::kLdY * 4 <= kPjrow, "the pool tile fits the tile and the ring");
+  static constexpr uint32_t kTables = kRing + C::kStages * kMsgUnitBytes;
+  // pjrow, mrow, the mbarriers
+  static constexpr uint32_t kTableBytes = kRows * 8 + kRows * 4 + C::kStages * 8;
+  // the dynamic shared memory of a kernel whose tables start at tables_at
+  // (and slack to align the base to 1,024, for the swizzled panels)
+  static constexpr size_t total(uint32_t tables_at) { return tables_at + kTableBytes + 1024; }
+  static constexpr size_t kTotal = total(kTables);
+  static_assert(kRows * C::kLdY * 4 <= kTables, "the pool tile fits the tile and the ring");
   static_assert(kMsgUnitBytes == (std::is_same<T, float>::value ? 16 * kH * 8 : kH * 64 * 2),
                 "a ring stage is one panel or one chunk");
 };
 
-// The block's shared memory: the A tile, the ring, pjrow (row of the
-// neighbour term in pj, -1 for a row past the end), mrow (edge mask), the
-// mbarriers.
+// The block's shared memory: the A tile and the ring from the base, the
+// tables (pjrow: row of the neighbour term in pj, -1 for a row past the
+// end; mrow: edge mask; the mbarriers) at `tables_at` from it.
 template <typename T>
 struct MessageTile {
   using B = MessageTcBytes<T>;
   unsigned char* base;
-  __device__ explicit MessageTile(unsigned char* raw)
-      : base(raw + ((1024 - (smem_u32(raw) & 1023)) & 1023)) {}
+  unsigned char* tables;
+  __device__ explicit MessageTile(unsigned char* raw, uint32_t tables_at = B::kTables)
+      : base(raw + ((1024 - (smem_u32(raw) & 1023)) & 1023)), tables(base + tables_at) {}
   __device__ unsigned char* ring() const { return base + B::kRing; }
-  __device__ int64_t* pjrow() const { return reinterpret_cast<int64_t*>(base + B::kPjrow); }
-  __device__ float* mrow() const { return reinterpret_cast<float*>(base + B::kMrow); }
-  __device__ uint64_t* bars() const { return reinterpret_cast<uint64_t*>(base + B::kBars); }
+  __device__ int64_t* pjrow() const { return reinterpret_cast<int64_t*>(tables); }
+  __device__ float* mrow() const { return reinterpret_cast<float*>(tables + kRows * 8); }
+  __device__ uint64_t* bars() const { return reinterpret_cast<uint64_t*>(tables + kRows * 12); }
 };
 
 // Weight unit i (panel or chunk) into stage i % kStages, by one thread.
@@ -140,11 +152,17 @@ __device__ __forceinline__ void message_tc_request(const MessageTile<T>& s, cons
 
 // The first thread sets up the ring's mbarriers and requests the first
 // kStages units. A barrier must follow before anyone waits (tile_publish's).
+// reinit: the block's tile before this one used the mbarriers (all their
+// phases complete), which are invalidated first.
 template <typename T>
-__device__ __forceinline__ void message_tc_prefetch(const MessageTile<T>& s, const void* wpack) {
+__device__ __forceinline__ void message_tc_prefetch(const MessageTile<T>& s, const void* wpack,
+                                                    bool reinit = false) {
   if (threadIdx.x == 0) {
 #pragma unroll
-    for (int i = 0; i < MessageTc<T>::kStages; ++i) mbar_init(s.bars() + i, 1);
+    for (int i = 0; i < MessageTc<T>::kStages; ++i) {
+      if (reinit) mbar_inval(s.bars() + i);
+      mbar_init(s.bars() + i, 1);
+    }
     fence_mbar_init();
 #pragma unroll
     for (int i = 0; i < MessageTc<T>::kStages; ++i) message_tc_request(s, wpack, i);
@@ -214,31 +232,63 @@ __device__ __forceinline__ void tile_publish() {
   __syncthreads();
 }
 
+// The tile from precomputed streams [*, 128] h_E and [*, 72] geometry in T
+// (message_feat.cu, layer.cu): `rows` valid edge rows from erow0, pjrow =
+// the edge row itself (the neighbour term arrives gathered), mrow; then
+// published.
+template <typename T>
+__device__ __forceinline__ void tile_features(const MessageTile<T>& s, const T* __restrict__ h_E,
+                                              const T* __restrict__ geom,
+                                              const float* __restrict__ mask, int64_t erow0,
+                                              int rows) {
+  const int tid = threadIdx.x;
+  if (tid < kRows) {
+    const bool valid = tid < rows;
+    s.pjrow()[tid] = valid ? erow0 + tid : -1;
+    s.mrow()[tid] = valid ? mask[erow0 + tid] : 0.f;
+  }
+  tile_rows(s, h_E, kH, 0, erow0, rows);
+  tile_rows(s, geom, kG, kH, erow0, rows);
+  cp_async_commit();
+  tile_zero_pad(s);
+  tile_publish<T>();
+}
+
 // The node pool from the masked rows Y [kRows][ldy] (float32): the sum over
-// k in order, divided by K.
+// k in order, divided by K, or times the float 1/K with `reciprocal` (the
+// whole-layer node pass, pallas_layer.py:333); `out` is the tile's first
+// node, kH floats a node (device or shared memory).
 __device__ __forceinline__ void message_tc_pool(const float* Y, int ldy, float* __restrict__ out,
-                                                int K, int rows, int threads) {
+                                                int K, int rows, int threads,
+                                                bool reciprocal = false) {
   const int nodes = rows / K;
   for (int e = threadIdx.x; e < nodes * kH; e += threads) {
     const int n = e / kH, c = e % kH;
     float sum = 0.f;
     for (int k = 0; k < K; ++k) sum += Y[(n * K + k) * ldy + c];
-    out[n * kH + c] = sum / float(K);
+    out[n * kH + c] = reciprocal ? sum * (1.f / float(K)) : sum / float(K);
   }
+}
+
+// two values of a row, x at column c, in the stream type
+__device__ __forceinline__ void store_pair(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float x, float y) {
+  *reinterpret_cast<uint32_t*>(p) = pack_bf16(x, y);
 }
 
 // ---------------------------------------------------------------- bf16 (wgmma)
 
-template <bool POOL>
+template <typename Rows>
 __device__ __forceinline__ void message_tc_bf16(const MessageTile<__nv_bfloat16>& s,
                                                 const float* __restrict__ per_i,
                                                 const __nv_bfloat16* __restrict__ pj,
                                                 const void* __restrict__ wpack,
                                                 const float* __restrict__ b_in,
                                                 const float* __restrict__ b_mid,
-                                                const float* __restrict__ b_out,
-                                                void* __restrict__ out_ptr, int K, int rows,
-                                                int64_t erow0, int64_t node0) {
+                                                const float* __restrict__ b_out, int K,
+                                                int64_t node0, Rows rows) {
   using C = MessageTc<__nv_bfloat16>;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -340,38 +390,15 @@ __device__ __forceinline__ void message_tc_bf16(const MessageTile<__nv_bfloat16>
     wgmma_wait<0>();
   }
 
-  if constexpr (POOL) {
-    __syncthreads();  // every warp's products are done: the tile and the ring are free
-    float* Y = reinterpret_cast<float*>(s.base);
-    const float* mrow = s.mrow();
+  __syncthreads();  // every warp's products are done: the tile and the ring are free
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = r0 + 8 * h;
-      const float m = mrow[r];
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + 8 * h;
 #pragma unroll
-      for (int jt = 0; jt < 16; ++jt) {
-        const int col = 8 * jt + 2 * t;
-        const float2 b = __ldg(reinterpret_cast<const float2*>(b_out + col));
-        *reinterpret_cast<float2*>(Y + r * C::kLdY + col) =
-            make_float2((acc[4 * jt + 2 * h] + b.x) * m, (acc[4 * jt + 2 * h + 1] + b.y) * m);
-      }
-    }
-    __syncthreads();
-    message_tc_pool(Y, C::kLdY, static_cast<float*>(out_ptr) + node0 * kH, K, rows, C::kThreads);
-  } else {
-    __nv_bfloat16* out = static_cast<__nv_bfloat16*>(out_ptr);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = r0 + 8 * h;
-      if (r >= rows) continue;
-      __nv_bfloat16* o = out + (erow0 + r) * kH;
-#pragma unroll
-      for (int jt = 0; jt < 16; ++jt) {
-        const int col = 8 * jt + 2 * t;
-        const float2 b = __ldg(reinterpret_cast<const float2*>(b_out + col));
-        *reinterpret_cast<uint32_t*>(o + col) =
-            pack_bf16(acc[4 * jt + 2 * h] + b.x, acc[4 * jt + 2 * h + 1] + b.y);
-      }
+    for (int jt = 0; jt < 16; ++jt) {
+      const int col = 8 * jt + 2 * t;
+      const float2 b = __ldg(reinterpret_cast<const float2*>(b_out + col));
+      rows(r, col, acc[4 * jt + 2 * h] + b.x, acc[4 * jt + 2 * h + 1] + b.y);
     }
   }
 }
@@ -439,16 +466,15 @@ __device__ __forceinline__ void message_tc_f32_product(float (&acc)[2][4][4],
   }
 }
 
-template <bool POOL>
+template <typename Rows>
 __device__ __forceinline__ void message_tc_f32(const MessageTile<float>& s,
                                                const float* __restrict__ per_i,
                                                const float* __restrict__ pj,
                                                const void* __restrict__ wpack,
                                                const float* __restrict__ b_in,
                                                const float* __restrict__ b_mid,
-                                               const float* __restrict__ b_out,
-                                               void* __restrict__ out_ptr, int K, int rows,
-                                               int64_t erow0, int64_t node0) {
+                                               const float* __restrict__ b_out, int K,
+                                               int64_t node0, Rows rows) {
   using C = MessageTc<float>;
   constexpr int kLdH = C::kLdH;
   constexpr int kChunks1 = kIn1 / C::kChunkK, kChunksH = kH / C::kChunkK;
@@ -505,47 +531,69 @@ __device__ __forceinline__ void message_tc_f32(const MessageTile<float>& s,
 
   // layer 3: x . W_2 + b_2
   message_tc_f32_product(acc, s, wpack, kLdH, kChunks1 + kChunksH, kChunksH);
-  if constexpr (POOL) {
-    const float* mrow = s.mrow();
+  __syncthreads();  // every warp's products are done: the tile and the ring are free
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
+  for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = wr0 + 16 * mt + g + 8 * h;
-        const float m = mrow[r];
+    for (int h = 0; h < 2; ++h) {
+      const int r = wr0 + 16 * mt + g + 8 * h;
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          const int col = wc0 + 8 * nt + 2 * t;
-          const float2 b = __ldg(reinterpret_cast<const float2*>(b_out + col));
-          *reinterpret_cast<float2*>(act + r * kLdH + col) =
-              make_float2((acc[mt][nt][2 * h] + b.x) * m, (acc[mt][nt][2 * h + 1] + b.y) * m);
-        }
+      for (int nt = 0; nt < 4; ++nt) {
+        const int col = wc0 + 8 * nt + 2 * t;
+        const float2 b = __ldg(reinterpret_cast<const float2*>(b_out + col));
+        rows(r, col, acc[mt][nt][2 * h] + b.x, acc[mt][nt][2 * h + 1] + b.y);
       }
-    __syncthreads();
-    message_tc_pool(act, kLdH, static_cast<float*>(out_ptr) + node0 * kH, K, rows, C::kThreads);
-  } else {
-    float* out = static_cast<float*>(out_ptr);
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = wr0 + 16 * mt + g + 8 * h;
-        if (r >= rows) continue;
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          const int col = wc0 + 8 * nt + 2 * t;
-          const float2 b = __ldg(reinterpret_cast<const float2*>(b_out + col));
-          *reinterpret_cast<float2*>(out + (erow0 + r) * kH + col) =
-              make_float2(acc[mt][nt][2 * h] + b.x, acc[mt][nt][2 * h + 1] + b.y);
-        }
-      }
-  }
+    }
 }
 
-// The three products, the bias and neighbour terms and the output of the
-// tile: `rows` valid edge rows of whole nodes from edge row erow0 and node
-// row node0 (both global). Every thread of the block calls this after
-// tile_publish.
+// The three products with the bias and neighbour terms over the tile, whose
+// nodes start at node row node0 (global): rows(r, c, x, x') takes columns c
+// and c + 1 of tile row r, x . W_2 + b_2 in float32, for every row of the
+// tile (past the valid ones too), after a barrier: the A tile and the ring
+// are free then. Every thread of the block calls this after tile_publish.
+template <typename T, typename Rows>
+__device__ __forceinline__ void message_tc_rows(const MessageTile<T>& s,
+                                                const float* __restrict__ per_i,
+                                                const T* __restrict__ pj,
+                                                const void* __restrict__ wpack,
+                                                const float* __restrict__ b_in,
+                                                const float* __restrict__ b_mid,
+                                                const float* __restrict__ b_out, int K,
+                                                int64_t node0, Rows rows) {
+  if constexpr (std::is_same<T, float>::value)
+    message_tc_f32(s, per_i, pj, wpack, b_in, b_mid, b_out, K, node0, rows);
+  else
+    message_tc_bf16(s, per_i, pj, wpack, b_in, b_mid, b_out, K, node0, rows);
+}
+
+// The pool of the tile's rows / K nodes into out (the tile's first node):
+// the masked rows into the tile at the base (float32 [kRows][kLdY]), then
+// message_tc_pool.
+template <typename T>
+__device__ __forceinline__ void message_tc_pooled(const MessageTile<T>& s,
+                                                  const float* __restrict__ per_i,
+                                                  const T* __restrict__ pj,
+                                                  const void* __restrict__ wpack,
+                                                  const float* __restrict__ b_in,
+                                                  const float* __restrict__ b_mid,
+                                                  const float* __restrict__ b_out, float* out,
+                                                  int K, int rows, int64_t node0,
+                                                  bool reciprocal) {
+  using C = MessageTc<T>;
+  float* Y = reinterpret_cast<float*>(s.base);
+  const float* mrow = s.mrow();
+  message_tc_rows(s, per_i, pj, wpack, b_in, b_mid, b_out, K, node0,
+                  [&](int r, int c, float x0, float x1) {
+                    const float m = mrow[r];
+                    *reinterpret_cast<float2*>(Y + r * C::kLdY + c) = make_float2(x0 * m, x1 * m);
+                  });
+  __syncthreads();
+  message_tc_pool(Y, C::kLdY, out, K, rows, C::kThreads, reciprocal);
+}
+
+// The three products and the output of the tile: `rows` valid edge rows of
+// whole nodes from edge row erow0 and node row node0 (both global); pool
+// into out [*, 128] float32, else the edge rows into out [*, 128] in T.
 template <typename T, bool POOL>
 __device__ __forceinline__ void message_tc(const MessageTile<T>& s, const float* __restrict__ per_i,
                                            const T* __restrict__ pj, const void* __restrict__ wpack,
@@ -554,10 +602,16 @@ __device__ __forceinline__ void message_tc(const MessageTile<T>& s, const float*
                                            const float* __restrict__ b_out,
                                            void* __restrict__ out_ptr, int K, int rows,
                                            int64_t erow0, int64_t node0) {
-  if constexpr (std::is_same<T, float>::value)
-    message_tc_f32<POOL>(s, per_i, pj, wpack, b_in, b_mid, b_out, out_ptr, K, rows, erow0, node0);
-  else
-    message_tc_bf16<POOL>(s, per_i, pj, wpack, b_in, b_mid, b_out, out_ptr, K, rows, erow0, node0);
+  if constexpr (POOL) {
+    message_tc_pooled(s, per_i, pj, wpack, b_in, b_mid, b_out,
+                      static_cast<float*>(out_ptr) + node0 * kH, K, rows, node0, false);
+  } else {
+    T* out = static_cast<T*>(out_ptr);
+    message_tc_rows(s, per_i, pj, wpack, b_in, b_mid, b_out, K, node0,
+                    [&](int r, int c, float x0, float x1) {
+                      if (r < rows) store_pair(out + (erow0 + r) * kH + c, x0, x1);
+                    });
+  }
 }
 
 }  // namespace packppi

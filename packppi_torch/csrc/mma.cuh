@@ -193,6 +193,11 @@ __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
                : "memory");
 }
 
+// an mbarrier whose phases have all completed, made ready for mbar_init again
+__device__ __forceinline__ void mbar_inval(uint64_t* bar) {
+  asm volatile("mbarrier.inval.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
 __device__ __forceinline__ void fence_mbar_init() {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }

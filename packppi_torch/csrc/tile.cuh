@@ -17,12 +17,10 @@
 // consecutive floats (no bank conflicts) and the activation reads are
 // warp-wide broadcasts.
 //
-// tile_product is the FMA body that remains: message_mlp.cuh's
-// message_products (message.cu's message_geom_kernel and
-// message_chain_kernel, layer.cu's two passes) and chain_rows.cuh (the
-// fold and the layer passes) call it. The lanes and gather message
-// kernels, message_feat, the chain and attention run on tensor cores
-// (message_tc.cuh, chain_wgmma.cuh, chain_mma.cuh, mma.cuh).
+// tile_product is the FMA body that remains, for row 4 alone:
+// message_mlp.cuh's message_products, pool_tile and message_mlp, which
+// message.cu's message_geom_kernel runs. Every other kernel's products run
+// on tensor cores (message_tc.cuh, chain_wgmma.cuh, chain_mma.cuh, mma.cuh).
 #pragma once
 
 #include <cuda_bf16.h>

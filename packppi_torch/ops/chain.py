@@ -125,7 +125,7 @@ def _chain_cuda(x, msg, mask, lna_w, lna_b, w1, b1, w2, b2, lnb_w, lnb_b, pre_ma
     _build.check_operands("chain", x, expect)
     check_chain_weights("chain", x, lna_w, lna_b, w1, b1, w2, b2, lnb_w, lnb_b)
     _build.check_aligned("chain", w1=w1, w2=w2)
-    wpack = _packed_weights(w1, w2) if sd == torch.bfloat16 else None
+    wpack = packed_chain_weights(w1, w2, sd)
     out = torch.empty_like(x)
     lib = _lib()
     err = lib.packppi_chain(
@@ -171,11 +171,13 @@ def pack_chain_weights(w1, w2):
 _PANEL_INDEX: dict = {}
 
 
-def _packed_weights(w1, w2):
-    """``pack_chain_weights`` of the two tensors, made again only when
-    either is another tensor or was written in place since
-    (``ops.packing.packed``)."""
-    return packed(pack_chain_weights, w1, w2)
+def packed_chain_weights(w1, w2, dtype):
+    """For the bf16 chain body (``dtype`` bfloat16), ``pack_chain_weights``
+    of the two tensors, made again only when either is another tensor or was
+    written in place since (``ops.packing.packed``); None for float32, whose
+    body reads W1 and W2 as they are. The chain, folded-edge and whole-layer
+    kernels take it alike."""
+    return packed(pack_chain_weights, w1, w2) if dtype == torch.bfloat16 else None
 
 
 def check_chain_weights(name, ref, lna_w, lna_b, w1, b1, w2, b2, lnb_w, lnb_b):

@@ -15,8 +15,12 @@ compute dtype:
 ``x0`` is not rounded before the first LayerNorm: these are the rounding
 points of ``packppi_tpu/ops/pallas_layer.py::_node_kernel`` and
 ``_edge_kernel``, which the kernels of ``csrc/layer.cu`` replace (entry
-``fused_ipmp_layer``). Each wrapper launches its kernel for CUDA tensors
-and runs its plain twin for CPU tensors, and counts its launches.
+``fused_ipmp_layer``). The kernels run the message kernels' tensor-core
+body and the chain kernel's, over the packed copies of the message weights
+(``ops.message_feat.pack_message_weights``) and, in bf16, of the chain's
+(``ops.chain.packed_chain_weights``). Each wrapper launches its kernel for
+CUDA tensors and runs its plain twin for CPU tensors, and counts its
+launches.
 """
 from __future__ import annotations
 
@@ -25,15 +29,15 @@ import ctypes
 import torch
 
 from packppi_torch.ops import _build
-from packppi_torch.ops.chain import chain_tail_plain, check_chain_weights
-from packppi_torch.ops.message_feat import message_rows_plain
+from packppi_torch.ops.chain import chain_tail_plain, check_chain_weights, packed_chain_weights
+from packppi_torch.ops.message_feat import message_rows_plain, pack_message_weights
 from packppi_torch.ops.precision import round_to
 
 # nodes a block of the node kernel pools before it runs one chain on them
 # (csrc/layer.cu, "Blocking"); at most 16. At T1124 in bf16 (L = 768, K =
-# 32) a node pass took 0.5566 / 0.3658 / 0.4546 / 0.7405 ms with 2 / 4 / 8 /
-# 16 nodes a block (chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W)
-NODES_PER_BLOCK = 4
+# 32) a node pass took 0.0404 / 0.0444 / 0.0596 / 0.0925 ms with 2 / 4 / 8 /
+# 16 nodes a block (chip_smoke.py, NVIDIA H100 80GB HBM3, 700.00 W)
+NODES_PER_BLOCK = 2
 
 
 def layer_node_plain(h_V, per_i, pjg, h_E, geom, mask, mask_V,
@@ -122,20 +126,30 @@ def _message_expect(name, h_E, per_i, pjg, geom, mask, w_in, b_in, w_mid, b_mid,
     return B, L, K, sd
 
 
+def _packed(name, sd, w_in, w_mid, w_out, w1, w2, **streams):
+    """The packed message and chain weights, once the operands the kernel
+    copies or reads 16 bytes at a time are checked for alignment."""
+    _build.check_aligned(name, **streams, w1=w1, w2=w2)
+    return pack_message_weights(w_in, w_mid, w_out, sd), packed_chain_weights(w1, w2, sd)
+
+
 def _layer_node_cuda(ops, nodes_per_block):
     h_V, per_i, pjg, h_E, geom, mask, mask_V, *weights = ops
+    w_in, b_in, w_mid, b_mid, w_out, b_out, *chain_w = weights
     B, L, K, sd = _message_expect("layer_node", h_E, per_i, pjg, geom, mask, *weights[:6])
-    check_chain_weights("layer_node", h_E, *weights[6:])
+    check_chain_weights("layer_node", h_E, *chain_w)
     _build.check_operands("layer_node", h_E, {"h_V": (h_V, (B, L, _H), sd),
                                               "mask_V": (mask_V, (B, L), _F32)})
     if not 1 <= nodes_per_block <= _MAX_NODES:
         raise ValueError(f"layer_node kernel: nodes_per_block {nodes_per_block} "
                          f"(1 to {_MAX_NODES})")
+    wpack, cpack = _packed("layer_node", sd, w_in, w_mid, w_out, chain_w[2], chain_w[4],
+                           per_i=per_i, pjg=pjg, h_E=h_E, geom=geom)
     out = torch.empty_like(h_V)
     lib = _lib()
-    err = lib.packppi_layer_node(*(_build.ptr(t) for t in ops + (out,)), B * L, K,
-                                 nodes_per_block, int(sd == torch.bfloat16),
-                                 _build.stream_ptr(h_E.device))
+    err = lib.packppi_layer_node(
+        *(_build.ptr(t) for t in ops[:7] + (wpack, b_in, b_mid, b_out, *chain_w, cpack, out)),
+        B * L, K, nodes_per_block, int(sd == torch.bfloat16), _build.stream_ptr(h_E.device))
     _build.check(lib, err, "layer_node kernel launch")
     layer_node.launches += 1
     return out
@@ -143,12 +157,16 @@ def _layer_node_cuda(ops, nodes_per_block):
 
 def _layer_edge_cuda(ops):
     h_E, per_i, pjg, geom, mask, *weights = ops
+    w_in, b_in, w_mid, b_mid, w_out, b_out, *chain_w = weights
     B, L, K, sd = _message_expect("layer_edge", h_E, per_i, pjg, geom, mask, *weights[:6])
-    check_chain_weights("layer_edge", h_E, *weights[6:])
+    check_chain_weights("layer_edge", h_E, *chain_w)
+    wpack, cpack = _packed("layer_edge", sd, w_in, w_mid, w_out, chain_w[2], chain_w[4],
+                           per_i=per_i, pjg=pjg, h_E=h_E, geom=geom)
     out = torch.empty_like(h_E)
     lib = _lib()
-    err = lib.packppi_layer_edge(*(_build.ptr(t) for t in ops + (out,)), B * L, K,
-                                 int(sd == torch.bfloat16), _build.stream_ptr(h_E.device))
+    err = lib.packppi_layer_edge(
+        *(_build.ptr(t) for t in ops[:5] + (wpack, b_in, b_mid, b_out, *chain_w, cpack, out)),
+        B * L, K, int(sd == torch.bfloat16), _build.stream_ptr(h_E.device))
     _build.check(lib, err, "layer_edge kernel launch")
     layer_edge.launches += 1
     return out
@@ -158,7 +176,7 @@ def _lib():
     lib = _build.load_library("layer")
     if lib.packppi_layer_node.argtypes is None:
         ptrs, ints, stream = [ctypes.c_void_p], [ctypes.c_int], [ctypes.c_void_p]
-        lib.packppi_layer_node.argtypes = ptrs * 22 + [ctypes.c_longlong] + ints * 3 + stream
-        lib.packppi_layer_edge.argtypes = ptrs * 20 + [ctypes.c_longlong] + ints * 2 + stream
+        lib.packppi_layer_node.argtypes = ptrs * 21 + [ctypes.c_longlong] + ints * 3 + stream
+        lib.packppi_layer_edge.argtypes = ptrs * 19 + [ctypes.c_longlong] + ints * 2 + stream
         lib.packppi_layer_node.restype = lib.packppi_layer_edge.restype = ctypes.c_int
     return lib

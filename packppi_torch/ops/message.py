@@ -28,8 +28,10 @@ picks the plain version), each with its own count of launches:
   i's points as local planes with its frame. Replaces
   ``::fused_message_geom``.
 * ``message_chain``: ``message``'s edge pass with the residual chain of
-  ``ops.chain`` folded in (``pre_mask``); returns the new h_E. Replaces
-  ``_geom_lanes_kernel``'s ``with_chain`` branch.
+  ``ops.chain`` folded in (``pre_mask``); returns the new h_E. The kernel
+  runs ``message``'s tensor-core body and then the chain kernel's (over the
+  packed copies of both weights). Replaces ``_geom_lanes_kernel``'s
+  ``with_chain`` branch.
 """
 from __future__ import annotations
 
@@ -38,7 +40,7 @@ import ctypes
 import torch
 
 from packppi_torch.ops import _build
-from packppi_torch.ops.chain import check_chain_weights, chain_plain
+from packppi_torch.ops.chain import chain_plain, check_chain_weights, packed_chain_weights
 from packppi_torch.ops.graph import gather_nodes
 from packppi_torch.ops.message_feat import message_feat_plain, pack_message_weights
 
@@ -289,14 +291,19 @@ def _message_geom_cuda(per_i, pjg, h_E, pl, ng, rot9, trans, mask,
 
 
 def _message_chain_cuda(ops, chain_w):
-    h_E = ops[2]
+    per_i, per_j, h_E = ops[:3]
+    w_in, b_in, w_mid, b_mid, w_out, b_out = ops[9:]
+    w1, w2 = chain_w[2], chain_w[4]
     B, L, K, sd = _indexed_expect("message_chain", *ops)
     check_chain_weights("message_chain", h_E, *chain_w)
+    _build.check_aligned("message_chain", per_i=per_i, per_j=per_j, h_E=h_E, w1=w1, w2=w2)
+    wpack = pack_message_weights(w_in, w_mid, w_out, sd)
+    cpack = packed_chain_weights(w1, w2, sd)
     out = torch.empty_like(h_E)
     lib = _lib()
-    err = lib.packppi_message_chain(*(_build.ptr(t) for t in ops + chain_w + (out,)),
-                                    B, L, K, int(sd == torch.bfloat16),
-                                    _build.stream_ptr(h_E.device))
+    err = lib.packppi_message_chain(
+        *(_build.ptr(t) for t in ops[:9] + (wpack, b_in, b_mid, b_out) + chain_w + (cpack, out)),
+        B, L, K, int(sd == torch.bfloat16), _build.stream_ptr(h_E.device))
     _build.check(lib, err, "message_chain kernel launch")
     message_chain.launches += 1
     return out
@@ -309,7 +316,7 @@ def _lib():
         for entry in (lib.packppi_message, lib.packppi_message_gather):
             entry.argtypes = ptrs * 14 + ints * 5 + stream
         lib.packppi_message_geom.argtypes = ptrs * 15 + [ctypes.c_longlong] + ints * 3 + stream
-        lib.packppi_message_chain.argtypes = ptrs * 24 + ints * 4 + stream
+        lib.packppi_message_chain.argtypes = ptrs * 23 + ints * 4 + stream
         for entry in (lib.packppi_message, lib.packppi_message_gather, lib.packppi_message_geom,
                       lib.packppi_message_chain):
             entry.restype = ctypes.c_int

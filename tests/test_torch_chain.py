@@ -204,14 +204,16 @@ def test_pack_chain_weights_lays_out_the_wgmma_panels():
 
 
 def test_packed_weights_are_made_again_only_after_a_write():
-    from packppi_torch.ops.chain import _packed_weights, pack_chain_weights
+    from packppi_torch.ops.chain import pack_chain_weights, packed_chain_weights
 
     g = torch.Generator().manual_seed(1)
     w1, w2 = torch.randn(512, 128, generator=g), torch.randn(128, 512, generator=g)
-    first = _packed_weights(w1, w2)
-    assert _packed_weights(w1, w2) is first
+    first = packed_chain_weights(w1, w2, torch.bfloat16)
+    assert packed_chain_weights(w1, w2, torch.bfloat16) is first
     with torch.no_grad():
         w2.mul_(-1.0)                                   # an optimizer step writes in place
-    again = _packed_weights(w1, w2)
+    again = packed_chain_weights(w1, w2, torch.bfloat16)
     assert again is not first and torch.equal(again, pack_chain_weights(w1, w2))
-    assert _packed_weights(w1.clone(), w2) is not again   # another tensor, the same values
+    # another tensor, the same values
+    assert packed_chain_weights(w1.clone(), w2, torch.bfloat16) is not again
+    assert packed_chain_weights(w1, w2, torch.float32) is None   # float32 reads them as they are

@@ -377,10 +377,32 @@ def test_message_chain_kernel_matches_plain_and_two_kernels(cuda, dtype, K):
     _close(got, message_chain_plain(*ops, *cw), dtype)
     msg = message(*ops, False)
     two = chain(ops[2].reshape(-1, H), msg.reshape(-1, H), ops[8].reshape(-1), *cw, True)
-    # the two-kernel path: the fold keeps the FMA chain body, the chain kernel
-    # sums its products on tensor cores, so they agree within the kernels'
-    # limits and not bit for bit
+    # the two-kernel path: at this shape (24 tiles, fewer than the card's
+    # SMs) the chain kernel takes four warpgroups a bf16 tile and 16-row
+    # float32 tiles, another form of the chain than the fold's, so the two
+    # agree within the kernels' limits; test_fold_equals_message_then_chain
+    # holds their bits where both run the same form
     _close(got.reshape(-1, H), two, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_fold_equals_message_then_chain_bit_for_bit(cuda, dtype):
+    """B = 1, L = 768, K = 32 (T1124's edge pass: 384 tiles of 64 rows):
+    the chain kernel runs one warpgroup a bf16 tile and 64-row float32
+    tiles, the fold's own form of the one chain body, so message then chain
+    gives the fold's bits."""
+    from packppi_torch.ops.chain import chain
+    from packppi_torch.ops.message import message, message_chain
+
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    ops = _message_operands(cuda, dtype, B=1, L=768, K=32)
+    assert 768 * 32 // 64 >= sms and 768 * 32 >= 64 * sms     # chain.cu's KS = 1 and R = 64
+    cw = _chain_weights(cuda)
+    got = message_chain(*ops, *cw)
+    msg = message(*ops, False)
+    two = chain(ops[2].reshape(-1, H), msg.reshape(-1, H), ops[8].reshape(-1), *cw, True)
+    torch.cuda.synchronize()
+    assert torch.equal(got.reshape(-1, H), two)
 
 
 def _layer_operands(device, dtype, pool):
@@ -414,6 +436,63 @@ def test_layer_kernels_match_plain(cuda, dtype, pool):
             assert torch.equal(layer_node(*ops, nodes_per_block=npb), got)
         with pytest.raises(ValueError, match="nodes_per_block"):
             layer_node(*ops, nodes_per_block=17)
+
+
+def _fused_case(kernel, device, dtype):
+    """(wrapper, plain version, operands, index of h_E, of W_1 (w_mid), of
+    the chain's W1) of one of the three kernels that run a message tile and
+    then the chain."""
+    from packppi_torch.ops.layer import layer_edge, layer_edge_plain, layer_node, layer_node_plain
+    from packppi_torch.ops.message import message_chain, message_chain_plain
+
+    if kernel == "message_chain":
+        ops = (*_message_operands(device, dtype), *_chain_weights(device))
+        return message_chain, message_chain_plain, ops, 2, 11, 17
+    pool = kernel == "layer_node"
+    ops = _layer_operands(device, dtype, pool)
+    if pool:
+        return layer_node, layer_node_plain, ops, 3, 9, 15
+    return layer_edge, layer_edge_plain, ops, 0, 7, 13
+
+
+FUSED_KERNELS = ["message_chain", "layer_node", "layer_edge"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("kernel", FUSED_KERNELS)
+def test_message_chain_and_layer_kernels_repeat_their_bits(cuda, kernel, dtype):
+    fn, _, ops, *_ = _fused_case(kernel, cuda, dtype)
+    assert torch.equal(fn(*ops), fn(*ops))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("kernel", FUSED_KERNELS)
+def test_message_chain_and_layer_kernels_pass_a_nan_on(cuda, kernel, dtype):
+    """One NaN h_E entry of edge (1, 5, 3): that edge's new h_E row (the
+    edge passes) or its node's new h_V row (the node pass) is NaN, nothing
+    else is."""
+    fn, _, ops, at_he, *_ = _fused_case(kernel, cuda, dtype)
+    ops = list(ops)
+    ops[at_he][1, 5, 3, 7] = float("nan")
+    got = fn(*ops)
+    row = got[1, 5] if kernel == "layer_node" else got[1, 5, 3]
+    assert row.isnan().all() and got.isnan().sum().item() == H
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("kernel", FUSED_KERNELS)
+def test_message_chain_and_layer_kernels_follow_weights_written_in_place(cuda, kernel, dtype):
+    """The kernels read packed copies of the message weights and (bf16) of
+    the chain's W1 and W2, made again when one of them is written in place
+    (as an optimizer step writes it)."""
+    fn, plain, ops, _, at_w_mid, at_w1 = _fused_case(kernel, cuda, dtype)
+    for at in (at_w_mid, at_w1):
+        first = fn(*ops)
+        with torch.no_grad():
+            ops[at].mul_(-1.0)
+        got = fn(*ops)
+        _close(got, plain(*ops), dtype)
+        assert not torch.equal(got, first)
 
 
 def _clash_operands(device, B=2, L=23, seed=2):

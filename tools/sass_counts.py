@@ -3,8 +3,9 @@ CUDA libraries of the port, from ``cuobjdump -sass``.
 
     python tools/sass_counts.py [NAME ...]
 
-NAME is a source under ``packppi_torch/csrc`` (default: message,
-message_feat), built first if needed. For every kernel function of the
+NAME is a source under ``packppi_torch/csrc`` (default: the sources with
+tensor-core kernels, message, message_feat, layer and chain), built first
+if needed. For every kernel function of the
 library it prints the number of SASS lines with HGMMA (wgmma), HMMA
 (mma.sync) and FFMA (float32 FMA), with the demangled name.
 """
@@ -45,7 +46,7 @@ def counts(lib: Path) -> dict[str, Counter]:
 def main():
     from packppi_torch.ops import _build
 
-    names = sys.argv[1:] or ["message", "message_feat"]
+    names = sys.argv[1:] or ["message", "message_feat", "layer", "chain"]
     paths = _build.build_all(names)
     cxxfilt = shutil.which("c++filt")
     for name in names:
