@@ -24,7 +24,9 @@ fatal on failure:
    T1124 conformation with a non-uniform cotangent: controls (a column
    tile dropped; the partner's weight left out of the gradient) must
    fail; culling on and off, and two runs of one launch, must agree bit
-   for bit; B = 2 and a length that is no multiple of the tile are held
+   for bit; the kernels' tile boxes and lists of live tiles must equal
+   the plain culling's and list every tile pair that holds an overlapping
+   pair; B = 2 and a length that is no multiple of the tile are held
    too. Then the same check and times on 11 copies of T1124 (L = 8,151).
    The feature-message kernel runs at the training shape (4 copies of
    T1124 padded to L = 1,024: 131,072 edge rows) and at L = 741, node and
@@ -49,8 +51,9 @@ fatal on failure:
    tensor-core message body and one chain body in the same form), the node
    pass at 2, 4, 8 and 16 nodes a block (bit for bit); the gather route at
    11 x T1124 (L = 8,151), the fold at K = 24, the layer passes at L = 741;
-   the SASS of the fold's and the layer passes' kernels (tensor-core
-   products: HGMMA in bf16, HMMA in float32);
+   the SASS of the gathered-operand message kernel's, the fold's and the
+   layer passes' kernels (tensor-core products: HGMMA in bf16, HMMA in
+   float32);
 4. golden replay: the 1BRS float32 30-step trajectory through the kernels
    against the reference's ``tests/golden/pipeline_golden.npz`` (5e-4
    rad), again under each variant routing (``geom``, ``geom_gather``, the
@@ -658,30 +661,30 @@ def check_clash(torch, timer, label, ops, seed, reps, plain_reps):
     if not (want.sum().item() > 1.0 and want_g.abs().sum().item() > 1e-3):
         fail(f"{label}: the conformation does not clash; the check would be empty")
 
-    nrow, ncol = -(-14 * L // C.ROWS_PER_BLOCK), -(-14 * L // C.COLS_PER_TILE)
-    live = torch.zeros(B, nrow, dtype=torch.int32, device="cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    got, boxes = C.clash_forward_cuda(*ops, CLASH_TOL_SOFT, live_tiles=live)
-    got_g = C.clash_backward_cuda(*ops, w, CLASH_TOL_SOFT, boxes=boxes)
+    got, culling = C.clash_forward_cuda(*ops, CLASH_TOL_SOFT)
+    got_g = C.clash_backward_cuda(*ops, w, CLASH_TOL_SOFT, culling=culling)
     torch.cuda.synchronize()
     peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
     err = {"clash_fwd": check_max(f"clash forward {label} {tuple(got.shape)}", got, want,
                                   CLASH_FWD_TOL),
            "clash_bwd": check_max(f"clash gradient {label} {tuple(got_g.shape)}", got_g, want_g,
                                   CLASH_GRAD_TOL)}
+    check_culling(torch, label, ops, culling)
     # bit for bit: culling off (dead tiles add exact zeros) and a second run
-    same = {"forward, culling off": torch.equal(got, C.clash_forward_cuda(
-                *ops, CLASH_TOL_SOFT, cull=False)[0]),
+    got_uncut, uncut = C.clash_forward_cuda(*ops, CLASH_TOL_SOFT, cull=False)
+    same = {"forward, culling off": torch.equal(got, got_uncut),
             "gradient, culling off": torch.equal(got_g, C.clash_backward_cuda(
-                *ops, w, CLASH_TOL_SOFT, cull=False)),
+                *ops, w, CLASH_TOL_SOFT, culling=uncut)),
             "forward, second run": torch.equal(got, C.clash_forward_cuda(*ops, CLASH_TOL_SOFT)[0]),
             "gradient, second run": torch.equal(got_g, C.clash_backward_cuda(
                 *ops, w, CLASH_TOL_SOFT))}
-    share = live.sum().item() / (B * nrow * ncol)
-    log(f"    bit-identical: {same}; live tiles {live.sum().item()} of {B * nrow * ncol} "
-        f"({share:.4f}); kernels' peak memory {peak:.2f} MiB")
+    T = culling.counts.shape[-1]
+    listed = int(culling.counts.sum())
+    log(f"    bit-identical: {same}; listed tile pairs {listed} of {B * T * T} "
+        f"({listed / (B * T * T):.4f}); kernels' peak memory {peak:.2f} MiB")
     if not all(same.values()):
         fail(f"{label}: clash kernels are not bit-identical: {same}")
 
@@ -689,23 +692,43 @@ def check_clash(torch, timer, label, ops, seed, reps, plain_reps):
     fns = {"clash_fwd": (lambda: C.clash_forward_cuda(*ops, CLASH_TOL_SOFT),
                          lambda: C.clash_forward_cuda(*ops, CLASH_TOL_SOFT, cull=False),
                          lambda: C.between_residue_clash_plain(*ops, CLASH_TOL_SOFT)),
-           "clash_bwd": (lambda: C.clash_backward_cuda(*ops, w, CLASH_TOL_SOFT, boxes=boxes),
-                         lambda: C.clash_backward_cuda(*ops, w, CLASH_TOL_SOFT, cull=False,
-                                                       boxes=boxes),
+           "clash_bwd": (lambda: C.clash_backward_cuda(*ops, w, CLASH_TOL_SOFT, culling=culling),
+                         lambda: C.clash_backward_cuda(*ops, w, CLASH_TOL_SOFT, culling=uncut),
                          lambda: plain_clash_and_grad(torch, ops, w))}
-    for name, (kernel, uncut, plain) in fns.items():
+    for name, (kernel, uncut_fn, plain) in fns.items():
         nb, no, near, reach = clash_cost(torch, name, ops, w if name == "clash_bwd" else None)
         with torch.no_grad() if name == "clash_fwd" else torch.enable_grad():
             records[name] = dict(max_abs_err=err[name], ms=timer(kernel, reps),
-                                 uncut_ms=timer(uncut, reps), plain_ms=timer(plain, plain_reps),
-                                 bound=bound_ms(nb, no, "float32"))
+                                 uncut_ms=timer(uncut_fn, reps),
+                                 plain_ms=timer(plain, plain_reps),
+                                 bound=bound_ms(nb, no, "float32"),
+                                 pair_tests=culling.pair_tests())
         r = records[name]
         log(f"  time {name} {label}: kernel {r['ms']:.4f} ms  culling off {r['uncut_ms']:.4f} ms  "
             f"plain {r['plain_ms']:.4f} ms{' (forward and backward)' if name == 'clash_bwd' else ''}"
             f"  bound {r['bound'][0]:.6f} ms ({r['bound'][1]}; {nb} bytes, {near} pairs under "
             f"{reach:.2f} A at {CLASH_PAIR_OPS[name]} operations; all pairs A^2/2 = "
-            f"{(14 * L) ** 2 // 2 * B})")
+            f"{(14 * L) ** 2 // 2 * B}); pair tests a launch {r['pair_tests']} "
+            f"({listed} tile pairs x 1,024; culling off {uncut.pair_tests()})")
     return records, (want, want_g, w)
+
+
+def check_culling(torch, label, ops, culling):
+    """The kernels' boxes and lists against the plain culling on the same
+    tensors (bit for bit), and every tile pair that holds an overlapping pair
+    listed."""
+    from packppi_torch.ops import clash as C
+
+    boxes, tiles, counts = C.clash_tiles_plain(*ops[:3], CLASH_TOL_SOFT)
+    n = torch.arange(tiles.shape[-1], device="cuda") < counts[..., None]
+    same = (torch.equal(culling.boxes, boxes) and torch.equal(culling.counts, counts)
+            and torch.equal(culling.tiles[n], tiles[n]))
+    _, overlap = C.tiled_clash_plain(*ops, CLASH_TOL_SOFT)
+    missed = int((overlap & ~C.listed_tile_pairs(culling.tiles, culling.counts)).sum())
+    log(f"    culling: boxes and lists equal the plain culling's: {same}; tile pairs holding an "
+        f"overlapping pair {int(overlap.sum())}, not listed {missed}")
+    if not same or missed or not overlap.any():
+        fail(f"{label}: the clash kernels' culling disagrees with its plain version")
 
 
 def phase_clash_kernels(torch, timer):
@@ -717,13 +740,14 @@ def phase_clash_kernels(torch, timer):
     records, (want, want_g, w) = check_clash(torch, timer, "T1124", ops, 1, 20, 3)
 
     # two wrong answers the tolerances must reject, made with the plain
-    # version: one column tile's atoms dropped; the partner's weight w_b
-    # left out of the gradient (each pair then weighs w_a alone, which is
-    # half the gradient of the unweighted sum times w_a)
+    # version: the atoms of one column tile (the one holding the atom with
+    # the largest clash sum) dropped; the partner's weight w_b left out of
+    # the gradient (each pair then weighs w_a alone, which is half the
+    # gradient of the unweighted sum times w_a)
     pos, ex, rad, ridx = ops
-    tile = (14 * pos.shape[1] // C.COLS_PER_TILE) // 2
+    tile = int(want.reshape(-1).argmax()) // C.TILE
     ex_drop = ex.clone().reshape(ex.shape[0], -1)
-    ex_drop[:, tile * C.COLS_PER_TILE:(tile + 1) * C.COLS_PER_TILE] = 0
+    ex_drop[:, tile * C.TILE:(tile + 1) * C.TILE] = 0
     dropped = C.between_residue_clash_plain(pos, ex_drop.reshape(ex.shape), rad, ridx,
                                             CLASH_TOL_SOFT)["per_atom_loss_sum"]
     d_drop = (dropped - want).abs().max().item()
@@ -738,8 +762,8 @@ def phase_clash_kernels(torch, timer):
     native = clash_inputs(torch, perturbed=False)
     two = tuple(torch.cat([a, b]).contiguous() for a, b in zip(ops, native))
     w2 = torch.cat([w, w.flip(1)]).contiguous()
-    got2, boxes2 = C.clash_forward_cuda(*two, CLASH_TOL_SOFT)
-    grad2 = C.clash_backward_cuda(*two, w2, CLASH_TOL_SOFT, boxes=boxes2)
+    got2, culling2 = C.clash_forward_cuda(*two, CLASH_TOL_SOFT)
+    grad2 = C.clash_backward_cuda(*two, w2, CLASH_TOL_SOFT, culling=culling2)
     want2, want_g2 = plain_clash_and_grad(torch, two, w2)
     check_max("clash forward B=2", got2, want2, CLASH_FWD_TOL)
     check_max("clash gradient B=2", grad2, want_g2, CLASH_GRAD_TOL)
@@ -755,10 +779,10 @@ def phase_clash_kernels(torch, timer):
     ragged = clash_inputs(torch, padded=False)
     wr = w[:, :ragged[0].shape[1]].contiguous()
     want_r, want_gr = plain_clash_and_grad(torch, ragged, wr)
-    got_r, boxes_r = C.clash_forward_cuda(*ragged, CLASH_TOL_SOFT)
+    got_r, culling_r = C.clash_forward_cuda(*ragged, CLASH_TOL_SOFT)
     check_max(f"clash forward L={ragged[0].shape[1]}", got_r, want_r, CLASH_FWD_TOL)
     check_max(f"clash gradient L={ragged[0].shape[1]}",
-              C.clash_backward_cuda(*ragged, wr, CLASH_TOL_SOFT, boxes=boxes_r), want_gr,
+              C.clash_backward_cuda(*ragged, wr, CLASH_TOL_SOFT, culling=culling_r), want_gr,
               CLASH_GRAD_TOL)
 
     large = clash_inputs(torch, copies=11, padded=False)
@@ -1882,39 +1906,43 @@ def phase_variant_kernels(torch, timer):
     return records
 
 
-# the kernels that run a message tile and then the chain, and the product
-# instruction each must show: HGMMA (wgmma) in bf16, HMMA (mma.sync) in float32
-FUSED_KERNELS = {"message": ("message_chain_kernel",),
-                 "layer": ("layer_node_kernel", "layer_edge_kernel")}
+# the kernels of the variant routings whose products the SASS must show on
+# tensor cores: HGMMA (wgmma) in bf16, HMMA (mma.sync) in float32; the
+# gathered-operand message kernel (row 4) has a POOL instantiation of each
+SASS_KERNELS = {"message": ("message_chain_kernel", "message_geom_kernel"),
+                "layer": ("layer_node_kernel", "layer_edge_kernel")}
+SASS_INSTANCES = 10
 
 
 def phase_sass():
-    """SASS instruction counts (``tools/sass_counts.py``) of the fold's and
-    the whole-layer passes' kernels; fails where a product is not on tensor
-    cores. FFMA remain for the geometry, the LayerNorms and the pool."""
+    """SASS instruction counts (``tools/sass_counts.py``) of the gathered-operand
+    message kernel, the fold's and the whole-layer passes' kernels; fails
+    where a product is not on tensor cores. The FFMA left are the geometry,
+    the LayerNorms and the pool."""
     import re
 
     sys.path.insert(0, str(REPO / "tools"))
     from sass_counts import counts
     from packppi_torch.ops import _build
 
-    paths = _build.build_all(list(FUSED_KERNELS))
+    paths = _build.build_all(list(SASS_KERNELS))
     seen = 0
-    for source, names in FUSED_KERNELS.items():
+    for source, names in SASS_KERNELS.items():
         for fn, c in counts(paths[source]).items():
             for name in names:
-                m = re.search(rf"{name}I(13__nv_bfloat16|f)E", fn)
+                m = re.search(rf"{name}I(13__nv_bfloat16|f)(E|Lb([01])E)", fn)
                 if not m:
                     continue
                 seen += 1
                 dtype = "float32" if m.group(1) == "f" else "bfloat16"
+                pool = {"0": " edge", "1": " pool"}.get(m.group(3), "")
                 unit = "HMMA" if dtype == "float32" else "HGMMA"
-                log(f"  sass {name} {dtype}: HGMMA {c['HGMMA']}, HMMA {c['HMMA']}, "
+                log(f"  sass {name} {dtype}{pool}: HGMMA {c['HGMMA']}, HMMA {c['HMMA']}, "
                     f"FFMA {c['FFMA']}")
                 if c[unit] == 0:
                     fail(f"{name} {dtype} has no {unit}: its products are not on tensor cores")
-    if seen != 6:
-        fail(f"sass: found {seen} of the 6 instantiations of {FUSED_KERNELS}")
+    if seen != SASS_INSTANCES:
+        fail(f"sass: found {seen} of the {SASS_INSTANCES} instantiations of {SASS_KERNELS}")
 
 
 def message_args(static, h_V, layer, frames, variant):

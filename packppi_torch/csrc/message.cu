@@ -34,15 +34,14 @@
 //   (m = rnd(rnd(x) * mask), x0 = rnd(h_E + m)) and writes the new h_E
 //   (csrc/message_chain.cuh).
 // Products take operands rounded to the compute type (bf16 or float32) and
-// sum in float32. The lanes, gather and chain routes run them on tensor
-// cores (csrc/message_tc.cuh: bf16 on wgmma, float32 in 3xTF32 on mma.sync)
-// over a packed copy of the weights made once per weight version
+// sum in float32. Every route runs them on tensor cores (csrc/message_tc.cuh:
+// bf16 on wgmma, float32 in 3xTF32 on mma.sync) over a packed copy of the
+// weights made once per weight version
 // (ops/message_feat.py::pack_message_weights), the chain route's chain too
 // (csrc/chain_wgmma.cuh over ops/chain.py::pack_chain_weights in bf16,
-// csrc/chain_mma.cuh in float32), as chain.cu runs it. The geom route still
-// runs the FMA body (csrc/message_mlp.cuh, tile.cuh), reading W_e straight
-// from the reference layout W_in [H, H + He + H + 9P] over
-// [h_i | h_E | h_j | geom].
+// csrc/chain_mma.cuh in float32), as chain.cu runs it. The routes differ
+// only in how they fill the body's tile: by index (lanes, gather, chain),
+// or from the gathered streams (geom).
 //
 // What bounds it: per edge row 2 * (He + 9P + 2H) * H = 116,736 operations
 // (plus 262,144 for the folded chain) on ~512 bytes of stream traffic
@@ -90,24 +89,6 @@ __device__ __forceinline__ void edge_features(Put put, int p, float plx, float p
                       sqrtf(ddx * ddx + ddy * ddy + ddz * ddz + 1e-8f)};
 #pragma unroll
   for (int q = 0; q < 9; ++q) put(geom_column(p, q), f[q]);
-}
-
-// The FMA body's tile: the features of (row r, point p) into X0, rounded
-// to the compute type.
-template <typename T>
-__device__ __forceinline__ void store_edge_features(float* X0, int r, int p, float plx, float ply,
-                                                    float plz, const float* R, const float* t,
-                                                    float pgx, float pgy, float pgz, float ngx,
-                                                    float ngy, float ngz) {
-  edge_features([&](int c, float v) { X0[(kH + c) * kLdx + r] = rnd<T>(v); }, p, plx, ply, plz,
-                R, t, pgx, pgy, pgz, ngx, ngy, ngz);
-}
-
-// Zero geometry features of a row past the end.
-template <typename T>
-__device__ __forceinline__ void zero_edge_features(float* X0, int r, int p) {
-#pragma unroll
-  for (int q = 0; q < 9; ++q) X0[(kH + geom_column(p, q)) * kLdx + r] = 0.f;
 }
 
 // The indexed-load tile of the lanes, gather and chain routes: mrow, the
@@ -184,42 +165,37 @@ message_kernel(const float* __restrict__ per_i, const T* __restrict__ per_j,
                       nrow0 + node0);
 }
 
-// Row 4: the neighbour term pjg and the neighbour global-point planes ng
-// arrive gathered ([N*K, H] in T, [N*K, 3P] f32); node i's global points are
-// computed here from its local planes pl [N, 3P], R and t, in the order of
-// _geom_fused_kernel:105-107. N = B*L node rows, flattened.
-template <typename T, bool POOL>
-__global__ void __launch_bounds__(kThreads, 2)
-message_geom_kernel(const float* __restrict__ per_i, const T* __restrict__ pjg,
-                    const T* __restrict__ h_E, const float* __restrict__ pl,
-                    const float* __restrict__ ng, const float* __restrict__ rot,
-                    const float* __restrict__ trans, const float* __restrict__ mask,
-                    const float* __restrict__ w_in, const float* __restrict__ b_in,
-                    const float* __restrict__ w_mid, const float* __restrict__ b_mid,
-                    const float* __restrict__ w_out, const float* __restrict__ b_out,
-                    void* __restrict__ out_ptr, int64_t N, int K) {
-  extern __shared__ __align__(16) float smem[];
-  const MessageSmem s(smem);
+// Row 4's tile: the h_E rows (asynchronous 16-byte copies), pjrow = the
+// edge row itself (the neighbour term pjg arrives gathered), mrow, and the
+// geometry of every (row, point), rounded to T: node i's global points
+// computed from its local planes pl, R and t in the order of
+// _geom_fused_kernel:105-107, the neighbour's read from the gathered planes
+// ng (float32). The block's nodes start at node row node0 (global, N = B*L
+// flattened); `rows` valid edge rows start at erow0.
+template <typename T>
+__device__ __forceinline__ void load_geom_tile_tc(const MessageTile<T>& s,
+                                                  const T* __restrict__ h_E,
+                                                  const float* __restrict__ pl,
+                                                  const float* __restrict__ ng,
+                                                  const float* __restrict__ rot,
+                                                  const float* __restrict__ trans,
+                                                  const float* __restrict__ mask, int K,
+                                                  int rows, int64_t erow0, int64_t node0) {
   const int tid = threadIdx.x;
-  const int nb = kRows / K;
-  const int64_t node0 = int64_t(blockIdx.x) * nb;
-  const int rows = (N - node0 < nb ? int(N - node0) : nb) * K;
-  const int64_t erow0 = node0 * K;
-
   if (tid < kRows) {
     const bool valid = tid < rows;
-    s.pjrow[tid] = valid ? erow0 + tid : -1;
-    s.mrow[tid] = valid ? mask[erow0 + tid] : 0.f;
+    s.pjrow()[tid] = valid ? erow0 + tid : -1;
+    s.mrow()[tid] = valid ? mask[erow0 + tid] : 0.f;
   }
-  for (int e = tid; e < kRows * kH; e += kThreads) {
-    const int r = e / kH, c = e % kH;
-    const float v = r < rows ? to_f32<T>(h_E[(erow0 + r) * kH + c]) : 0.f;
-    s.X0[c * kLdx + r] = rnd<T>(v);
-  }
-  for (int e = tid; e < kRows * kP; e += kThreads) {
+  tile_rows(s, h_E, kH, 0, erow0, rows);
+  cp_async_commit();
+  tile_zero_pad(s);
+
+  for (int e = tid; e < kRows * kP; e += MessageTc<T>::kThreads) {
     const int r = e % kRows, p = e / kRows;
     if (r >= rows) {
-      zero_edge_features<T>(s.X0, r, p);
+#pragma unroll
+      for (int q = 0; q < 9; ++q) tile_put(s, r, kH + geom_column(p, q), 0.f);
       continue;
     }
     const int64_t i = node0 + r / K;
@@ -231,11 +207,33 @@ message_geom_kernel(const float* __restrict__ per_i, const T* __restrict__ pjg,
     const float pgy = R[3] * plx + R[4] * ply + R[5] * plz + t[1];
     const float pgz = R[6] * plx + R[7] * ply + R[8] * plz + t[2];
     const float* ngj = ng + (erow0 + r) * 3 * kP;
-    store_edge_features<T>(s.X0, r, p, plx, ply, plz, R, t, pgx, pgy, pgz, ngj[p], ngj[kP + p],
-                           ngj[2 * kP + p]);
+    edge_features([&](int c, float v) { tile_put(s, r, kH + c, v); }, p, plx, ply, plz, R, t,
+                  pgx, pgy, pgz, ngj[p], ngj[kP + p], ngj[2 * kP + p]);
   }
-  message_mlp<T, POOL>(s, per_i, pjg, w_in, b_in, w_mid, b_mid, w_out, b_out, out_ptr, K, rows,
-                       erow0, node0);
+  tile_publish<T>();
+}
+
+// Row 4 over N = B*L node rows, flattened: the tile from the gathered
+// operands, then the tensor-core body of rows 1 and 5.
+template <typename T, bool POOL>
+__global__ void __launch_bounds__(MessageTc<T>::kThreads, MessageTc<T>::kMinBlocks)
+message_geom_kernel(const float* __restrict__ per_i, const T* __restrict__ pjg,
+                    const T* __restrict__ h_E, const float* __restrict__ pl,
+                    const float* __restrict__ ng, const float* __restrict__ rot,
+                    const float* __restrict__ trans, const float* __restrict__ mask,
+                    const void* __restrict__ wpack, const float* __restrict__ b_in,
+                    const float* __restrict__ b_mid, const float* __restrict__ b_out,
+                    void* __restrict__ out_ptr, int64_t N, int K) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const MessageTile<T> s(smem_raw);
+  const int nb = kRows / K;
+  const int64_t node0 = int64_t(blockIdx.x) * nb;
+  const int rows = (N - node0 < nb ? int(N - node0) : nb) * K;
+  const int64_t erow0 = node0 * K;
+
+  message_tc_prefetch(s, wpack);  // the first weight units load while the tile is formed
+  load_geom_tile_tc<T>(s, h_E, pl, ng, rot, trans, mask, K, rows, erow0, node0);
+  message_tc<T, POOL>(s, per_i, pjg, wpack, b_in, b_mid, b_out, out_ptr, K, rows, erow0, node0);
 }
 
 // Row 1b: the lanes route's edge tile and message, then the edge chain on
@@ -291,23 +289,21 @@ cudaError_t launch(const void* per_i, const void* per_j, const void* h_E, const 
 template <typename T, bool POOL>
 cudaError_t launch_geom(const void* per_i, const void* pjg, const void* h_E, const void* pl,
                         const void* ng, const void* rot, const void* trans, const void* mask,
-                        const void* w_in, const void* b_in, const void* w_mid,
-                        const void* b_mid, const void* w_out, const void* b_out, void* out,
-                        int64_t N, int K, cudaStream_t stream) {
+                        const void* wpack, const void* b_in, const void* b_mid,
+                        const void* b_out, void* out, int64_t N, int K, cudaStream_t stream) {
   auto kernel = message_geom_kernel<T, POOL>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         int(kMessageSmem));
+  constexpr size_t kBytes = MessageTcBytes<T>::kTotal;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(kBytes));
   if (err != cudaSuccess) return err;
   const int nb = kRows / K;
   const int64_t blocks = (N + nb - 1) / nb;
-  kernel<<<dim3((unsigned)blocks), kThreads, kMessageSmem, stream>>>(
+  kernel<<<dim3((unsigned)blocks), MessageTc<T>::kThreads, kBytes, stream>>>(
       static_cast<const float*>(per_i), static_cast<const T*>(pjg), static_cast<const T*>(h_E),
       static_cast<const float*>(pl), static_cast<const float*>(ng),
       static_cast<const float*>(rot), static_cast<const float*>(trans),
-      static_cast<const float*>(mask), static_cast<const float*>(w_in),
-      static_cast<const float*>(b_in), static_cast<const float*>(w_mid),
-      static_cast<const float*>(b_mid), static_cast<const float*>(w_out),
-      static_cast<const float*>(b_out), out, N, K);
+      static_cast<const float*>(mask), wpack, static_cast<const float*>(b_in),
+      static_cast<const float*>(b_mid), static_cast<const float*>(b_out), out, N, K);
   return cudaGetLastError();
 }
 
@@ -390,26 +386,25 @@ extern "C" int packppi_message_gather(const void* per_i, const void* per_j, cons
                                                    L, K, bf16, pool, stream);
 }
 
-// The FMA route takes the weights as they are: w_in [128,456], w_mid/w_out
-// [128,128] f32 (Linear layout), biases [128] f32.
-//
 // packppi_message_geom (row 4), over N = B*L node rows: per_i [N,128] f32;
 // pjg [N*K,128] and h_E [N*K,128] in the stream type; pl [N,24] local point
 // planes [x | y | z], ng [N*K,24] gathered neighbour global-point planes,
-// rot [N,9] (row-major), trans [N,3], mask [N*K] f32; out [N,128] f32
-// (pool) or [N*K,128] in the stream type.
+// rot [N,9] (row-major), trans [N,3], mask [N*K] f32; wpack and the biases
+// as for packppi_message; out [N,128] f32 (pool) or [N*K,128] in the stream
+// type.
 extern "C" int packppi_message_geom(const void* per_i, const void* pjg, const void* h_E,
                                     const void* pl, const void* ng, const void* rot,
-                                    const void* trans, const void* mask, const void* w_in,
-                                    const void* b_in, const void* w_mid, const void* b_mid,
-                                    const void* w_out, const void* b_out, void* out,
-                                    long long N, int K, int bf16, int pool, void* stream) {
+                                    const void* trans, const void* mask, const void* wpack,
+                                    const void* b_in, const void* b_mid, const void* b_out,
+                                    void* out, long long N, int K, int bf16, int pool,
+                                    void* stream) {
   using namespace packppi;
-  if (K < 1 || K > kRows || N < 1 || (N + kRows / K - 1) / (kRows / K) > 0x7fffffffLL)
+  if (K < 1 || K > kRows || N < 1 || !wpack ||
+      (N + kRows / K - 1) / (kRows / K) > 0x7fffffffLL)
     return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define PACKPPI_ARGS per_i, pjg, h_E, pl, ng, rot, trans, mask, w_in, b_in, w_mid, b_mid, \
-                     w_out, b_out, out, int64_t(N), K, st
+#define PACKPPI_ARGS per_i, pjg, h_E, pl, ng, rot, trans, mask, wpack, b_in, b_mid, b_out, out, \
+                     int64_t(N), K, st
   cudaError_t err;
   if (bf16)
     err = pool ? launch_geom<__nv_bfloat16, true>(PACKPPI_ARGS)

@@ -1,7 +1,8 @@
 // The three products of the IPMP message MLP on tensor cores, over one tile
 // of kRows = 64 edge rows of whole nodes (64 / K nodes of K edges), for the
 // kernels whose streams are in the compute type T (message.cu
-// message_kernel and message_chain_kernel, message_feat.cu, layer.cu):
+// message_kernel, message_geom_kernel and message_chain_kernel,
+// message_feat.cu, layer.cu):
 //
 //   x = relu([h_E | geom] . W_e + b_e + per_i[node] + pj[row])
 //   x = relu(x . W_1 + b_1)
@@ -17,8 +18,7 @@
 // Product operands are T's values; sums, biases, per_i and the pj addition
 // float32; relu passes a NaN on. The first product's depth He + 9P = 200 is
 // padded to kIn1 = 208 (a bf16 k-step) with zero operand columns and zero
-// weight rows. (message_geom_kernel alone still runs the same function on
-// the FMA units, csrc/message_mlp.cuh.)
+// weight rows.
 //
 // bf16 (MessageTc<__nv_bfloat16>): one warpgroup, wgmma m64n128k16 (bf16
 // operands, float32 sums). The tile's [h_E | geom] rows are A from shared
@@ -63,11 +63,14 @@
 
 #include <type_traits>
 
-#include "message_mlp.cuh"
 #include "mma.cuh"
+#include "tile.cuh"
 
 namespace packppi {
 
+constexpr int kP = 8;                         // points a node
+constexpr int kG = 9 * kP;                    // geometry features an edge
+constexpr int kIn = kH + kG;                  // first product's depth: [h_E | geom]
 constexpr int kIn1 = kIn + 8;                 // first product's depth, padded: 208
 constexpr int kMsgDepth = kIn1 + 2 * kH;      // k rows of the packed weights: 464
 constexpr uint32_t kMsgUnitBytes = 16384;     // one panel (bf16) or chunk (float32)

@@ -20,14 +20,23 @@ differentiated by autograd, for CPU tensors. The kernels replace
 ``packppi_tpu/ops/pallas_clash.py::_clash_kernel`` and ``_clash_grad_kernel``.
 Neither version ever holds an [L, L, 14, 14] tensor: the plain version walks
 row blocks of residues and recomputes each block in the backward pass.
+
+The kernels cull by tiles of 32 flat atoms: each row tile walks only the
+column tiles whose bounding boxes come within reach of its own.
+``clash_tiles_plain`` is the plain version of that culling (boxes and the
+ascending lists of live tiles), ``tiled_clash_plain`` the sums over the
+listed tile pairs alone; the tests and ``chip_smoke.py`` hold the kernels'
+lists and sums to them.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 from torch.utils.checkpoint import checkpoint
 
@@ -39,8 +48,12 @@ _CYS_SG_SLOT = 5  # atom14 slot of CYS SG (exempted globally, like AF2)
 _C_SLOT, _N_SLOT = 2, 0
 _EPS = 1e-10
 
-# csrc/clash.cu: row atoms per block, column atoms per tile, floats per tile box
-ROWS_PER_BLOCK, COLS_PER_TILE, _BOX = 32, 128, 8
+# csrc/clash.cu: atoms a tile (a lane of a warp each), floats a tile box
+TILE, _BOX = 32, 8
+_MAX_TILES = 32767            # tile numbers are int16
+_BIG = 1e30
+# the tile test's slack over the pair test (csrc/clash.cu kCullSlack)
+_CULL_SLACK = 1.0001
 
 
 def within_residue_violations(positions, atom_exists, lower, upper):
@@ -128,6 +141,138 @@ def between_residue_clash_plain(positions, atom_exists, atom_radius, residue_ind
             "mean_loss": 0.5 * err_sum / (1e-6 + 0.5 * mask_sum)}
 
 
+def tile_boxes_plain(positions, atom_exists, atom_radius):
+    """[B, T, 8] per tile of TILE flat atoms (T = ceil(14 L / TILE)): the
+    bounding box of the atoms that exist (exists > 0; lo xyz, hi xyz), their
+    largest radius and whether any exists; what the kernels' first launch
+    writes."""
+    B, L = positions.shape[:2]
+    A = 14 * L
+    T = -(-A // TILE)
+    pad = T * TILE - A
+    pos = F.pad(positions.reshape(B, A, 3), (0, 0, 0, pad)).reshape(B, T, TILE, 3)
+    ex = F.pad(atom_exists.reshape(B, A), (0, pad)).reshape(B, T, TILE) > 0
+    rad = F.pad(atom_radius.reshape(B, A), (0, pad)).reshape(B, T, TILE)
+    lo = torch.where(ex[..., None], pos, _BIG).amin(2)
+    hi = torch.where(ex[..., None], pos, -_BIG).amax(2)
+    rmax = torch.where(ex, rad, -_BIG).amax(2)
+    return torch.cat([lo, hi, rmax[..., None], ex.any(2, keepdim=True).float()], -1)
+
+
+def _within_reach(c, lo, hi, rad, tol_soft):
+    """Whether boxes ``c`` [..., 8] come within reach of the boxes lo-hi
+    [..., 3] of largest radius ``rad``: the gap between them, squared,
+    within (rad + c's radius - tol_soft)^2 times a slack, in the kernel's
+    float32 operations and order (``csrc/clash.cu::within_reach``)."""
+    g = torch.clamp_min(torch.maximum(c[..., 0:3] - hi, lo - c[..., 3:6]), 0.0)
+    gap2 = (g[..., 0] * g[..., 0] + g[..., 1] * g[..., 1]) + g[..., 2] * g[..., 2]
+    thr = (rad + c[..., 6]) - tol_soft
+    return (thr > 0) & (gap2 <= thr * thr * _CULL_SLACK)
+
+
+def live_tile_pairs(positions, atom_exists, atom_radius, boxes, tol_soft: float,
+                    cull: bool = True, chunk: int = 32):
+    """[B, T, T] bool: row tile r and column tile c may hold an overlapping
+    pair. Both hold an atom that exists, their boxes come within reach of
+    each other, and so does the column box and one of row tile r's atoms
+    that exist. Every pair with ``rad_a + rad_b - tol_soft - d_ab > 0`` lies
+    in a live tile pair: d_ab is no shorter than either gap. ``cull=False``:
+    every pair."""
+    B, T = boxes.shape[:2]
+    if not cull:
+        return torch.ones(B, T, T, dtype=torch.bool, device=boxes.device)
+    A = positions.shape[1] * 14
+    pad = T * TILE - A
+    pos = F.pad(positions.reshape(B, A, 3), (0, 0, 0, pad)).reshape(B, T, TILE, 1, 3)
+    ex = F.pad(atom_exists.reshape(B, A), (0, pad)).reshape(B, T, TILE, 1) > 0
+    rad = F.pad(atom_radius.reshape(B, A), (0, pad)).reshape(B, T, TILE, 1)
+    c = boxes[:, None]
+    out = []
+    for s in range(0, T, chunk):
+        r = boxes[:, s:s + chunk, None]
+        live = ((r[..., 7] > 0) & (c[..., 7] > 0)
+                & _within_reach(c, r[..., 0:3], r[..., 3:6], r[..., 6], tol_soft))
+        p = pos[:, s:s + chunk]
+        atoms = ex[:, s:s + chunk] & _within_reach(c[:, None], p, p, rad[:, s:s + chunk],
+                                                   tol_soft)
+        out.append(live & atoms.any(2))
+    return torch.cat(out, 1)
+
+
+def clash_tiles_plain(positions, atom_exists, atom_radius, tol_soft: float, cull: bool = True):
+    """Plain version of the kernels' culling: (boxes [B, T, 8], tiles
+    [B, T, T] int16, counts [B, T] int32). Row r of ``tiles`` lists the live
+    column tiles of row tile r in ascending order, its first ``counts[b, r]``
+    entries, then -1 (the kernel leaves those entries unwritten)."""
+    boxes = tile_boxes_plain(positions, atom_exists, atom_radius)
+    live = live_tile_pairs(positions, atom_exists, atom_radius, boxes, tol_soft, cull)
+    T = live.shape[-1]
+    ar = torch.arange(T, device=live.device)
+    order = torch.where(live, ar, ar + T).sort(-1).values          # live tiles first
+    tiles = torch.where(order < T, order, -1).to(torch.int16)
+    return boxes, tiles, live.sum(-1, dtype=torch.int32)
+
+
+def listed_tile_pairs(tiles, counts):
+    """[B, T, T] bool: column tile c is among the first ``counts[b, r]``
+    entries of ``tiles[b, r]``."""
+    B, T = counts.shape
+    valid = torch.arange(T, device=tiles.device) < counts[..., None].long()
+    listed = torch.zeros(B, T, T + 1, dtype=torch.bool, device=tiles.device)
+    listed.scatter_(2, torch.where(valid, tiles.long(), T), True)
+    return listed[..., :T]
+
+
+def _tile_pair_errors(positions, atom_exists, atom_radius, residue_index, tol_soft, rows):
+    """err [B, R, A] of the flat row atoms ``rows`` (a range) against every
+    atom, in ``_pair_block``'s arithmetic and symmetric form."""
+    B, L = positions.shape[:2]
+    A = 14 * L
+    pos = positions.reshape(B, A, 3)
+    ex, rad = atom_exists.reshape(B, A), atom_radius.reshape(B, A)
+    atom = torch.arange(A, device=positions.device)
+    slot, ridx = atom % 14, residue_index[:, atom // 14]                  # [A], [B, A]
+    keep, cn = _slot_masks(positions.device)
+    d2 = _EPS
+    for c in range(3):
+        diff = pos[:, rows, None, c] - pos[:, None, :, c]
+        d2 = d2 + diff * diff                                             # [B, R, A]
+    d = torch.sqrt(d2)
+    ri, rj = ridx[:, rows, None], ridx[:, None, :]
+    si, sj = slot[rows, None], slot[None, :]
+    mask = ex[:, rows, None] * ex[:, None, :] * (ri != rj) * keep[si, sj]
+    mask = mask * (1.0 - (rj == ri + 1) * cn[si, sj]) * (1.0 - (ri == rj + 1) * cn[sj, si])
+    return mask * torch.relu((rad[:, rows, None] + rad[:, None, :]) - tol_soft - d)
+
+
+def tiled_clash_plain(positions, atom_exists, atom_radius, residue_index, tol_soft: float,
+                      tiles=None, counts=None, chunk: int = 8):
+    """(per-atom sums [B, L, 14], overlap [B, T, T] bool) over flat atoms, a
+    few row tiles at a time: each row atom's sum over the column tiles that
+    ``tiles`` / ``counts`` list for its row tile (every tile if None), and
+    which tile pairs hold an overlapping pair (S > 0 and over > 0). Left-out
+    pairs count as exact zeros, so the sum over the listed tiles equals the
+    sum over all of them bit for bit exactly when no overlapping pair was
+    left out."""
+    B, L = positions.shape[:2]
+    A = 14 * L
+    T = -(-A // TILE)
+    dev = positions.device
+    listed = (torch.ones(B, T, T, dtype=torch.bool, device=dev) if tiles is None
+              else listed_tile_pairs(tiles, counts))
+    col_tile = torch.arange(A, device=dev) // TILE
+    sums, overlap = [], []
+    for s in range(0, T, chunk):
+        rows = torch.arange(s * TILE, min((s + chunk) * TILE, A), device=dev)
+        err = _tile_pair_errors(positions, atom_exists, atom_radius, residue_index, tol_soft,
+                                rows)
+        sums.append((err * listed[:, rows // TILE][..., col_tile]).sum(-1))
+        hit = F.pad((err > 0).float(), (0, T * TILE - A)).reshape(B, len(rows), T, TILE).amax(-1)
+        hit = F.pad(hit, (0, 0, 0, -len(rows) % TILE)).reshape(B, -1, TILE, T).amax(2)
+        overlap.append(hit > 0)
+    return torch.cat(sums, 1).reshape(B, L, 14), torch.cat(overlap, 1)
+
+
 def between_residue_clash(positions, atom_exists, atom_radius, residue_index,
                           tol_soft: float = 0.5):
     """Per-atom between-residue clash loss [B, L, 14], differentiable in
@@ -151,21 +296,39 @@ between_residue_clash.launches_bwd = 0
 class _ClashCuda(torch.autograd.Function):
     @staticmethod
     def forward(ctx, positions, atom_exists, atom_radius, residue_index, tol_soft):
-        per_atom, boxes = clash_forward_cuda(positions, atom_exists, atom_radius,
-                                             residue_index, tol_soft)
-        ctx.save_for_backward(positions, atom_exists, atom_radius, residue_index, boxes)
+        per_atom, culling = clash_forward_cuda(positions, atom_exists, atom_radius,
+                                               residue_index, tol_soft)
+        ctx.save_for_backward(positions, atom_exists, atom_radius, residue_index, *culling)
         ctx.tol_soft = tol_soft
         return per_atom
 
     @staticmethod
     @once_differentiable
     def backward(ctx, w):
-        positions, atom_exists, atom_radius, residue_index, boxes = ctx.saved_tensors
+        positions, atom_exists, atom_radius, residue_index, *culling = ctx.saved_tensors
         dpos = clash_backward_cuda(positions, atom_exists, atom_radius, residue_index,
-                                   w.contiguous(), ctx.tol_soft, boxes=boxes)
+                                   w.contiguous(), ctx.tol_soft, culling=Culling(*culling))
         # exists, radius and index are chemistry constants along the only
         # differentiable path (torsions -> coordinates)
         return dpos, None, None, None, None
+
+
+class Culling(NamedTuple):
+    """What the forward kernel leaves for the gradient's: the atoms' records
+    [B, A, 4] (x, y, z, radius; an absent atom's far away) and keys [B, A, 2]
+    int32 (residue index, the bits of exists), the tile boxes [B, T, 8], and
+    each row tile's list of live column tiles, ascending: ``tiles``
+    [B, T, T] int16, of which the first ``counts`` [B, T] int32 entries are
+    written."""
+    records: torch.Tensor
+    keys: torch.Tensor
+    boxes: torch.Tensor
+    tiles: torch.Tensor
+    counts: torch.Tensor
+
+    def pair_tests(self) -> int:
+        """Distance tests a pair launch makes: 32 x 32 a listed tile pair."""
+        return int(self.counts.sum()) * TILE * TILE
 
 
 def _check(positions, atom_exists, atom_radius, residue_index, **more):
@@ -181,80 +344,83 @@ def _check(positions, atom_exists, atom_radius, residue_index, **more):
               "residue_index": (residue_index, (B, L), torch.int64)}
     expect.update({k: (t, shape, f32) for k, (t, shape) in more.items()})
     _build.check_operands("clash", positions, expect)
+    if -(-14 * L // TILE) > _MAX_TILES:
+        raise ValueError(f"clash kernel: {14 * L} atoms a complex, at most {_MAX_TILES * TILE}")
     return B, L
 
 
-def tile_boxes_cuda(positions, atom_exists, atom_radius):
-    """[B, ncol, 8] per column tile of 128 atoms: the existing atoms' bounding
-    box (lo xyz, hi xyz), their largest radius, and whether any exists. A
-    small kernel of its own; the pair kernels cull against it on the device."""
+def _pack_cuda(positions, atom_exists, atom_radius, residue_index) -> Culling:
+    """Launch the packing kernel: each atom's record and key and each tile's
+    box; the lists allocated, to be written by a pair kernel."""
     B, L = positions.shape[:2]
-    ncol = -(-14 * L // COLS_PER_TILE)
-    boxes = torch.empty(B, ncol, _BOX, dtype=torch.float32, device=positions.device)
+    A, dev = 14 * L, positions.device
+    T = -(-A // TILE)
+    culling = Culling(torch.empty(B, A, 4, dtype=torch.float32, device=dev),
+                      torch.empty(B, A, 2, dtype=torch.int32, device=dev),
+                      torch.empty(B, T, _BOX, dtype=torch.float32, device=dev),
+                      torch.empty(B, T, T, dtype=torch.int16, device=dev),
+                      torch.empty(B, T, dtype=torch.int32, device=dev))
     lib = _lib()
-    err = lib.packppi_clash_boxes(*(_build.ptr(t) for t in (positions, atom_exists, atom_radius,
-                                                            boxes)),
-                                  B, L, _build.stream_ptr(positions.device))
-    _build.check(lib, err, "clash box kernel launch")
-    return boxes
+    err = lib.packppi_clash_pack(*(_build.ptr(t) for t in (positions, atom_exists, atom_radius,
+                                                           residue_index, *culling[:3])),
+                                 B, L, _build.stream_ptr(dev))
+    _build.check(lib, err, "clash packing kernel launch")
+    return culling
 
 
 def clash_forward_cuda(positions, atom_exists, atom_radius, residue_index, tol_soft,
-                       cull: bool = True, live_tiles=None):
-    """Launch the forward kernel; returns (per_atom [B, L, 14], the tile
-    boxes). ``cull=False`` visits every tile (the sums are the same bits);
-    ``live_tiles``, an int32 [B, nrow] tensor, receives each row block's
-    count of visited tiles."""
+                       cull: bool = True):
+    """Launch the packing and forward kernels; returns (per_atom [B, L, 14],
+    the ``Culling`` the gradient reuses). ``cull=False`` lists every tile
+    (the sums are the same bits)."""
     B, L = _check(positions, atom_exists, atom_radius, residue_index)
-    boxes = tile_boxes_cuda(positions, atom_exists, atom_radius)
+    culling = _pack_cuda(positions, atom_exists, atom_radius, residue_index)
     out = torch.empty(B, L, 14, dtype=torch.float32, device=positions.device)
     lib = _lib()
     err = lib.packppi_clash_forward(
-        *(_build.ptr(t) for t in (positions, atom_exists, atom_radius, residue_index, boxes,
-                                  out, _live(live_tiles, B, L))),
+        *(_build.ptr(t) for t in (*culling, out)),
         B, L, float(tol_soft), int(cull), _build.stream_ptr(positions.device))
     _build.check(lib, err, "clash forward kernel launch")
     between_residue_clash.launches_fwd += 1
-    return out, boxes
+    return out, culling
 
 
 def clash_backward_cuda(positions, atom_exists, atom_radius, residue_index, w, tol_soft,
-                        cull: bool = True, live_tiles=None, boxes=None):
+                        cull: bool = True, culling: Culling | None = None):
     """Launch the gradient kernel: d(sum(w * per_atom))/d positions,
-    [B, L, 14, 3]. ``boxes`` are the forward's tile boxes (computed here if
-    not given)."""
-    B, L = _check(positions, atom_exists, atom_radius, residue_index, w=(w, tuple(positions.shape[:3])))
-    if boxes is None:
-        boxes = tile_boxes_cuda(positions, atom_exists, atom_radius)
+    [B, L, 14, 3]. ``culling``: the forward's, whose lists it walks again;
+    else packed and listed here (``cull`` as in the forward)."""
+    B, L = _check(positions, atom_exists, atom_radius, residue_index,
+                  w=(w, tuple(positions.shape[:3])))
+    build = culling is None
+    if build:
+        culling = _pack_cuda(positions, atom_exists, atom_radius, residue_index)
+    else:
+        T = -(-14 * L // TILE)
+        _build.check_operands("clash", positions, {
+            "records": (culling.records, (B, 14 * L, 4), torch.float32),
+            "keys": (culling.keys, (B, 14 * L, 2), torch.int32),
+            "boxes": (culling.boxes, (B, T, _BOX), torch.float32),
+            "tiles": (culling.tiles, (B, T, T), torch.int16),
+            "counts": (culling.counts, (B, T), torch.int32)})
     out = torch.empty_like(positions)
     lib = _lib()
     err = lib.packppi_clash_backward(
-        *(_build.ptr(t) for t in (positions, atom_exists, atom_radius, residue_index, w, boxes,
-                                  out, _live(live_tiles, B, L))),
-        B, L, float(tol_soft), int(cull), _build.stream_ptr(positions.device))
+        *(_build.ptr(t) for t in (culling.records, culling.keys, w, *culling[2:], out)),
+        B, L, float(tol_soft), int(cull), int(build), _build.stream_ptr(positions.device))
     _build.check(lib, err, "clash gradient kernel launch")
     between_residue_clash.launches_bwd += 1
     return out
-
-
-def _live(live_tiles, B, L):
-    if live_tiles is None:
-        return None
-    nrow = -(-14 * L // ROWS_PER_BLOCK)
-    if (live_tiles.dtype != torch.int32 or tuple(live_tiles.shape) != (B, nrow)
-            or not live_tiles.is_cuda or not live_tiles.is_contiguous()):
-        raise ValueError(f"clash kernel: live_tiles must be a contiguous CUDA int32 [{B}, {nrow}]")
-    return live_tiles
 
 
 def _lib():
     lib = _build.load_library("clash")
     if lib.packppi_clash_forward.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.packppi_clash_boxes.argtypes = [p] * 4 + [i, i, p]
-        lib.packppi_clash_forward.argtypes = [p] * 7 + [i, i, ctypes.c_float, i, p]
-        lib.packppi_clash_backward.argtypes = [p] * 8 + [i, i, ctypes.c_float, i, p]
-        for fn in (lib.packppi_clash_boxes, lib.packppi_clash_forward,
+        lib.packppi_clash_pack.argtypes = [p] * 7 + [i, i, p]
+        lib.packppi_clash_forward.argtypes = [p] * 6 + [i, i, ctypes.c_float, i, p]
+        lib.packppi_clash_backward.argtypes = [p] * 7 + [i, i, ctypes.c_float, i, i, p]
+        for fn in (lib.packppi_clash_pack, lib.packppi_clash_forward,
                    lib.packppi_clash_backward):
             fn.restype = ctypes.c_int
     return lib

@@ -25,8 +25,8 @@ picks the plain version), each with its own count of launches:
   in-kernel gathers are an indexed load on a GPU.
 * ``message_geom``: the neighbour term and the neighbour global-point
   planes arrive gathered (``pjg`` in the stream dtype, ``ng`` float32), node
-  i's points as local planes with its frame. Replaces
-  ``::fused_message_geom``.
+  i's points as local planes with its frame; the kernel fills the same
+  tensor-core body's tile from them. Replaces ``::fused_message_geom``.
 * ``message_chain``: ``message``'s edge pass with the residual chain of
   ``ops.chain`` folded in (``pre_mask``); returns the new h_E. The kernel
   runs ``message``'s tensor-core body and then the chain kernel's (over the
@@ -278,12 +278,14 @@ def _message_geom_cuda(per_i, pjg, h_E, pl, ng, rot9, trans, mask,
         **_weights_expect(w_in, b_in, w_mid, b_mid, w_out, b_out, He),
     }
     _build.check_operands("message_geom", h_E, expect)
+    _build.check_aligned("message_geom", per_i=per_i, pjg=pjg, h_E=h_E)
+    wpack = pack_message_weights(w_in, w_mid, w_out, sd)
     out = (torch.empty(B, L, _H, device=h_E.device, dtype=_F32) if pool
            else torch.empty(B, L, K, _H, device=h_E.device, dtype=sd))
     lib = _lib()
     err = lib.packppi_message_geom(
-        *(_build.ptr(t) for t in (per_i, pjg, h_E, pl, ng, rot9, trans, mask, w_in, b_in,
-                                  w_mid, b_mid, w_out, b_out, out)),
+        *(_build.ptr(t) for t in (per_i, pjg, h_E, pl, ng, rot9, trans, mask, wpack, b_in,
+                                  b_mid, b_out, out)),
         B * L, K, int(sd == torch.bfloat16), int(pool), _build.stream_ptr(h_E.device))
     _build.check(lib, err, "message_geom kernel launch")
     message_geom.launches += 1
@@ -315,7 +317,7 @@ def _lib():
         ptrs, ints, stream = [ctypes.c_void_p], [ctypes.c_int], [ctypes.c_void_p]
         for entry in (lib.packppi_message, lib.packppi_message_gather):
             entry.argtypes = ptrs * 14 + ints * 5 + stream
-        lib.packppi_message_geom.argtypes = ptrs * 15 + [ctypes.c_longlong] + ints * 3 + stream
+        lib.packppi_message_geom.argtypes = ptrs * 13 + [ctypes.c_longlong] + ints * 3 + stream
         lib.packppi_message_chain.argtypes = ptrs * 23 + ints * 4 + stream
         for entry in (lib.packppi_message, lib.packppi_message_gather, lib.packppi_message_geom,
                       lib.packppi_message_chain):

@@ -84,7 +84,7 @@ def _mlp(d, prefix, out):
     _linear(d[f"Dense_{n - 1}"], f"{prefix}.W_out", out)
 
 
-def _message_mlp(d, prefix, out, geom_dim):
+def _factored_message(d, prefix, out, geom_dim):
     """Factored message MLP -> reference ``W_in`` over [h_i | h_E | h_j |
     geometry]: ``Dense_e`` holds the [h_E | geometry] rows and the bias."""
     wi = np.asarray(d["Dense_i"]["kernel"])
@@ -106,8 +106,8 @@ def _ipmp_stack(stack: Mapping, prefix: str, out) -> None:
         _linear(layer["Dense_0"], f"{pre}.points_fn_node", out)
         _linear(layer["Dense_1"], f"{pre}.points_fn_edge", out)
         geom_dim = 3 * np.asarray(layer["Dense_0"]["kernel"]).shape[1]  # 9P from 3P
-        _message_mlp(layer["MLP_0"], f"{pre}.node_message_fn", out, geom_dim)
-        _message_mlp(layer["MLP_2"], f"{pre}.edge_message_fn", out, geom_dim)
+        _factored_message(layer["MLP_0"], f"{pre}.node_message_fn", out, geom_dim)
+        _factored_message(layer["MLP_2"], f"{pre}.edge_message_fn", out, geom_dim)
         for n in range(4):
             _layernorm(layer[f"LayerNorm_{n}"], f"{pre}.norm.{n}", out)
         _mlp(layer["MLP_1"], f"{pre}.node_dense", out)

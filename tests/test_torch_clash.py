@@ -246,3 +246,87 @@ def test_kernel_wrapper_refuses_what_the_kernel_does_not_take(brs):
         clash._check(t[0], t[1], t[2], t[3].int())
     with pytest.raises(ValueError, match="atom_radius"):
         clash._check(t[0], t[1], t[2][:, :-1], t[3])
+
+
+# ---------------------------------------------------------------- culling
+# The kernels walk, for each row tile of 32 flat atoms, only the column tiles
+# that ``clash.clash_tiles_plain`` lists. These tests hold that list on real
+# structures: native 1BRS and a clash-heavy T1124 (chis perturbed by a seeded
+# N(0, 0.8), as ``chip_smoke.py`` perturbs them).
+
+
+def _culling_case(name):
+    b, _ = _both_batches(f"{name}.pdb", padded=True)
+    kind = "perturbed" if name == "t1124" else "native"
+    pos = atom14_coords_from_torsions(b.X, b.residue_type, b.BB_D, torch.as_tensor(_chis(b, kind)))
+    rad = torch.as_tensor(chem.CHEM.vdw_radius_atom14)[b.residue_type] * b.atom_mask
+    ops = (pos, b.atom_mask, rad, b.residue_index)
+    boxes, tiles, counts = clash.clash_tiles_plain(*ops[:3], TOL)
+    full, overlap = clash.tiled_clash_plain(*ops, TOL)
+    return dict(ops=ops, boxes=boxes, tiles=tiles, counts=counts, full=full, overlap=overlap,
+                listed=clash.listed_tile_pairs(tiles, counts))
+
+
+@pytest.fixture(scope="module", params=["1brs", "t1124"])
+def culled(request):
+    return _culling_case(request.param)
+
+
+def test_culling_lists_every_overlapping_tile_pair(culled):
+    overlap, listed, counts, tiles = (culled[k] for k in ("overlap", "listed", "counts", "tiles"))
+    T = counts.shape[-1]
+    assert overlap.sum() > 10                              # the check is not empty
+    assert not (overlap & ~listed).any()
+    assert counts.sum() < T * T / 4                        # and the culling culls
+    for r in range(T):                                     # each list ascending, -1 after it
+        row = tiles[0, r].long()
+        n = int(counts[0, r])
+        assert (row[:n].diff() > 0).all() and (row[n:] == -1).all()
+
+
+def test_sum_over_listed_tiles_equals_the_full_sum(culled):
+    """Bit for bit: every pair left out is an exact zero; and the tiled sum
+    is the row-blocked plain version's."""
+    listed_sum, _ = clash.tiled_clash_plain(*culled["ops"], TOL, culled["tiles"], culled["counts"])
+    assert torch.equal(listed_sum, culled["full"])
+    ref = clash.between_residue_clash_plain(*culled["ops"], TOL)["per_atom_loss_sum"]
+    assert culled["full"].sum() > 1.0
+    torch.testing.assert_close(culled["full"], ref, atol=1e-5, rtol=1e-5)
+
+
+def test_culling_control_a_needed_tile_pair_dropped_fails(culled):
+    """The control: the list of the row tile with the most overlapping tile
+    pairs loses one of them; the coverage check and the sum must both see it."""
+    overlap, tiles, counts = culled["overlap"], culled["tiles"].clone(), culled["counts"].clone()
+    r = int(overlap[0].sum(1).argmax())
+    c = int(overlap[0, r].nonzero()[-1])
+    row = tiles[0, r, :counts[0, r]].long()
+    kept = row[row != c]
+    tiles[0, r] = -1
+    tiles[0, r, :len(kept)] = kept.to(torch.int16)
+    counts[0, r] = len(kept)
+    assert (overlap & ~clash.listed_tile_pairs(tiles, counts)).any()
+    dropped, _ = clash.tiled_clash_plain(*culled["ops"], TOL, tiles, counts)
+    assert (dropped - culled["full"]).abs().max() > 1e-3
+
+
+def test_culling_off_lists_every_tile(brs):
+    t, _ = _operands(brs, "perturbed")
+    _, tiles, counts = clash.clash_tiles_plain(*t[:3], TOL, cull=False)
+    T = counts.shape[-1]
+    assert (counts == T).all()
+    assert torch.equal(tiles.long(), torch.arange(T).expand_as(tiles))
+
+
+def test_tile_boxes_bound_their_existing_atoms(brs):
+    t, _ = _operands(brs, "perturbed")
+    pos, ex, rad = t[0], t[1], t[2]
+    boxes = clash.tile_boxes_plain(pos, ex, rad)
+    A = pos.shape[1] * 14
+    tile = torch.arange(A) // clash.TILE
+    p, e, r = pos.reshape(A, 3), ex.reshape(A) > 0, rad.reshape(A)
+    box = boxes[0, tile]
+    assert ((box[:, :3] <= p) & (p <= box[:, 3:6])).all(-1)[e].all()
+    assert (r[e] <= box[e, 6]).all() and (box[e, 7] == 1).all()
+    assert torch.equal(boxes[0, :, 7] > 0, torch.zeros(len(boxes[0]), dtype=torch.bool)
+                       .index_put_((tile[e],), torch.tensor(True)))

@@ -230,18 +230,22 @@ def test_message_feat_kernel_refuses_what_it_does_not_take(cuda):
 
 
 def _tc_message_case(kernel, device, dtype, **shape):
-    """(wrapper, plain version, operands) of one of the three kernels on
+    """(wrapper, plain version, operands) of one of the four kernels on
     the tensor-core message body."""
-    from packppi_torch.ops.message import message, message_gather, message_plain
+    from packppi_torch.ops.message import (message, message_gather, message_geom,
+                                           message_geom_plain, message_plain)
     from packppi_torch.ops.message_feat import message_feat, message_feat_plain
 
     if kernel == "message_feat":
         return message_feat, message_feat_plain, _message_feat_operands(device, dtype, **shape)
+    if kernel == "message_geom":
+        return (message_geom, message_geom_plain,
+                _geom_operands(_message_operands(device, dtype, **shape)))
     fn = message if kernel == "message" else message_gather
     return fn, message_plain, _message_operands(device, dtype, **shape)
 
 
-TC_KERNELS = ["message", "message_gather", "message_feat"]
+TC_KERNELS = ["message", "message_gather", "message_feat", "message_geom"]
 
 
 @pytest.mark.parametrize("K", [16, 20, 24, 32, 64])
@@ -298,7 +302,7 @@ def test_tensor_core_message_kernels_follow_weights_written_in_place(cuda, kerne
     """The kernels read a packed copy of W_in, W_1 and W_2, made again when
     any of them is written in place (as an optimizer step writes it)."""
     fn, plain, ops = _tc_message_case(kernel, cuda, dtype)
-    at = 7 if kernel == "message_feat" else 11                # w_mid
+    at = {"message_feat": 7, "message_geom": 10}.get(kernel, 11)       # w_mid
     first = fn(*ops, False)
     with torch.no_grad():
         ops[at].mul_(-1.0)
@@ -529,26 +533,70 @@ def test_clash_kernels_match_plain(cuda):
     assert (pos.grad - ref_pos.grad).abs().max().item() <= 2e-5
 
 
+def _strung_clash_operands(device, L=300):
+    """The crowded cloud with its residues strung along x, 4 A apart, as a
+    chain is: tiles far apart in sequence are far apart in space."""
+    pos, exists, radius, ridx = _clash_operands(device, B=1, L=L)
+    pos = pos + 4.0 * torch.arange(L, device=device)[None, :, None, None] * torch.tensor(
+        [1.0, 0.0, 0.0], device=device)
+    return pos.contiguous(), exists, radius, ridx
+
+
 def test_clash_kernels_are_deterministic_and_culling_is_exact(cuda):
     from packppi_torch.ops.clash import clash_backward_cuda, clash_forward_cuda
 
-    pos, exists, radius, ridx = _clash_operands(cuda, B=1, L=300)
-    # residues strung along x, 4 A apart, as a chain is: tiles far apart in
-    # sequence are far apart in space
-    pos = pos + 4.0 * torch.arange(300, device=cuda)[None, :, None, None] * torch.tensor(
-        [1.0, 0.0, 0.0], device=cuda)
+    pos, exists, radius, ridx = _strung_clash_operands(cuda)
     w = torch.rand(exists.shape, generator=torch.Generator().manual_seed(4)).to(cuda)
-    nrow = -(-14 * 300 // 32)
-    live = torch.zeros(1, nrow, dtype=torch.int32, device=cuda)
-    a, boxes = clash_forward_cuda(pos, exists, radius, ridx, 0.5, live_tiles=live)
+    a, culling = clash_forward_cuda(pos, exists, radius, ridx, 0.5)
     b, _ = clash_forward_cuda(pos, exists, radius, ridx, 0.5, cull=False)
     c, _ = clash_forward_cuda(pos, exists, radius, ridx, 0.5)
-    ga = clash_backward_cuda(pos, exists, radius, ridx, w, 0.5, boxes=boxes)
+    ga = clash_backward_cuda(pos, exists, radius, ridx, w, 0.5, culling=culling)
     gb = clash_backward_cuda(pos, exists, radius, ridx, w, 0.5, cull=False)
+    gc = clash_backward_cuda(pos, exists, radius, ridx, w, 0.5)
     torch.cuda.synchronize()
-    assert torch.equal(a, b) and torch.equal(a, c) and torch.equal(ga, gb)
+    assert torch.equal(a, b) and torch.equal(a, c) and torch.equal(ga, gb) and torch.equal(ga, gc)
     assert a.sum().item() > 0
-    assert 0 < live.sum().item() < nrow * -(-14 * 300 // 128)     # some tiles culled, not all
+    T = -(-14 * 300 // 32)
+    assert 0 < culling.counts.sum().item() < T * T                # some tiles culled, not all
+
+
+@pytest.mark.parametrize("case", ["strung", "crowded"])
+def test_clash_kernel_lists_equal_the_plain_culling(cuda, case):
+    """The packing kernel's boxes and the forward's lists, bit for bit, as
+    ``clash_tiles_plain`` makes them on the same tensors; culling off lists
+    every tile."""
+    from packppi_torch.ops.clash import clash_forward_cuda, clash_tiles_plain
+
+    ops = _strung_clash_operands(cuda) if case == "strung" else _clash_operands(cuda)
+    for cull in (True, False):
+        _, culling = clash_forward_cuda(*ops, 0.5, cull=cull)
+        boxes, tiles, counts = clash_tiles_plain(*ops[:3], 0.5, cull=cull)
+        torch.cuda.synchronize()
+        assert torch.equal(culling.boxes, boxes) and torch.equal(culling.counts, counts)
+        n = torch.arange(tiles.shape[-1], device=cuda) < counts[..., None]
+        assert torch.equal(culling.tiles[n], tiles[n])
+        rec = culling.records.reshape(*ops[1].shape, 4)
+        ex = ops[1][..., None] != 0
+        assert torch.equal(torch.where(ex, rec, 0.0),
+                           torch.where(ex, torch.cat([ops[0], ops[2][..., None]], -1), 0.0))
+        keys = culling.keys.reshape(*ops[1].shape, 2)
+        assert torch.equal(keys[..., 0], ops[3][..., None].int().expand_as(ops[1]))
+        assert torch.equal(keys[..., 1].view(torch.float32), ops[1])
+
+
+def test_clash_kernel_lists_cover_every_overlapping_pair(cuda):
+    """Every tile pair holding an overlapping pair is listed, and the kernel's
+    sums equal the plain sums over the listed tile pairs alone."""
+    from packppi_torch.ops.clash import clash_forward_cuda, listed_tile_pairs, tiled_clash_plain
+
+    ops = _strung_clash_operands(cuda)
+    got, culling = clash_forward_cuda(*ops, 0.5)
+    listed = listed_tile_pairs(culling.tiles, culling.counts)
+    full, overlap = tiled_clash_plain(*ops, 0.5)
+    over_listed, _ = tiled_clash_plain(*ops, 0.5, culling.tiles, culling.counts)
+    assert overlap.sum().item() > 10 and not (overlap & ~listed).any()
+    assert torch.equal(over_listed, full)
+    assert (got - full).abs().max().item() <= 1e-5
 
 
 def test_clash_gradient_matches_finite_differences(cuda):

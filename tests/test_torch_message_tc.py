@@ -1,8 +1,8 @@
 """The message kernels' tensor-core arithmetic and their packed weights,
 on the CPU, before any card runs them.
 
-The message kernels (``ops.message.message`` and ``message_gather``,
-``ops.message_feat.message_feat``) run the message MLP's three products on
+The message kernels (``ops.message.message``, ``message_gather`` and
+``message_geom``, ``ops.message_feat.message_feat``) run the message MLP's three products on
 tensor cores (``csrc/message_tc.cuh``). In float32 they compute them as
 3xTF32 on mma.sync: each operand x split into hi (x rounded to 11
 significant bits, Veltkamp's split) and lo (x - hi rounded to the nearest
@@ -13,8 +13,10 @@ JAX package's float32 kernels within 2e-5 (the limit of
 ``tests/test_torch_message.py`` and ``tests/test_torch_message_feat.py``):
 ``fused_message_geom_lanes`` (interpret mode, fed as
 ``test_torch_message.py`` feeds it) and ``fused_message`` (interpret mode).
-The control: plain TF32 (the products of the operands rounded to TF32)
-must exceed that limit.
+``fused_message_geom`` (row 4, interpret mode, its tile filled from the
+gathered operands as ``message_geom``'s kernel fills it). The control:
+plain TF32 (the products of the operands rounded to TF32) must exceed that
+limit.
 
 The packed weights: the bf16 copy, its swizzled panel index undone, gives
 W_e, W_1 and W_2 rounded to bf16 exactly, and zeros in the pad; the
@@ -40,12 +42,16 @@ from packppi_torch.ops.message_feat import (_DEPTH, _K1, _fragment_index, _panel
 from test_torch_message import _jax_message, _port_mlp, case  # noqa: F401 (fixture)
 from test_torch_message_feat import _jax_operands, _port_operands
 from test_torch_message_feat import case as feat_case_fixture
+from test_torch_message_variants import _jax as _jax_route
+from test_torch_message_variants import case as geom_case_fixture
+from test_torch_message_variants import port_mlp
 from test_torch_tf32x3 import tf32
 
 H, G = 128, 72
 F32_TOL = 2e-5
 
 feat_case = pytest.fixture(scope="module", name="feat_case")(feat_case_fixture.__wrapped__)
+geom_case = pytest.fixture(scope="module", name="geom_case")(geom_case_fixture.__wrapped__)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -118,10 +124,30 @@ def _feat_case(c, pool):
     return ops, np.asarray(ref)[None]
 
 
+def _geom_case(c, pool):
+    """Row 4: the tile filled from ``message_geom``'s operands (h_E, and the
+    geometry from the local planes, the frame and the gathered neighbour
+    planes), the JAX ``fused_message_geom`` through the JAX
+    ``FactoredMessageMLP.geom_fused`` in interpret mode, on 40 residues of
+    1BRS."""
+    args = (torch.from_numpy(c["h_V"]), torch.from_numpy(c["h_E"]), c["idx"],
+            torch.from_numpy(c["p_local"]), c["frames"], c["mask"])
+    with torch.no_grad():
+        per_i, pjg, h_E, pl, ng, rot9, trans, mask, *weights = \
+            port_mlp(c["params"]).geom_operands(*args)
+    B, L, P3 = pl.shape
+    p_local = pl.reshape(B, L, 3, P3 // 3).transpose(-1, -2)
+    geom = geometry_edge_features(p_local, ng, rot9.reshape(B, L, 3, 3), trans)
+    ops = (per_i, pjg, h_E, geom, mask, *weights)
+    return [t.detach() for t in ops], _jax_route(c, "geom", "float32", pool)
+
+
 @pytest.mark.parametrize("pool", [True, False], ids=["node", "edge"])
-@pytest.mark.parametrize("kernel", ["lanes", "feat"])
-def test_message_3xtf32_holds_the_float32_limit(case, feat_case, kernel, pool):
-    ops, ref = _lanes_case(case, pool) if kernel == "lanes" else _feat_case(feat_case, pool)
+@pytest.mark.parametrize("kernel", ["lanes", "feat", "geom"])
+def test_message_3xtf32_holds_the_float32_limit(case, feat_case, geom_case, kernel, pool):
+    ops, ref = {"lanes": lambda: _lanes_case(case, pool),
+                "feat": lambda: _feat_case(feat_case, pool),
+                "geom": lambda: _geom_case(geom_case, pool)}[kernel]()
     got = message_tc_model(*ops, pool, mm_3xtf32_chunks).numpy()
     control = message_tc_model(*ops, pool, mm_tf32).numpy()
     assert got.shape == ref.shape

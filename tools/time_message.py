@@ -2,7 +2,8 @@
 the residual chain, and the chain kernel, of one or more checkouts of the
 port on the card, with the kernel timer of ``chip_smoke.py``.
 
-    python tools/time_message.py [--variants NAME,...] [--end-to-end] [ROOT ...]
+    python tools/time_message.py [--variants NAME,...] [--end-to-end] [--routings R,...]
+                                 [ROOT ...]
 
 Each ROOT is a directory holding a ``packppi_torch/`` (a checkout, or an
 older commit unpacked with ``git archive``); no ROOT means this
@@ -14,6 +15,8 @@ paths:
 
 * ``message``, T1124's pack shape (B = 1, L = 768, K = 32: 24,576 edge
   rows), node (pool) and edge, bf16 and float32;
+* ``message_geom`` (the gathered-operand route), T1124's pack shape, node
+  and edge, bf16 and float32;
 * ``message_gather`` at 11 x T1124 (L = 8,151), bf16, node and edge;
 * ``message_feat`` at the training shape B = 4 x L = 1,024 (131,072 edge
   rows), node and edge, float32 and bf16;
@@ -28,13 +31,14 @@ For every kernel it prints the mean CUDA-event time of one wrapper call
 prepares the launch), the profiler's device time of the kernel alone (L2
 warm), the bound of ``chip_smoke.bound_ms``, max |d| of the first output
 against the plain version, and the first 16 hex digits of that output's
-sha256 (equal digests across checkouts: equal bits). ``--end-to-end`` adds, for each checkout,
-``chip_smoke.py``'s bf16 T1124 pack under the two routings these kernels
-serve (``FOLD_EDGE_CHAIN`` and ``fused_layers``: the first pack with its
-launch counts, the median of five more, a profile of one network
-evaluation with its device busy time, idle share and device operations)
-and each routing's float32 evaluation against the default one, so that the
-end-to-end effect of the kernels is read on one host. ``--variants`` adds
+sha256 (equal digests across checkouts: equal bits). ``--end-to-end`` adds,
+for each checkout, ``chip_smoke.py``'s bf16 T1124 pack under the routings
+these kernels serve (``--routings``, by default ``geom``,
+``FOLD_EDGE_CHAIN`` and ``fused_layers``: the first pack with its launch
+counts, the median of five more, a profile of one network evaluation with
+its device busy time, idle share and device operations) and each routing's
+float32 evaluation against the default one, so that the end-to-end effect
+of the kernels is read on one host. ``--variants`` adds
 copies of this repository's ``packppi_torch`` with one source substitution
 each (``VARIANTS``: other ring depths and blocks an SM), unpacked under
 ``smoke_out/variants/``. Run the checkouts to compare in one call, in the
@@ -117,6 +121,19 @@ def message_ops(torch, dtype, B, L, K, seed=0):
     return tuple(t.to("cuda").contiguous() for t in ops)
 
 
+def geom_ops(torch, dtype, B, L, K):
+    """``message_geom``'s operands gathered from ``message_ops``': the
+    neighbour term and global-point planes per edge, the local planes, R
+    row-major."""
+    from packppi_torch.ops.graph import gather_nodes
+
+    per_i, per_j, h_E, idx, p_local, rot, trans, pg, mask, *w = message_ops(torch, dtype, B, L, K)
+    pl = torch.cat([p_local[..., 0], p_local[..., 1], p_local[..., 2]], -1).contiguous()
+    return (per_i, gather_nodes(per_j, idx).contiguous(), h_E, pl,
+            gather_nodes(pg, idx).contiguous(), rot.reshape(B, L, 9).contiguous(), trans, mask,
+            *w)
+
+
 def feat_ops(torch, dtype, B, L, K, seed=3):
     g = torch.Generator().manual_seed(seed)
     r = lambda *s: torch.randn(*s, generator=g)
@@ -184,7 +201,7 @@ def pack_costs(torch, timer):
     return out
 
 
-def run_one(root: Path, end_to_end: bool):
+def run_one(root: Path, routings: tuple):
     """In this process: import ``root``'s port and time its kernels."""
     sys.path.insert(0, str(root))
     import torch
@@ -196,7 +213,8 @@ def run_one(root: Path, end_to_end: bool):
     from packppi_torch.ops.chain import chain, chain_plain
     from packppi_torch.ops.layer import layer_edge, layer_edge_plain, layer_node, layer_node_plain
     from packppi_torch.ops.message import (message, message_chain, message_chain_plain,
-                                           message_gather, message_plain)
+                                           message_gather, message_geom, message_geom_plain,
+                                           message_plain)
     from packppi_torch.ops.message_feat import message_feat, message_feat_plain
 
     assert Path(_build.__file__).resolve().is_relative_to(root.resolve()), _build.__file__
@@ -223,6 +241,14 @@ def run_one(root: Path, end_to_end: bool):
                           lambda o, p=pool: message(*o, p), lambda o, p=pool: message_plain(*o, p),
                           lambda dt=dt: message_ops(torch, getattr(torch, dt), *T1124), dt,
                           lambda o, _, p=pool: smoke.message_cost(o, p), "message"))
+    erows, nodes = T1124[0] * T1124[1] * T1124[2], T1124[0] * T1124[1]
+    for dt in ("bfloat16", "float32"):
+        for pool in (True, False):
+            cases.append((f"message_geom {dt} T1124 {'node' if pool else 'edge'}",
+                          lambda o, p=pool: message_geom(*o, p),
+                          lambda o, p=pool: message_geom_plain(*o, p),
+                          lambda dt=dt: geom_ops(torch, getattr(torch, dt), *T1124), dt,
+                          cost_of(erows, 0), "message_geom"))
     for pool in (True, False):
         cases.append((f"message_gather bfloat16 L=8151 {'node' if pool else 'edge'}",
                       lambda o, p=pool: message_gather(*o, p),
@@ -236,7 +262,6 @@ def run_one(root: Path, end_to_end: bool):
                           lambda o, p=pool: message_feat_plain(*o, p),
                           lambda dt=dt: feat_ops(torch, getattr(torch, dt), *TRAIN), dt,
                           lambda o, _, p=pool: smoke.message_feat_cost(o, p), "message"))
-    erows, nodes = T1124[0] * T1124[1] * T1124[2], T1124[0] * T1124[1]
     for dt in ("bfloat16", "float32"):
         d = getattr(torch, dt)
         cases.append((f"message_chain {dt} T1124 edge", lambda o: message_chain(*o),
@@ -271,8 +296,8 @@ def run_one(root: Path, end_to_end: bool):
         del ops, got
         torch.cuda.empty_cache()
     out.update(pack_costs(torch, timer))
-    if end_to_end:
-        smoke.phase_pack_variants(torch, names=("fold", "fused_layers"))
+    if routings:
+        smoke.phase_pack_variants(torch, names=routings)
     print(json.dumps(out), flush=True)
 
 
@@ -281,12 +306,14 @@ def main():
     ap.add_argument("roots", nargs="*", type=Path)
     ap.add_argument("--variants", default="", help="comma-separated names of VARIANTS")
     ap.add_argument("--end-to-end", action="store_true",
-                    help="also pack T1124 under FOLD_EDGE_CHAIN and fused_layers and "
-                         "profile an evaluation, as chip_smoke.py does")
+                    help="also pack T1124 under the --routings and profile an evaluation, as "
+                         "chip_smoke.py does")
+    ap.add_argument("--routings", default="geom,fold,fused_layers",
+                    help="comma-separated names of chip_smoke.VARIANTS for --end-to-end")
     ap.add_argument("--one", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.one:
-        run_one(args.one, args.end_to_end)
+        run_one(args.one, tuple(args.routings.split(",")) if args.end_to_end else ())
         return
     import torch
 
@@ -300,7 +327,8 @@ def main():
     failed = False
     for root in roots:
         proc = subprocess.run([sys.executable, __file__, "--one", str(root)]
-                              + ["--end-to-end"] * args.end_to_end, capture_output=True, text=True)
+                              + ["--end-to-end", f"--routings={args.routings}"]
+                              * args.end_to_end, capture_output=True, text=True)
         if proc.returncode != 0:
             print(f"{root}: exit {proc.returncode}\n{proc.stdout[-4000:]}\n{proc.stderr[-8000:]}",
                   flush=True)
