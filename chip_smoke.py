@@ -66,7 +66,23 @@ fatal on failure:
    with the reference weights of ``pipeline_golden.npz``, with its time,
    peak memory and kernel launch counts (5 of each kernel per step); the
    same with ``--use_proximal`` (51 clash forward and 50 gradient
-   launches more); and ``cli.prox`` on T1124's own side chains; the bf16
+   launches more) and with ``--corrector_steps 1`` (10 of each a step),
+   each with its metric suite (the JAX CLI's ``metrics.json`` keys, finite,
+   equal to ``get_metric`` recomputed on the CPU from the written PDB, its
+   host seconds); and ``cli.prox`` on T1124's own side chains with both
+   clashscores; directory mode on a corpus of T1124, 1BRS, 2FTL and five
+   crops of 72 and 96 residues (bucket 96, its last chunk padded): every
+   message and chain call of one evaluation of each bucket-96 chunk, row
+   by row, against the same kernel on the row alone, and the chunk's rows
+   against each complex alone and against a batch of its copies (bf16 and
+   float32, with a control that must fail); ``cli.pack --input <corpus>
+   --batch_size 4 --n_samples 2 --use_proximal --metrics`` with its
+   launches per chunk (150 message, 150 chain, 52 clash forward, 50
+   gradient), one finite record per input, the accept flags and the
+   throughput end to end, again at ``--batch_size 1`` and without
+   ``--metrics``, a profile of the
+   batch-4 run (idle share per chunk), and ``cli.prox --input <corpus>
+   --batch_size 4`` (51 and 50 a chunk) with its clashscores; the bf16
    T1124 pack under each variant routing (``TorsionalDiffusion.sample``
    for the four kernel routings, ``cli.pack --geometry local``) with launch
    counts, sampling seconds (median of five more), peak memory and a
@@ -976,18 +992,62 @@ def check_structure(outdir):
     log(f"  wrote {outdir / 'structure.pdb'}: {len(out.aaindex)} residues, finite")
 
 
+# metrics.json of cli.pack: the JAX CLI's key set, and the port's proximal keys
+METRIC_KEYS = ({f"chi_{i}_{m}" for i in range(4) for m in ("ae_rad", "ae_deg", "acc")}
+               | {"total_acc", "interface_acc", "atom_rmsd", "clashscore",
+                  "clashscore_is_exact", "sampling_seconds"})
+PROXIMAL_KEYS = {"proximal_seconds", "proximal_accepted", "proximal_objective_initial",
+                 "proximal_objective_final"}
+
+
+def check_metric_suite(metrics, outdir, proximal):
+    """metrics.json against the JAX CLI's key set, every value finite, and
+    the suite equal to ``get_metric`` recomputed on the CPU from the written
+    PDB; returns that recomputation's host seconds."""
+    from packppi_torch.utils.analysis import ProteinAnalysis
+
+    want = METRIC_KEYS | (PROXIMAL_KEYS if proximal else set())
+    if set(metrics) != want:
+        fail(f"metrics.json keys {sorted(set(metrics) ^ want)} differ from the JAX CLI's")
+    if json.loads((outdir / "metrics.json").read_text()) != metrics:
+        fail("metrics.json differs from what cli.pack returned")
+    if metrics["clashscore_is_exact"] is not False:
+        fail("clashscore_is_exact is not false without the MolProbity binary")
+    bad = [k for k, v in metrics.items() if not isinstance(v, bool) and not math.isfinite(v)]
+    if bad:
+        fail(f"non-finite metrics {bad}")
+    t0 = time.perf_counter()
+    again = ProteinAnalysis(tmp_dir=str(outdir / "recheck")).get_metric(
+        str(T1124), str(outdir / "structure.pdb"))
+    host = time.perf_counter() - t0
+    differ = [k for k, v in again.items() if metrics[k] != v]
+    if differ:
+        fail(f"metrics {differ} differ from get_metric on the written structure")
+    log(f"  metric suite: {host:.4f} s on the host (get_metric recomputed on the CPU from the "
+        f"written PDB: equal), beside sampling {metrics['sampling_seconds']:.4f} s on the card; "
+        f"total_acc {metrics['total_acc']:.4f}, interface_acc {metrics['interface_acc']:.4f}, "
+        f"atom_rmsd {metrics['atom_rmsd']:.4f}, clashscore {metrics['clashscore']:.4f}")
+    return host
+
+
 def phase_pack(torch):
     """The main paths through their CLI entry points on T1124: the bf16
-    30-step pack, the same with the proximal refinement, and the standalone
-    refinement of the input's own side chains. Counts are set to 0 before
-    each and read after it; returns the second run's."""
+    30-step pack, the same with the proximal refinement and with one
+    corrector step, each with its metric suite, and the standalone
+    refinement of the input's own side chains with its clashscores. Counts
+    are set to 0 before each and read after it; returns the proximal run's."""
     from packppi_torch.cli import pack, prox
 
     common = ["--input", str(T1124), "--ckpt", str(PIPELINE_GOLDEN), "--precision", "bfloat16",
               "--n_steps", str(STEPS), "--seed", "0"]
-    expect = expect_launches(message=5 * STEPS, chain=5 * STEPS)
-    launches = None
-    for name, extra in (("pack_t1124", []), ("pack_prox_t1124", ["--use_proximal"])):
+    plain = expect_launches(message=5 * STEPS, chain=5 * STEPS)
+    runs = (("pack_t1124", [], plain),
+            ("pack_prox_t1124", ["--use_proximal"],
+             dict(plain, clash_fwd=PROX_STEPS + 1, clash_bwd=PROX_STEPS)),
+            ("pack_corrector_t1124", ["--corrector_steps", "1"],
+             expect_launches(message=10 * STEPS, chain=10 * STEPS)))
+    result = None
+    for name, extra, expect in runs:
         args = pack.build_parser().parse_args(common + ["--outdir", str(OUT / name)] + extra)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -998,10 +1058,10 @@ def phase_pack(torch):
         launches = read_launches()
         peak = torch.cuda.max_memory_allocated() / 2 ** 20
         log(f"pack T1124 bf16 {STEPS} steps {' '.join(extra)}: sampling "
-            f"{metrics['sampling_seconds']:.4f} s, whole run {wall:.3f} s, peak memory "
-            f"{peak:.1f} MiB, launches {launches}")
-        if extra:
-            expect.update(clash_fwd=PROX_STEPS + 1, clash_bwd=PROX_STEPS)
+            f"{metrics['sampling_seconds']:.4f} s, whole run {wall:.3f} s (metric suite "
+            f"included), peak memory {peak:.1f} MiB, launches {launches}")
+        if "--use_proximal" in extra:
+            result = launches
             log(f"  proximal {metrics['proximal_seconds']:.4f} s, objective "
                 f"{metrics['proximal_objective_initial']:.6f} -> "
                 f"{metrics['proximal_objective_final']:.6f}, accepted "
@@ -1009,19 +1069,321 @@ def phase_pack(torch):
         if launches != expect:
             fail(f"pack {extra}: launches {launches}, expected {expect}")
         check_structure(OUT / name)
+        check_metric_suite(metrics, OUT / name, "--use_proximal" in extra)
 
     args = prox.build_parser().parse_args(["--input", str(T1124), "--outdir",
                                            str(OUT / "prox_t1124")])
     zero_launches()
-    result = prox.run(args)
+    out = prox.run(args)
     got = read_launches()
     log(f"prox T1124 (input's own side chains, {PROX_STEPS} steps): "
-        f"{result['optimize_seconds']:.4f} s, objective {result['objective_initial']:.6f} -> "
-        f"{result['objective_final']:.6f}, accepted {result['accepted']}, launches {got}")
+        f"{out['optimize_seconds']:.4f} s, objective {out['objective_initial']:.6f} -> "
+        f"{out['objective_final']:.6f}, accepted {out['accepted']}, clashscore "
+        f"{out['clashscore_before']} -> {out['clashscore_after']}, launches {got}")
     if got != expect_launches(clash_fwd=PROX_STEPS + 1, clash_bwd=PROX_STEPS):
         fail(f"prox: launches {got}")
+    if not all(isinstance(out[k], float) and math.isfinite(out[k])
+               for k in ("clashscore_before", "clashscore_after")):
+        fail("cli.prox gave no finite clashscores")
     check_structure(OUT / "prox_t1124")
-    return launches
+    return result
+
+
+# directory mode: a corpus of T1124, 1BRS, 2FTL and crops of 1BRS and 2FTL
+# of 72 and 96 residues (bucket 96; (source, size, crop centre)), named so
+# that every chunk of two holds both lengths and the last is a padded tail
+DIR_CROPS = (("1brs", 72, 0), ("1brs", 96, 40), ("2ftl", 72, 0), ("2ftl", 96, 60),
+             ("2ftl", 72, 120))
+DIR_BATCH, DIR_SAMPLES = 4, 2
+
+
+def directory_corpus():
+    """Writes the corpus; returns its directory and the bucket-96 members'
+    paths in the order directory mode takes them."""
+    from packppi_torch.data.crops import spatial_crops, take_residues
+    from packppi_torch.structure import from_pdb_file, to_pdb
+
+    d = OUT / "corpus"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    for src in (T1124, ONE_BRS, REPO / "tests" / "fixtures" / "2ftl.pdb"):
+        shutil.copy(src, d / src.name)
+    members = []
+    for k, (name, size, centre) in enumerate(DIR_CROPS):
+        prot = from_pdb_file(REPO / "tests" / "fixtures" / f"{name}.pdb", mse_to_met=True)
+        path = d / f"c{k}_{name}_{size}.pdb"
+        path.write_text(to_pdb(take_residues(prot, dict(spatial_crops(prot, size, 20))[centre])))
+        members.append(path)
+    return d, members
+
+
+def unmask_padding(batch, r, L):
+    """Row r with its padding made real: a copy of its first residues,
+    shifted 0.5 A, in the padded slots, and residue_mask 1 there."""
+    n = batch.X.shape[1] - L
+    X, rm = batch.X.clone(), batch.residue_mask.clone()
+    X[r, L:] = X[r, :n] + 0.5
+    rm[r, L:] = 1.0
+    return batch._replace(X=X, residue_mask=rm)
+
+
+def kernel_rows(torch, calls, B):
+    """Each recorded message / chain call of one evaluation of a B-row
+    batch, row by row, against the same kernel on that row's slice of the
+    same inputs: (name, worst max|d|/max|ref|, all bits equal) per call."""
+    from packppi_torch.ops.chain import chain
+    from packppi_torch.ops.message import message
+
+    out = []
+    for name, a, got in calls:
+        worst, same = 0.0, True
+        for r in range(B):
+            if name == "message":
+                one, row = message(*(x[r:r + 1] for x in a[:9]), *a[9:]), got[r:r + 1]
+            else:
+                s = slice(r * (len(a[0]) // B), (r + 1) * (len(a[0]) // B))
+                one = chain(a[0][s], a[1][s], None if a[2] is None else a[2][s], *a[3:])
+                row = got[s]
+            dmax, _, scale = readings(row, one)
+            worst = max(worst, dmax / scale)
+            same = same and bool(torch.equal(row, one))
+        out.append((name, worst, same))
+    return out
+
+
+def check_mixed_bucket(torch, members):
+    """Directory mode's chunks of bucket 96 as ``run_chunks`` lays them out
+    (two complexes of two rows each, the tail padded with repeats), with the
+    reference weights, in bf16 and float32, on one draw of chis and times:
+
+    - every message and chain kernel call of one network evaluation, row by
+      row, against the same kernel on that row's slice of its inputs: the
+      message kernel and the bf16 chain bit for bit, the float32 chain
+      within 2e-5 (its LayerNorm sums group by the launch's tile height);
+    - the evaluation's rows against each complex alone at B = 1 padded to
+      96: float32 within 2e-5; bf16, where the float32 GEMMs outside the
+      kernels (cuBLAS picks its algorithm by the row count) move single
+      roundings, within twice the distance (max and mean) of the bf16
+      evaluation of that complex alone from its float32 evaluation, as two
+      bf16 evaluations of equal accuracy are;
+    - each row equal, bit for bit, to the same row of a batch of as many
+      copies of its complex: a row depends on the batch's shape, never on
+      what the other rows hold;
+    - a row with its padding unmasked must fail both."""
+    from packppi_torch.data import stack_batch
+    from packppi_torch.models import ChiScoreNetwork, NetworkConfig, ipmp
+    from packppi_torch.structure import featurize, from_pdb_file
+    from packppi_torch.weights import load_weights
+
+    feats = [featurize(from_pdb_file(p, mse_to_met=True)) for p in members]
+    per_chunk = DIR_BATCH // DIR_SAMPLES
+    nets = {}
+    for dtype in ("bfloat16", "float32"):
+        nets[dtype] = ChiScoreNetwork(NetworkConfig(compute_dtype=dtype)).eval()
+        load_weights(nets[dtype], PIPELINE_GOLDEN)
+        nets[dtype].to("cuda")
+    message, chain = ipmp.message, ipmp.chain
+    g = torch.Generator(device="cuda").manual_seed(0)
+    bad_rows = []
+    for s in range(0, len(feats), per_chunk):
+        chunk = feats[s:s + per_chunk]
+        rows = [f for f in chunk + [chunk[-1]] * (per_chunk - len(chunk))
+                for _ in range(DIR_SAMPLES)]
+        B, lengths = len(rows), [len(f["residue_type"]) for f in rows]
+        batch = stack_batch(rows, "cuda", target_len=96)
+        sc = (torch.rand(batch.SC_D.shape, device="cuda", generator=g) * 6 - 3) * batch.SC_D_mask
+        t = torch.linspace(0.2, 0.9, B, device="cuda")[:, None].expand(-1, 96).contiguous()
+        c = lengths.index(min(lengths))
+        out, want, ctl, per_call, copies = {}, {}, {}, {}, {}
+        with torch.no_grad():
+            for dtype, net in nets.items():
+                calls = []
+                record = lambda fn, name: lambda *a: calls.append((name, a, fn(*a))) or calls[-1][2]
+                zero_launches()
+                ipmp.message, ipmp.chain = record(message, "message"), record(chain, "chain")
+                try:
+                    out[dtype] = net(batch, sc, t, skip_last_edge_update=True)[0]
+                finally:
+                    ipmp.message, ipmp.chain = message, chain
+                got = read_launches()
+                if got != expect_launches(message=5, chain=5):
+                    fail(f"mixed bucket: launches {got}")
+                per_call[dtype] = kernel_rows(torch, calls, B)
+                want[dtype] = [net(stack_batch([rows[r]], "cuda", target_len=96), sc[r:r + 1],
+                                   t[r:r + 1], skip_last_edge_update=True)[0][0]
+                               for r in range(B)]
+                ctl[dtype] = net(unmask_padding(batch, c, lengths[c]), sc, t,
+                                 skip_last_edge_update=True)[0][c]
+                # the same row count filled with copies of row r's complex
+                copies[dtype] = [bool(torch.equal(out[dtype][r], net(
+                    stack_batch([rows[r]] * B, "cuda", target_len=96),
+                    sc[r:r + 1].expand(B, -1, -1).contiguous(),
+                    t[r:r + 1].expand(B, -1).contiguous(), skip_last_edge_update=True)[0][0]))
+                    for r in range(B)]
+        for dtype in nets:
+            for name, worst, same in per_call[dtype]:
+                if ((name == "message" or dtype == "bfloat16") and not same) or worst > F32_TOL:
+                    fail(f"mixed bucket {dtype}: a {name} call's rows differ from the same "
+                         f"kernel on each row alone (max|d|/max|ref| {worst:.3e}, bits {same})")
+
+            def close(r, got):
+                dmax, dmean, scale = readings(got, want[dtype][r])
+                if dtype == "float32":
+                    return bool(got.isfinite().all()) and dmax <= F32_TOL, dmax / scale, dmean / scale
+                emax, emean, _ = readings(want[dtype][r], want["float32"][r])
+                # two bf16 evaluations each within e of the float32 one lie
+                # within 2 e of each other
+                return (bool(got.float().isfinite().all()) and dmax <= 2 * emax
+                        and dmean <= 2 * emean, dmax / scale, dmean / scale)
+
+            worst = [0.0, 0.0, 0.0]
+            for r in range(B):
+                ok, dmax, dmean = close(r, out[dtype][r])
+                worst = [max(worst[0], dmax), max(worst[1], dmean),
+                         max(worst[2], readings(want[dtype][r], want["float32"][r])[0]
+                             / readings(want[dtype][r], want["float32"][r])[2])]
+                if not ok:
+                    bad_rows.append((dtype, s // per_chunk, r, lengths[r]))
+            control, cmax, _ = close(c, ctl[dtype])
+            if control:
+                fail(f"mixed bucket {dtype}: the unmasked-padding control passes")
+            bits = [bool(torch.equal(out[dtype][r], want[dtype][r])) for r in range(B)]
+            if not all(copies[dtype]):
+                bad_rows.append((dtype, s // per_chunk, "copies", copies[dtype]))
+            calls_of = lambda n: [(w, b) for name, w, b in per_call[dtype] if name == n]
+            log(f"  mixed bucket {dtype}, chunk {s // per_chunk}, rows of L = {lengths}: each "
+                "kernel call row by row against the row alone, max|d|/max|ref| (same bits): "
+                + ", ".join(f"{n} {max(w for w, _ in calls_of(n)):.3e} "
+                            f"({all(b for _, b in calls_of(n))})" for n in ("message", "chain"))
+                + f"; the evaluation against each complex alone max|d|/max|ref| {worst[0]:.3e}, "
+                f"mean|d|/max|ref| {worst[1]:.3e}, the same bits {bits}"
+                + ("" if dtype == "float32" else
+                   f" (bf16 alone against float32 alone: max|d|/max|ref| up to {worst[2]:.3e})")
+                + f"; equal to the row of {B} copies of its complex, bit for bit: "
+                f"{copies[dtype]}; control (row {c}'s padding unmasked) max|d|/max|ref| "
+                f"{cmax:.3e}: fails")
+    if bad_rows:
+        fail(f"mixed bucket: rows (dtype, chunk, row, L) {bad_rows} differ from their complex "
+             "alone beyond the limits")
+
+
+def directory_run(torch, cli, args, n_chunks, per_chunk_launches):
+    """One directory run with its counts set to 0 before and read after:
+    every count equal to ``n_chunks`` times its launches a chunk. Returns
+    (results, summary, wall seconds of the whole call)."""
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = cli.run_directory(args)
+    wall = time.perf_counter() - t0
+    got = read_launches()
+    want = expect_launches(**{k: n_chunks * v for k, v in per_chunk_launches.items()})
+    if got != want:
+        fail(f"directory {cli.__name__}: launches {got}, expected {want} ({n_chunks} chunks)")
+    return results, json.loads((Path(args.outdir) / "summary.json").read_text()), wall
+
+
+def check_directory_records(results, inputs):
+    """One record per input, no tail duplicate, no error, every output with
+    its input's residues and finite coordinates."""
+    import numpy as np
+
+    from packppi_torch.structure import from_pdb_file
+
+    names = sorted(Path(r.get("input", "?")).name for r in results)
+    if names != sorted(p.name for p in inputs):
+        fail(f"directory records {names} are not one per input")
+    for r in results:
+        if "error" in r or "clashscore_error" in r or "error" in r.get("metrics", {}):
+            fail(f"directory record failed: {r}")
+        inp = from_pdb_file(r["input"], mse_to_met=True)
+        out = from_pdb_file(r["output"])
+        if (not np.array_equal(out.aaindex, inp.aaindex)
+                or not np.isfinite(out.atom_positions[out.atom_mask > 0]).all()):
+            fail(f"{r['output']} does not keep its input's residues or is not finite")
+
+
+def phase_directory(torch):
+    """Directory mode on the card: the mixed-bucket row check, then
+    ``cli.pack --input <corpus> --batch_size 4 --n_samples 2 --use_proximal
+    --metrics`` (bf16, 30 steps, reference weights) with its launches per
+    chunk, records and throughput, the same at ``--batch_size 1`` and
+    without ``--metrics``, a profile of the batch-4 run, and ``cli.prox
+    --input <corpus> --batch_size 4``.
+    Returns the message, chain and clash launches of one pack chunk."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from packppi_torch.cli import pack, prox
+    from packppi_torch.cli._directory import bucket_indices
+    from packppi_torch.structure import featurize, from_pdb_file
+
+    corpus, members = directory_corpus()
+    inputs = sorted(corpus.glob("*.pdb"))
+    feats = [featurize(from_pdb_file(p, mse_to_met=True)) for p in inputs]
+    buckets = bucket_indices(feats)
+    log(f"directory corpus: {len(inputs)} structures, buckets "
+        f"{ {b: [len(feats[i]['residue_type']) for i in m] for b, m in sorted(buckets.items())} }")
+    check_mixed_bucket(torch, members)
+
+    chunks = lambda per_chunk: sum(-(-len(m) // per_chunk) for m in buckets.values())
+    per_chunk = dict(message=5 * STEPS, chain=5 * STEPS, clash_fwd=1 + PROX_STEPS + 1,
+                     clash_bwd=PROX_STEPS)
+    common = ["--input", str(corpus), "--ckpt", str(PIPELINE_GOLDEN), "--precision", "bfloat16",
+              "--n_steps", str(STEPS), "--n_samples", str(DIR_SAMPLES), "--use_proximal",
+              "--metrics", "--seed", "0"]
+    rates = {}
+    for bs, metrics in ((DIR_BATCH, True), (1, True), (DIR_BATCH, False)):
+        out = OUT / f"dir_pack_b{bs}{'' if metrics else '_no_metrics'}"
+        args = pack.build_parser().parse_args(
+            [a for a in common if metrics or a != "--metrics"]
+            + ["--batch_size", str(bs), "--outdir", str(out)])
+        n_chunks = chunks(max(1, bs // DIR_SAMPLES))
+        results, summary, wall = directory_run(torch, pack, args, n_chunks, per_chunk)
+        check_directory_records(results, inputs)
+        for r in results:
+            if r["proximal_accepted"] != (r["proximal_objective_final"]
+                                          < r["proximal_objective_initial"]):
+                fail(f"{r['input']}: accept flag is not its own trajectory's")
+            m = r.get("metrics", {})
+            if metrics and (set(m) != METRIC_KEYS - {"sampling_seconds"} or not all(
+                    isinstance(v, bool) or math.isfinite(v) for v in m.values())):
+                fail(f"{r['input']}: metric record {m}")
+        rates[bs, metrics] = len(results) / wall
+        log(f"directory pack --batch_size {bs} --n_samples {DIR_SAMPLES} --use_proximal"
+            f"{' --metrics' if metrics else ''}: {len(results)} complexes, {n_chunks} chunks, "
+            f"{wall:.3f} s end to end (summary {summary['seconds']:.3f} s): "
+            f"{rates[bs, metrics]:.4f} complexes/s; accepted "
+            f"{sum(r['proximal_accepted'] for r in results)} of {len(results)}"
+            + (f"; mean total_acc {np.mean([r['metrics']['total_acc'] for r in results]):.4f}"
+               if metrics else ""))
+
+    # device busy per chunk of the batch-4 run, the wall per chunk from the
+    # run above (without the profiler)
+    n_chunks = chunks(DIR_BATCH // DIR_SAMPLES)
+    args = pack.build_parser().parse_args(common + ["--batch_size", str(DIR_BATCH), "--outdir",
+                                                    str(OUT / "dir_pack_profiled")])
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        pack.run_directory(args)
+        torch.cuda.synchronize()
+    report_profile(f"directory pack --batch_size {DIR_BATCH} (mean over its {n_chunks} chunks)",
+                   prof, len(inputs) / rates[DIR_BATCH, True] / n_chunks * 1e3, n_chunks, "chunk")
+
+    args = prox.build_parser().parse_args(["--input", str(corpus), "--outdir",
+                                           str(OUT / "dir_prox"), "--batch_size", str(DIR_BATCH)])
+    n_chunks = chunks(DIR_BATCH)
+    results, summary, wall = directory_run(
+        torch, prox, args, n_chunks, dict(clash_fwd=PROX_STEPS + 1, clash_bwd=PROX_STEPS))
+    check_directory_records(results, inputs)
+    for r in results:
+        if r["accepted"] != (r["objective_final"] < r["objective_initial"]) or not all(
+                math.isfinite(r[k]) for k in ("clashscore_before", "clashscore_after")):
+            fail(f"directory prox record {r}")
+    log(f"directory prox --batch_size {DIR_BATCH}: {len(results)} structures, {n_chunks} chunks, "
+        f"{wall:.3f} s end to end: {len(results) / wall:.4f} structures/s; clashscore before -> "
+        f"after, mean {np.mean([r['clashscore_before'] for r in results]):.4f} -> "
+        f"{np.mean([r['clashscore_after'] for r in results]):.4f}")
+    return per_chunk
 
 
 # the configuration that trains through the kernels
@@ -2120,6 +2482,7 @@ def main():
     phase_prox_golden(torch)
     phase_network_vs_cpu(torch)
     launches = phase_pack(torch)
+    directory_launches = phase_directory(torch)
     variant_launches = phase_pack_variants(torch)
     sc = phase_latency(torch)
     phase_profile(torch, sc)
@@ -2173,6 +2536,7 @@ def main():
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches_main,
             "launches_training": train_launches[name],
+            "launches_directory_chunk": directory_launches.get(name, 0),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": r.get("library_ms")})

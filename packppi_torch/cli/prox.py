@@ -2,12 +2,16 @@
 
 Takes a structure WITH side chains, optimizes the chi angles of its
 clash-heavy residues, and writes the relaxed ``structure.pdb`` and
-``metrics.json`` (``accepted``, ``optimize_seconds``, ``objective_initial``,
-``objective_final``, ``objective_convention``) to ``--outdir``. Runs on the
-CUDA device unless ``--device cpu`` is given.
+``metrics.json`` (``clashscore_before``, ``clashscore_after``,
+``accepted``, ``optimize_seconds``, ``objective_initial``,
+``objective_final``, ``objective_convention``) to ``--outdir``. A directory
+as ``--input`` optimizes every PDB with side chains in it
+(``run_directory``). Runs on the CUDA device unless ``--device cpu`` is
+given.
 
-    python -m packppi_torch.cli.prox --input complex.pdb --outdir out \\
-        [--num_steps 50] [--lamda 1.0] [--device cuda|cpu]
+    python -m packppi_torch.cli.prox --input complex.pdb|dir/ --outdir out \\
+        [--num_steps 50] [--lamda 1.0] [--molprobity_loc BIN] [--exact_length] \\
+        [--batch_size 1] [--no_clashscore] [--no_strict_parity] [--device cuda|cpu]
 """
 from __future__ import annotations
 
@@ -18,15 +22,32 @@ from pathlib import Path
 
 import torch
 
+from packppi_torch.cli._directory import merge_output_structure
+
 
 def build_parser():
     p = argparse.ArgumentParser(description="PackPPI proximal clash optimization (PyTorch/CUDA)")
-    p.add_argument("--input", required=True, help="input PDB with side chains")
+    p.add_argument("--input", required=True,
+                   help="input PDB with side chains, or a directory of PDBs")
     p.add_argument("--outdir", default="packppi_out")
     p.add_argument("--num_steps", type=int, default=50)
     p.add_argument("--lamda", type=float, default=1.0)
     p.add_argument("--violation_tolerance_factor", type=float, default=12.0)
     p.add_argument("--clash_overlap_tolerance", type=float, default=0.5)
+    p.add_argument("--molprobity_loc", "--molprobity_clash_loc", default=None,
+                   help="molprobity.clashscore binary (reference-compatible alias); "
+                        "without it the clashscore is the native H-aware count")
+    p.add_argument("--exact_length", action="store_true",
+                   help="pad to the structure's own length instead of its "
+                        "length bucket (single-structure mode)")
+    p.add_argument("--batch_size", type=int, default=1,
+                   help="directory mode: structures per device pass")
+    p.add_argument("--n_devices", type=int, default=None,
+                   help="directory mode: devices (1; more raises until "
+                        "multi-device lands)")
+    p.add_argument("--no_clashscore", action="store_true",
+                   help="directory mode: skip the per-structure before/after "
+                        "clashscores (host work on the writer pool)")
     p.add_argument("--no_strict_parity", action="store_true",
                    help="when the optimization is REJECTED (objective did not "
                         "decrease), write the raw input coordinates unchanged "
@@ -37,33 +58,52 @@ def build_parser():
     return p
 
 
-def run(args) -> dict:
-    from packppi_torch.cli.pack import merge_output_structure
-    from packppi_torch.data import stack_batch
-    from packppi_torch.device import resolve_device
+def _optimize(args, batch):
+    """The refinement of every row of ``batch`` from its own chis, accepted
+    per row: ``(coords, accept [B], objective initial [B], final [B])`` on
+    the device; a rejected row is rebuilt from its input chis."""
     from packppi_torch.geometry import atom14_coords_from_torsions
     from packppi_torch.sampling import proximal_optimize
+
+    res = proximal_optimize(batch, batch.SC_D, args.violation_tolerance_factor,
+                            args.clash_overlap_tolerance, args.lamda, args.num_steps)
+    first, last = res.row_losses[0], res.row_losses[-1]
+    accept = last < first
+    sc = torch.where(accept[:, None, None], res.SC_D, batch.SC_D)
+    with torch.no_grad():
+        coords = atom14_coords_from_torsions(batch.X, batch.residue_type, batch.BB_D, sc)
+    return coords, accept, first, last
+
+
+def run(args) -> dict:
+    from packppi_torch.data import stack_batch
+    from packppi_torch.device import resolve_device
     from packppi_torch.structure import featurize, from_pdb_file, to_pdb
+    from packppi_torch.utils.analysis import ProteinAnalysis
 
     device = resolve_device(args.device)
     outdir = Path(args.outdir)
     outdir.mkdir(parents=True, exist_ok=True)
+    analysis = ProteinAnalysis(args.molprobity_loc, tmp_dir=str(outdir / "tmp"))
 
     prot = from_pdb_file(args.input, mse_to_met=True)
     feats = featurize(prot)
     if feats["SC_D_mask"].sum() == 0:
         raise SystemExit("input structure has no side-chain chi angles to optimize")
+    L = len(feats["residue_type"])
+    batch = stack_batch([feats], device, target_len=L if args.exact_length else None)
+
+    clash_before = analysis.get_clashscore(args.input)
+    print(f"clashscore before: {clash_before}")
+
     if args.num_steps < 1:
         raise SystemExit("--num_steps must be >= 1")
-    batch = stack_batch([feats], device)
-
     t0 = time.perf_counter()
-    res = proximal_optimize(batch, batch.SC_D, args.violation_tolerance_factor,
-                            args.clash_overlap_tolerance, args.lamda, args.num_steps)
-    losses = res.losses.tolist()               # the one read-back; waits for the device
+    coords, accept, first, last = _optimize(args, batch)
+    accepted = bool(accept[0])                 # the one read-back; waits for the device
     t_opt = time.perf_counter() - t0
+    first, last = float(first[0]), float(last[0])
 
-    accepted = losses[-1] < losses[0]
     if not accepted and args.no_strict_parity:
         print("objective did not decrease; emitting the raw input structure "
               "unchanged (--no_strict_parity)")
@@ -74,32 +114,111 @@ def run(args) -> dict:
             # from the input chis, as the reference does
             print("objective did not decrease; keeping input chi angles "
                   "(coordinates re-idealized, as in the reference)")
-        sc_final = res.SC_D if accepted else batch.SC_D
-        with torch.no_grad():
-            coords = atom14_coords_from_torsions(batch.X, batch.residue_type, batch.BB_D,
-                                                 sc_final)
         out_prot = merge_output_structure(prot, feats, batch.atom_mask.cpu().numpy(),
-                                          coords.cpu().numpy(), len(feats["residue_type"]))
+                                          coords.cpu().numpy(), L)
     out_pdb = outdir / "structure.pdb"
     out_pdb.write_text(to_pdb(out_prot))
-    print(f"wrote {out_pdb}  ({t_opt:.2f}s on {device}, "
-          f"objective {losses[0]:.4f} -> {losses[-1]:.4f})")
+
+    clash_after = analysis.get_clashscore(str(out_pdb))
+    print(f"clashscore after: {clash_after}  ({t_opt:.2f}s on {device}, "
+          f"objective {first:.4f} -> {last:.4f})")
 
     result = {
+        "clashscore_before": clash_before,
+        "clashscore_after": clash_after,
         "accepted": accepted,
         "optimize_seconds": t_opt,
         # losses are recorded BEFORE each Adam step: _final is the objective
         # entering the last step, not that of the returned chis
-        "objective_initial": losses[0],
-        "objective_final": losses[-1],
+        "objective_initial": first,
+        "objective_final": last,
         "objective_convention": "pre-step (reference parity)",
     }
     (outdir / "metrics.json").write_text(json.dumps(result, indent=1))
     return result
 
 
+def run_directory(args) -> list:
+    """Optimize every PDB with side chains in a directory, a length
+    bucket's structures ``batch_size`` at a time (``cli._directory``);
+    structures without chis are listed under ``skipped``.
+
+    Each chunk is one device pass: the refinement of every row from its own
+    chis with the per-row accept rule and the coordinate rebuild, read back
+    once. The writer pool then writes each structure (with
+    ``--no_strict_parity``, a rejected one as its raw input) and, unless
+    ``--no_clashscore``, its clashscores before and after, while the device
+    takes the next chunk. ``summary.json`` holds ``n``, ``seconds``,
+    ``n_devices``, ``num_steps``, ``skipped`` and one record a structure.
+    """
+    from packppi_torch.cli._directory import (bucket_indices, load_directory,
+                                              resolve_n_devices, run_chunks)
+    from packppi_torch.data import stack_batch
+    from packppi_torch.device import resolve_device
+    from packppi_torch.structure import to_pdb
+    from packppi_torch.utils.analysis import ProteinAnalysis
+
+    device = resolve_device(args.device)
+    n_devices = resolve_n_devices(args)
+    if args.num_steps < 1:
+        raise SystemExit("--num_steps must be >= 1")
+    outdir = Path(args.outdir)
+    outdir.mkdir(parents=True, exist_ok=True)
+    proteins, feats, skipped = load_directory(args.input, require_chis=True)
+    per_chunk = max(args.batch_size, 1)
+    analysis = (None if args.no_clashscore else
+                ProteinAnalysis(args.molprobity_loc, tmp_dir=str(outdir / "tmp")))
+
+    def write_one(i, out, row) -> dict:
+        path, prot = proteins[i]
+        accepted = bool(out["accept"][row])
+        if args.no_strict_parity and not accepted:
+            out_prot = prot                    # the parsed input, coordinates untouched
+        else:
+            out_prot = merge_output_structure(prot, feats[i], out["atom_mask"][row:row + 1],
+                                              out["coords"][row:row + 1],
+                                              len(feats[i]["residue_type"]))
+        out_path = outdir / path.name
+        out_path.write_text(to_pdb(out_prot))
+        rec = {"input": str(path), "output": str(out_path), "accepted": accepted,
+               "objective_initial": float(out["first"][row]),
+               "objective_final": float(out["last"][row])}
+        if analysis is not None:
+            try:
+                rec["clashscore_before"] = analysis.get_clashscore(str(path))
+                rec["clashscore_after"] = analysis.get_clashscore(str(out_path))
+            except Exception as e:  # noqa: BLE001 (a metric failure keeps the write)
+                rec["clashscore_error"] = f"{type(e).__name__}: {e}"
+        return rec
+
+    def dispatch(padded, bucket):
+        batch = stack_batch([feats[i] for i in padded], device, target_len=bucket)
+        coords, accept, first, last = _optimize(args, batch)
+        out = {"coords": coords, "atom_mask": batch.atom_mask, "accept": accept,
+               "first": first, "last": last}
+        return {k: v.cpu().numpy() for k, v in out.items()}
+
+    def submit(pool, futures, chunk, out):
+        for row, i in enumerate(chunk):
+            futures.append(pool.submit(write_one, i, out, row))
+
+    t0 = time.perf_counter()
+    results = run_chunks(bucket_indices(feats), per_chunk, dispatch, submit)
+    elapsed = time.perf_counter() - t0
+    print(f"optimized {len(results)} structures in {elapsed:.2f}s on {device} "
+          f"({len(results) / elapsed:.3f} structures/s)")
+    (outdir / "summary.json").write_text(json.dumps(
+        {"n": len(results), "seconds": elapsed, "n_devices": n_devices,
+         "num_steps": args.num_steps, "skipped": skipped, "results": results}, indent=1))
+    return results
+
+
 def main():
-    run(build_parser().parse_args())
+    args = build_parser().parse_args()
+    if Path(args.input).is_dir():
+        run_directory(args)
+    else:
+        run(args)
 
 
 if __name__ == "__main__":

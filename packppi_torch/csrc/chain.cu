@@ -26,7 +26,10 @@
 // blocks an SM; the weights come as a bf16 copy in the panels' own layout,
 // by bulk copies through a ring; where there are fewer tiles than SMs (the
 // 768 node rows of T1124: 12 tiles) four warpgroups split a tile's hidden
-// slices. float32: 64-row tiles where every SM gets a block, else 16 rows;
+// slices, adding their second products in turn so a row's bits do not
+// depend on the launch's size. float32: 64-row tiles where every SM gets a
+// block, else 16 rows (which regroups LN_b's row sums: the same values to
+// about 1e-7 of their scale, not the same bits);
 // [128, 32] float32 chunks, each loaded while the one before it is
 // multiplied, split into TF32 parts once a block.
 

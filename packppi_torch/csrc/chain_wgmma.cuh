@@ -17,9 +17,12 @@
 // memory (128-byte swizzle); rounded to bf16 it is, register for register,
 // the A fragment of the second product, so it never leaves the registers;
 // the second product's [64, 128] sum stays in registers across the slices
-// (with KS > 1 the other warpgroups' sums are added to the first's through
-// shared memory, in a fixed order). A thread holds whole quads of its two
-// rows' 128 columns, so LN_b needs only quad shuffles.
+// (with KS > 1 the warpgroups make their hidden slices together, then add
+// their second products to the sum one after another, in the order of the
+// slices, handing it on through shared memory: so a row gets the same bits
+// whatever KS its tile took, and a complex the same bits alone and in a
+// batch). A thread holds whole quads of its two rows' 128 columns, so LN_b
+// needs only quad shuffles.
 //
 // The weights come as one bf16 copy (ops/chain.py makes it once per weight
 // version) already in the order and swizzle of the shared-memory panels: 16
@@ -196,40 +199,42 @@ __device__ __forceinline__ void chain_ffn_wgmma(unsigned char* smem, const Chain
               rnd<__nv_bfloat16>(relu(rnd<__nv_bfloat16>(acc[4 * j + 2 * r] + b0))),
               rnd<__nv_bfloat16>(relu(rnd<__nv_bfloat16>(acc[4 * j + 2 * r + 1] + b1))));
       }
-    // acc2 += h . W2[:, hc * 128 ..]^T (panels 4 sl + 2, 4 sl + 3)
-    {
-      const uint32_t b_s[2] = {wait_panel(4 * sl + 2), wait_panel(4 * sl + 3)};
-      wgmma_fence();
-#pragma unroll
-      for (int kp = 0; kp < 2; ++kp)
-#pragma unroll
-        for (int j = 0; j < kPanelK / 16; ++j)
-          wgmma_m64n128k16_bf16_rs(acc2, ha[4 * kp + j], sw128_desc(b_s[kp] + 32 * j));
-      wgmma_commit();
-      wgmma_wait<0>();
-      release(4 * sl + 2);
-    }
-  }
-
-  if constexpr (KS > 1) {
-    // the other warpgroups' sums, each through its own (finished) ring, into
-    // the first's, in the order of the slices: thread i of each warpgroup
-    // holds the same elements
+    // acc2 += h . W2[:, hc * 128 ..]^T (panels 4 sl + 2, 4 sl + 3). With
+    // KS > 1 the warpgroups take their turns in the order of the slices,
+    // each starting from the sum the one before left in its (finished)
+    // ring: the same products in the same order as KS = 1, so the same bits
+    // whatever KS the tile count picks (thread i of every warpgroup holds
+    // the same elements)
     const int i = threadIdx.x % 128;
-    if (wg > 0) {
-      float* part = reinterpret_cast<float*>(wg_ring<KS>(smem, wg));
+#pragma unroll 1
+    for (int turn = 0; turn < KS; ++turn) {
+      if (turn == wg) {
+        if (turn > 0) {
+          const float* prev = reinterpret_cast<const float*>(wg_ring<KS>(smem, turn - 1));
 #pragma unroll
-      for (int e = 0; e < 64; ++e) part[e * 128 + i] = acc2[e];
-    }
-    __syncthreads();
-    if (wg > 0) return;
+          for (int e = 0; e < 64; ++e) acc2[e] = prev[e * 128 + i];
+        }
+        const uint32_t b_s[2] = {wait_panel(4 * sl + 2), wait_panel(4 * sl + 3)};
+        wgmma_fence();
 #pragma unroll
-    for (int k = 1; k < KS; ++k) {
-      const float* part = reinterpret_cast<const float*>(wg_ring<KS>(smem, k));
+        for (int kp = 0; kp < 2; ++kp)
 #pragma unroll
-      for (int e = 0; e < 64; ++e) acc2[e] += part[e * 128 + i];
+          for (int j = 0; j < kPanelK / 16; ++j)
+            wgmma_m64n128k16_bf16_rs(acc2, ha[4 * kp + j], sw128_desc(b_s[kp] + 32 * j));
+        wgmma_commit();
+        wgmma_wait<0>();
+        release(4 * sl + 2);
+        if (turn + 1 < KS) {
+          float* mine = reinterpret_cast<float*>(wg_ring<KS>(smem, wg));
+#pragma unroll
+          for (int e = 0; e < 64; ++e) mine[e * 128 + i] = acc2[e];
+        }
+      }
+      if constexpr (KS > 1) __syncthreads();
     }
   }
+  // the last warpgroup holds the whole sum
+  if (wg != KS - 1) return;
 
   // z = xx + rnd(h . W2 + b2); LN_b over the quad's 128 columns
 #pragma unroll

@@ -93,6 +93,13 @@ def _pair_block(pos_i, ex_i, rad_i, ridx_i, pos, ex, rad, ridx, tol_soft):
     """Clash error of a row block of R residues against all L residues, in
     the symmetric form. ``*_i`` are [B, R, ...], the rest [B, L, ...].
     Returns (per-atom row sums [B, R, 14], sum of err, sum of mask)."""
+    err, mask = pair_errors(pos_i, ex_i, rad_i, ridx_i, pos, ex, rad, ridx, tol_soft)
+    return err.sum((3, 4)), err.sum(), mask.sum()
+
+
+def pair_errors(pos_i, ex_i, rad_i, ridx_i, pos, ex, rad, ridx, tol_soft):
+    """``_pair_block``'s per-pair terms: err and S, each [B, R, 14, L, 14].
+    Every pair of distinct residues appears from both of its atoms."""
     keep, cn = _slot_masks(pos.device)
     d2 = _EPS
     for c in range(3):
@@ -110,8 +117,7 @@ def _pair_block(pos_i, ex_i, rad_i, ridx_i, pos, ex, rad, ridx, tol_soft):
     mask = mask * (1.0 - nxt) * (1.0 - prv)
 
     low = rad_i[:, :, :, None, None] + rad[:, None, None, :, :]
-    err = mask * torch.relu(low - tol_soft - d)
-    return err.sum((3, 4)), err.sum(), mask.sum()
+    return mask * torch.relu(low - tol_soft - d), mask
 
 
 def between_residue_clash_plain(positions, atom_exists, atom_radius, residue_index,

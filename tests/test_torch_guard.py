@@ -28,7 +28,10 @@ for n in ("packppi_torch.ops.clash", "packppi_torch.sampling.proximal", "packppi
           "packppi_torch.utils.metrics", "packppi_torch.cli._runner",
           "packppi_torch.cli.train_diffusion", "packppi_torch.ops.attention",
           "packppi_torch.models.esm2", "packppi_torch.models.affinity", "packppi_torch.data.esm",
-          "packppi_torch.data.skempi", "packppi_torch.cli.ddg", "packppi_torch.ops.layer"):
+          "packppi_torch.data.skempi", "packppi_torch.cli.ddg", "packppi_torch.ops.layer",
+          "packppi_torch.cli._directory", "packppi_torch.utils.analysis",
+          "packppi_torch.structure.interface", "packppi_torch.structure.hydrogens",
+          "packppi_torch.structure.hbond_networks"):
     assert n in names, n
 """
 

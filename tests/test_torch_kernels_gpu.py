@@ -4,6 +4,8 @@
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -703,3 +705,172 @@ def test_mha_kernel_refuses_what_it_does_not_take(cuda):
         mha(q, k, v, bias.double())
     with pytest.raises(ValueError, match="contiguous"):
         mha(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, bias)
+
+
+FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
+
+
+def _mixed_bucket(device, copies_of=None):
+    """Directory mode's mixed-length chunk at a small size: crops of 1BRS and
+    2FTL of 72 and 96 residues padded to bucket 96, the tail row a repeat of
+    the last member, and each member alone at B = 1 padded to the same
+    bucket; with ``copies_of=r`` the chunk's rows all hold row r's
+    complex."""
+    from packppi_torch.data import stack_batch
+    from packppi_torch.data.crops import spatial_crops, take_residues
+    from packppi_torch.structure import featurize, from_pdb_file
+
+    feats = []
+    for name, size in (("1brs", 72), ("2ftl", 96), ("2ftl", 72)):
+        prot = from_pdb_file(f"{FIXTURES}/{name}.pdb", mse_to_met=True)
+        feats.append(featurize(take_residues(prot, next(iter(spatial_crops(prot, size, 10)))[1])))
+    rows = feats + [feats[-1]]
+    if copies_of is not None:
+        rows = [rows[copies_of]] * len(rows)
+    alone = [stack_batch([f], device, target_len=96) for f in rows]
+    return stack_batch(rows, device, target_len=96), alone, [len(f["residue_type"]) for f in rows]
+
+
+def _unmask_padding(batch, r, L):
+    """Row r with its padding made real: the first residues' copy, shifted
+    0.5 A, in the padded slots and residue_mask 1 there."""
+    n = batch.X.shape[1] - L
+    X, rm = batch.X.clone(), batch.residue_mask.clone()
+    X[r, L:] = X[r, :n] + 0.5
+    rm[r, L:] = 1.0
+    return batch._replace(X=X, residue_mask=rm)
+
+
+def _close_mixed(got, want, dtype):
+    """bf16: ``_close``'s limits; float32: max |d| <= 2e-5 (the kernels'
+    float32 limit in chip_smoke.py)."""
+    if dtype == torch.bfloat16:
+        return _close(got, want, dtype)
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= 2e-5
+
+
+@pytest.mark.parametrize("msg_dtype", [torch.float32, torch.bfloat16], ids=["f32msg", "bf16msg"])
+@pytest.mark.parametrize("pre_mask", [False, True], ids=["node", "edge"])
+def test_chain_bf16_rows_keep_their_bits_at_any_launch_size(cuda, msg_dtype, pre_mask):
+    """A row's bf16 chain does not depend on how many rows share the launch:
+    600 rows (10 tiles: four warpgroups a tile on 132 SMs) give the same
+    bits inside 12,800 (200 tiles: one warpgroup a tile)."""
+    from packppi_torch.ops.chain import chain
+
+    big = _chain_operands(cuda, torch.bfloat16, msg_dtype, N=12800, seed=7)
+    small = tuple(t[:600] if t.dim() and t.shape[0] == 12800 else t for t in big)
+    assert torch.equal(chain(*big, pre_mask)[:600], chain(*small, pre_mask))
+
+
+def _mixed_net(device, dtype):
+    from packppi_torch.models import ChiScoreNetwork, NetworkConfig
+    from packppi_torch.weights import init_weights
+
+    net = ChiScoreNetwork(NetworkConfig(compute_dtype=str(dtype).split(".")[1],
+                                        fused_messages="geom_lanes"))
+    init_weights(net, 0)
+    return net.to(device).eval()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_mixed_bucket_rows_equal_each_complex_alone(cuda, dtype):
+    """One network evaluation of a chunk whose rows differ in true length:
+    every message and chain kernel call, row by row, equals the same kernel
+    on that row alone (the same inputs; the message kernel and the bf16
+    chain bit for bit); each row equals, bit for bit, that row of a batch
+    of copies of its complex; and each row equals its complex evaluated
+    alone (float32 within 2e-5; bf16, whose single roundings move with the
+    row count of the GEMMs outside the kernels, within twice the bf16
+    evaluation's own distance from float32). A row with its padding
+    unmasked does not."""
+    from packppi_torch.models import ipmp
+    from packppi_torch.ops.chain import chain
+    from packppi_torch.ops.message import message
+
+    batch, alone, lengths = _mixed_bucket(cuda)
+    B = len(alone)
+    net = _mixed_net(cuda, dtype)
+    g = torch.Generator().manual_seed(0)
+    sc = (torch.rand(batch.SC_D.shape, generator=g) * 6 - 3).to(cuda) * batch.SC_D_mask
+    sc[-1] = sc[-2]
+    t = torch.full(batch.residue_mask.shape, 0.4, device=cuda)
+    ev = lambda n, b, r: n(b, sc[r], t[r], skip_last_edge_update=True)[0]
+    calls = []
+    record = lambda fn, name: lambda *a: calls.append((name, a, fn(*a))) or calls[-1][2]
+    ipmp.message, ipmp.chain = record(message, "message"), record(chain, "chain")
+    try:
+        with torch.no_grad():
+            out = ev(net, batch, slice(None))
+    finally:
+        ipmp.message, ipmp.chain = message, chain
+    assert [name for name, _, _ in calls] == ["message", "chain"] * 5
+    with torch.no_grad():
+        for name, a, got in calls:
+            for r in range(B):
+                if name == "message":
+                    one = message(*(x[r:r + 1] for x in a[:9]), *a[9:])
+                    row = got[r:r + 1]
+                else:
+                    s = slice(r * (len(a[0]) // B), (r + 1) * (len(a[0]) // B))
+                    one = chain(a[0][s], a[1][s], None if a[2] is None else a[2][s], *a[3:])
+                    row = got[s]
+                if name == "message" or dtype == torch.bfloat16:
+                    assert torch.equal(row, one), (name, r)
+                else:
+                    _close_mixed(row, one, dtype)
+        want = [ev(net, a, slice(r, r + 1))[0] for r, a in enumerate(alone)]
+        ref = [ev(_mixed_net(cuda, torch.float32), a, slice(r, r + 1))[0]
+               for r, a in enumerate(alone)]
+        bad = ev(net, _unmask_padding(batch, 0, lengths[0]), slice(None))
+        for r in range(B):
+            copies = _mixed_bucket(cuda, copies_of=r)[0]
+            rep = net(copies, sc[r:r + 1].expand(B, -1, -1).contiguous(),
+                      t[r:r + 1].expand(B, -1).contiguous(), skip_last_edge_update=True)[0]
+            assert torch.equal(out[r], rep[0])
+
+    def check(r, got):
+        if dtype == torch.float32:
+            return _close_mixed(got, want[r], dtype)
+        d, e = (got - want[r]).float().abs(), (want[r] - ref[r]).float().abs()
+        assert torch.isfinite(got.float()).all()
+        assert d.max() <= 2 * e.max() and d.mean() <= 2 * e.mean()
+
+    for r in range(B):
+        check(r, out[r])
+    with pytest.raises(AssertionError):
+        check(0, bad[0])
+
+
+def test_clash_kernels_on_rows_of_different_lengths(cuda):
+    """The batched clash forward and gradient on a chunk whose rows differ
+    in true length (padding absent) equal each row alone, bit for bit, and
+    the plain version."""
+    from packppi_torch.geometry import atom14_coords_from_torsions
+    from packppi_torch.geometry.frames import chem_table
+    from packppi_torch.ops.clash import between_residue_clash, between_residue_clash_plain
+
+    b, _, _ = _mixed_bucket(cuda)
+    g = torch.Generator().manual_seed(1)
+    sc = b.SC_D + (0.8 * torch.randn(b.SC_D.shape, generator=g)).to(cuda) * b.SC_D_mask
+    pos = atom14_coords_from_torsions(b.X, b.residue_type, b.BB_D, sc)
+    ex, ridx = b.atom_mask, b.residue_index
+    rad = chem_table("vdw_radius_atom14", cuda)[b.residue_type] * ex
+    w = torch.rand(ex.shape, generator=g).to(cuda) * ex
+
+    x = pos.clone().requires_grad_(True)
+    got = between_residue_clash(x, ex, rad, ridx, 0.5)
+    (got * w).sum().backward()
+    for r in range(pos.shape[0]):
+        xr = pos[r:r + 1].clone().requires_grad_(True)
+        one = between_residue_clash(xr, ex[r:r + 1], rad[r:r + 1], ridx[r:r + 1], 0.5)
+        (one * w[r:r + 1]).sum().backward()
+        assert torch.equal(got[r], one[0]) and torch.equal(x.grad[r], xr.grad[0])
+    ref = pos.clone().requires_grad_(True)
+    want = between_residue_clash_plain(ref, ex, rad, ridx, 0.5)["per_atom_loss_sum"]
+    (want * w).sum().backward()
+    assert want.sum().item() > 1.0
+    assert (got - want).abs().max().item() <= 1e-5
+    assert (x.grad - ref.grad).abs().max().item() <= 2e-5
+    # padded slots hold no atom and get neither loss nor gradient
+    assert got[0, 72:].abs().max().item() == 0 and x.grad[0, 72:].abs().max().item() == 0

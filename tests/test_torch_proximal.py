@@ -173,8 +173,10 @@ def _prox(tmp_path, *extra, pdb=PDB):
 def test_prox_cli_writes_structure_and_metrics(tmp_path):
     result = _prox(tmp_path, "--num_steps", "3")
     saved = json.loads((tmp_path / "metrics.json").read_text())
-    assert set(saved) == {"accepted", "optimize_seconds", "objective_initial",
-                          "objective_final", "objective_convention"}
+    assert set(saved) == {"clashscore_before", "clashscore_after", "accepted",
+                          "optimize_seconds", "objective_initial", "objective_final",
+                          "objective_convention"}
+    assert np.isfinite(saved["clashscore_before"]) and np.isfinite(saved["clashscore_after"])
     assert saved["accepted"] is True and result["accepted"] is True
     assert saved["objective_final"] < saved["objective_initial"]
     assert saved["objective_convention"] == "pre-step (reference parity)"
@@ -252,4 +254,7 @@ def test_pack_cli_without_proximal_keeps_its_keys(tmp_path):
     args = pack_cli.build_parser().parse_args([
         "--input", PDB, "--outdir", str(tmp_path), "--device", "cpu", "--n_steps", "1",
         "--ckpt", PIPELINE_GOLDEN])
-    assert set(pack_cli.run(args)) == {"sampling_seconds"}
+    # the metric suite and the timing; no key of the refinement
+    suite = {f"chi_{i}_{m}" for i in range(4) for m in ("ae_rad", "ae_deg", "acc")}
+    suite |= {"total_acc", "interface_acc", "atom_rmsd", "clashscore", "clashscore_is_exact"}
+    assert set(pack_cli.run(args)) == suite | {"sampling_seconds"}
