@@ -112,11 +112,32 @@ fatal on failure:
     same weights (66 launches, a finite ddG); ``cli.ddg --eval_csv`` on the
     126 SKEMPI mutations in network mode with the converted shipped
     checkpoints, message and chain launches counted, each prediction held
-    to the JAX package's ``ddg_eval.jsonl`` (2e-3 kcal/mol).
+    to the JAX package's ``ddg_eval.jsonl`` (2e-3 kcal/mol);
+12. the unfused route: ``cli.pack --no_fused`` on T1124 (bf16, 30 steps,
+    the metric suite) with no kernel launch at all, and one T1124 network
+    evaluation under it against the kernel route (float32 1e-3, bf16
+    6e-2), each route's wall, busy and idle share;
+13. PackPPI-AP training: ``cli.train_affinity`` for one epoch at the
+    published widths on ``skempi_mini`` fold 0 (94 + 32 mutations, batch 2,
+    float32, the shipped backbone) with its launches (10 message and 10
+    chain a step, 20 and 20 a validation batch), the backbone artifact
+    through ``cli.ddg`` giving the run's validation metrics, one training
+    step's wall, busy, idle share and peak memory, and one step under the
+    knobs configuration against the unfused route (loss and gradients);
+    esm mode on 4 + 4 mutations through ESM-2 650M (33 attention launches
+    an extraction);
+14. the server: ``cli.serve`` in a thread, warmed with T1124, driven over
+    HTTP (``/healthz``; ``/pack`` of T1124 with 2 samples, the refinement
+    and metrics: 150 / 150 / 52 / 50 launches; ``/prox``: 51 / 50;
+    ``/ddg`` of 2FTL KI15G within 2e-3 kcal/mol of the shipped JAX
+    prediction), first and warm latencies, and two concurrent seeded
+    ``/pack`` requests equal to their lone answers; any answer but 200
+    fails.
 
 It then prints the ``kernels`` JSON line, the card's name and power limit,
 and ``{"ok": true, "device": {...}}`` as the last line.
 """
+import functools
 import hashlib
 import json
 import math
@@ -1011,8 +1032,10 @@ def check_metric_suite(metrics, outdir, proximal):
         fail(f"metrics.json keys {sorted(set(metrics) ^ want)} differ from the JAX CLI's")
     if json.loads((outdir / "metrics.json").read_text()) != metrics:
         fail("metrics.json differs from what cli.pack returned")
-    if metrics["clashscore_is_exact"] is not False:
-        fail("clashscore_is_exact is not false without the MolProbity binary")
+    exact = metrics["clashscore_is_exact"]
+    if not (type(exact) is float and exact == 0.0):
+        fail("clashscore_is_exact is not 0.0 (a float, as the JAX CLI writes it) without the "
+             "MolProbity binary")
     bad = [k for k, v in metrics.items() if not isinstance(v, bool) and not math.isfinite(v)]
     if bad:
         fail(f"non-finite metrics {bad}")
@@ -1709,12 +1732,13 @@ def report_profile(what, prof, wall_ms, reps, unit):
     if not rows:
         log(f"profile: {what} {wall_ms:.4f} ms wall; device time not measured "
             "(the profiler recorded none)")
-        return
+        return None
     log(f"profile: {what} {wall_ms:.4f} ms wall, device busy {busy_ms:.4f} ms, idle share "
         f"{1 - busy_ms / wall_ms:.3f}, {sum(e.count for e in rows) / reps:.0f} device "
         f"operations/{unit}")
     for e in rows[:10]:
         log(f"  {dev(e) / reps / 1e3:8.4f} ms  {e.count / reps:6.1f} calls/{unit}  {e.key[:90]}")
+    return busy_ms
 
 
 def phase_profile(torch, sc):
@@ -1976,7 +2000,9 @@ def phase_ddg_esm(torch, cpu_model):
     """``cli.ddg --mode esm`` on T1124 with ``T1124_MUTATION``: the ESM-2
     weights written from seed 0 into ``smoke_out/`` as a ``.pt`` file,
     66 attention launches (33 per extraction, wild type and mutant) and no
-    other, a finite ddG. Returns the attention launches of the first call."""
+    other, a finite ddG. Returns the attention launches of the call and the
+    weight file (``phase_train_affinity_esm`` trains with it, then deletes
+    it)."""
     import numpy as np
 
     from packppi_torch.cli import ddg
@@ -2004,8 +2030,7 @@ def phase_ddg_esm(torch, cpu_model):
         f"{wall:.3f} s (reading the weights and building the model included), launches {got}")
     if got != expect or not np.isfinite(value):
         fail(f"cli.ddg --mode esm: launches {got} (expected {expect}) or ddG {value}")
-    path.unlink()
-    return got["attention"]
+    return got["attention"], path
 
 
 def phase_ddg_eval(torch):
@@ -2457,6 +2482,416 @@ def phase_pack_variants(torch, reps=5, names=tuple(VARIANTS)):
     return launches
 
 
+# this slice's routes: cli.pack --no_fused, cli.train_affinity, cli.serve
+UNFUSED_BF16_TOL = 6e-2        # the tests' bf16 bound between the two routes
+AFFINITY_BATCH = 2
+AFFINITY_STEP_REPS = 10
+SERVE_REPS = 3
+TWO_FTL = REPO / "tests" / "fixtures" / "2ftl.pdb"
+
+
+def time_evaluations(torch, what, evaluate, reps=10):
+    """Wall time of ``evaluate`` (mean of ``reps``, synchronized) and its
+    device busy time from the profiler: ``(wall_ms, busy_ms or None)``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        evaluate()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        evaluate()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / reps * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            evaluate()
+        torch.cuda.synchronize()
+    return wall_ms, report_profile(what, prof, wall_ms, reps, "call")
+
+
+def phase_pack_unfused(torch):
+    """``cli.pack --no_fused`` on T1124 (bf16, 30 steps, the metric suite):
+    no kernel launch at all. Then one T1124 network evaluation under the
+    unfused route against the kernel route on the same weights and inputs
+    (float32 within phase_network_vs_cpu's 1e-3, bf16 within 6e-2, each
+    rounding at its own points), each route's wall, busy and idle share."""
+    from packppi_torch.cli import pack
+    from packppi_torch.models import ChiScoreNetwork, NetworkConfig
+
+    outdir = OUT / "pack_unfused_t1124"
+    args = pack.build_parser().parse_args([
+        "--input", str(T1124), "--ckpt", str(PIPELINE_GOLDEN), "--precision", "bfloat16",
+        "--n_steps", str(STEPS), "--seed", "0", "--no_fused", "--outdir", str(outdir)])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.perf_counter()
+    metrics = pack.run(args)
+    wall = time.perf_counter() - t0
+    got = read_launches()
+    log(f"pack T1124 bf16 {STEPS} steps --no_fused: sampling {metrics['sampling_seconds']:.4f} s, "
+        f"whole run {wall:.3f} s, peak memory {torch.cuda.max_memory_allocated() / 2 ** 20:.1f} "
+        f"MiB, launches {got}")
+    if got != expect_launches():
+        fail(f"--no_fused launched kernels: {got}")
+    check_structure(outdir)
+    check_metric_suite(metrics, outdir, False)
+
+    for dtype_name, tol in (("float32", 1e-3), ("bfloat16", UNFUSED_BF16_TOL)):
+        net, batch = t1124_network(torch, dtype_name, "cuda")
+        unfused = ChiScoreNetwork(NetworkConfig(compute_dtype=dtype_name, fused_messages=False,
+                                                fused_chain=False)).eval()
+        unfused.load_state_dict(net.state_dict())
+        unfused.to("cuda")
+        g = torch.Generator().manual_seed(0)
+        sc = batch.SC_D + torch.randn(batch.SC_D.shape, generator=g).to("cuda")
+        t = torch.full(batch.residue_mask.shape, 0.5, device="cuda")
+        results = {}
+        with torch.no_grad():
+            static = net.encode_static(batch)
+            for name, model, want in (("kernels", net, 5), ("unfused", unfused, 0)):
+                evaluate = functools.partial(model, batch, sc, t, static=static,
+                                             skip_last_edge_update=True)
+                zero_launches()
+                results[name] = evaluate()
+                launches = read_launches()
+                if launches != expect_launches(message=want, chain=want):
+                    fail(f"{dtype_name} T1124 evaluation, {name} route: launches {launches}")
+                time_evaluations(torch, f"{dtype_name} T1124 network evaluation, {name} route",
+                                 evaluate)
+        ds, dh = ((results["kernels"][i] - results["unfused"][i]).abs().max().item()
+                  for i in (0, 1))
+        log(f"T1124 {dtype_name} network, kernel route vs unfused route: score max|d| {ds:.3e}, "
+            f"h_V max|d| {dh:.3e} (bound {tol:g})")
+        if not (ds <= tol and dh <= tol):
+            fail(f"the unfused route disagrees with the kernel route in {dtype_name}")
+
+
+def skempi_copy(name, rows=None):
+    """``skempi_mini`` copied to ``smoke_out/<name>`` with its PDB files and
+    no feature cache; ``rows`` ((complex, n), ...) keeps the first n rows
+    of each complex named."""
+    d = OUT / name
+    shutil.rmtree(d, ignore_errors=True)
+    (d / "PDBs").mkdir(parents=True)
+    for f in (SKEMPI_MINI / "PDBs").iterdir():
+        shutil.copy(f, d / "PDBs" / f.name)
+    lines = (SKEMPI_MINI / "skempi_v2.csv").read_text().splitlines()
+    keep = lines[1:]
+    if rows is not None:
+        keep = [ln for pdb, n in rows for ln in [x for x in lines[1:] if x.startswith(pdb)][:n]]
+    (d / "skempi_v2.csv").write_text("\n".join([lines[0], *keep]) + "\n")
+    return d
+
+
+def affinity_records(run):
+    return [json.loads(ln)
+            for ln in (Path(run) / "logs" / "metrics.jsonl").read_text().splitlines()]
+
+
+def phase_train_affinity(torch):
+    """``cli.train_affinity`` for one epoch at the published widths of
+    ``configs/model/affinity.yaml`` on ``skempi_mini`` fold 0 of 2 (94
+    training mutations of 1BRS, 32 validation mutations of 2FTL), batch 2,
+    float32, the backbone from ``docs/ckpts/diffusion_crops/torch_state.pt``:
+    launches as the code gives them (a training step evaluates the frozen
+    backbone on the wild type and the mutant, 3 node and 2 edge passes each:
+    10 message and 10 chain launches, the mutation stack in train() runs no
+    kernel; a validation batch adds the mutation stack's two evaluations in
+    eval(): 20 and 20, the loss and the predictions from one forward),
+    finite records, the backbone artifact through ``cli.ddg`` giving the
+    run's validation metrics; the time of one training step (wall, busy,
+    idle share) and its peak memory; one step under the knobs configuration
+    against the unfused route (loss and every gradient). Returns the
+    epoch's launches."""
+    from packppi_torch.cli import ddg, train_affinity
+    from packppi_torch.data.skempi import cv_split, load_skempi_entries
+
+    data = skempi_copy("skempi_train")
+    split = cv_split(load_skempi_entries(data, "PDBs"), 2, 0, 42)
+    if (len(split["train"]), len(split["valid"])) != (94, 32):
+        fail(f"skempi_mini fold 0: {len(split['train'])} / {len(split['valid'])} mutations")
+    steps, val_batches = 94 // AFFINITY_BATCH, -(-32 // AFFINITY_BATCH)
+    base = OUT / "affinity_run"
+    shutil.rmtree(base, ignore_errors=True)
+    argv = [f"data.data_dir={data}", "data.num_cvfolds=2", "data.cvfold_index=0",
+            f"data.batch_size={AFFINITY_BATCH}", "trainer.max_epochs=1",
+            f"pre_checkpoint_path={SHIPPED_CKPT}", f"output_dir={base}", "logger=[jsonl]"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.perf_counter()
+    (result,) = train_affinity.main(argv)
+    wall = time.perf_counter() - t0
+    got = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    m, run = result["metrics"], Path(result["run_dir"])
+    (rec,) = affinity_records(run)
+    log(f"cli.train_affinity, one epoch ({steps} steps, {val_batches} validation batches): "
+        f"{wall:.2f} s (featurizing the 126 mutations into the cache included), peak memory "
+        f"{peak:.1f} MiB, launches {got}; record {rec}")
+    expect = expect_launches(message=10 * steps + 20 * val_batches,
+                             chain=10 * steps + 20 * val_batches)
+    if got != expect:
+        fail(f"cli.train_affinity: launches {got}, expected {expect}")
+    keys = {"step", "train/loss", "val/loss", "val/pearson", "val/spearman", "val/rmse"}
+    if set(rec) != keys or rec["step"] != steps or not all(map(math.isfinite, rec.values())):
+        fail(f"cli.train_affinity: record {rec}")
+
+    # the backbone artifact and the best checkpoint through cli.ddg on the
+    # validation mutations: the run's validation metrics
+    val = skempi_copy("skempi_val", rows=(("2FTL", 32),))
+    summary = ddg.run_cli(["--eval_csv", str(val), "--ckpt", m["best_ckpt"],
+                           "--pre_ckpt", str(run / "backbone.pt"),
+                           "--outdir", str(OUT / "affinity_ddg")])
+    d = {k: abs(summary[k] - rec[f"val/{k}"]) for k in ("rmse", "pearson", "spearman")}
+    log(f"  cli.ddg --pre_ckpt <run>/backbone.pt --ckpt <best>: {summary}; against the run's "
+        f"validation record: {d} (limit 1e-4)")
+    if max(d.values()) > 1e-4:
+        fail("cli.ddg with the run's artifacts does not give its validation metrics")
+
+    affinity_step_timing(torch, run, m["best_ckpt"], data)
+    affinity_knobs_step(torch, data)
+    return got
+
+
+def affinity_batch(torch, data, n=AFFINITY_BATCH):
+    from packppi_torch.data.skempi import load_skempi_entries, skempi_features, stack_affinity_batch
+    from packppi_torch.structure import from_pdb_file
+
+    entries = load_skempi_entries(data, "PDBs")[:n]
+    return stack_affinity_batch([skempi_features(from_pdb_file(e["pdb_path"], mse_to_met=True),
+                                                 e["mutations"], ddg=e["ddG"]) for e in entries],
+                                "cuda")
+
+
+def affinity_step_timing(torch, run, ckpt, data):
+    """One training step of the trainer (``make_affinity_train_step``) at
+    batch 2 on 1BRS mutations: wall, busy, idle share, peak memory."""
+    from packppi_torch.models import NetworkConfig
+    from packppi_torch.models.affinity import AffinityModel
+    from packppi_torch.train.loop import affinity_optimizer, make_affinity_train_step
+    from packppi_torch.weights import load_weights
+
+    model = AffinityModel(NetworkConfig())
+    load_weights(model.backbone.net, run / "backbone.pt")
+    load_weights(model.net, ckpt)
+    model.to("cuda")
+    step = make_affinity_train_step(model, affinity_optimizer(model, 1e-4, 1e-12), 1e-4)
+    batch = affinity_batch(torch, data)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wall_ms, _ = time_evaluations(torch, "affinity training step, B=2 L=256 float32",
+                                  lambda: step(batch, 0), AFFINITY_STEP_REPS)
+    log(f"  affinity training step: {wall_ms:.4f} ms wall, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB")
+
+
+def affinity_knobs_step(torch, data):
+    """One affinity loss and its gradients under the knobs configuration
+    (the backbone's evaluations and the mutation stack through the
+    feature-message and chain kernels, differentiable in the stack)
+    against the unfused route, same weights and batch, dropout 0. The loss
+    within 1e-5 relative; the gradients at phase_loss_grads' limits for two
+    evaluation orders (2e-3 of each parameter's max, 2e-4 of the largest):
+    the antisymmetric loss pools the difference of the mutant's and the
+    wild type's features, so a parameter's gradient is the difference of
+    two nearly equal sums, and the kernels' float32 products (3xTF32)
+    show in it more than in the diffusion loss
+    (``tools/probe_affinity_grads.py`` reads each pair of routes and
+    devices)."""
+    from packppi_torch.models import NetworkConfig
+    from packppi_torch.models.affinity import AffinityModel
+    from packppi_torch.weights import init_weights, load_weights
+
+    batch = affinity_batch(torch, data)
+    results = {}
+    for name, cfg, want in (("kernels", TRAIN_KNOBS, 20),
+                            ("unfused", dict(dropout=0.0, fused_messages=False,
+                                             fused_chain=False), 0)):
+        model = AffinityModel(NetworkConfig(**cfg))
+        load_weights(model.backbone.net, SHIPPED_CKPT)
+        init_weights(model.net, 7)
+        model.to("cuda")
+        zero_launches()
+        loss = model.loss(batch, deterministic=False)
+        loss.backward()
+        launches = read_launches()
+        if launches != expect_launches(message_feat=want, chain=want):
+            fail(f"affinity loss ({name}): launches {launches}")
+        results[name] = (loss.item(), param_grads(model.net))
+        log(f"  affinity loss B=2 float32, {name}: {loss.item():.7f}, launches message_feat "
+            f"{launches['message_feat']}, chain {launches['chain']}")
+    d = abs(results["kernels"][0] - results["unfused"][0])
+    if not d <= 1e-5 * abs(results["unfused"][0]):
+        fail(f"affinity loss: kernels vs unfused differ by {d:.3e}")
+    compare_param_grads(f"affinity gradients, kernels vs unfused (loss |d| {d:.3e})",
+                        results["kernels"][1], results["unfused"][1], GRAD_REL_TOL_DEVICES)
+
+
+def phase_train_affinity_esm(torch, esm_weights):
+    """``cli.train_affinity model.mode=esm`` on 4 + 4 mutations, one epoch,
+    embeddings extracted with ESM-2 650M (the random weights of
+    ``phase_ddg_esm``'s file): 33 attention launches per extraction, two
+    extractions per mutation, finite losses. Deletes the weight file.
+    Returns the attention launches."""
+    from packppi_torch.cli import train_affinity
+
+    data = skempi_copy("skempi_esm", rows=(("1BRS", 4), ("2FTL", 4)))
+    base = OUT / "affinity_esm_run"
+    shutil.rmtree(base, ignore_errors=True)
+    argv = [f"data.data_dir={data}", "data.num_cvfolds=2", f"data.batch_size={AFFINITY_BATCH}",
+            "trainer.max_epochs=1", "model.mode=esm", f"esm_weights={esm_weights}",
+            f"output_dir={base}", "logger=[jsonl]"]
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    (result,) = train_affinity.main(argv)
+    wall = time.perf_counter() - t0
+    got = read_launches()
+    esm_weights.unlink()
+    extracted = len(list((data / "dataset_cache").glob("esm_*.npz")))
+    (rec,) = affinity_records(result["run_dir"])
+    log(f"cli.train_affinity model.mode=esm, 4 + 4 mutations: {wall:.2f} s (reading the 650M "
+        f"weights and {extracted} extractions of wild type and mutant included), launches "
+        f"{got}; record {rec}")
+    if extracted != 8 or got != expect_launches(attention=2 * 33 * extracted):
+        fail(f"esm training: {extracted} cached pairs, launches {got}")
+    if not all(math.isfinite(rec[k]) for k in ("train/loss", "val/loss")):
+        fail(f"esm training: record {rec}")
+    return got["attention"]
+
+
+def http_request(addr, method, path, body=None):
+    import http.client
+
+    conn = http.client.HTTPConnection(*addr, timeout=600)
+    t0 = time.perf_counter()
+    conn.request(method, path, body=body)
+    resp = conn.getresponse()
+    payload = json.loads(resp.read())
+    seconds = time.perf_counter() - t0
+    conn.close()
+    return resp.status, payload, seconds
+
+
+def phase_serve(torch):
+    """``cli.serve`` on 127.0.0.1 (a free port) in a thread, the packing
+    weights of ``pipeline_golden.npz`` and the shipped converted affinity
+    checkpoints, warmed with T1124, driven over HTTP: ``/healthz``; ``/pack``
+    of T1124 (2 samples, the proximal refinement, metrics: 150 message, 150
+    chain, 52 clash forward and 50 gradient launches); ``/prox`` of T1124
+    (51 and 50); ``/ddg`` of 2FTL KI15G (20 and 20; within 2e-3 kcal/mol of
+    the JAX package's shipped prediction); each again ``SERVE_REPS`` times
+    for the warm latency; two concurrent seeded ``/pack`` requests, each
+    equal bit for bit to its lone answer. Any answer other than 200 fails.
+    Returns the launches of one /pack, /prox and /ddg."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from packppi_torch.cli import serve
+    from packppi_torch.structure import from_pdb_string
+
+    args = serve.build_parser().parse_args([
+        "--port", "0", "--ckpt", str(PIPELINE_GOLDEN),
+        "--affinity_ckpt", str(AFFINITY_CKPTS / "torch_affinity.pt"),
+        "--pre_ckpt", str(AFFINITY_CKPTS / "torch_backbone.pt"), "--warmup", str(T1124),
+        "--tmp_dir", str(OUT / "serve_tmp")])
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    srv = serve.make_server(args)
+    startup = time.perf_counter() - t0
+    log(f"cli.serve: started in {startup:.3f} s (the warmup pack of T1124 included), warmup "
+        f"launches {read_launches()}")
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    addr = srv.server_address
+    t1124 = T1124.read_text()
+    with open(AFFINITY_CKPTS / "ddg_eval.jsonl") as f:
+        want_ddg = next(r["ddg_pred"] for r in map(json.loads, f)
+                        if (r["complex"], r["mutstr"]) == ("2FTL_E_I", "KI15G"))
+    requests = {
+        "/pack": (json.dumps({"pdb": t1124, "n_samples": 2, "use_proximal": True, "seed": 0}),
+                  expect_launches(message=5 * STEPS, chain=5 * STEPS, clash_fwd=PROX_STEPS + 2,
+                                  clash_bwd=PROX_STEPS)),
+        "/prox": (json.dumps({"pdb": t1124}),
+                  expect_launches(clash_fwd=PROX_STEPS + 1, clash_bwd=PROX_STEPS)),
+        "/ddg": (json.dumps({"pdb": TWO_FTL.read_text(), "mutstr": "KI15G"}),
+                 expect_launches(message=20, chain=20)),
+    }
+
+    def call(method, path, body=None, expect=None):
+        zero_launches()
+        status, out, seconds = http_request(addr, method, path, body)
+        got = read_launches()
+        if status != 200:
+            fail(f"cli.serve {method} {path}: status {status}: {out}")
+        if expect is not None and got != expect:
+            fail(f"cli.serve {path}: launches {got}, expected {expect}")
+        return out, seconds, got
+
+    launches = {k: 0 for k in launch_counters()}
+    try:
+        health, _, _ = call("GET", "/healthz")
+        log(f"  /healthz: {health}")
+        if (health["backend"], health["devices"]) != (torch.cuda.get_device_name(0),
+                                                      torch.cuda.device_count()):
+            fail(f"/healthz: {health}")
+        times = {p: [] for p in requests}
+        for rep in range(1 + SERVE_REPS):
+            for path, (body, expect) in requests.items():
+                out, seconds, got = call("POST", path, body, expect)
+                times[path].append(seconds)
+                if rep:
+                    continue
+                for k, v in got.items():
+                    launches[k] += v
+                m = out.get("metrics", {})
+                if path == "/pack":
+                    prot = from_pdb_string(out["pdb"])
+                    bad = [k for k in METRIC_KEYS - {"sampling_seconds"} if k not in m]
+                    if (bad or m["clashscore_is_exact"] != 0.0
+                            or type(m["clashscore_is_exact"]) is not float
+                            or not np.isfinite(prot.atom_positions[prot.atom_mask > 0]).all()):
+                        fail(f"/pack: metrics {sorted(m)} (missing {bad}) or non-finite atoms")
+                    log(f"  /pack T1124: device {m['device_seconds']:.4f} s, accepted "
+                        f"{m['proximal_accepted']}, total_acc {m['total_acc']:.4f}, clashscore "
+                        f"{m['clashscore']:.4f}, launches {got}")
+                elif path == "/prox":
+                    log(f"  /prox T1124: device {m['device_seconds']:.4f} s, clashscore "
+                        f"{m['clashscore_before']} -> {m['clashscore_after']}, launches {got}")
+                else:
+                    d = abs(out["ddg_pred"] - want_ddg)
+                    log(f"  /ddg 2FTL KI15G: {out['ddg_pred']:.6f} kcal/mol, |d| {d:.3e} from "
+                        f"the JAX package's shipped prediction (limit {DDG_EVAL_TOL:g}), "
+                        f"launches {got}")
+                    if d > DDG_EVAL_TOL or out["random_weights"]:
+                        fail("/ddg disagrees with the JAX package's prediction")
+        for path, ts in times.items():
+            cold = " (builds the affinity session)" if path == "/ddg" else ""
+            log(f"  {path} latency: first {ts[0]:.4f} s{cold}, warm median "
+                f"{float(np.median(ts[1:])):.4f} s over {SERVE_REPS} "
+                f"({', '.join(f'{t:.4f}' for t in ts[1:])})")
+
+        bodies = [json.dumps({"pdb": t1124, "seed": s, "metrics": False}) for s in (1, 2)]
+        alone = [call("POST", "/pack", b)[0]["pdb"] for b in bodies]
+        with ThreadPoolExecutor(2) as pool:
+            both = list(pool.map(lambda b: http_request(addr, "POST", "/pack", b), bodies))
+        if [s for s, _, _ in both] != [200, 200] or [o["pdb"] for _, o, _ in both] != alone:
+            fail("two concurrent seeded /pack requests differ from their lone answers")
+        log(f"  two concurrent seeded /pack requests: each equal to its lone answer, "
+            f"{', '.join(f'{t:.4f}' for _, _, t in both)} s")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join()
+    return launches
+
+
 def main():
     import torch
 
@@ -2491,9 +2926,13 @@ def main():
     phase_trainer(torch)
     phase_shipped_checkpoint(torch)
     cpu_esm = phase_esm(torch)
-    attention_launches = phase_ddg_esm(torch, cpu_esm)
+    attention_launches, esm_weights = phase_ddg_esm(torch, cpu_esm)
     del cpu_esm
     phase_ddg_eval(torch)
+    phase_pack_unfused(torch)
+    affinity_launches = phase_train_affinity(torch)
+    affinity_launches["attention"] = phase_train_affinity_esm(torch, esm_weights)
+    serve_launches = phase_serve(torch)
 
     kernels = []
     for name, source, replaces in (
@@ -2537,6 +2976,8 @@ def main():
             "launches": launches_main,
             "launches_training": train_launches[name],
             "launches_directory_chunk": directory_launches.get(name, 0),
+            "launches_affinity_training": affinity_launches[name],
+            "launches_serve": serve_launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": r.get("library_ms")})

@@ -73,7 +73,9 @@ def _affinity_model(args, device):
     from packppi_torch.models import NetworkConfig
     from packppi_torch.models.affinity import AffinityModel
 
-    model = AffinityModel(NetworkConfig(), args.mode, strict_parity=not args.no_strict_parity)
+    cfg = NetworkConfig()
+    cfg.check_device(device)
+    model = AffinityModel(cfg, args.mode, strict_parity=not args.no_strict_parity)
     _weights(model.backbone.net, args.pre_ckpt, args.seed, "--pre_ckpt", "diffusion backbone")
     _weights(model.net, args.ckpt, args.seed + 1, "--ckpt", "affinity net")
     return model.to(device)

@@ -4,8 +4,9 @@ One structure: parse and featurize a PDB, run the ``n_steps`` ODE reverse
 diffusion of the chi angles, rebuild atom14 coordinates and write
 ``structure.pdb`` and ``metrics.json`` to ``--outdir``: the metric suite
 against the input's own side chains (chi accuracy and AE, ``total_acc``,
-``interface_acc``, ``atom_rmsd``, ``clashscore``, ``clashscore_is_exact``;
-empty when the input has no side chains), ``sampling_seconds`` and, with
+``interface_acc``, ``atom_rmsd``, ``clashscore``, ``clashscore_is_exact``,
+each a float as the JAX CLI writes them; empty when the input has no side
+chains), ``sampling_seconds`` and, with
 ``--use_proximal``, ``proximal_seconds``, ``proximal_accepted`` and
 ``proximal_objective_initial`` / ``_final``. ``--n_samples N`` packs N
 noise samples and keeps the least clashing. A directory as ``--input``
@@ -15,7 +16,7 @@ packs every PDB in it (``run_directory``). Runs on the CUDA device unless
     python -m packppi_torch.cli.pack --input complex.pdb|dir/ --outdir out \\
         [--ckpt weights.pt|weights.npz] [--precision bfloat16|float32] \\
         [--n_steps 30] [--corrector_steps 0] [--n_samples 1] [--use_proximal] \\
-        [--seed 0] [--geometry global|local] [--exact_length] \\
+        [--seed 0] [--geometry global|local] [--no_fused] [--exact_length] \\
         [--no_strict_parity] [--molprobity_loc BIN] \\
         [--batch_size 1] [--metrics] [--device cuda|cpu]
 """
@@ -52,6 +53,10 @@ def build_parser():
     p.add_argument("--use_proximal", action="store_true",
                    help="refine the sample with the proximal clash optimizer")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--no_fused", action="store_true",
+                   help="run the network without its kernels: message passes and "
+                        "residual chains as plain tensor operations (the JAX "
+                        "package's unfused path)")
     p.add_argument("--geometry", default="global", choices=["global", "local"],
                    help="point-geometry layout: 'local' caches static "
                         "relative frame transforms and gathers bf16-safe "
@@ -83,16 +88,20 @@ def build_parser():
 
 
 def _model(args, device):
-    """The sampler with its weights, on ``device``. Local geometry runs the
+    """The sampler with its weights, on ``device``; a configuration the
+    device cannot run is refused first. Local geometry runs the
     feature-message kernel (the in-kernel-geometry kernels need global
-    points), as the JAX CLI does."""
+    points) and ``--no_fused`` no kernel at all, as the JAX CLI does."""
     from packppi_torch.models import NetworkConfig, TorsionalDiffusion
     from packppi_torch.weights import init_weights, load_weights
 
+    fused = not args.no_fused
     local = args.geometry == "local"
-    model = TorsionalDiffusion(NetworkConfig(
-        compute_dtype=args.precision, geometry_mode=args.geometry,
-        fused_messages=True if local else "geom_lanes"))
+    cfg = NetworkConfig(compute_dtype=args.precision, geometry_mode=args.geometry,
+                        fused_messages=(True if local else "geom_lanes") if fused else False,
+                        fused_chain=fused)
+    cfg.check_device(device)
+    model = TorsionalDiffusion(cfg)
     if args.ckpt:
         load_weights(model.net, args.ckpt)
     else:
@@ -120,9 +129,10 @@ def run(args) -> dict:
     from packppi_torch.geometry import atom14_coords_from_torsions
     from packppi_torch.ops.clash import compute_residue_clash
     from packppi_torch.structure import featurize, from_pdb_file, to_pdb
-    from packppi_torch.utils.analysis import ProteinAnalysis
+    from packppi_torch.utils.analysis import ProteinAnalysis, as_floats
 
     device = resolve_device(args.device)
+    model = _model(args, device)
     outdir = Path(args.outdir)
     outdir.mkdir(parents=True, exist_ok=True)
 
@@ -133,7 +143,6 @@ def run(args) -> dict:
     # best-of-N: the protein repeated along the batch axis
     batch = stack_batch([feats] * n_samples, device,
                         target_len=L if args.exact_length else None)
-    model = _model(args, device)
     generator = torch.Generator(device=device).manual_seed(args.seed)
 
     t0 = time.perf_counter()
@@ -181,8 +190,8 @@ def run(args) -> dict:
         metric = {}
     else:
         analysis = ProteinAnalysis(args.molprobity_loc, tmp_dir=str(outdir / "tmp"))
-        metric = analysis.get_metric(args.input, str(out_pdb),
-                                     strict_parity=not args.no_strict_parity) or {}
+        metric = as_floats(analysis.get_metric(args.input, str(out_pdb),
+                                               strict_parity=not args.no_strict_parity) or {})
     metric.update(timing)
     if args.print_metrics:
         for k, v in metric.items():
@@ -218,17 +227,17 @@ def run_directory(args) -> list:
     from packppi_torch.geometry import atom14_coords_from_torsions
     from packppi_torch.ops.clash import compute_residue_clash
     from packppi_torch.structure import to_pdb
-    from packppi_torch.utils.analysis import ProteinAnalysis
+    from packppi_torch.utils.analysis import ProteinAnalysis, as_floats
 
     device = resolve_device(args.device)
     n_devices = resolve_n_devices(args)
+    model = _model(args, device)
     outdir = Path(args.outdir)
     outdir.mkdir(parents=True, exist_ok=True)
     proteins, feats, _ = load_directory(args.input)
 
     n_samples = max(1, args.n_samples)
     per_chunk = max(1, max(args.batch_size, 1) // n_samples)     # complexes a pass
-    model = _model(args, device)
     generator = torch.Generator(device=device).manual_seed(args.seed)
     analysis = (ProteinAnalysis(args.molprobity_loc, tmp_dir=str(outdir / "tmp"))
                 if args.metrics else None)
@@ -270,8 +279,8 @@ def run_directory(args) -> list:
                 rec["metrics"] = {"skipped": "no side chains in input"}
             else:
                 try:
-                    rec["metrics"] = analysis.get_metric(str(path), str(out_path),
-                                                         strict_parity=strict) or {}
+                    rec["metrics"] = as_floats(analysis.get_metric(
+                        str(path), str(out_path), strict_parity=strict) or {})
                 except Exception as e:  # noqa: BLE001 (a metric failure keeps the write)
                     rec["metrics"] = {"error": f"{type(e).__name__}: {e}"}
         return rec

@@ -81,7 +81,7 @@ class AffinityNet(nn.Module):
             self.mutation_mpnn = MessagePassingStack(
                 H, cfg.num_mpnn_layers, cfg.n_points, cfg.edge_features, cfg.position_scale,
                 dropout=cfg.dropout, fused_messages=cfg.fused_messages,
-                fused_messages_train=cfg.fused_messages_train,
+                fused_messages_train=cfg.fused_messages_train, fused_chain=cfg.fused_chain,
                 fused_chain_train=cfg.fused_chain_train)
             self.seq_embedding = nn.Embedding(21, H)
             self.mut_bias = nn.Embedding(2, H)

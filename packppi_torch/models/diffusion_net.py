@@ -20,6 +20,7 @@ from packppi_torch.models.ipmp import MessagePassingStack, relative_frame_transf
 from packppi_torch.models.layers import MLP
 
 GLOBAL_POINT_KERNELS = ("geom", "geom_lanes", "geom_gather")
+MAX_KERNEL_K = 64      # the message and layer kernels take K <= 64 neighbours
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,8 +55,15 @@ class NetworkConfig:
     # neighbour rows loaded by index), "geom_gather" (the same through the
     # kernel that replaces the in-kernel-gather TPU kernel), "geom" (the
     # neighbour streams gathered outside the kernel) or True (the kernel over
-    # geometry features computed outside, ops.message_feat)
+    # geometry features computed outside, ops.message_feat) or False (no
+    # kernel: the message as plain tensor operations, the JAX package's
+    # unfused path)
     fused_messages: Union[bool, str] = "geom_lanes"
+    # eval(): each residual chain through ops.chain; False runs it as plain
+    # tensor operations (the JAX unfused path). On by default, where the
+    # JAX package's default is off: the port routes through its kernels
+    # unless asked not to, as the JAX CLIs do on the TPU
+    fused_chain: bool = True
     # eval(): each IPMP layer as two kernels (ops.layer), superseding
     # fused_messages; train() routing is unchanged
     fused_layers: bool = False
@@ -89,9 +97,10 @@ class NetworkConfig:
         if self.geometry_mode not in ("global", "local"):
             raise ValueError(f"NetworkConfig.geometry_mode={self.geometry_mode!r} "
                              "('global' or 'local')")
-        if not (self.fused_messages is True or self.fused_messages in GLOBAL_POINT_KERNELS):
+        if not (isinstance(self.fused_messages, bool)
+                or self.fused_messages in GLOBAL_POINT_KERNELS):
             raise ValueError(f"NetworkConfig.fused_messages={self.fused_messages!r} "
-                             "(True, 'geom', 'geom_lanes' or 'geom_gather')")
+                             "(False, True, 'geom', 'geom_lanes' or 'geom_gather')")
         if self.geometry_mode == "local" and (
                 self.fused_messages in GLOBAL_POINT_KERNELS or self.fused_layers):
             raise ValueError(
@@ -105,6 +114,30 @@ class NetworkConfig:
                 "fused_chain_train requires dropout=0.0: the chain kernel applies no "
                 "dropout, so with dropout active the kernel and the unfused training "
                 "paths would compute different functions")
+
+    def runs_kernels(self) -> bool:
+        """Whether a network of this configuration launches a kernel."""
+        return bool(self.fused_messages is not False or self.fused_chain or self.fused_layers
+                    or self.fused_messages_train or self.fused_chain_train)
+
+    def check_device(self, device) -> None:
+        """Refuse, before any data is read, a configuration whose kernels
+        cannot run on ``device``: the CUDA kernels are built for H = He =
+        128, P = 8 points and K <= 64 neighbours. The CPU runs the plain
+        versions at any width."""
+        if torch.device(device).type != "cuda" or not self.runs_kernels():
+            return
+        widths = {"hidden_dim": (self.hidden_dim, 128), "edge_features": (self.edge_features, 128),
+                  "n_points": (self.n_points, 8)}
+        bad = [f"{k}={v}" for k, (v, want) in widths.items() if v != want]
+        if self.top_k > MAX_KERNEL_K:
+            bad.append(f"top_k={self.top_k}")
+        if bad:
+            raise ValueError(
+                f"NetworkConfig({', '.join(bad)}) cannot run on {device}: the CUDA kernels "
+                f"are built for hidden_dim = edge_features = 128, n_points = 8 and top_k <= "
+                f"{MAX_KERNEL_K}; use those widths, --device cpu, or fused_messages=False with "
+                "fused_chain=False")
 
     @property
     def dtype(self) -> torch.dtype:
@@ -134,7 +167,8 @@ class ChiScoreNetwork(nn.Module):
             cfg.position_scale, remat=cfg.remat_layers,
             geometry_local=cfg.geometry_mode == "local", dropout=cfg.dropout,
             fused_messages=cfg.fused_messages, fused_messages_train=cfg.fused_messages_train,
-            fused_chain_train=cfg.fused_chain_train, fused_layers=cfg.fused_layers)
+            fused_chain=cfg.fused_chain, fused_chain_train=cfg.fused_chain_train,
+            fused_layers=cfg.fused_layers)
         h = cfg.hidden_dim
         self.decoder_score = nn.Sequential(MLP(h, h // 2, h // 4, 2), nn.ReLU(),
                                            MLP(h // 4, h // 8, 4, 2))

@@ -22,12 +22,15 @@ mode, never by a failure:
   ``fused_messages=True`` -> ``ops.message_feat`` over geometry features
   computed here. With ``FOLD_EDGE_CHAIN`` set and ``"geom_lanes"``, the
   edge pass and its chain are one kernel, ``ops.message_chain``.
+  ``fused_messages=False`` -> the unfused path, plain tensor operations at
+  the JAX unfused path's rounding points.
 * message pass, ``train()``: ``fused_messages is True and
   fused_messages_train`` -> ``ops.message_feat`` (differentiable); otherwise
   the unfused path, plain differentiable tensor operations.
-* chain, ``eval()``: ``ops.chain``. ``train()``: ``fused_chain_train and
-  dropout == 0`` -> ``ops.chain`` (differentiable); otherwise the unfused
-  chain with dropout on the message and on the FFN output.
+* chain, ``eval()``: ``fused_chain`` -> ``ops.chain``; otherwise the unfused
+  chain without dropout. ``train()``: ``fused_chain_train and dropout == 0``
+  -> ``ops.chain`` (differentiable); otherwise the unfused chain with
+  dropout on the message and on the FFN output.
 * ``geometry_mode="local"`` (``rel`` given): the geometry features come from
   the neighbours' local points and the static relative transforms
   (``relative_frame_transforms``), and the message runs through
@@ -35,7 +38,8 @@ mode, never by a failure:
   global-point kernels are refused by ``NetworkConfig``.
 
 The ``ops`` passes are CUDA kernels on the card and their plain versions on
-CPU tensors.
+CPU tensors. ``fused_messages=False, fused_chain=False`` (``cli.pack
+--no_fused``) is the route that launches no kernel in ``eval()``.
 
 Parameter names follow the reference checkpoints (``points_fn_node``,
 ``node_message_fn.W_in`` over ``[h_i | h_E | h_j | geometry]``, ``norm.N``,
@@ -43,6 +47,7 @@ Parameter names follow the reference checkpoints (``points_fn_node``,
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Union
 
 import torch
@@ -252,14 +257,15 @@ class InvariantPointLayer(nn.Module):
     def __init__(self, hidden_dim: int = 128, n_points: int = 8, edge_dim: int = 128,
                  position_scale: float = 1.0, dropout: float = 0.1,
                  fused_messages: Union[bool, str] = "geom_lanes",
-                 fused_messages_train: bool = False, fused_chain_train: bool = False,
-                 fused_layers: bool = False):
+                 fused_messages_train: bool = False, fused_chain: bool = True,
+                 fused_chain_train: bool = False, fused_layers: bool = False):
         super().__init__()
         self.n_points = n_points
         self.position_scale = position_scale
         self.fused_messages = fused_messages
         self.fused_layers = fused_layers
         self.fused_messages_train = fused_messages_train
+        self.fused_chain = fused_chain
         self.fused_chain_train = fused_chain_train
         self.dropout = dropout
         geom = 9 * n_points
@@ -277,11 +283,13 @@ class InvariantPointLayer(nn.Module):
         return torch.nn.functional.linear(h_V.float(), lin.weight, lin.bias).reshape(
             B, L, self.n_points, 3)
 
-    def _unfused_chain(self, x, msg, mask, norm_a, ffn, norm_b, pre_mask: bool):
+    def _unfused_chain(self, x, msg, mask, norm_a, ffn, norm_b, pre_mask: bool,
+                       train: bool = True):
         """The chain as plain tensor operations, with dropout on the message
-        and on the FFN output (training with the chain knob off)."""
+        and on the FFN output in training (the chain knob off), without it in
+        ``eval()`` (``fused_chain=False``)."""
         sd = x.dtype
-        drop = lambda v: F.dropout(v, self.dropout, training=True)
+        drop = lambda v: F.dropout(v, self.dropout, training=train)
         if pre_mask:
             msg = msg * mask[..., None].to(msg.dtype)
         x = norm_a(x + drop(msg.to(sd)), sd)
@@ -318,7 +326,9 @@ class InvariantPointLayer(nn.Module):
             return self._fused_layer(h_V, h_E, idx, frames, mask_V, mask_attend,
                                      do_edge_update)
         else:
-            fused, chain_fn = self.fused_messages, _residual_chain
+            fused = self.fused_messages
+            chain_fn = (_residual_chain if self.fused_chain
+                        else functools.partial(self._unfused_chain, train=False))
 
         msg = self.node_message_fn(h_V, h_E, idx, self._points(self.points_fn_node, h_V),
                                    frames, mask_attend, pool=True, fused=fused, rel=rel)
@@ -327,7 +337,7 @@ class InvariantPointLayer(nn.Module):
         if do_edge_update:
             edge_args = (h_V, h_E, idx, self._points(self.points_fn_edge, h_V), frames,
                          mask_attend)
-            if fused == "geom_lanes" and FOLD_EDGE_CHAIN:     # eval() only
+            if fused == "geom_lanes" and FOLD_EDGE_CHAIN and chain_fn is _residual_chain:
                 return h_V, message_chain(
                     *self.edge_message_fn.operands(*edge_args),
                     *chain_weights(self.norm[2], self.edge_dense, self.norm[3]))

@@ -1,11 +1,20 @@
-"""The diffusion training loop: seeded draws, bucketed loaders, per-epoch
-validation on fixed draws, top-k + last checkpoints with resume, EMA,
-early stopping, periodic sampling evaluation and the final test on the
-best checkpoint. One device; ``trainer.n_devices > 1`` raises.
+"""The training loops of both task families. One device;
+``trainer.n_devices > 1`` raises.
+
+``train_diffusion``: seeded draws, bucketed loaders, per-epoch validation on
+fixed draws, top-k + last checkpoints with resume, EMA, early stopping,
+periodic sampling evaluation and the final test on the best checkpoint.
+
+``train_affinity``: PackPPI-AP on SKEMPI cross-validation folds over a
+frozen diffusion backbone (``network``/``linear`` mode) or over ESM-2
+embeddings (``esm`` mode, ``_train_affinity_esm``), with per-epoch
+validation (loss, Pearson, Spearman, RMSE), EMA and top-k + last
+checkpoints of the affinity network's parameters.
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 from pathlib import Path
@@ -179,11 +188,7 @@ def train_diffusion(cfg, device=None) -> dict:
     from packppi_torch.device import resolve_device
 
     device = resolve_device(device)
-    n_devices = int(cfg.trainer.get("n_devices") or 1)
-    if n_devices > 1 or int(cfg.trainer.get("model_parallel", 1) or 1) > 1:
-        raise NotImplementedError(
-            "packppi_torch trains on one device; multi-device training is slice 7 of the "
-            "port (ROADMAP.md): set trainer.n_devices=1")
+    _one_device(cfg)
     # trainer.debug_nans: autograd's anomaly mode for the length of the run
     with torch.autograd.set_detect_anomaly(bool(cfg.trainer.get("debug_nans"))):
         return _train_diffusion(cfg, device)
@@ -192,9 +197,13 @@ def train_diffusion(cfg, device=None) -> dict:
 def _train_diffusion(cfg, device) -> dict:
     from packppi_torch.data.complex import ComplexDataset, scan_complex_dir, split_entries
     from packppi_torch.data.loader import BucketedLoader
-    from packppi_torch.models import NetworkConfig, SampleConfig, TorsionalDiffusion
+    from packppi_torch.models import SampleConfig, TorsionalDiffusion
+    from packppi_torch.utils.config import network_config
     from packppi_torch.utils.metrics import chi_metrics
 
+    # a configuration the device cannot run is refused before any data is read
+    net_cfg = network_config(cfg.model)
+    net_cfg.check_device(device)
     out = Path(cfg.output_dir)
     out.mkdir(parents=True, exist_ok=True)
     metrics_log = MetricLogger(out / "logs", backends=cfg.get("logger") or ("tensorboard",))
@@ -224,8 +233,6 @@ def _train_diffusion(cfg, device) -> dict:
         raise SystemExit("no full batch available; lower data.batch_size")
 
     # ---- model / optimizer --------------------------------------------------
-    net_cfg = NetworkConfig(**{k: cfg.model[k] for k in NetworkConfig.__dataclass_fields__
-                               if k in cfg.model})
     sample_cfg = SampleConfig(
         annealed_temp=cfg.sample.annealed_temp, mode=cfg.sample.mode,
         violation_tolerance_factor=cfg.sample.violation_tolerance_factor,
@@ -322,3 +329,338 @@ def _train_diffusion(cfg, device) -> dict:
     metrics_log.close()
     return {"best_val_loss": best_val, "test_loss": test_loss, "epochs_run": epochs_run,
             "best_ckpt": ckpt_mgr.best(), "last_ckpt": ckpt_mgr.latest()}
+
+
+def _one_device(cfg):
+    if int(cfg.trainer.get("n_devices") or 1) > 1 or int(cfg.trainer.get("model_parallel", 1)
+                                                         or 1) > 1:
+        raise NotImplementedError(
+            "packppi_torch trains on one device; multi-device training is slice 7 of the "
+            "port (ROADMAP.md): set trainer.n_devices=1")
+
+
+def _optimizer(net: torch.nn.Module, lr: float, weight_decay: float):
+    """AdamW over ``net``'s parameters, each with a zero gradient from the
+    start: a parameter the loss does not reach still takes every step, as
+    under optax, where its gradient is zeros."""
+    for p in net.parameters():
+        p.grad = torch.zeros_like(p)
+    return make_optimizer(net.parameters(), lr=lr, weight_decay=weight_decay)
+
+
+def affinity_optimizer(model, lr: float, weight_decay: float):
+    """AdamW over the affinity network (the backbone stays frozen)."""
+    for p in model.backbone.parameters():
+        p.requires_grad_(False)
+    return _optimizer(model.net, lr, weight_decay)
+
+
+def make_affinity_train_step(model, optimizer, lr):
+    """``train_step(batch, opt_steps) -> loss``: the loss with dropout, its
+    backward and one AdamW step at the schedule's rate ``lr`` (a float or a
+    callable of ``opt_steps``). A non-finite loss zeroes the gradients and
+    the step is still taken, as in the JAX package; the choice is made on
+    the device, with no read-back."""
+    params = list(model.net.parameters())
+
+    def train_step(batch, opt_steps: int) -> torch.Tensor:
+        loss = model.loss(batch, deterministic=False)
+        loss.backward()
+        ok = torch.isfinite(loss)
+        with torch.no_grad():
+            for p in params:
+                p.grad.copy_(torch.where(ok, p.grad, torch.zeros_like(p.grad)))
+        _adamw_step(optimizer, lr, opt_steps)
+        return loss.detach()
+
+    return train_step
+
+
+def _adamw_step(optimizer, lr, opt_steps: int) -> None:
+    """One AdamW update at the schedule's learning rate for ``opt_steps``."""
+    if callable(lr):
+        for group in optimizer.param_groups:
+            group["lr"] = lr(opt_steps)
+    optimizer.step()
+    optimizer.zero_grad(set_to_none=False)
+
+
+def esm_batches(entries, batch_size: int, shuffle: bool, seed: int, load_item, device):
+    """Padded (wt, mut, ddg) batches over SKEMPI entries for esm mode, on
+    ``device``. Training (``shuffle``) drops the ragged tail, so every step
+    sees a full batch; evaluation keeps it. ``load_item`` gives None for an
+    entry whose mutations do not apply. The width is the embeddings'."""
+    from packppi_torch.data.esm import ESM_DIM
+
+    idx = np.arange(len(entries))
+    if shuffle:
+        np.random.default_rng(seed).shuffle(idx)
+        stops = range(0, len(idx) - batch_size + 1, batch_size)
+    else:
+        stops = range(0, len(idx), batch_size)
+    for s in stops:
+        items = [it for it in (load_item(entries[i]) for i in idx[s:s + batch_size])
+                 if it is not None]
+        if not items:
+            continue
+        L = max(w.shape[0] for w, _, _ in items)
+        dim = items[0][0].shape[-1] if items[0][0].ndim == 2 else ESM_DIM
+        wt = np.zeros((len(items), L, dim), np.float32)
+        mt = np.zeros_like(wt)
+        ddg = np.zeros(len(items), np.float32)
+        for k, (w, m, d) in enumerate(items):
+            wt[k, :len(w)], mt[k, :len(m)], ddg[k] = w, m, d
+        yield tuple(torch.from_numpy(a).to(device) for a in (wt, mt, ddg))
+
+
+def _train_affinity_esm(cfg, splits, cache_dir: Path, out: Path, metrics_log, device) -> dict:
+    """esm mode: the ddG head over ESM-2 embeddings, cached per mutation as
+    ``<cache_dir>/esm_<pdb>_<id>.npz`` (``wt``, ``mut``) or extracted with
+    the ESM-2 weights of ``esm_weights`` (a ``.pt`` as ``cli.ddg
+    --esm_ckpt`` takes it). Only the head is built: its network
+    configuration is the default one, as in the JAX package."""
+    from packppi_torch.data.esm import get_esm_extractor
+    from packppi_torch.data.skempi import apply_mutations
+    from packppi_torch.models import NetworkConfig
+    from packppi_torch.models.affinity import AffinityNet
+    from packppi_torch.structure import featurize, from_pdb_file
+    from packppi_torch.weights import init_weights
+
+    extractor = get_esm_extractor(cfg.get("esm_weights"), device)
+
+    def load_item(e):
+        cache = cache_dir / f"esm_{e['pdb_id']}_{e['id']}.npz"
+        if cache.exists():
+            with np.load(cache) as z:
+                return z["wt"], z["mut"], np.float32(e["ddG"])
+        if extractor is None:
+            raise SystemExit(
+                "ESM mode needs either cached embeddings under "
+                f"{cache_dir} (esm_<pdb>_<id>.npz with wt/mut arrays) or ESM-2 weights "
+                "(esm_weights=<file.pt>, as tools/convert_hf_esm_to_torch.py writes them)")
+        prot = from_pdb_file(e["pdb_path"], mse_to_met=True)
+        feats = featurize(prot)
+        try:
+            # strict: a mutation that does not apply would train wt == mut
+            # embeddings against a nonzero ddG, and cache the pair
+            rt_mut, _ = apply_mutations(prot, e["mutations"], strict=True)
+        except ValueError as err:
+            log.warning(f"skipping {e['pdb_id']}/{e['id']}: {err}")
+            return None
+        rm = feats["residue_mask"][:, None]
+        wt = extractor(feats["residue_type"], feats["chain_indices"]) * rm
+        mut = extractor(rt_mut, feats["chain_indices"]) * rm
+        np.savez_compressed(cache, wt=wt, mut=mut)
+        return wt, mut, np.float32(e["ddG"])
+
+    make_batches = functools.partial(esm_batches, load_item=load_item, device=device)
+    batch_size = int(cfg.data.batch_size)
+    if len(splits["train"]) < batch_size:
+        raise SystemExit(
+            f"train split ({len(splits['train'])} mutations) yields no full "
+            f"batches at global batch {batch_size} — lower data.batch_size")
+    strict_parity = bool(cfg.model.get("strict_parity", True))
+    wt0, _, _ = next(make_batches(splits["train"], 1, False, 0))
+    net = AffinityNet(NetworkConfig(), "esm", strict_parity, esm_dim=wt0.shape[-1])
+    init_weights(net, cfg.seed)
+    resume = cfg.get("ckpt_path")
+    if resume:
+        log.info(f"resuming params from {resume}")
+        net.load_state_dict(load_params(resume), strict=True)
+    net.to(device).eval()
+    # real rows: embeddings are zeroed at padding, so a nonzero row is a residue
+    pool_mask = (lambda wt: None) if strict_parity else (lambda wt: (wt.abs().sum(-1) > 0).float())
+
+    def loss_of(wt, mt, ddg):
+        pred, pred_inv = net(None, None, wt, mt, None, pool_mask(wt))
+        return 0.5 * (torch.mean((pred - ddg) ** 2) + torch.mean((pred_inv + ddg) ** 2))
+
+    optimizer = _optimizer(net, float(cfg.trainer.lr), float(cfg.trainer.weight_decay))
+    _, ema, ema_step = init_ema(cfg, net.state_dict(), resume)
+
+    ckpt_mgr = CheckpointManager(out / "checkpoints", top_k=cfg.trainer.checkpoint_top_k)
+    best_val, step = float("inf"), 0
+    stopper = EarlyStopper(cfg.trainer)
+    for epoch in range(cfg.trainer.max_epochs):
+        losses = []
+        for wt, mt, ddg in make_batches(splits["train"], batch_size, True, cfg.seed + epoch):
+            loss = loss_of(wt, mt, ddg)
+            loss.backward()
+            _adamw_step(optimizer, None, step)
+            if ema is not None:
+                ema_step(ema, net.state_dict())
+            losses.append(loss.detach())
+            step += 1
+        with torch.no_grad(), swapped_params(net, ema):
+            vlosses = [loss_of(wt, mt, ddg)
+                       for wt, mt, ddg in make_batches(splits["valid"], batch_size, False, 0)]
+        train_loss, val_loss = _mean(losses), _mean(vlosses)
+        best_val = min(best_val, val_loss)
+        metrics_log.log(step, {"train/loss": train_loss, "val/loss": val_loss})
+        log.info(f"epoch {epoch}: train {train_loss:.4f} val {val_loss:.4f}")
+        ckpt_mgr.save(step, net.state_dict(),
+                      metric=val_loss if np.isfinite(val_loss) else None, ema=ema)
+        if stopper.should_stop(epoch, val_loss):
+            log.info(f"early stopping at epoch {epoch}")
+            break
+    metrics_log.close()
+    return {"best_val_loss": best_val, "best_ckpt": ckpt_mgr.best(),
+            "last_ckpt": ckpt_mgr.latest()}
+
+
+def train_affinity(cfg, device=None) -> dict:
+    """PackPPI-AP training from a composed config (``configs/train_affinity.yaml``).
+    Dropout draws come from torch's global generator, seeded with
+    ``cfg.seed`` inside the run and restored after it."""
+    from packppi_torch.device import resolve_device
+
+    from packppi_torch.utils.config import network_config
+
+    device = resolve_device(device)
+    _one_device(cfg)
+    # esm mode builds the head alone; otherwise a configuration the device
+    # cannot run is refused before any data is read
+    net_cfg = None if cfg.model.mode == "esm" else network_config(cfg.model)
+    if net_cfg is not None:
+        net_cfg.check_device(device)
+    devices = [device] if device.type == "cuda" else []
+    with torch.random.fork_rng(devices=devices), \
+            torch.autograd.set_detect_anomaly(bool(cfg.trainer.get("debug_nans"))):
+        torch.manual_seed(int(cfg.seed))
+        return _train_affinity(cfg, net_cfg, device)
+
+
+class _SkempiDataset:
+    """The featurized wild-type/mutant pair of each entry, cached as
+    ``<cache_dir>/<pdb>_<id>.npz`` (the JAX package's file name and
+    arrays, so either package reads what the other wrote)."""
+
+    def __init__(self, entries, cache_dir: Path):
+        self.entries, self.cache_dir = entries, cache_dir
+
+    def __len__(self):
+        return len(self.entries)
+
+    def __getitem__(self, i):
+        from packppi_torch.data.skempi import skempi_features
+        from packppi_torch.structure import from_pdb_file
+
+        e = self.entries[i]
+        cache = self.cache_dir / f"{e['pdb_id']}_{e['id']}.npz"
+        if cache.exists():
+            with np.load(cache) as z:
+                return dict(z)
+        feats = skempi_features(from_pdb_file(e["pdb_path"], mse_to_met=True),
+                                e["mutations"], ddg=e["ddG"])
+        np.savez_compressed(cache, **feats)
+        return feats
+
+
+def _train_affinity(cfg, net_cfg, device) -> dict:
+    from packppi_torch.data import skempi
+    from packppi_torch.data.loader import BucketedLoader
+    from packppi_torch.models.affinity import AffinityModel
+    from packppi_torch.utils.metrics import spearman
+    from packppi_torch.weights import init_weights, load_weights
+
+    out = Path(cfg.output_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    metrics_log = MetricLogger(out / "logs", backends=cfg.get("logger") or ("tensorboard",))
+
+    entries = skempi.load_skempi_entries(cfg.data.data_dir, cfg.data.pdb_dirname,
+                                         cfg.data.meta_filename, list(cfg.data.block_list))
+    if not entries:
+        raise SystemExit(f"no usable SKEMPI entries under {cfg.data.data_dir}")
+    splits = skempi.cv_split(entries, cfg.data.num_cvfolds, cfg.data.cvfold_index,
+                             cfg.data.split_seed)
+    log.info(f"skempi: {len(splits['train'])} train / {len(splits['valid'])} val mutations")
+    cache_dir = Path(cfg.data.data_dir) / cfg.data.cache_dir
+    cache_dir.mkdir(parents=True, exist_ok=True)
+    if net_cfg is None:
+        return _train_affinity_esm(cfg, splits, cache_dir, out, metrics_log, device)
+
+    batch_size = int(cfg.data.batch_size)
+    stack = functools.partial(skempi.stack_affinity_batch, device=device)
+    loaders = {
+        "train": BucketedLoader(_SkempiDataset(splits["train"], cache_dir), batch_size,
+                                shuffle=True, seed=cfg.seed, drop_last=True, stack_fn=stack),
+        # an empty validation fold gives no batch: val/loss is NaN and
+        # checkpoints are saved without a metric, as in the JAX package
+        "val": BucketedLoader(_SkempiDataset(splits["valid"], cache_dir), batch_size,
+                              shuffle=False, prefetch=0, stack_fn=stack),
+    }
+    steps_per_epoch = len(loaders["train"])
+    if steps_per_epoch == 0:
+        raise SystemExit(
+            f"train split ({len(splits['train'])} mutations) yields no full batches at "
+            f"global batch {batch_size} (data.batch_size x 1 devices) — lower "
+            "data.batch_size or trainer.n_devices")
+
+    model = AffinityModel(net_cfg, cfg.model.mode, bool(cfg.model.get("strict_parity", True)))
+    if cfg.get("pre_checkpoint_path"):
+        load_weights(model.backbone.net, cfg.pre_checkpoint_path)
+    else:
+        log.warning("no pre_checkpoint_path: affinity training on a random backbone")
+        init_weights(model.backbone.net, cfg.seed + 1)
+    # the frozen backbone is part of the model: with it beside the affinity
+    # checkpoints, `cli.ddg --pre_ckpt <out>/backbone.pt` reproduces the run
+    save_params(out / "backbone.pt", model.backbone.net.state_dict())
+    init_weights(model.net, cfg.seed)
+    resume = cfg.get("ckpt_path")
+    if resume:
+        # params-level resume, as the reference's ckpt_path; no automatic
+        # resume from the run's own latest checkpoint
+        log.info(f"resuming params from {resume}")
+        load_weights(model.net, resume)
+    model.to(device)
+
+    lr = make_lr(cfg.trainer, steps_per_epoch)
+    optimizer = affinity_optimizer(model, float(cfg.trainer.lr),
+                                   float(cfg.trainer.weight_decay))
+    _, ema, ema_step = init_ema(cfg, model.net.state_dict(), resume)
+    train_step = make_affinity_train_step(model, optimizer, lr)
+
+    ckpt_mgr = CheckpointManager(out / "checkpoints", top_k=cfg.trainer.checkpoint_top_k)
+    best_val, step = float("inf"), 0
+    stopper = EarlyStopper(cfg.trainer)
+    for epoch in range(cfg.trainer.max_epochs):
+        losses = []
+        for batch in loaders["train"]:
+            losses.append(train_step(batch, step))
+            if ema is not None:
+                ema_step(ema, model.net.state_dict())
+            step += 1
+        train_loss = _mean(losses)
+
+        # with EMA on, validation, the records and checkpoint selection use
+        # the EMA weights (what inference will use); the loss and the
+        # predictions come from one forward without dropout
+        vlosses, preds, labels = [], [], []
+        with torch.no_grad(), swapped_params(model.net, ema):
+            for batch in loaders["val"]:
+                ddg, ddg_inv = model.predict(batch)
+                y = batch.ddg
+                vlosses.append(0.5 * (torch.mean((ddg - y) ** 2)
+                                      + torch.mean((ddg_inv + y) ** 2)))
+                preds.append(ddg.cpu().numpy())
+                labels.append(y.cpu().numpy())
+        val_loss = _mean(vlosses)
+        best_val = min(best_val, val_loss)
+        extras = {}
+        if preds:
+            p, y = np.concatenate(preds), np.concatenate(labels)
+            if len(p) > 2 and p.std() > 0 and y.std() > 0:
+                extras["val/pearson"] = float(np.corrcoef(p, y)[0, 1])
+                extras["val/spearman"] = spearman(p, y)
+            extras["val/rmse"] = float(np.sqrt(np.mean((p - y) ** 2)))
+        metrics_log.log(step, {"train/loss": train_loss, "val/loss": val_loss, **extras})
+        log.info(f"epoch {epoch}: train {train_loss:.4f} val {val_loss:.4f} {extras}")
+        ckpt_mgr.save(step, model.net.state_dict(),
+                      metric=val_loss if np.isfinite(val_loss) else None, ema=ema)
+        if stopper.should_stop(epoch, val_loss):
+            log.info(f"early stopping at epoch {epoch}")
+            break
+
+    metrics_log.close()
+    return {"best_val_loss": best_val, "best_ckpt": ckpt_mgr.best(),
+            "last_ckpt": ckpt_mgr.latest(), "backbone": str(out / "backbone.pt")}

@@ -28,6 +28,15 @@ from packppi_torch.utils.metrics import chi_metrics, mean_squared_atom_deviation
 log = get_logger(__name__)
 
 
+def as_floats(metric: dict) -> dict:
+    """A metric suite as the JAX package writes it on every surface
+    (``metrics.json``, directory mode's summary, the server's response):
+    each number a float, booleans included (``clashscore_is_exact`` 0.0 or
+    1.0); other values (a None clashscore) as they are."""
+    return {k: (float(v) if isinstance(v, (int, float, np.floating, np.integer)) else v)
+            for k, v in metric.items()}
+
+
 class ProteinAnalysis:
     def __init__(self, molprobity_clash_loc: Optional[str] = None,
                  tmp_dir: str = ".packppi_tmp",

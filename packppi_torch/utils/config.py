@@ -234,3 +234,24 @@ def load_config(path: str, overrides: Optional[list[str]] = None) -> Config:
                          + ", ".join(sorted(leftovers))
                          + " (circular ${...} self-reference?)")
     return Config.wrap(merged)
+
+
+# keys of a model config that its trainer reads itself, not the network
+TRAINER_MODEL_KEYS = ("mode", "strict_parity")
+
+
+def network_config(model_cfg):
+    """The ``NetworkConfig`` of a config's ``model`` section. Keys the port's
+    network does not have are dropped with a warning that names them, apart
+    from those the trainer reads itself (``TRAINER_MODEL_KEYS``)."""
+    import dataclasses
+
+    from packppi_torch.models import NetworkConfig
+    from packppi_torch.utils.logging import get_logger
+
+    fields = {f.name for f in dataclasses.fields(NetworkConfig)}
+    dropped = sorted(k for k in model_cfg if k not in fields and k not in TRAINER_MODEL_KEYS)
+    if dropped:
+        get_logger(__name__).warning(
+            f"model config keys not used by the port's network: {', '.join(dropped)}")
+    return NetworkConfig(**{k: model_cfg[k] for k in fields if k in model_cfg})

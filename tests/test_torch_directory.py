@@ -82,7 +82,8 @@ def test_directory_pack_summary_has_the_jax_layout(pack_runs, corpus):
         assert set(o) == set(t) | PROXIMAL_KEYS
         assert set(o["metrics"]) == set(t["metrics"])
         assert all(np.isfinite(v) for k, v in o["metrics"].items() if k != "clashscore_is_exact")
-        assert o["metrics"]["clashscore_is_exact"] is False
+        assert type(o["metrics"]["clashscore_is_exact"]) is float
+        assert o["metrics"]["clashscore_is_exact"] == 0.0
 
 
 def test_directory_pack_keeps_residues_and_accepts_per_row(pack_runs):

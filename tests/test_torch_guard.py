@@ -156,7 +156,7 @@ def test_train_cli_without_gpu_raises(tmp_path):
 def test_routing_config_values_are_validated():
     from packppi_torch.models import ChiScoreNetwork, NetworkConfig
 
-    for bad in (dict(fused_messages=False), dict(fused_messages="geom_aos"),
+    for bad in (dict(fused_messages="geom_aos"),
                 dict(fused_messages=1), dict(geometry_mode="frame"),
                 dict(mxu_gather_grad="yes"), dict(mxu_gather_grad=1)):
         with pytest.raises(ValueError):
@@ -165,6 +165,9 @@ def test_routing_config_values_are_validated():
                dict(fused_messages=True, fused_messages_train=True, fused_chain_train=True,
                     dropout=0.0, remat_layers=True),
                dict(fused_messages="geom"), dict(fused_messages="geom_gather"),
-               dict(fused_layers=True), dict(geometry_mode="local", fused_messages=True)):
+               dict(fused_layers=True), dict(geometry_mode="local", fused_messages=True),
+               # the unfused route (cli.pack --no_fused), in either geometry mode
+               dict(fused_messages=False, fused_chain=False),
+               dict(fused_messages=False, fused_chain=False, geometry_mode="local")):
         ChiScoreNetwork(NetworkConfig(**ok))
 

@@ -874,3 +874,89 @@ def test_clash_kernels_on_rows_of_different_lengths(cuda):
     assert (x.grad - ref.grad).abs().max().item() <= 2e-5
     # padded slots hold no atom and get neither loss nor gradient
     assert got[0, 72:].abs().max().item() == 0 and x.grad[0, 72:].abs().max().item() == 0
+
+
+def _kernel_launches():
+    from packppi_torch.ops.chain import chain
+    from packppi_torch.ops.layer import layer_edge, layer_node
+    from packppi_torch.ops.message import message, message_chain, message_gather, message_geom
+    from packppi_torch.ops.message_feat import message_feat
+
+    return (message, message_chain, message_gather, message_geom, message_feat, chain,
+            layer_node, layer_edge)
+
+
+def test_unfused_route_launches_no_kernel(cuda):
+    """``fused_messages=False, fused_chain=False`` in eval(): no kernel
+    launch on the card, while the default configuration launches the
+    message and chain kernels (3 node and 3 edge passes each)."""
+    from packppi_torch.data import stack_batch
+    from packppi_torch.models import ChiScoreNetwork, NetworkConfig
+    from packppi_torch.structure import featurize, from_pdb_file
+    from packppi_torch.weights import init_weights
+
+    feats = featurize(from_pdb_file(f"{FIXTURES}/1brs.pdb", mse_to_met=True))
+    batch = stack_batch([feats], cuda)
+    t = torch.full(batch.residue_mask.shape, 0.5, device=cuda)
+    counts = {}
+    for name, kw in (("unfused", dict(fused_messages=False, fused_chain=False)), ("default", {})):
+        net = ChiScoreNetwork(NetworkConfig(compute_dtype="bfloat16", **kw))
+        init_weights(net, 0)
+        net.to(cuda).eval()
+        for fn in _kernel_launches():
+            fn.launches = 0
+        with torch.no_grad():
+            score, _ = net(batch, batch.SC_D, t)
+        assert torch.isfinite(score).all()
+        counts[name] = [fn.launches for fn in _kernel_launches()]
+    assert counts["unfused"] == [0] * 8
+    assert counts["default"] == [6, 0, 0, 0, 0, 6, 0, 0]
+
+
+def test_server_lock_serializes_concurrent_requests(cuda, tmp_path):
+    """Two seeded /pack requests at once on the card: their samplings never
+    overlap, and each answer equals the same request made alone."""
+    import http.client
+    import json
+    import threading
+    import time
+    from concurrent.futures import ThreadPoolExecutor
+
+    from packppi_torch.cli.serve import build_parser, make_server
+
+    sessions = {}
+    args = build_parser().parse_args(["--port", "0", "--n_steps", "3",
+                                      "--tmp_dir", str(tmp_path / "tmp")])
+    srv = make_server(args, sessions)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    model = sessions["pack"].model
+    sample, active, overlaps = model.sample, [0], []
+
+    def watched(*a, **k):
+        active[0] += 1
+        overlaps.append(active[0] > 1)
+        time.sleep(0.2)
+        try:
+            return sample(*a, **k)
+        finally:
+            active[0] -= 1
+
+    def post(body):
+        conn = http.client.HTTPConnection(*srv.server_address, timeout=600)
+        conn.request("POST", "/pack", body=body)
+        resp = conn.getresponse()
+        out = (resp.status, json.loads(resp.read()))
+        conn.close()
+        return out
+
+    try:
+        pdb = open(f"{FIXTURES}/1brs.pdb").read()
+        bodies = [json.dumps({"pdb": pdb, "seed": s, "metrics": False}) for s in (3, 4)]
+        alone = [post(b)[1]["pdb"] for b in bodies]
+        model.sample = watched
+        with ThreadPoolExecutor(2) as pool:
+            both = list(pool.map(post, bodies))
+    finally:
+        srv.shutdown()
+    assert [s for s, _ in both] == [200, 200]
+    assert [p["pdb"] for _, p in both] == alone and overlaps == [False, False]
