@@ -53,7 +53,11 @@ fatal on failure:
    11 x T1124 (L = 8,151), the fold at K = 24, the layer passes at L = 741;
    the SASS of the gathered-operand message kernel's, the fold's and the
    layer passes' kernels (tensor-core products: HGMMA in bf16, HMMA in
-   float32);
+   float32); every activation of the table (``NetworkConfig.act``, a
+   library per activation built with the rest) on the message and chain
+   kernels at T1124, node and edge, float32 and bf16, each timed beside
+   relu, and gelu on the five variant kernels and the feature-message
+   kernel;
 4. golden replay: the 1BRS float32 30-step trajectory through the kernels
    against the reference's ``tests/golden/pipeline_golden.npz`` (5e-4
    rad), again under each variant routing (``geom``, ``geom_gather``, the
@@ -101,7 +105,16 @@ fatal on failure:
    step's time, peak memory and profile;
 10. the trainer end to end: the crop corpus from 1BRS and 2FTL,
     ``cli.train_diffusion`` for one epoch and resumed for a second,
-    ``cli.pack`` with its checkpoint; and T1124 packed with the shipped
+    ``cli.pack`` with its checkpoint; the network options at full width:
+    the bf16 T1124 pack with ``act="gelu"`` (150 and 150 launches) against
+    the unfused route, a float32 gelu evaluation card against CPU,
+    ``cli.train_diffusion trainer=debug model.act=gelu`` with the kernel
+    knobs; T1124 packs with the bfloat16 and int8 edge caches (within
+    0.01 rad of the float32 cache's in float32 compute; the caches' bytes);
+    the vanilla stack (``use_ipmp=False``): a float32 T1124 pack with no
+    launch, card against CPU, one ``cli.train_affinity`` step; the native
+    parser's library built and loaded, its T1124 parse and 2FTL's delta-SASA
+    interface timed; and T1124 packed with the shipped
     checkpoint ``docs/ckpts/diffusion_crops/torch_state.pt``, with its chi
     accuracies;
 11. PackPPI-AP: ESM-2 650M at full width with random weights from seed 0 on
@@ -234,11 +247,15 @@ def phase_versions(torch):
 def phase_build():
     from packppi_torch.ops import _build
 
+    # every activation's message and chain libraries; gelu's of the
+    # feature-message and whole-layer sources (rows 3 and 6)
+    act_builds = [_build.lib_name(s, a) for a in _build.ACTS[1:] for s in ("message", "chain")]
+    act_builds += [_build.lib_name("message_feat", "gelu"), _build.lib_name("layer", "gelu")]
     t0 = time.perf_counter()
-    _build.build_all(SOURCES)
-    log(f"build: {time.perf_counter() - t0:.3f} s (nvcc, sm_90a, {len(SOURCES)} sources in "
-        "parallel)")
-    for name in SOURCES:
+    _build.build_all([*SOURCES, *act_builds])
+    log(f"build: {time.perf_counter() - t0:.3f} s (nvcc, sm_90a, {len(SOURCES)} sources and "
+        f"{len(act_builds)} activation libraries in parallel)")
+    for name in [*SOURCES, *act_builds]:
         for line in _build.build_log(name).splitlines():
             # every ptxas line (entry, registers, shared memory, spills) of the
             # tensor-core kernels; registers and spills of the others
@@ -2115,10 +2132,10 @@ class folded_edge_chain:
         ipmp.FOLD_EDGE_CHAIN = self.prev
 
 
-def variant_cases(static, h_V, layer, frames, mask_V):
+def variant_cases(static, h_V, layer, frames, mask_V, act="relu"):
     """(kernel, variant, kernel fn, plain fn, operands, rows of a first
     block, edge rows of messages, chain rows) for the five new kernels on
-    layer 0 of the network."""
+    layer 0 of the network, with activation ``act``."""
     from packppi_torch.models.ipmp import chain_weights
     from packppi_torch.ops.layer import (NODES_PER_BLOCK, layer_edge, layer_edge_plain,
                                          layer_node, layer_node_plain)
@@ -2133,7 +2150,8 @@ def variant_cases(static, h_V, layer, frames, mask_V):
                                     ("edge", False, layer.edge_message_fn, layer.points_fn_edge)):
         args = (h_V, static.h_E, static.idx, layer._points(pts, h_V), frames, static.mask_attend)
         first = ROWS_PER_BLOCK // K if pool else ROWS_PER_BLOCK
-        bind = lambda f, pool=pool: (lambda *o: f(*o, pool))
+        bind = lambda f, pool=pool: (lambda *o: f(*o, pool, act))
+        with_act = lambda f: functools.partial(f, act=act)
         cases.append(("message_geom", variant, bind(message_geom), bind(message_geom_plain),
                       mlp.geom_operands(*args), first, edge_rows, 0))
         cases.append(("message_gather", variant, bind(message_gather), bind(message_plain),
@@ -2142,14 +2160,16 @@ def variant_cases(static, h_V, layer, frames, mask_V):
         per_i, pjg, h_E, geom, mask, *msg_w = feat
         if pool:
             cw = chain_weights(layer.norm[0], layer.node_dense, layer.norm[1])
-            cases.append(("layer_node", variant, layer_node, layer_node_plain,
+            cases.append(("layer_node", variant, with_act(layer_node),
+                          with_act(layer_node_plain),
                           (h_V, per_i, pjg, h_E, geom, mask, mask_V, *msg_w, *cw),
                           NODES_PER_BLOCK, edge_rows, node_rows))
         else:
             cw = chain_weights(layer.norm[2], layer.edge_dense, layer.norm[3])
-            cases.append(("message_chain", variant, message_chain, message_chain_plain,
-                          (*mlp.operands(*args), *cw), first, edge_rows, edge_rows))
-            cases.append(("layer_edge", variant, layer_edge, layer_edge_plain,
+            cases.append(("message_chain", variant, with_act(message_chain),
+                          with_act(message_chain_plain), (*mlp.operands(*args), *cw), first,
+                          edge_rows, edge_rows))
+            cases.append(("layer_edge", variant, with_act(layer_edge), with_act(layer_edge_plain),
                           (h_E, per_i, pjg, geom, mask, *msg_w, *cw), first, edge_rows,
                           edge_rows))
     return cases
@@ -2892,6 +2912,333 @@ def phase_serve(torch):
     return launches
 
 
+# the network options of NetworkConfig beyond the published configuration:
+# the activation table (a kernel library per activation), static_edge_dtype,
+# the vanilla MPNN (use_ipmp=False), and the native host library
+STATIC_TOL_RAD = 0.01          # the JAX package's bound for a narrower edge cache
+VANILLA_SEED = 7
+
+
+def phase_activations(torch, timer):
+    """Every activation's message (node, edge) and chain (node, edge)
+    kernels against their plain versions at T1124 shapes, float32 and bf16,
+    each timed beside relu's (the same bound: it counts the products); a
+    non-relu kernel must give other values than relu's. Then gelu on the
+    variant kernels (rows 4, 5, 1b, 6) and on the feature-message kernel
+    (row 3), float32 and bf16 with the bf16 controls. Returns
+    {(kernel, dtype, variant): {act: ms}}."""
+    from packppi_torch.models.ipmp import chain_operands
+    from packppi_torch.ops._build import ACTS
+    from packppi_torch.ops.chain import chain, chain_plain
+    from packppi_torch.ops.message import message, message_plain
+    from packppi_torch.ops.message_feat import message_feat, message_feat_plain
+
+    t_phase = time.perf_counter()
+    times = {}
+    for dtype_name in ("float32", "bfloat16"):
+        net, batch = t1124_network(torch, dtype_name, "cuda")
+        with torch.no_grad():
+            static, h_V, layer, frames = layer0_state(torch, net, batch)
+            for variant, pool in (("node", True), ("edge", False)):
+                mlp = layer.node_message_fn if pool else layer.edge_message_fn
+                ops = mlp.operands(*message_args(static, h_V, layer, frames, variant))
+                relu = {}
+                for act in ACTS:
+                    got = message(*ops, pool, act)
+                    torch.cuda.synchronize()
+                    want = message_plain(*ops, pool, act)
+                    check_close(f"message {variant} {dtype_name} {act}", got, want, dtype_name)
+                    if pool:
+                        cops = chain_operands(h_V, want, batch.residue_mask, layer.norm[0],
+                                              layer.node_dense, layer.norm[1])
+                    else:
+                        cops = chain_operands(static.h_E, want, static.mask_attend,
+                                              layer.norm[2], layer.edge_dense, layer.norm[3])
+                    cgot = chain(*cops, not pool, act)
+                    torch.cuda.synchronize()
+                    check_close(f"chain {variant} {dtype_name} {act}", cgot,
+                                chain_plain(*cops, not pool, act), dtype_name)
+                    if act == "relu":
+                        relu = {"message": got, "chain": cgot}
+                    elif torch.equal(got, relu["message"]) or torch.equal(cgot, relu["chain"]):
+                        fail(f"{act} gives relu's values")
+                    times.setdefault(("message", dtype_name, variant), {})[act] = timer(
+                        lambda: message(*ops, pool, act))
+                    times.setdefault(("chain", dtype_name, variant), {})[act] = timer(
+                        lambda: chain(*cops, not pool, act))
+
+            for name, variant, fn, plain, ops, first, _, _ in variant_cases(
+                    static, h_V, layer, frames, batch.residue_mask, act="gelu"):
+                check_variant(torch, f"{name} {variant} {dtype_name} gelu", fn, plain, ops, first,
+                              dtype_name)
+                times.setdefault((name, dtype_name, variant), {})["gelu"] = timer(
+                    lambda: fn(*ops))
+            for variant, pool in (("node", True), ("edge", False)):
+                feat = (layer.node_message_fn if pool else layer.edge_message_fn).feat_operands(
+                    *message_args(static, h_V, layer, frames, variant))
+                fn = lambda *o, pool=pool: message_feat(*o, pool, "gelu")
+                plain = lambda *o, pool=pool: message_feat_plain(*o, pool, "gelu")
+                check_variant(torch, f"message_feat {variant} {dtype_name} gelu", fn, plain,
+                              feat, ROWS_PER_BLOCK // static.idx.shape[-1] if pool
+                              else ROWS_PER_BLOCK, dtype_name)
+                times.setdefault(("message_feat", dtype_name, variant), {})["gelu"] = timer(
+                    lambda: fn(*feat))
+    for (k, d, v), by_act in times.items():
+        log(f"  time {k} {v} {d} T1124 by activation: "
+            + ", ".join(f"{a} {ms:.4f} ms" for a, ms in by_act.items()))
+    log(f"phase activations: {time.perf_counter() - t_phase:.1f} s")
+    return times
+
+
+def option_model(torch, dtype_name, weights=PIPELINE_GOLDEN, device="cuda", **cfg):
+    """A TorsionalDiffusion of ``NetworkConfig(compute_dtype=dtype_name,
+    **cfg)`` on ``device`` with ``weights`` (a file, or a seed)."""
+    from packppi_torch.models import NetworkConfig, TorsionalDiffusion
+    from packppi_torch.weights import init_weights, load_weights
+
+    model = TorsionalDiffusion(NetworkConfig(compute_dtype=dtype_name, **cfg))
+    if isinstance(weights, int):
+        init_weights(model.net, weights)
+    else:
+        load_weights(model.net, weights)
+    return model.to(device)
+
+
+def t1124_batch(device):
+    from packppi_torch.data import stack_batch
+    from packppi_torch.structure import featurize, from_pdb_file
+
+    return stack_batch([featurize(from_pdb_file(T1124, mse_to_met=True))], device)
+
+
+def sample_counted(torch, model, batch, seed=0):
+    """A 30-step sample with its launches (counts set to 0 just before),
+    wall seconds and chis."""
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        sc = model.sample(batch, torch.Generator(device=batch.X.device).manual_seed(seed),
+                          n_steps=STEPS)
+    torch.cuda.synchronize()
+    return sc, read_launches(), time.perf_counter() - t0
+
+
+def chi_gap(sc, ref, mask):
+    """max and 99th percentile of the wrapped chi distance over ``mask``."""
+    import numpy as np
+
+    d = (sc - ref).abs().cpu().numpy()
+    d = np.minimum(d, 2 * np.pi - d)[mask]
+    return float(d.max()), float(np.percentile(d, 99))
+
+
+def phase_gelu_path(torch):
+    """The slice's path at full width with ``act="gelu"``: the bf16 T1124
+    30-step pack through the kernels (150 message and 150 chain launches),
+    against the same pack on the unfused route on the card (one network
+    evaluation within the routes' bf16 limit; the packs' chis reported);
+    a float32 evaluation, card against the CPU on the CPU's graph (1e-3, as
+    phase_network_vs_cpu); ``cli.train_diffusion trainer=debug
+    model.act=gelu`` with the four kernel knobs on the crop corpus, through
+    the feature-message and chain kernels."""
+    from packppi_torch.cli import train_diffusion
+    from packppi_torch.models.diffusion_net import StaticGraph
+
+    t_phase = time.perf_counter()
+    batch = t1124_batch("cuda")
+    mask = batch.SC_D_mask.cpu().numpy() > 0
+    kern = option_model(torch, "bfloat16", act="gelu")
+    unf = option_model(torch, "bfloat16", act="gelu", fused_messages=False, fused_chain=False)
+    sc, got, wall = sample_counted(torch, kern, batch)
+    log(f"gelu pack T1124 bf16 {STEPS} steps, kernels: {wall:.4f} s, launches {got}")
+    if got != expect_launches(message=5 * STEPS, chain=5 * STEPS):
+        fail(f"the gelu pack: launches {got}")
+    sc_u, got_u, wall_u = sample_counted(torch, unf, batch)
+    if got_u != expect_launches():
+        fail(f"the unfused gelu pack launched kernels: {got_u}")
+    gmax, g99 = chi_gap(sc, sc_u, mask)
+    log(f"  unfused route: {wall_u:.4f} s; chis kernel vs unfused route: max {gmax:.4e} rad, "
+        f"99th percentile {g99:.4e} rad; finite {bool(sc.isfinite().all())}")
+    if not bool(sc.isfinite().all()) or (sc[~batch.SC_D_mask.bool()] != 0).any():
+        fail("the gelu pack's chis are not finite, or masked chis are not 0")
+    with torch.no_grad():
+        static = kern.net.encode_static(batch)
+        t = torch.full(batch.residue_mask.shape, 0.5, device="cuda")
+        a, b = (m.net(batch, batch.SC_D, t, static=static, skip_last_edge_update=True)
+                for m in (kern, unf))
+    ds, dh = ((a[i] - b[i]).abs().max().item() for i in (0, 1))
+    log(f"  one gelu bf16 evaluation, kernel vs unfused route: score {ds:.3e}, h_V {dh:.3e} "
+        f"(bound {UNFUSED_BF16_TOL})")
+    if not (ds <= UNFUSED_BF16_TOL and dh <= UNFUSED_BF16_TOL):
+        fail("the gelu kernel route disagrees with the unfused route")
+
+    nets = {d: option_model(torch, "float32", device=d, act="gelu").net.eval()
+            for d in ("cuda", "cpu")}
+    cpu_batch = t1124_batch("cpu")
+    with torch.no_grad():
+        st = nets["cpu"].encode_static(cpu_batch)
+        g = torch.Generator().manual_seed(0)
+        sc0 = cpu_batch.SC_D + torch.randn(cpu_batch.SC_D.shape, generator=g)
+        out = {}
+        for d, net in nets.items():
+            b = cpu_batch if d == "cpu" else batch
+            t = torch.full(b.residue_mask.shape, 0.5, device=d)
+            out[d] = net(b, sc0.to(d), t, static=StaticGraph(*(x.to(d) for x in st[:3])),
+                         skip_last_edge_update=True)
+    ds, dh = ((out["cuda"][i].cpu() - out["cpu"][i]).abs().max().item() for i in (0, 1))
+    log(f"  gelu float32 T1124 evaluation, card vs CPU: score {ds:.3e}, h_V {dh:.3e} "
+        f"(bound 1e-3)")
+    if not (ds < 1e-3 and dh < 1e-3):
+        fail("the gelu network differs between the card and the CPU")
+
+    argv = ["trainer=debug", f"data.data_dir={OUT / 'crops'}", "data.batch_size=16",
+            "sample.n_diffusion_steps=3", f"output_dir={OUT / 'train_gelu'}", "model.act=gelu"]
+    argv += [f"model.{k}={str(v).lower()}" for k, v in TRAIN_KNOBS.items()]
+    shutil.rmtree(OUT / "train_gelu", ignore_errors=True)
+    zero_launches()
+    t0 = time.perf_counter()
+    (result,) = train_diffusion.main(argv + ["trainer.max_epochs=1"])
+    got = read_launches()
+    m = result["metrics"]
+    log(f"  cli.train_diffusion trainer=debug model.act=gelu (knobs): "
+        f"{time.perf_counter() - t0:.2f} s, val/loss {m['best_val_loss']:.5f}, launches {got}")
+    if not (got["message_feat"] > 0 and got["chain"] > 0 and got["message_feat"] % 5 == 0
+            and math.isfinite(m["best_val_loss"])):
+        fail(f"the gelu trainer did not run through the kernels: {got}")
+    log(f"phase gelu path: {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_static_edge_dtype(torch):
+    """T1124 30-step packs through the kernels with the bfloat16 and int8
+    edge caches, with the float32 cache's noise, in float32 compute (where
+    a bf16 cache narrows the stored edges): chis within ``STATIC_TOL_RAD``
+    of the float32 cache's pack (the JAX package's bound, which it holds in
+    float32 compute), masked chis 0; the cache's bytes for each. The int8
+    cache in bf16 compute too, its distance reported beside that of the
+    kernel and unfused bf16 routes (phase_gelu_path): bf16 compute's own
+    noise, which 30 steps carry to a few 1e-2 rad."""
+    t_phase = time.perf_counter()
+    batch = t1124_batch("cuda")
+    mask = batch.SC_D_mask.cpu().numpy() > 0
+    for compute, caches in (("float32", ("bfloat16", "int8")), ("bfloat16", ("int8",))):
+        runs = {}
+        for cache in ("float32", *caches):
+            model = option_model(torch, compute, static_edge_dtype=cache)
+            sc, got, wall = sample_counted(torch, model, batch)
+            with torch.no_grad():
+                nbytes = model.net.encode_static(batch).nbytes()
+            runs[cache] = sc
+            log(f"static_edge_dtype {cache}, {compute} compute, T1124 {STEPS} steps: {wall:.4f} s, "
+                f"edge cache {nbytes} bytes, launches {got}")
+            if got != expect_launches(message=5 * STEPS, chain=5 * STEPS):
+                fail(f"static_edge_dtype {cache}: launches {got}")
+            if (sc[~batch.SC_D_mask.bool()] != 0).any() or not bool(sc.isfinite().all()):
+                fail(f"static_edge_dtype {cache}: masked chis not 0 or chis not finite")
+        for cache in caches:
+            gmax, g99 = chi_gap(runs[cache], runs["float32"], mask)
+            bound = STATIC_TOL_RAD if compute == "float32" else "none, bf16 compute"
+            log(f"  {cache} cache vs float32 cache ({compute} compute): max {gmax:.4e} rad, "
+                f"99th percentile {g99:.4e} rad (bound {bound})")
+            if compute == "float32" and gmax > STATIC_TOL_RAD:
+                fail(f"the {cache} edge cache moves the chis by {gmax:.4e} rad")
+    log(f"phase static_edge_dtype: {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_vanilla(torch):
+    """``use_ipmp=False`` at the published widths with random weights from a
+    seed: a float32 T1124 30-step pack with no message or chain launch, its
+    busy time; one evaluation, card against the CPU on the CPU's graph
+    (1e-4); one ``cli.train_affinity`` epoch of one training step with
+    ``model.use_ipmp=false``: the backbone takes the same configuration (as
+    in the JAX trainer), so it is a vanilla network on random weights (no
+    checkpoint of one ships) and nothing launches a kernel."""
+    from packppi_torch.cli import train_affinity
+    from packppi_torch.data.skempi import cv_split, load_skempi_entries
+    from packppi_torch.models.diffusion_net import StaticGraph
+
+    t_phase = time.perf_counter()
+    batch = t1124_batch("cuda")
+    model = option_model(torch, "float32", VANILLA_SEED, use_ipmp=False)
+    sc, got, wall = sample_counted(torch, model, batch)
+    log(f"vanilla pack T1124 float32 {STEPS} steps: {wall:.4f} s, launches {got}")
+    if got != expect_launches() or not bool(sc.isfinite().all()):
+        fail(f"the vanilla pack: launches {got}, finite {bool(sc.isfinite().all())}")
+    with torch.no_grad():
+        static = model.net.encode_static(batch)
+        t = torch.full(batch.residue_mask.shape, 0.5, device="cuda")
+        time_evaluations(torch, "vanilla float32 T1124 network evaluation",
+                         lambda: model.net(batch, batch.SC_D, t, static=static,
+                                           skip_last_edge_update=True))
+    cpu_model = option_model(torch, "float32", VANILLA_SEED, device="cpu", use_ipmp=False)
+    cpu_batch = t1124_batch("cpu")
+    with torch.no_grad():
+        st = cpu_model.net.encode_static(cpu_batch)
+        out = {}
+        for d, m, b in (("cuda", model, batch), ("cpu", cpu_model, cpu_batch)):
+            t = torch.full(b.residue_mask.shape, 0.5, device=d)
+            out[d] = m.net(b, b.SC_D, t, static=StaticGraph(*(x.to(d) for x in st[:3])),
+                           skip_last_edge_update=True)
+    ds, dh = ((out["cuda"][i].cpu() - out["cpu"][i]).abs().max().item() for i in (0, 1))
+    log(f"  vanilla float32 evaluation, card vs CPU: score {ds:.3e}, h_V {dh:.3e} (bound 1e-4)")
+    if not (ds <= 1e-4 and dh <= 1e-4):
+        fail("the vanilla network differs between the card and the CPU")
+
+    data = skempi_copy("skempi_vanilla", rows=(("1BRS", 4), ("2FTL", 4)))
+    split = cv_split(load_skempi_entries(data, "PDBs"), 2, 0, 42)
+    steps = -(-len(split["train"]) // 4)
+    val_batches = -(-len(split["valid"]) // 4)
+    shutil.rmtree(OUT / "affinity_vanilla", ignore_errors=True)
+    argv = [f"data.data_dir={data}", "data.num_cvfolds=2", "data.cvfold_index=0",
+            "data.batch_size=4", "trainer.max_epochs=1", "model.use_ipmp=false",
+            f"output_dir={OUT / 'affinity_vanilla'}", "logger=[jsonl]"]
+    zero_launches()
+    t0 = time.perf_counter()
+    (result,) = train_affinity.main(argv)
+    got = read_launches()
+    (rec,) = affinity_records(result["run_dir"])
+    log(f"  cli.train_affinity model.use_ipmp=false: {steps} step(s), {val_batches} validation "
+        f"batch(es), {time.perf_counter() - t0:.2f} s, launches {got}; record {rec}")
+    if got != expect_launches() or not math.isfinite(rec["train/loss"]):
+        fail(f"cli.train_affinity with the vanilla stack: launches {got}, record {rec}")
+    log(f"phase vanilla: {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_native():
+    """The native host library: built from the checkout with g++ and loaded;
+    the T1124 parse and the delta-SASA interface of 2FTL timed on the host
+    (median of 5)."""
+    import statistics
+
+    from packppi_torch import native
+    from packppi_torch.structure import from_pdb_file
+    from packppi_torch.structure.interface import interface_by_delta_sasa
+
+    t0 = time.perf_counter()
+    lib = native.get_lib()
+    log(f"native: {native.library_path()} ({time.perf_counter() - t0:.2f} s to build or load)")
+    if lib is None or native.library_path() is None:
+        fail(f"packppi_torch.native did not build or load its library: {native.build_error()}")
+    text = T1124.read_text()
+
+    def median_s(fn):
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times)
+
+    parse = median_s(lambda: native.parse_pdb_native(text, mse_to_met=True))
+    if native.parse_pdb_native(text, mse_to_met=True) is None:
+        fail("the native parser returned nothing")
+    prot = from_pdb_file(TWO_FTL)
+    sasa = median_s(lambda: interface_by_delta_sasa(prot))
+    n = int(interface_by_delta_sasa(prot).sum())
+    log(f"  T1124 parse {parse * 1e3:.3f} ms; 2FTL delta-SASA interface {sasa * 1e3:.1f} ms "
+        f"({n} interface residues of {len(prot.aaindex)}), host")
+
+
 def main():
     import torch
 
@@ -2908,6 +3255,7 @@ def main():
     records = phase_kernels(torch, timer)
     records.update(phase_message_feat(torch, timer))
     records.update(phase_variant_kernels(torch, timer))
+    act_times = phase_activations(torch, timer)
     phase_sass()
     phase_function_grads(torch)
     clash_records = phase_clash_kernels(torch, timer)
@@ -2924,6 +3272,10 @@ def main():
     phase_loss_grads(torch)
     train_launches = phase_train(torch)
     phase_trainer(torch)
+    phase_gelu_path(torch)
+    phase_static_edge_dtype(torch)
+    phase_vanilla(torch)
+    phase_native()
     phase_shipped_checkpoint(torch)
     cpu_esm = phase_esm(torch)
     attention_launches, esm_weights = phase_ddg_esm(torch, cpu_esm)
@@ -2981,6 +3333,11 @@ def main():
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": r.get("library_ms")})
+        # the same pass's kernel under each activation built (phase_activations)
+        by_act = act_times.get((name, "float32" if name == "message_feat" else "bfloat16",
+                                "node" if name == "layer_node" else "edge"))
+        if by_act:
+            kernels[-1]["ms_by_activation"] = by_act
     log(f"whole script: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card_line())

@@ -1,5 +1,4 @@
-"""Dense residue-type-indexed chemistry tables (the packing and proximal
-paths' subset).
+"""Dense residue-type-indexed chemistry tables.
 
 Plain numpy constants built from ``chem_data.json`` (this package's own
 copy). Row convention: 0..19 are the 20 standard amino acids in the order
@@ -25,6 +24,8 @@ RESTYPE_1TO3: dict[str, str] = _RAW["restype_1to3"]
 RESTYPE_3TO1 = {three: one for one, three in RESTYPE_1TO3.items()}
 
 ATOM37_TYPES: list[str] = _RAW["atom37_types"]
+ATOM37_ORDER = {a: i for i, a in enumerate(ATOM37_TYPES)}
+NUM_ATOM37 = len(ATOM37_TYPES)
 ATOM14_NAMES: dict[str, list[str]] = _RAW["atom14_names"]
 NUM_ATOM14 = 14
 _VDW: dict[str, float] = _RAW["van_der_waals_radius"]
@@ -87,6 +88,24 @@ def _build_rigid_group_tables():
                 frames[ri, 4 + k] = _rigid_transform_from_axes(
                     end, np.array([-1.0, 0.0, 0.0]), end)
     return frames, group, mask, local
+
+
+def _build_atom14_atom37_maps():
+    """Index maps between the compact atom14 and the fixed atom37 layouts,
+    and atom37's existence mask."""
+    a14_to_a37 = np.zeros((NUM_RESTYPES + 1, NUM_ATOM14), np.int64)
+    a37_to_a14 = np.zeros((NUM_RESTYPES + 1, NUM_ATOM37), np.int64)
+    a37_mask = np.zeros((NUM_RESTYPES + 1, NUM_ATOM37), np.float32)
+    for ri, resname in enumerate(_resnames()):
+        names = ATOM14_NAMES[resname]
+        idx14 = {a: i for i, a in enumerate(names) if a}
+        for i, a in enumerate(names):
+            a14_to_a37[ri, i] = ATOM37_ORDER[a] if a else 0
+        for j, a in enumerate(ATOM37_TYPES):
+            a37_to_a14[ri, j] = idx14.get(a, 0)
+        for a in _RAW["residue_atoms"][resname]:
+            a37_mask[ri, ATOM37_ORDER[a]] = 1.0
+    return a14_to_a37, a37_to_a14, a37_mask
 
 
 def _build_chi_tables():
@@ -167,6 +186,28 @@ def make_atom14_dists_bounds(overlap_tolerance: float = 1.5,
     return {"lower_bound": lower, "upper_bound": upper}
 
 
+def sc_atom14_mask(chi_id: int) -> np.ndarray:
+    """[21, 14] mask of the atoms placed once chis 0..``chi_id`` are fixed
+    (reference: src/utils/residue_constants.py:680-705); a residue with
+    fewer chis than that gets its whole heavy-atom set."""
+    rows = []
+    for resname in _resnames():
+        chis = _RAW["chi_angles_atoms"][resname]
+        if chi_id >= len(chis):
+            n = len(_RAW["residue_atoms"][resname])
+            rows.append([1] * n + [0] * (NUM_ATOM14 - n))
+            continue
+        seen: list[str] = []
+        for chi in chis[: chi_id + 1]:
+            for a in chi:
+                if a not in seen:
+                    seen.append(a)
+        n = ATOM14_NAMES[resname].index(seen[-1]) + 1 if seen else 0
+        rows.append([1] * n + [0] * (NUM_ATOM14 - n))
+    rows.append([0] * NUM_ATOM14)
+    return np.asarray(rows, np.float32)
+
+
 def _pad21(rows):
     """Stack 20 rows and append an all-zero 'X' row."""
     arr = np.asarray(rows, np.float32)
@@ -175,12 +216,15 @@ def _pad21(rows):
 
 @dataclasses.dataclass(frozen=True)
 class ChemTables:
-    """The dense tables the packing and proximal paths read."""
+    """The dense tables the packing, proximal and layout code read."""
 
     rigid_group_default_frame: np.ndarray  # [21, 8, 4, 4]
     atom14_to_rigid_group: np.ndarray      # [21, 14] int64
     atom14_mask: np.ndarray                # [21, 14]
     atom14_local_positions: np.ndarray     # [21, 14, 3]
+    atom14_to_atom37: np.ndarray           # [21, 14] int64
+    atom37_to_atom14: np.ndarray           # [21, 37] int64
+    atom37_mask: np.ndarray                # [21, 37]
     chi_atom14_indices: np.ndarray         # [21, 7] int64
     chi_mask: np.ndarray                   # [21, 4]
     chi_pi_periodic: np.ndarray            # [21, 4]
@@ -189,12 +233,16 @@ class ChemTables:
     @staticmethod
     def build() -> "ChemTables":
         frames, group, mask, local = _build_rigid_group_tables()
+        a14_to_a37, a37_to_a14, a37_mask = _build_atom14_atom37_maps()
         chi_idx, chi_mask = _build_chi_tables()
         return ChemTables(
             rigid_group_default_frame=frames,
             atom14_to_rigid_group=group,
             atom14_mask=mask,
             atom14_local_positions=local,
+            atom14_to_atom37=a14_to_a37,
+            atom37_to_atom14=a37_to_a14,
+            atom37_mask=a37_mask,
             chi_atom14_indices=chi_idx,
             chi_mask=chi_mask,
             chi_pi_periodic=_pad21(_RAW["chi_pi_periodic"][:NUM_RESTYPES]),

@@ -6,7 +6,7 @@
 //   [m = msg * mask]                       (pre_mask: edge chains)
 //   x0 = rnd(x + rnd(m))                   residual add in T
 //   xx = rnd(LN_a(x0))                     LayerNorm in float32
-//   h  = rnd(relu(rnd(xx . W1 + b1)))      W1 [512, 128] Linear layout
+//   h  = rnd(act(rnd(xx . W1 + b1)))      W1 [512, 128] Linear layout
 //   h  = rnd(h . W2 + b2)                  W2 [128, 512]
 //   y  = LN_b(xx + h) [* mask], written in T
 // rnd rounds to T at every point the unfused flax chain rounds; LayerNorm is

@@ -1,7 +1,7 @@
 // The residual chain in float32 on tensor cores, over one tile of R rows
 // (R = 16 or 64). From x0 rows in shared memory (chain_mma):
 //   xx = LN_a(x0)                          csrc/chain_common.cuh
-//   h  = relu(xx . W1 + b1)                W1 [512, 128] Linear layout
+//   h  = act(xx . W1 + b1)                W1 [512, 128] Linear layout
 //   h  = h . W2 + b2                       W2 [128, 512]
 //   y  = LN_b(xx + h)                      handed to store(row, col, y, y')
 // (in float32 every rounding point of the bf16 chain is the identity; bf16
@@ -187,7 +187,7 @@ __device__ __forceinline__ void chain_ffn_mma(unsigned char* smem, float4 (&pre)
 #pragma unroll
     for (int kc = 0; kc < kH / kWk; ++kc)
       chain_step<R>(acc, XX, kc * kWk, hc * 8 + kc, pre, w, Wst, lane, wr0, wc0);
-    // hidden columns hc * 128 + col: relu(xx . W1 + b1)
+    // hidden columns hc * 128 + col: act(xx . W1 + b1)
 #pragma unroll
     for (int mt = 0; mt < C::kMT; ++mt)
 #pragma unroll
@@ -198,7 +198,7 @@ __device__ __forceinline__ void chain_ffn_mma(unsigned char* smem, float4 (&pre)
         for (int r = 0; r < 2; ++r) {
           const int row = wr0 + mt * 16 + g + 8 * r;
           *reinterpret_cast<float2*>(Hs + row * C::kLdA + col) =
-              make_float2(relu(acc[mt][nt][2 * r] + b0), relu(acc[mt][nt][2 * r + 1] + b1));
+              make_float2(act(acc[mt][nt][2 * r] + b0), act(acc[mt][nt][2 * r + 1] + b1));
         }
       }
     __syncthreads();

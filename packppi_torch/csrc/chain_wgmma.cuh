@@ -4,7 +4,7 @@
 // else 1; the folded edge pass and the whole-layer passes always take 1).
 // From x0 rows in shared memory (chain_wgmma):
 //   xx = rnd(LN_a(x0))                     csrc/chain_common.cuh
-//   h  = rnd(relu(rnd(xx . W1 + b1)))      W1 [512, 128] Linear layout
+//   h  = rnd(act(rnd(xx . W1 + b1)))      W1 [512, 128] Linear layout
 //   h  = rnd(h . W2 + b2)                  W2 [128, 512]
 //   y  = LN_b(xx + h)                      handed to store(row, col, y, y')
 // rnd rounds to bf16 at every point the unfused flax chain rounds. chain.cu,
@@ -183,7 +183,7 @@ __device__ __forceinline__ void chain_ffn_wgmma(unsigned char* smem, const Chain
       wgmma_wait<0>();
       release(4 * sl);
     }
-    // h = rnd(relu(rnd(acc + b1))) as A fragments: k-step s of the second
+    // h = rnd(act(rnd(acc + b1))) as A fragments: k-step s of the second
     // product takes hidden columns 16 s .. 16 s + 15, i.e. the accumulator's
     // column tiles 2 s and 2 s + 1
     uint32_t ha[8][4];
@@ -196,8 +196,8 @@ __device__ __forceinline__ void chain_ffn_wgmma(unsigned char* smem, const Chain
 #pragma unroll
         for (int r = 0; r < 2; ++r)
           ha[s][2 * half + r] = pack_bf16(
-              rnd<__nv_bfloat16>(relu(rnd<__nv_bfloat16>(acc[4 * j + 2 * r] + b0))),
-              rnd<__nv_bfloat16>(relu(rnd<__nv_bfloat16>(acc[4 * j + 2 * r + 1] + b1))));
+              rnd<__nv_bfloat16>(act(rnd<__nv_bfloat16>(acc[4 * j + 2 * r] + b0))),
+              rnd<__nv_bfloat16>(act(rnd<__nv_bfloat16>(acc[4 * j + 2 * r + 1] + b1))));
       }
     // acc2 += h . W2[:, hc * 128 ..]^T (panels 4 sl + 2, 4 sl + 3). With
     // KS > 1 the warpgroups take their turns in the order of the slices,

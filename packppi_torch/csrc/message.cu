@@ -25,8 +25,8 @@
 // rows: 64 / K nodes of K edges):
 //   geom = [p_i (xyz interleaved, 3P) | |p_i| (P) | R_i^T (pg_j - t_i)
 //           (interleaved, 3P) | |.| (P) | |pg_i - pg_j| (P)]     float32
-//   x = relu([h_E | geom] . W_e + b_e + per_i[i] + per_j[j])
-//   x = relu(x . W_1 + b_1)
+//   x = act([h_E | geom] . W_e + b_e + per_i[i] + per_j[j])
+//   x = act(x . W_1 + b_1)
 //   x = x . W_2 + b_2
 //   pool: out[i] = sum_k mask[i,k] x[i,k] / K (float32), else out[i,k] = x
 //   in the stream type; the chain route instead runs the residual chain on

@@ -10,8 +10,8 @@
 //
 // Per edge row of one block of whole nodes (kRows = 64 edge rows: 64 / K
 // nodes of K edges):
-//   x = relu([h_E | geom] . W_e + b_e + per_i[node] + pj[row])
-//   x = relu(x . W_1 + b_1)
+//   x = act([h_E | geom] . W_e + b_e + per_i[node] + pj[row])
+//   x = act(x . W_1 + b_1)
 //   x = x . W_2 + b_2
 //   pool: out[node] = sum_k mask[node,k] x[node,k] / K (float32), else
 //   out[row] = x in the stream type.

@@ -4,8 +4,8 @@
 // message_kernel, message_geom_kernel and message_chain_kernel,
 // message_feat.cu, layer.cu):
 //
-//   x = relu([h_E | geom] . W_e + b_e + per_i[node] + pj[row])
-//   x = relu(x . W_1 + b_1)
+//   x = act([h_E | geom] . W_e + b_e + per_i[node] + pj[row])
+//   x = act(x . W_1 + b_1)
 //   x = x . W_2 + b_2
 //
 // message_tc_rows hands x, float32, to the caller's rows(r, c, x, x') in
@@ -331,7 +331,7 @@ __device__ __forceinline__ void message_tc_bf16(const MessageTile<__nv_bfloat16>
     wgmma_wait<0>();
     message_tc_release(s, wpack, 2, 3);
   }
-  // relu(acc + b_e + per_i + pj), rounded, as A fragments: k-step q of the
+  // act(acc + b_e + per_i + pj), rounded, as A fragments: k-step q of the
   // next product takes columns 16 q .. 16 q + 15, the accumulator's column
   // tiles 2 q and 2 q + 1
   uint32_t ha[8][4];
@@ -349,14 +349,14 @@ __device__ __forceinline__ void message_tc_bf16(const MessageTile<__nv_bfloat16>
         const float2 b = __ldg(reinterpret_cast<const float2*>(b_in + col));
         const float2 p = *reinterpret_cast<const float2*>(pi + col);
         const __nv_bfloat162 q = *reinterpret_cast<const __nv_bfloat162*>(pr + col);
-        v0 = relu(acc[4 * jt + 2 * h] + b.x + p.x + __low2float(q));
-        v1 = relu(acc[4 * jt + 2 * h + 1] + b.y + p.y + __high2float(q));
+        v0 = act(acc[4 * jt + 2 * h] + b.x + p.x + __low2float(q));
+        v1 = act(acc[4 * jt + 2 * h + 1] + b.y + p.y + __high2float(q));
       }
       ha[jt >> 1][2 * (jt & 1) + h] = pack_bf16(v0, v1);
     }
   }
 
-  // layer 2: relu(x . W_1 + b_1), rounded, as A fragments
+  // layer 2: act(x . W_1 + b_1), rounded, as A fragments
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = 0.f;
   {
@@ -376,7 +376,7 @@ __device__ __forceinline__ void message_tc_bf16(const MessageTile<__nv_bfloat16>
 #pragma unroll
     for (int h = 0; h < 2; ++h)
       ha[jt >> 1][2 * (jt & 1) + h] =
-          pack_bf16(relu(acc[4 * jt + 2 * h] + b.x), relu(acc[4 * jt + 2 * h + 1] + b.y));
+          pack_bf16(act(acc[4 * jt + 2 * h] + b.x), act(acc[4 * jt + 2 * h + 1] + b.y));
   }
 
   // layer 3: x . W_2
@@ -485,11 +485,11 @@ __device__ __forceinline__ void message_tc_f32(const MessageTile<float>& s,
   const int warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int wr0 = (warp >> 2) * 32, wc0 = (warp & 3) * 32;
-  float* act = reinterpret_cast<float*>(s.base);
+  float* hid = reinterpret_cast<float*>(s.base);
   const int64_t* pjrow = s.pjrow();
   float acc[2][4][4];
 
-  // layer 1: relu(A . W_e + b_e + per_i + pj) into the (consumed) A tile
+  // layer 1: act(A . W_e + b_e + per_i + pj) into the (consumed) A tile
   message_tc_f32_product(acc, s, wpack, C::kLdA, 0, kChunks1);
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
@@ -507,15 +507,15 @@ __device__ __forceinline__ void message_tc_f32(const MessageTile<float>& s,
           const float2 b = __ldg(reinterpret_cast<const float2*>(b_in + col));
           const float2 p = *reinterpret_cast<const float2*>(pi + col);
           const float2 q = *reinterpret_cast<const float2*>(pr + col);
-          v0 = relu(acc[mt][nt][2 * h] + b.x + p.x + q.x);
-          v1 = relu(acc[mt][nt][2 * h + 1] + b.y + p.y + q.y);
+          v0 = act(acc[mt][nt][2 * h] + b.x + p.x + q.x);
+          v1 = act(acc[mt][nt][2 * h + 1] + b.y + p.y + q.y);
         }
-        *reinterpret_cast<float2*>(act + r * kLdH + col) = make_float2(v0, v1);
+        *reinterpret_cast<float2*>(hid + r * kLdH + col) = make_float2(v0, v1);
       }
     }
   __syncthreads();
 
-  // layer 2: relu(x . W_1 + b_1), in place
+  // layer 2: act(x . W_1 + b_1), in place
   message_tc_f32_product(acc, s, wpack, kLdH, kChunks1, kChunksH);
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
@@ -526,8 +526,8 @@ __device__ __forceinline__ void message_tc_f32(const MessageTile<float>& s,
       for (int nt = 0; nt < 4; ++nt) {
         const int col = wc0 + 8 * nt + 2 * t;
         const float2 b = __ldg(reinterpret_cast<const float2*>(b_mid + col));
-        *reinterpret_cast<float2*>(act + r * kLdH + col) =
-            make_float2(relu(acc[mt][nt][2 * h] + b.x), relu(acc[mt][nt][2 * h + 1] + b.y));
+        *reinterpret_cast<float2*>(hid + r * kLdH + col) =
+            make_float2(act(acc[mt][nt][2 * h] + b.x), act(acc[mt][nt][2 * h + 1] + b.y));
       }
     }
   __syncthreads();

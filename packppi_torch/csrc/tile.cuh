@@ -1,5 +1,5 @@
 // Shared pieces of the packppi_torch kernels: the tile's sizes, the element
-// types, the rounding to the compute type, relu and a warp sum. Every
+// types, the rounding to the compute type, the activation and a warp sum. Every
 // product of every kernel runs on tensor cores (message_tc.cuh,
 // chain_wgmma.cuh, chain_mma.cuh, mma.cuh); rounding operands to bf16 and
 // summing in float32 is exactly "bf16 operands, f32 accumulate".
@@ -32,9 +32,48 @@ template <typename T> __device__ __forceinline__ float rnd(float v) {
   return to_f32<T>(from_f32<T>(v));
 }
 
-// max(v, 0) that passes a NaN on, as the plain versions' relu does (fmaxf
-// would return 0 and hide a non-finite input from the loss)
-__device__ __forceinline__ float relu(float v) { return v < 0.f ? 0.f : v; }
+// The message and chain MLPs' activation, chosen when the library is built:
+// -DPACKPPI_ACT=n picks entry n of ops/_build.py ACTS (no flag: relu), one
+// library per activation, so a body carries no switch. Each is jax.nn's
+// function with its constants (gelu in its tanh form), in float32 with the
+// accurate expf / expm1f / tanhf, and each passes a NaN on.
+#define PACKPPI_ACT_RELU 0
+#define PACKPPI_ACT_GELU 1
+#define PACKPPI_ACT_ELU 2
+#define PACKPPI_ACT_SELU 3
+#define PACKPPI_ACT_CELU 4
+#define PACKPPI_ACT_LEAKY_RELU 5
+#define PACKPPI_ACT_SILU 6
+#define PACKPPI_ACT_SIGMOID 7
+#ifndef PACKPPI_ACT
+#define PACKPPI_ACT PACKPPI_ACT_RELU
+#endif
+
+__device__ __forceinline__ float act(float v) {
+#if PACKPPI_ACT == PACKPPI_ACT_RELU
+  // max(v, 0) that passes a NaN on (fmaxf would return 0 and hide a
+  // non-finite input from the loss)
+  return v < 0.f ? 0.f : v;
+#elif PACKPPI_ACT == PACKPPI_ACT_GELU
+  const float cdf = 0.5f * (1.f + tanhf(0.7978845608028654f * (v + 0.044715f * (v * v * v))));
+  return v * cdf;
+#elif PACKPPI_ACT == PACKPPI_ACT_ELU
+  return v > 0.f ? v : expm1f(v);
+#elif PACKPPI_ACT == PACKPPI_ACT_SELU
+  return 1.0507009873554805f * (v > 0.f ? v : 1.6732632423543772f * expm1f(v));
+#elif PACKPPI_ACT == PACKPPI_ACT_CELU
+  // max(v, 0) + expm1(min(v, 0)) with alpha 1
+  return v > 0.f ? v : expm1f(v);
+#elif PACKPPI_ACT == PACKPPI_ACT_LEAKY_RELU
+  return v >= 0.f ? v : 0.01f * v;
+#elif PACKPPI_ACT == PACKPPI_ACT_SILU
+  return v * (1.f / (1.f + expf(-v)));
+#elif PACKPPI_ACT == PACKPPI_ACT_SIGMOID
+  return 1.f / (1.f + expf(-v));
+#else
+#error "PACKPPI_ACT names no activation of ops/_build.py ACTS"
+#endif
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll

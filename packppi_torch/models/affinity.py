@@ -80,6 +80,7 @@ class AffinityNet(nn.Module):
                                                    cfg.num_rbf, cfg.top_k)
             self.mutation_mpnn = MessagePassingStack(
                 H, cfg.num_mpnn_layers, cfg.n_points, cfg.edge_features, cfg.position_scale,
+                use_ipmp=cfg.use_ipmp, k_neighbors=cfg.k_neighbors, act=cfg.act,
                 dropout=cfg.dropout, fused_messages=cfg.fused_messages,
                 fused_messages_train=cfg.fused_messages_train, fused_chain=cfg.fused_chain,
                 fused_chain_train=cfg.fused_chain_train)

@@ -18,8 +18,10 @@ from packppi_torch.geometry.rigid import bb_frames_from_atom14, scale_translatio
 from packppi_torch.models.encoder import ProteinEncoder
 from packppi_torch.models.ipmp import MessagePassingStack, relative_frame_transforms
 from packppi_torch.models.layers import MLP
+from packppi_torch.ops.activations import ACTS
 
 GLOBAL_POINT_KERNELS = ("geom", "geom_lanes", "geom_gather")
+STATIC_EDGE_DTYPES = ("float32", "bfloat16", "int8")
 MAX_KERNEL_K = 64      # the message and layer kernels take K <= 64 neighbours
 
 
@@ -27,9 +29,9 @@ MAX_KERNEL_K = 64      # the message and layer kernels take K <= 64 neighbours
 class NetworkConfig:
     """The network's widths, numerics and kernel routing (see
     ``models.ipmp`` for which pass runs where). Parameters, gradients and
-    optimizer state stay float32 whatever ``compute_dtype`` says. Values
-    this port does not implement raise ``ValueError`` when the network is
-    built."""
+    optimizer state stay float32 whatever ``compute_dtype`` says. The
+    fields are the JAX package's, and every value it accepts is accepted;
+    values outside them raise ``ValueError`` when the network is built."""
 
     node_features: int = 128
     edge_features: int = 128
@@ -37,13 +39,23 @@ class NetworkConfig:
     num_mpnn_layers: int = 3
     n_points: int = 8
     dropout: float = 0.1     # train() only; eval() never applies it
+    # the message MLPs' and chain FFNs' activation (ops.activations.ACTS),
+    # in the kernels too; the encoder and the score decoder stay relu
     act: str = "relu"
     position_scale: float = 1.0
+    # False: the vanilla MPNN layer (models.ipmp.VanillaMPNNLayer), float32
+    # tensor operations in every routing, no kernel
     use_ipmp: bool = True
+    # the vanilla layer divides its message sums by this (not by top_k)
+    k_neighbors: int = 32
     time_embedding_dim: int = 16
     num_rbf: int = 16
     top_k: int = 32
     compute_dtype: str = "float32"  # "bfloat16" for the fast inference path
+    # storage of the static edge embeddings that encode_static caches for a
+    # sampling run: "float32", "bfloat16" or "int8" (per-channel symmetric,
+    # one scale over the whole batch), cast back to the compute dtype on
+    # every read
     static_edge_dtype: str = "float32"
     # "global": geometry features from gathered global neighbour points
     # (float32); "local": from gathered local points (in the stream dtype)
@@ -78,17 +90,19 @@ class NetworkConfig:
     # accepted for the reference's configuration files and ignored: a
     # gather's backward is index_add_ here whatever this says
     mxu_gather_grad: Union[bool, str] = False
+    # accepted and value-neutral: the JAX package's lane-major geometry
+    # assembly and its coalesced local-mode gathers are other layouts of the
+    # same values (one-hot MXU gathers, one wide gather), which a GPU has no
+    # use for; the port computes the default layout whatever these say
+    geometry_lanes: bool = False
+    coalesce_gathers: bool = False
 
     def validate(self) -> None:
-        unsupported = {
-            "use_ipmp": (self.use_ipmp, True),
-            "static_edge_dtype": (self.static_edge_dtype, "float32"),
-            "act": (self.act, "relu"),
-        }
-        for name, (value, supported) in unsupported.items():
-            if value != supported:
-                raise ValueError(f"NetworkConfig.{name}={value!r} is not implemented "
-                                 f"in packppi_torch (only {supported!r})")
+        if self.act not in ACTS:
+            raise ValueError(f"NetworkConfig.act={self.act!r} (one of {tuple(ACTS)})")
+        if self.static_edge_dtype not in STATIC_EDGE_DTYPES:
+            raise ValueError(f"NetworkConfig.static_edge_dtype={self.static_edge_dtype!r} "
+                             f"(one of {STATIC_EDGE_DTYPES})")
         if self.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"NetworkConfig.compute_dtype={self.compute_dtype!r} "
                              "(float32 or bfloat16)")
@@ -116,15 +130,17 @@ class NetworkConfig:
                 "paths would compute different functions")
 
     def runs_kernels(self) -> bool:
-        """Whether a network of this configuration launches a kernel."""
-        return bool(self.fused_messages is not False or self.fused_chain or self.fused_layers
-                    or self.fused_messages_train or self.fused_chain_train)
+        """Whether a network of this configuration launches a kernel (the
+        vanilla layer launches none, whatever the routing says)."""
+        return bool(self.use_ipmp and (
+            self.fused_messages is not False or self.fused_chain or self.fused_layers
+            or self.fused_messages_train or self.fused_chain_train))
 
     def check_device(self, device) -> None:
         """Refuse, before any data is read, a configuration whose kernels
         cannot run on ``device``: the CUDA kernels are built for H = He =
-        128, P = 8 points and K <= 64 neighbours. The CPU runs the plain
-        versions at any width."""
+        128, P = 8 points and K <= 64 neighbours (any activation of the
+        table). The CPU runs the plain versions at any width."""
         if torch.device(device).type != "cuda" or not self.runs_kernels():
             return
         widths = {"hidden_dim": (self.hidden_dim, 128), "edge_features": (self.edge_features, 128),
@@ -147,12 +163,44 @@ class NetworkConfig:
 class StaticGraph(NamedTuple):
     """Backbone-only encoder outputs, constant through a sampling run."""
 
-    h_E: torch.Tensor          # [B, L, K, F] in the compute dtype
+    # [B, L, K, F] at static_edge_dtype: float32 / bfloat16 as stored, or
+    # int8 as (q [B, L, K, F] int8, scale [1, 1, 1, F]); ``edges(dtype)``
+    # reads it back
+    h_E: Union[torch.Tensor, tuple]
     idx: torch.Tensor          # [B, L, K] int64
     mask_attend: torch.Tensor  # [B, L, K] float32
     # local mode: the relative frame transforms (R_rel [B, L, K, 9], t_rel
     # [B, L, K, 3]); None in global mode
     rel: Optional[tuple] = None
+
+    def edges(self, dtype: torch.dtype) -> torch.Tensor:
+        """h_E in the compute ``dtype``: a stored cache cast back, an int8
+        one dequantized as ``q.to(dtype) * scale.to(dtype)``."""
+        if isinstance(self.h_E, tuple):
+            q, scale = self.h_E
+            return q.to(dtype) * scale.to(dtype)
+        return self.h_E.to(dtype)
+
+    def nbytes(self) -> int:
+        """Bytes of the stored edge cache (the int8 scale included)."""
+        parts = self.h_E if isinstance(self.h_E, tuple) else (self.h_E,)
+        return sum(t.numel() * t.element_size() for t in parts)
+
+
+def quantize_edges(h_E: torch.Tensor, static_edge_dtype: str):
+    """The edge cache at ``static_edge_dtype``, from h_E as the encoder gives
+    it (in the compute dtype). int8: a scale per channel over all of (B, L,
+    K), ``max|h_E| / 127`` floored at 1e-8 and ``round`` (half to even),
+    computed in h_E's dtype as the JAX package computes it; so in a batch of
+    several structures a row's codes depend on its batch mates."""
+    if static_edge_dtype == "bfloat16":
+        return h_E.to(torch.bfloat16)
+    if static_edge_dtype == "int8":
+        scale = h_E.abs().amax(dim=(0, 1, 2), keepdim=True) / 127.0
+        scale = torch.clamp(scale, min=1e-8)
+        # in bf16 h_E / scale can round to 128: saturate, as XLA's convert does
+        return torch.clamp(torch.round(h_E / scale), -128, 127).to(torch.int8), scale
+    return h_E
 
 
 class ChiScoreNetwork(nn.Module):
@@ -165,7 +213,8 @@ class ChiScoreNetwork(nn.Module):
         self.mpnn = MessagePassingStack(
             cfg.hidden_dim, cfg.num_mpnn_layers, cfg.n_points, cfg.edge_features,
             cfg.position_scale, remat=cfg.remat_layers,
-            geometry_local=cfg.geometry_mode == "local", dropout=cfg.dropout,
+            geometry_local=cfg.geometry_mode == "local", use_ipmp=cfg.use_ipmp,
+            k_neighbors=cfg.k_neighbors, act=cfg.act, dropout=cfg.dropout,
             fused_messages=cfg.fused_messages, fused_messages_train=cfg.fused_messages_train,
             fused_chain=cfg.fused_chain, fused_chain_train=cfg.fused_chain_train,
             fused_layers=cfg.fused_layers)
@@ -175,7 +224,8 @@ class ChiScoreNetwork(nn.Module):
 
     def encode_static(self, batch: ProteinBatch) -> StaticGraph:
         """kNN graph, edge features and edge mask: computed once per structure
-        and reused by every denoising step."""
+        and reused by every denoising step; the edges stored at
+        ``static_edge_dtype`` (``quantize_edges``)."""
         h_E, idx = self.encoder.encode_edges(batch.X, batch.chain_indices,
                                              batch.residue_mask, batch.residue_index,
                                              self.cfg.dtype)
@@ -187,7 +237,8 @@ class ChiScoreNetwork(nn.Module):
             frames = scale_translation(bb_frames_from_atom14(batch.X),
                                        1.0 / self.cfg.position_scale)
             rel = relative_frame_transforms(frames, idx)
-        return StaticGraph(h_E, idx, mask_attend, rel)
+        return StaticGraph(quantize_edges(h_E, self.cfg.static_edge_dtype), idx, mask_attend,
+                           rel)
 
     def forward(self, batch: ProteinBatch, SC_D_noised: torch.Tensor, t: torch.Tensor,
                 static: Optional[StaticGraph] = None,
@@ -198,10 +249,13 @@ class ChiScoreNetwork(nn.Module):
         sc_sincos = torch.stack([torch.sin(SC_D_noised), torch.cos(SC_D_noised)], -1)
         sc_sincos = sc_sincos * batch.SC_D_mask[..., None]
         if static is None:
-            static = self.encode_static(batch)
+            h_E, idx = self.encoder.encode_edges(batch.X, batch.chain_indices,
+                                                 batch.residue_mask, batch.residue_index, dtype)
+            static = StaticGraph(h_E, idx, MessagePassingStack.attend_mask(
+                batch.residue_mask, idx))
         h_V = self.encoder.encode_nodes(batch.residue_type, batch.BB_D_sincos,
                                         sc_sincos, t, dtype)
-        h_V = self.mpnn(h_V, static.h_E, static.idx, batch.X, batch.residue_mask,
+        h_V = self.mpnn(h_V, static.edges(dtype), static.idx, batch.X, batch.residue_mask,
                         skip_last_edge_update, static.mask_attend, static.rel)
 
         dec1, _, dec2 = self.decoder_score

@@ -39,7 +39,14 @@ mode, never by a failure:
 
 The ``ops`` passes are CUDA kernels on the card and their plain versions on
 CPU tensors. ``fused_messages=False, fused_chain=False`` (``cli.pack
---no_fused``) is the route that launches no kernel in ``eval()``.
+--no_fused``) is the route that launches no kernel in ``eval()``. Every
+message MLP and chain FFN applies the configuration's activation ``act``
+(``ops.activations.ACTS``): the kernels take it as their library's
+activation, the unfused path at the JAX unfused path's points.
+
+``use_ipmp=False`` swaps each layer for ``VanillaMPNNLayer``: sum-pooled
+message passing without geometry, plain tensor operations in float32 in
+every mode and routing (as in the JAX package, it launches no kernel).
 
 Parameter names follow the reference checkpoints (``points_fn_node``,
 ``node_message_fn.W_in`` over ``[h_i | h_E | h_j | geometry]``, ``norm.N``,
@@ -57,6 +64,7 @@ from torch.utils.checkpoint import checkpoint
 
 from packppi_torch.geometry.rigid import bb_frames_from_atom14, scale_translation
 from packppi_torch.models.layers import MLP, LayerNorm
+from packppi_torch.ops.activations import activation
 from packppi_torch.ops.chain import chain
 from packppi_torch.ops.graph import gather_nodes
 from packppi_torch.ops.layer import layer_edge, layer_node
@@ -136,9 +144,10 @@ class FactoredMessageMLP(nn.Module):
     origin: the h_i and h_j blocks of ``W_in`` run once per node and the
     rest per edge, inside the message kernel."""
 
-    def __init__(self, hidden_dim: int = 128, edge_dim: int = 128, geom_dim: int = 72):
+    def __init__(self, hidden_dim: int = 128, edge_dim: int = 128, geom_dim: int = 72,
+                 act: str = "relu"):
         super().__init__()
-        self.hidden_dim, self.edge_dim = hidden_dim, edge_dim
+        self.hidden_dim, self.edge_dim, self.act = hidden_dim, edge_dim, act
         self.W_in = nn.Linear(2 * hidden_dim + edge_dim + geom_dim, hidden_dim)
         self.W_inter = nn.ModuleList([nn.Linear(hidden_dim, hidden_dim)])
         self.W_out = nn.Linear(hidden_dim, hidden_dim)
@@ -209,8 +218,9 @@ class FactoredMessageMLP(nn.Module):
         per_i, per_j = self._node_terms(h_V, cd)
         w_e = torch.cat([w[:, H:H + He], w[:, 2 * H + He:]], 1)
         per_e = matmul_f32acc(torch.cat([h_E, geom.to(cd)], -1), w_e.t(), cd) + self.W_in.bias
-        x = F.relu(per_i[:, :, None] + gather_nodes(per_j, idx) + per_e)
-        x = F.relu(matmul_f32acc(x, self.W_inter[0].weight.t(), cd) + self.W_inter[0].bias)
+        act = activation(self.act)
+        x = act(per_i[:, :, None] + gather_nodes(per_j, idx) + per_e)
+        x = act(matmul_f32acc(x, self.W_inter[0].weight.t(), cd) + self.W_inter[0].bias)
         x = matmul_f32acc(x, self.W_out.weight.t(), cd) + self.W_out.bias
         if pool:
             x = (x * mask_attend[..., None]).mean(-2)
@@ -224,13 +234,13 @@ class FactoredMessageMLP(nn.Module):
         features computed here), False (no kernel). ``rel``: local mode."""
         args = (h_V, h_E, idx, p_local, frames, mask_attend)
         if fused == "geom_lanes":
-            return message(*self.operands(*args), pool)
+            return message(*self.operands(*args), pool, self.act)
         if fused == "geom_gather":
-            return message_gather(*self.operands(*args), pool)
+            return message_gather(*self.operands(*args), pool, self.act)
         if fused == "geom":
-            return message_geom(*self.geom_operands(*args), pool)
+            return message_geom(*self.geom_operands(*args), pool, self.act)
         if fused is True:
-            return message_feat(*self.feat_operands(*args, rel), pool)
+            return message_feat(*self.feat_operands(*args, rel), pool, self.act)
         return self.unfused(*args, pool, rel)
 
 
@@ -250,7 +260,8 @@ def chain_operands(x, msg, mask, norm_a: LayerNorm, ffn: MLP, norm_b: LayerNorm)
 
 
 def _residual_chain(x, msg, mask, norm_a, ffn, norm_b, pre_mask: bool):
-    return chain(*chain_operands(x, msg, mask, norm_a, ffn, norm_b), pre_mask).reshape(x.shape)
+    return chain(*chain_operands(x, msg, mask, norm_a, ffn, norm_b), pre_mask,
+                 ffn.act).reshape(x.shape)
 
 
 class InvariantPointLayer(nn.Module):
@@ -258,8 +269,10 @@ class InvariantPointLayer(nn.Module):
                  position_scale: float = 1.0, dropout: float = 0.1,
                  fused_messages: Union[bool, str] = "geom_lanes",
                  fused_messages_train: bool = False, fused_chain: bool = True,
-                 fused_chain_train: bool = False, fused_layers: bool = False):
+                 fused_chain_train: bool = False, fused_layers: bool = False,
+                 act: str = "relu"):
         super().__init__()
+        self.act = act
         self.n_points = n_points
         self.position_scale = position_scale
         self.fused_messages = fused_messages
@@ -271,11 +284,11 @@ class InvariantPointLayer(nn.Module):
         geom = 9 * n_points
         self.points_fn_node = nn.Linear(hidden_dim, 3 * n_points)
         self.points_fn_edge = nn.Linear(hidden_dim, 3 * n_points)
-        self.node_message_fn = FactoredMessageMLP(hidden_dim, edge_dim, geom)
-        self.edge_message_fn = FactoredMessageMLP(hidden_dim, edge_dim, geom)
+        self.node_message_fn = FactoredMessageMLP(hidden_dim, edge_dim, geom, act)
+        self.edge_message_fn = FactoredMessageMLP(hidden_dim, edge_dim, geom, act)
         self.norm = nn.ModuleList(LayerNorm(hidden_dim) for _ in range(4))
-        self.node_dense = MLP(hidden_dim, 4 * hidden_dim, hidden_dim, 2)
-        self.edge_dense = MLP(hidden_dim, 4 * hidden_dim, hidden_dim, 2)
+        self.node_dense = MLP(hidden_dim, 4 * hidden_dim, hidden_dim, 2, act)
+        self.edge_dense = MLP(hidden_dim, 4 * hidden_dim, hidden_dim, 2, act)
 
     def _points(self, lin: nn.Linear, h_V):
         # the point projection runs in float32 whatever the stream dtype
@@ -303,13 +316,15 @@ class InvariantPointLayer(nn.Module):
             h_V, h_E, idx, self._points(self.points_fn_node, h_V), frames, mask_attend)
         per_i, pjg, _, geom, _, *msg_w = ops
         h_V = layer_node(h_V, per_i, pjg, h_E, geom, mask_attend, mask_V.float(), *msg_w,
-                         *chain_weights(self.norm[0], self.node_dense, self.norm[1]))
+                         *chain_weights(self.norm[0], self.node_dense, self.norm[1]),
+                         act=self.act)
         if do_edge_update:
             ops = self.edge_message_fn.feat_operands(
                 h_V, h_E, idx, self._points(self.points_fn_edge, h_V), frames, mask_attend)
             per_i, pjg, _, geom, _, *msg_w = ops
             h_E = layer_edge(h_E, per_i, pjg, geom, mask_attend, *msg_w,
-                             *chain_weights(self.norm[2], self.edge_dense, self.norm[3]))
+                             *chain_weights(self.norm[2], self.edge_dense, self.norm[3]),
+                             act=self.act)
         return h_V, h_E
 
     def forward(self, h_V, h_E, idx, X, mask_V, mask_attend, do_edge_update: bool = True,
@@ -340,24 +355,81 @@ class InvariantPointLayer(nn.Module):
             if fused == "geom_lanes" and FOLD_EDGE_CHAIN and chain_fn is _residual_chain:
                 return h_V, message_chain(
                     *self.edge_message_fn.operands(*edge_args),
-                    *chain_weights(self.norm[2], self.edge_dense, self.norm[3]))
+                    *chain_weights(self.norm[2], self.edge_dense, self.norm[3]), self.act)
             e_msg = self.edge_message_fn(*edge_args, pool=False, fused=fused, rel=rel)
             h_E = chain_fn(h_E, e_msg, mask_attend, self.norm[2], self.edge_dense,
                            self.norm[3], pre_mask=True)
         return h_V, h_E
 
 
+class VanillaMPNNLayer(nn.Module):
+    """Sum-pooled message passing without geometry (``use_ipmp=False``), as
+    the JAX package's ``VanillaMPNNLayer``:
+
+        msg  = MLP_msg([h_i | h_E | h_j]) * mask_attend       (3 linear maps)
+        h_V  = LN_0(h_V + sum_k msg / scale)                  (scale: k_neighbors)
+        h_V  = LN_1(h_V + FFN(h_V)) * mask_V
+        h_E  = LN_2(h_E + MLP_edge([h_i | h_E | h_j]))        (new h_V; no mask)
+
+    The JAX layer's MLPs and LayerNorms take no dtype, so flax runs them in
+    float32 whatever the compute dtype: here too, every operand is cast to
+    float32 and the outputs stay float32. No pass runs a kernel. Dropout
+    (training only) falls on ``dh``, the FFN output and the edge message.
+    Parameter names (chosen here; the reference's ``MPNNLayer`` is not in
+    the repository): ``node_message_fn``, ``node_dense``, ``edge_message_fn``
+    (each ``W_in``, ``W_inter.N``, ``W_out``) and ``norm.0-2``."""
+
+    def __init__(self, hidden_dim: int = 128, edge_dim: int = 128, dropout: float = 0.1,
+                 act: str = "relu", scale: float = 32.0):
+        super().__init__()
+        self.dropout, self.scale = dropout, scale
+        h_in = 2 * hidden_dim + edge_dim
+        self.node_message_fn = MLP(h_in, hidden_dim, hidden_dim, 3, act)
+        self.node_dense = MLP(hidden_dim, 4 * hidden_dim, hidden_dim, 2, act)
+        self.edge_message_fn = MLP(h_in, hidden_dim, hidden_dim, 3, act)
+        self.norm = nn.ModuleList(LayerNorm(hidden_dim) for _ in range(3))
+
+    @staticmethod
+    def _inputs(h_V, h_E, idx):
+        h_j = gather_nodes(h_V, idx)
+        return torch.cat([h_V[:, :, None].expand_as(h_j), h_E, h_j], -1)
+
+    def forward(self, h_V, h_E, idx, X, mask_V, mask_attend, do_edge_update: bool = True,
+                training: Optional[bool] = None, rel=None):
+        """The arguments of ``InvariantPointLayer.forward`` (``X`` and ``rel``
+        unused); returns float32 (h_V, h_E)."""
+        train = self.training if training is None else training
+        drop = lambda v: F.dropout(v, self.dropout, training=train)
+        h_V, h_E = h_V.float(), h_E.float()
+        msg = self.node_message_fn(self._inputs(h_V, h_E, idx)) * mask_attend[..., None]
+        h_V = self.norm[0](h_V + drop(msg.sum(-2) / self.scale))
+        h_V = self.norm[1](h_V + drop(self.node_dense(h_V)))
+        h_V = h_V * mask_V[..., None]
+        if do_edge_update:
+            h_E = self.norm[2](h_E + drop(self.edge_message_fn(self._inputs(h_V, h_E, idx))))
+        return h_V, h_E
+
+
 class MessagePassingStack(nn.Module):
     def __init__(self, hidden_dim: int = 128, num_layers: int = 3, n_points: int = 8,
                  edge_dim: int = 128, position_scale: float = 1.0, remat: bool = False,
-                 geometry_local: bool = False, **layer_kw):
+                 geometry_local: bool = False, use_ipmp: bool = True, k_neighbors: int = 32,
+                 **layer_kw):
+        """``use_ipmp=False``: ``VanillaMPNNLayer`` layers, their sums
+        divided by ``k_neighbors`` (the routing options of ``layer_kw`` do
+        not apply to them)."""
         super().__init__()
         self.remat = remat   # training: recompute each layer in the backward
         self.position_scale = position_scale
         self.geometry_local = geometry_local
-        self.mpnn_layers = nn.ModuleList(
-            InvariantPointLayer(hidden_dim, n_points, edge_dim, position_scale, **layer_kw)
-            for _ in range(num_layers))
+        if use_ipmp:
+            layers = (InvariantPointLayer(hidden_dim, n_points, edge_dim, position_scale,
+                                          **layer_kw) for _ in range(num_layers))
+        else:
+            layers = (VanillaMPNNLayer(hidden_dim, edge_dim, layer_kw.get("dropout", 0.1),
+                                       layer_kw.get("act", "relu"), float(k_neighbors))
+                      for _ in range(num_layers))
+        self.mpnn_layers = nn.ModuleList(layers)
 
     @staticmethod
     def attend_mask(mask: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from packppi_torch.ops.activations import activation
 from packppi_torch.ops.precision import LN_EPS
 
 
@@ -46,20 +47,24 @@ class LayerNorm(nn.Module):
 
 
 class MLP(nn.Module):
-    """``num_layers`` linear maps with ReLU between them (reference layout:
-    ``W_in``, ``W_inter.0..``, ``W_out``)."""
+    """``num_layers`` linear maps with the activation ``act``
+    (``ops.activations.ACTS``) between them (reference layout: ``W_in``,
+    ``W_inter.0..``, ``W_out``)."""
 
-    def __init__(self, num_in: int, num_inter: int, num_out: int, num_layers: int):
+    def __init__(self, num_in: int, num_inter: int, num_out: int, num_layers: int,
+                 act: str = "relu"):
         super().__init__()
+        self.act = act
+        self.act_fn = activation(act)
         self.W_in = nn.Linear(num_in, num_inter)
         self.W_inter = nn.ModuleList(nn.Linear(num_inter, num_inter)
                                      for _ in range(num_layers - 2))
         self.W_out = nn.Linear(num_inter, num_out)
 
     def forward(self, x: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-        x = F.relu(dense(x, self.W_in, dtype))
+        x = self.act_fn(dense(x, self.W_in, dtype))
         for lin in self.W_inter:
-            x = F.relu(dense(x, lin, dtype))
+            x = self.act_fn(dense(x, lin, dtype))
         return dense(x, self.W_out, dtype)
 
 

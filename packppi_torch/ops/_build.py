@@ -6,6 +6,12 @@ interface, compiled by ``nvcc`` for ``sm_90a`` into
 shared headers and the flags, so an edited kernel is rebuilt and an
 unchanged one is loaded as it is. Builds run at first use; ``build_all``
 starts one ``nvcc`` per source, all at once.
+
+The message and chain sources (``ACT_SOURCES``) apply the MLPs' activation
+chosen at build time: a build name ``"<source>@<act>"`` compiles the source
+with ``-DPACKPPI_ACT=<index in ACTS>`` into its own library
+(``<source>@<act>-<hash>.so``); the bare source name is relu, built with
+no such flag. A library per activation keeps every body free of a switch.
 """
 from __future__ import annotations
 
@@ -21,6 +27,12 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# the activation table of the message and chain bodies (csrc/tile.cuh act),
+# in the order of its PACKPPI_ACT_* numbers; models.layers.ACTS holds the
+# plain versions
+ACTS = ("relu", "gelu", "elu", "selu", "celu", "leaky_relu", "silu", "sigmoid")
+ACT_SOURCES = ("message", "message_feat", "layer", "chain")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -38,24 +50,46 @@ def _nvcc() -> str:
                        "kernels of packppi_torch are built from csrc/ at first use")
 
 
+def lib_name(source: str, act: str = "relu") -> str:
+    """The build name of ``csrc/<source>.cu`` with activation ``act``."""
+    if act not in ACTS:
+        raise ValueError(f"activation {act!r} is not one of {ACTS}")
+    if act == "relu":
+        return source
+    if source not in ACT_SOURCES:
+        raise ValueError(f"csrc/{source}.cu takes no activation (only {ACT_SOURCES})")
+    return f"{source}@{act}"
+
+
+def _flags(name: str):
+    """(source, nvcc flags) of a build name."""
+    source, _, act = name.partition("@")
+    if not act:
+        return source, NVCC_FLAGS
+    lib_name(source, act)   # refuses an unknown activation or source
+    return source, (*NVCC_FLAGS, f"-DPACKPPI_ACT={ACTS.index(act)}")
+
+
 def _target(name: str) -> Path:
+    source, flags = _flags(name)
     h = hashlib.sha256()
-    for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+    for p in [CSRC / f"{source}.cu", *sorted(CSRC.glob("*.cuh"))]:
         h.update(p.name.encode())
         h.update(p.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str):
-    """Start nvcc for ``csrc/<name>.cu`` unless its library exists; returns
+    """Start nvcc for build ``name`` unless its library exists; returns
     (target, process or None, tmp path)."""
     target = _target(name)
     if target.exists():
         return target, None, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = target.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    source, flags = _flags(name)
+    cmd = [_nvcc(), *flags, "-I", str(CSRC), "-o", str(tmp), str(CSRC / f"{source}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return target, proc, tmp
 
@@ -68,7 +102,7 @@ def _finish(name: str, target: Path, proc, tmp: Path) -> str:
     target.with_suffix(".log").write_text(log)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        return f"nvcc failed for csrc/{name}.cu (exit {proc.returncode}):\n{log}"
+        return f"nvcc failed for {name} (exit {proc.returncode}):\n{log}"
     os.replace(tmp, target)
     return ""
 
@@ -91,7 +125,8 @@ def build_log(name: str) -> str:
 
 
 def load_library(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    """The loaded library of build ``name`` (``lib_name``), built on first
+    use. A build that fails raises: no activation falls back to another."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:

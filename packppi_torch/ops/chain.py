@@ -5,12 +5,13 @@ compute dtype of the FFN products):
 
     [msg *= mask]                              (pre_mask: edge chains)
     xx = rnd(LN_a(x + msg))                    (residual add in sd, LN in f32)
-    h  = rnd(relu(rnd(xx @ W1 + b1)))          (W1: [4H, H] Linear layout)
+    h  = rnd(act(rnd(xx @ W1 + b1)))           (W1: [4H, H] Linear layout)
     h  = rnd(h @ W2 + b2)                      (W2: [H, 4H])
     y  = LN_b(xx + h) [* mask]                 (written in sd)
 
 ``rnd`` rounds to sd and back, at the points the unfused flax chain rounds;
-LayerNorm is flax's (eps 1e-6, clamped fast variance). ``chain`` launches
+LayerNorm is flax's (eps 1e-6, clamped fast variance); ``act`` is one of
+``ops.activations.ACTS`` (relu by default), a kernel library per activation. ``chain`` launches
 the CUDA kernel of ``csrc/chain.cu`` for CUDA tensors and runs
 ``chain_plain`` for CPU tensors. The kernel replaces
 ``packppi_tpu/ops/pallas_layer.py::fused_chain``. In bf16 it reads W1 and
@@ -24,9 +25,9 @@ from typing import Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from packppi_torch.ops import _build
+from packppi_torch.ops.activations import activation
 from packppi_torch.ops.packing import packed
 from packppi_torch.ops.precision import LN_EPS, matmul_f32acc, round_to
 
@@ -37,19 +38,19 @@ def _ln(x, w, b):
     return (x - m) * torch.rsqrt(torch.clamp(v, min=0.0) + LN_EPS) * w.float() + b.float()
 
 
-def chain_tail_plain(x0, lna_w, lna_b, w1, b1, w2, b2, lnb_w, lnb_b, sd):
+def chain_tail_plain(x0, lna_w, lna_b, w1, b1, w2, b2, lnb_w, lnb_b, sd, act="relu"):
     """The chain from the float32 residual sum ``x0`` [N, H] to
     ``LN_b(xx + h)`` (float32, before any mask), rounding to the stream
     dtype ``sd`` at the kernel's points; shared by ``chain_plain`` and the
     whole-layer passes of ``ops.layer``."""
     xx = round_to(_ln(x0, lna_w, lna_b), sd)
-    h = round_to(F.relu(round_to(matmul_f32acc(xx, w1.t(), sd) + b1.float(), sd)), sd)
+    h = round_to(activation(act)(round_to(matmul_f32acc(xx, w1.t(), sd) + b1.float(), sd)), sd)
     h = round_to(matmul_f32acc(h, w2.t(), sd) + b2.float(), sd)
     return _ln(xx + h, lnb_w, lnb_b)
 
 
 def chain_plain(x, msg, mask: Optional[torch.Tensor], lna_w, lna_b, w1, b1, w2, b2,
-                lnb_w, lnb_b, pre_mask: bool):
+                lnb_w, lnb_b, pre_mask: bool, act: str = "relu"):
     """Plain PyTorch version of the kernel (see the module docstring);
     ``mask`` is [N] float 0/1 or None."""
     sd = x.dtype
@@ -57,7 +58,7 @@ def chain_plain(x, msg, mask: Optional[torch.Tensor], lna_w, lna_b, w1, b1, w2, 
     if mask is not None and pre_mask:
         m = m * mask[:, None].to(m.dtype)
     x0 = (x + m.to(sd)).float()
-    y = chain_tail_plain(x0, lna_w, lna_b, w1, b1, w2, b2, lnb_w, lnb_b, sd)
+    y = chain_tail_plain(x0, lna_w, lna_b, w1, b1, w2, b2, lnb_w, lnb_b, sd, act)
     if mask is not None:
         y = y * mask[:, None].float()
     return y.to(sd)
@@ -67,30 +68,30 @@ class _Chain(torch.autograd.Function):
     """Kernel (or plain, on the CPU) forward; recompute-the-plain backward."""
 
     @staticmethod
-    def forward(ctx, pre_mask, mask, *ops):
-        ctx.pre_mask, ctx.has_mask = pre_mask, mask is not None
+    def forward(ctx, pre_mask, act, mask, *ops):
+        ctx.pre_mask, ctx.act, ctx.has_mask = pre_mask, act, mask is not None
         ctx.save_for_backward(*ops, *(() if mask is None else (mask,)))
         if ops[0].device.type == "cpu":
-            return chain_plain(*ops[:2], mask, *ops[2:], pre_mask)
-        return _chain_cuda(*ops[:2], mask, *ops[2:], pre_mask)
+            return chain_plain(*ops[:2], mask, *ops[2:], pre_mask, act)
+        return _chain_cuda(*ops[:2], mask, *ops[2:], pre_mask, act)
 
     @staticmethod
     def backward(ctx, grad_out):
         saved = ctx.saved_tensors
         ops, mask = (saved[:-1], saved[-1]) if ctx.has_mask else (saved, None)
-        need = ctx.needs_input_grad[2:]
+        need = ctx.needs_input_grad[3:]
         with torch.enable_grad():
             leaves = [t.detach().requires_grad_(n) for t, n in zip(ops, need)]
             # the rounding points inside are dtype round trips that autograd
             # passes through, as the forward's reference implementation does
-            out = chain_plain(*leaves[:2], mask, *leaves[2:], ctx.pre_mask)
+            out = chain_plain(*leaves[:2], mask, *leaves[2:], ctx.pre_mask, ctx.act)
             grads = iter(torch.autograd.grad(out, [t for t, n in zip(leaves, need) if n],
                                              grad_out.to(out.dtype)))
-        return (None, None, *(next(grads) if n else None for n in need))
+        return (None, None, None, *(next(grads) if n else None for n in need))
 
 
 def chain(x, msg, mask: Optional[torch.Tensor], lna_w, lna_b, w1, b1, w2, b2,
-          lnb_w, lnb_b, pre_mask: bool):
+          lnb_w, lnb_b, pre_mask: bool, act: str = "relu"):
     """The differentiable chain: the CUDA kernel for CUDA tensors,
     ``chain_plain`` for CPU tensors. It saves its inputs and no
     intermediate; its backward recomputes ``chain_plain`` on them and
@@ -100,7 +101,8 @@ def chain(x, msg, mask: Optional[torch.Tensor], lna_w, lna_b, w1, b1, w2, b2,
     ops = (x, msg, lna_w, lna_b, w1, b1, w2, b2, lnb_w, lnb_b)
     # the kernel reads raw pointers: contiguous before the launch, so forward
     # and backward see the same memory
-    return _Chain.apply(pre_mask, None if mask is None else mask.contiguous(),
+    activation(act)
+    return _Chain.apply(pre_mask, act, None if mask is None else mask.contiguous(),
                         *(t.contiguous() for t in ops))
 
 
@@ -110,7 +112,7 @@ chain.launches = 0
 _H = 128
 
 
-def _chain_cuda(x, msg, mask, lna_w, lna_b, w1, b1, w2, b2, lnb_w, lnb_b, pre_mask):
+def _chain_cuda(x, msg, mask, lna_w, lna_b, w1, b1, w2, b2, lnb_w, lnb_b, pre_mask, act):
     N, H = x.shape
     sd = x.dtype
     if sd not in (torch.float32, torch.bfloat16):
@@ -127,7 +129,7 @@ def _chain_cuda(x, msg, mask, lna_w, lna_b, w1, b1, w2, b2, lnb_w, lnb_b, pre_ma
     _build.check_aligned("chain", w1=w1, w2=w2)
     wpack = packed_chain_weights(w1, w2, sd)
     out = torch.empty_like(x)
-    lib = _lib()
+    lib = _lib(act)
     err = lib.packppi_chain(
         *(_build.ptr(t) for t in (x, msg, mask, lna_w, lna_b, w1, b1, w2, b2,
                                   lnb_w, lnb_b, wpack, out)),
@@ -192,8 +194,8 @@ def check_chain_weights(name, ref, lna_w, lna_b, w1, b1, w2, b2, lnb_w, lnb_b):
     })
 
 
-def _lib():
-    lib = _build.load_library("chain")
+def _lib(act="relu"):
+    lib = _build.load_library(_build.lib_name("chain", act))
     if lib.packppi_chain.argtypes is None:
         lib.packppi_chain.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         lib.packppi_chain.restype = ctypes.c_int

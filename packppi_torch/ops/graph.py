@@ -18,7 +18,12 @@ def _knn_rows(coords_rows, mask_rows, coords, mask, k, eps):
     D = mask2d * torch.sqrt(torch.sum(diff * diff, -1) + eps)
     D_max = torch.amax(D, -1, keepdim=True)
     D_adjusted = D + 2.0 * (1.0 - mask2d) * D_max
-    return torch.topk(D_adjusted, k, dim=-1, largest=False, sorted=True)
+    # a stable sort: equal distances keep their column order, as lax.top_k
+    # orders them. A padded query row is all ties, so it takes columns
+    # 0..k-1, and its (masked) edge features equal the JAX package's; they
+    # enter the batch-wide int8 edge scale (static_edge_dtype)
+    D_sorted, idx = torch.sort(D_adjusted, dim=-1, stable=True)
+    return D_sorted[..., :k].contiguous(), idx[..., :k].contiguous()
 
 
 def masked_knn(coords: torch.Tensor, mask: torch.Tensor, k: int, eps: float = 1e-6,
@@ -32,8 +37,8 @@ def masked_knn(coords: torch.Tensor, mask: torch.Tensor, k: int, eps: float = 1e
 
     Returns:
         (D_neighbors [B, L, K], idx [B, L, K] int64); invalid pairs are
-        pushed beyond the row's max distance so they sort last. Ties may be
-        ordered differently from other top-k implementations.
+        pushed beyond the row's max distance so they sort last, and equal
+        distances come in column order (as ``lax.top_k`` gives them).
     """
     L = coords.shape[-2]
     k = min(k, L)

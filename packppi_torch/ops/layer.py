@@ -20,7 +20,9 @@ body and the chain kernel's, over the packed copies of the message weights
 (``ops.message_feat.pack_message_weights``) and, in bf16, of the chain's
 (``ops.chain.packed_chain_weights``). Each wrapper launches its kernel for
 CUDA tensors and runs its plain twin for CPU tensors, and counts its
-launches.
+launches. ``act`` (``ops.activations.ACTS``, relu by default; a kernel
+library per activation) is the message MLP's and the chain FFN's
+activation, as ``act_name`` is the TPU kernels'.
 """
 from __future__ import annotations
 
@@ -42,54 +44,58 @@ NODES_PER_BLOCK = 2
 
 def layer_node_plain(h_V, per_i, pjg, h_E, geom, mask, mask_V,
                      w_in, b_in, w_mid, b_mid, w_out, b_out,
-                     lna_w, lna_b, w1, b1, w2, b2, lnb_w, lnb_b):
+                     lna_w, lna_b, w1, b1, w2, b2, lnb_w, lnb_b, act: str = "relu"):
     """Plain version of the node pass: ``h_V`` [B, L, H] in sd, ``mask``
     [B, L, K], ``mask_V`` [B, L] float 0/1."""
     sd = h_V.dtype
     H, K = h_V.shape[-1], h_E.shape[-2]
-    x = message_rows_plain(per_i, pjg, h_E, geom, w_in, b_in, w_mid, b_mid, w_out, b_out)
+    x = message_rows_plain(per_i, pjg, h_E, geom, w_in, b_in, w_mid, b_mid, w_out, b_out, act)
     pooled = (x * mask[..., None]).sum(-2) * (1.0 / K)
     x0 = h_V.float() + round_to(pooled, sd)
-    y = chain_tail_plain(x0.reshape(-1, H), lna_w, lna_b, w1, b1, w2, b2, lnb_w, lnb_b, sd)
+    y = chain_tail_plain(x0.reshape(-1, H), lna_w, lna_b, w1, b1, w2, b2, lnb_w, lnb_b, sd,
+                         act)
     return (y.reshape(h_V.shape) * mask_V[..., None].float()).to(sd)
 
 
 def layer_edge_plain(h_E, per_i, pjg, geom, mask,
                      w_in, b_in, w_mid, b_mid, w_out, b_out,
-                     lna_w, lna_b, w1, b1, w2, b2, lnb_w, lnb_b):
+                     lna_w, lna_b, w1, b1, w2, b2, lnb_w, lnb_b, act: str = "relu"):
     """Plain version of the edge pass: ``h_E`` [B, L, K, H] in sd (the
     message's input and the residual), ``mask`` [B, L, K]."""
     sd = h_E.dtype
     H = h_E.shape[-1]
-    x = message_rows_plain(per_i, pjg, h_E, geom, w_in, b_in, w_mid, b_mid, w_out, b_out)
+    x = message_rows_plain(per_i, pjg, h_E, geom, w_in, b_in, w_mid, b_mid, w_out, b_out, act)
     x0 = h_E.float() + round_to(x * mask[..., None], sd)
-    y = chain_tail_plain(x0.reshape(-1, H), lna_w, lna_b, w1, b1, w2, b2, lnb_w, lnb_b, sd)
+    y = chain_tail_plain(x0.reshape(-1, H), lna_w, lna_b, w1, b1, w2, b2, lnb_w, lnb_b, sd,
+                         act)
     return (y.reshape(h_E.shape) * mask[..., None].float()).to(sd)
 
 
 def layer_node(h_V, per_i, pjg, h_E, geom, mask, mask_V,
                w_in, b_in, w_mid, b_mid, w_out, b_out,
-               lna_w, lna_b, w1, b1, w2, b2, lnb_w, lnb_b, nodes_per_block=None):
+               lna_w, lna_b, w1, b1, w2, b2, lnb_w, lnb_b, nodes_per_block=None,
+               act: str = "relu"):
     """The node pass: the CUDA kernel for CUDA tensors, ``layer_node_plain``
     for CPU tensors. ``nodes_per_block`` (1-16) sets the kernel's blocking
     only (default ``NODES_PER_BLOCK``)."""
     ops = (h_V, per_i, pjg, h_E, geom, mask, mask_V, w_in, b_in, w_mid, b_mid, w_out, b_out,
            lna_w, lna_b, w1, b1, w2, b2, lnb_w, lnb_b)
     if h_E.device.type == "cpu":
-        return layer_node_plain(*ops)
-    return _layer_node_cuda(ops, NODES_PER_BLOCK if nodes_per_block is None else nodes_per_block)
+        return layer_node_plain(*ops, act)
+    return _layer_node_cuda(ops, NODES_PER_BLOCK if nodes_per_block is None else nodes_per_block,
+                            act)
 
 
 def layer_edge(h_E, per_i, pjg, geom, mask,
                w_in, b_in, w_mid, b_mid, w_out, b_out,
-               lna_w, lna_b, w1, b1, w2, b2, lnb_w, lnb_b):
+               lna_w, lna_b, w1, b1, w2, b2, lnb_w, lnb_b, act: str = "relu"):
     """The edge pass: the CUDA kernel for CUDA tensors, ``layer_edge_plain``
     for CPU tensors."""
     ops = (h_E, per_i, pjg, geom, mask, w_in, b_in, w_mid, b_mid, w_out, b_out,
            lna_w, lna_b, w1, b1, w2, b2, lnb_w, lnb_b)
     if h_E.device.type == "cpu":
-        return layer_edge_plain(*ops)
-    return _layer_edge_cuda(ops)
+        return layer_edge_plain(*ops, act)
+    return _layer_edge_cuda(ops, act)
 
 
 # kernel launches on the card; the plain path never touches them
@@ -133,7 +139,7 @@ def _packed(name, sd, w_in, w_mid, w_out, w1, w2, **streams):
     return pack_message_weights(w_in, w_mid, w_out, sd), packed_chain_weights(w1, w2, sd)
 
 
-def _layer_node_cuda(ops, nodes_per_block):
+def _layer_node_cuda(ops, nodes_per_block, act):
     h_V, per_i, pjg, h_E, geom, mask, mask_V, *weights = ops
     w_in, b_in, w_mid, b_mid, w_out, b_out, *chain_w = weights
     B, L, K, sd = _message_expect("layer_node", h_E, per_i, pjg, geom, mask, *weights[:6])
@@ -146,7 +152,7 @@ def _layer_node_cuda(ops, nodes_per_block):
     wpack, cpack = _packed("layer_node", sd, w_in, w_mid, w_out, chain_w[2], chain_w[4],
                            per_i=per_i, pjg=pjg, h_E=h_E, geom=geom)
     out = torch.empty_like(h_V)
-    lib = _lib()
+    lib = _lib(act)
     err = lib.packppi_layer_node(
         *(_build.ptr(t) for t in ops[:7] + (wpack, b_in, b_mid, b_out, *chain_w, cpack, out)),
         B * L, K, nodes_per_block, int(sd == torch.bfloat16), _build.stream_ptr(h_E.device))
@@ -155,7 +161,7 @@ def _layer_node_cuda(ops, nodes_per_block):
     return out
 
 
-def _layer_edge_cuda(ops):
+def _layer_edge_cuda(ops, act):
     h_E, per_i, pjg, geom, mask, *weights = ops
     w_in, b_in, w_mid, b_mid, w_out, b_out, *chain_w = weights
     B, L, K, sd = _message_expect("layer_edge", h_E, per_i, pjg, geom, mask, *weights[:6])
@@ -163,7 +169,7 @@ def _layer_edge_cuda(ops):
     wpack, cpack = _packed("layer_edge", sd, w_in, w_mid, w_out, chain_w[2], chain_w[4],
                            per_i=per_i, pjg=pjg, h_E=h_E, geom=geom)
     out = torch.empty_like(h_E)
-    lib = _lib()
+    lib = _lib(act)
     err = lib.packppi_layer_edge(
         *(_build.ptr(t) for t in ops[:5] + (wpack, b_in, b_mid, b_out, *chain_w, cpack, out)),
         B * L, K, int(sd == torch.bfloat16), _build.stream_ptr(h_E.device))
@@ -172,8 +178,8 @@ def _layer_edge_cuda(ops):
     return out
 
 
-def _lib():
-    lib = _build.load_library("layer")
+def _lib(act="relu"):
+    lib = _build.load_library(_build.lib_name("layer", act))
     if lib.packppi_layer_node.argtypes is None:
         ptrs, ints, stream = [ctypes.c_void_p], [ctypes.c_int], [ctypes.c_void_p]
         lib.packppi_layer_node.argtypes = ptrs * 21 + [ctypes.c_longlong] + ints * 3 + stream

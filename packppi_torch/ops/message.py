@@ -3,13 +3,16 @@
 For every edge (i, j=idx[i, k]) of the kNN graph:
 
     geom = [p_i local (xyz interleaved) | |p_i| | R_i^T (pg_j - t_i) | |.| | |pg_i - pg_j|]
-    x    = relu([h_E | geom] @ W_e + b_e + per_i[i] + per_j[j])
-    x    = relu(x @ W_1 + b_1) @ W_2 + b_2
+    x    = act([h_E | geom] @ W_e + b_e + per_i[i] + per_j[j])
+    x    = act(x @ W_1 + b_1) @ W_2 + b_2
 
 ``pool=True`` returns the masked sum over the K edges divided by K
 ([B, L, H] float32); ``pool=False`` returns the edge messages
 [B, L, K, H] in the stream dtype (``h_E.dtype``, also the compute dtype:
 operands are rounded to it before each product, sums stay float32).
+``act`` is one of ``ops.activations.ACTS`` (relu by default), applied to
+the float32 sums; every entry point takes it last, and each activation has
+its own kernel library (``ops._build.lib_name``).
 
 Four entry points, each launching its own kernel of ``csrc/message.cu``
 for CUDA tensors and running its plain twin for CPU tensors (nothing else
@@ -95,7 +98,7 @@ def geometry_edge_features(p_local: torch.Tensor, nbr: torch.Tensor,
 
 
 def message_plain(per_i, per_j, h_E, idx, p_local, rot, trans, pg, mask,
-                  w_in, b_in, w_mid, b_mid, w_out, b_out, pool: bool):
+                  w_in, b_in, w_mid, b_mid, w_out, b_out, pool: bool, act: str = "relu"):
     """Plain PyTorch version of the kernel, at the kernel's cast points:
     the geometry features and the gathered neighbour term through
     ``message_feat_plain``, which holds the chain of products.
@@ -107,11 +110,12 @@ def message_plain(per_i, per_j, h_E, idx, p_local, rot, trans, pg, mask,
     """
     geom = geometry_edge_features(p_local, gather_nodes(pg, idx), rot, trans)
     return message_feat_plain(per_i, gather_nodes(per_j, idx), h_E, geom, mask,
-                              w_in, b_in, w_mid, b_mid, w_out, b_out, pool)
+                              w_in, b_in, w_mid, b_mid, w_out, b_out, pool, act)
 
 
 def message_geom_plain(per_i, pjg, h_E, pl, ng, rot9, trans, mask,
-                       w_in, b_in, w_mid, b_mid, w_out, b_out, pool: bool):
+                       w_in, b_in, w_mid, b_mid, w_out, b_out, pool: bool,
+                       act: str = "relu"):
     """Plain version of the gathered-operand kernel: ``pjg`` [B, L, K, H] in
     the stream dtype, ``pl`` [B, L, 3P] local point planes ``[x | y | z]``,
     ``ng`` [B, L, K, 3P] gathered neighbour global-point planes, ``rot9``
@@ -121,70 +125,71 @@ def message_geom_plain(per_i, pjg, h_E, pl, ng, rot9, trans, mask,
     p_local = torch.stack([pl[..., :P], pl[..., P:2 * P], pl[..., 2 * P:]], -1)
     geom = geometry_edge_features(p_local, ng, rot9.reshape(B, L, 3, 3), trans)
     return message_feat_plain(per_i, pjg, h_E, geom, mask, w_in, b_in, w_mid, b_mid,
-                              w_out, b_out, pool)
+                              w_out, b_out, pool, act)
 
 
 def message_chain_plain(per_i, per_j, h_E, idx, p_local, rot, trans, pg, mask,
                         w_in, b_in, w_mid, b_mid, w_out, b_out,
-                        lna_w, lna_b, w1, b1, w2, b2, lnb_w, lnb_b):
+                        lna_w, lna_b, w1, b1, w2, b2, lnb_w, lnb_b, act: str = "relu"):
     """Plain version of the folded edge pass: ``message_plain`` (edge)
     followed by ``chain_plain(pre_mask=True)``; [B, L, K, H] in the stream
     dtype."""
     msg = message_plain(per_i, per_j, h_E, idx, p_local, rot, trans, pg, mask,
-                        w_in, b_in, w_mid, b_mid, w_out, b_out, False)
+                        w_in, b_in, w_mid, b_mid, w_out, b_out, False, act)
     H = h_E.shape[-1]
     return chain_plain(h_E.reshape(-1, H), msg.reshape(-1, H), mask.reshape(-1).float(),
-                       lna_w, lna_b, w1, b1, w2, b2, lnb_w, lnb_b, True).reshape(h_E.shape)
+                       lna_w, lna_b, w1, b1, w2, b2, lnb_w, lnb_b, True,
+                       act).reshape(h_E.shape)
 
 
 def message(per_i, per_j, h_E, idx, p_local, rot, trans, pg, mask,
-            w_in, b_in, w_mid, b_mid, w_out, b_out, pool: bool):
+            w_in, b_in, w_mid, b_mid, w_out, b_out, pool: bool, act: str = "relu"):
     """The message pass: the CUDA kernel for CUDA tensors, ``message_plain``
     for CPU tensors (see the module docstring for shapes)."""
     if h_E.device.type == "cpu":
         return message_plain(per_i, per_j, h_E, idx, p_local, rot, trans, pg, mask,
-                             w_in, b_in, w_mid, b_mid, w_out, b_out, pool)
+                             w_in, b_in, w_mid, b_mid, w_out, b_out, pool, act)
     out = _indexed_cuda("packppi_message", per_i, per_j, h_E, idx, p_local, rot, trans, pg,
-                        mask, w_in, b_in, w_mid, b_mid, w_out, b_out, pool)
+                        mask, w_in, b_in, w_mid, b_mid, w_out, b_out, pool, act)
     message.launches += 1
     return out
 
 
 def message_gather(per_i, per_j, h_E, idx, p_local, rot, trans, pg, mask,
-                   w_in, b_in, w_mid, b_mid, w_out, b_out, pool: bool):
+                   w_in, b_in, w_mid, b_mid, w_out, b_out, pool: bool, act: str = "relu"):
     """``message``'s function and operands through the kernel that replaces
     ``fused_message_geom_gather``; ``message_plain`` for CPU tensors."""
     if h_E.device.type == "cpu":
         return message_plain(per_i, per_j, h_E, idx, p_local, rot, trans, pg, mask,
-                             w_in, b_in, w_mid, b_mid, w_out, b_out, pool)
+                             w_in, b_in, w_mid, b_mid, w_out, b_out, pool, act)
     out = _indexed_cuda("packppi_message_gather", per_i, per_j, h_E, idx, p_local, rot, trans,
-                        pg, mask, w_in, b_in, w_mid, b_mid, w_out, b_out, pool)
+                        pg, mask, w_in, b_in, w_mid, b_mid, w_out, b_out, pool, act)
     message_gather.launches += 1
     return out
 
 
 def message_geom(per_i, pjg, h_E, pl, ng, rot9, trans, mask,
-                 w_in, b_in, w_mid, b_mid, w_out, b_out, pool: bool):
+                 w_in, b_in, w_mid, b_mid, w_out, b_out, pool: bool, act: str = "relu"):
     """The message pass over gathered neighbour streams: the CUDA kernel for
     CUDA tensors, ``message_geom_plain`` for CPU tensors."""
     if h_E.device.type == "cpu":
         return message_geom_plain(per_i, pjg, h_E, pl, ng, rot9, trans, mask,
-                                  w_in, b_in, w_mid, b_mid, w_out, b_out, pool)
+                                  w_in, b_in, w_mid, b_mid, w_out, b_out, pool, act)
     return _message_geom_cuda(per_i, pjg, h_E, pl, ng, rot9, trans, mask,
-                              w_in, b_in, w_mid, b_mid, w_out, b_out, pool)
+                              w_in, b_in, w_mid, b_mid, w_out, b_out, pool, act)
 
 
 def message_chain(per_i, per_j, h_E, idx, p_local, rot, trans, pg, mask,
                   w_in, b_in, w_mid, b_mid, w_out, b_out,
-                  lna_w, lna_b, w1, b1, w2, b2, lnb_w, lnb_b):
+                  lna_w, lna_b, w1, b1, w2, b2, lnb_w, lnb_b, act: str = "relu"):
     """The edge pass with the chain folded in: the CUDA kernel for CUDA
     tensors, ``message_chain_plain`` for CPU tensors. Returns the new h_E."""
     ops = (per_i, per_j, h_E, idx, p_local, rot, trans, pg, mask, w_in, b_in, w_mid, b_mid,
            w_out, b_out)
     chain_w = (lna_w, lna_b, w1, b1, w2, b2, lnb_w, lnb_b)
     if h_E.device.type == "cpu":
-        return message_chain_plain(*ops, *chain_w)
-    return _message_chain_cuda(ops, chain_w)
+        return message_chain_plain(*ops, *chain_w, act)
+    return _message_chain_cuda(ops, chain_w, act)
 
 
 # kernel launches on the card; the plain path never touches them
@@ -245,7 +250,7 @@ def _indexed_expect(name, per_i, per_j, h_E, idx, p_local, rot, trans, pg, mask,
 
 
 def _indexed_cuda(entry, per_i, per_j, h_E, idx, p_local, rot, trans, pg, mask,
-                  w_in, b_in, w_mid, b_mid, w_out, b_out, pool):
+                  w_in, b_in, w_mid, b_mid, w_out, b_out, pool, act):
     ops = (per_i, per_j, h_E, idx, p_local, rot, trans, pg, mask, w_in, b_in, w_mid, b_mid,
            w_out, b_out)
     name = entry[len("packppi_"):]
@@ -254,7 +259,7 @@ def _indexed_cuda(entry, per_i, per_j, h_E, idx, p_local, rot, trans, pg, mask,
     wpack = pack_message_weights(w_in, w_mid, w_out, sd)
     out = (torch.empty(B, L, _H, device=h_E.device, dtype=_F32) if pool
            else torch.empty(B, L, K, _H, device=h_E.device, dtype=sd))
-    lib = _lib()
+    lib = _lib(act)
     err = getattr(lib, entry)(*(_build.ptr(t) for t in ops[:9] + (wpack, b_in, b_mid, b_out, out)),
                               B, L, K, int(sd == torch.bfloat16), int(pool),
                               _build.stream_ptr(h_E.device))
@@ -263,7 +268,7 @@ def _indexed_cuda(entry, per_i, per_j, h_E, idx, p_local, rot, trans, pg, mask,
 
 
 def _message_geom_cuda(per_i, pjg, h_E, pl, ng, rot9, trans, mask,
-                       w_in, b_in, w_mid, b_mid, w_out, b_out, pool):
+                       w_in, b_in, w_mid, b_mid, w_out, b_out, pool, act):
     B, L, K, He = h_E.shape
     sd = _stream_dtype("message_geom", h_E)
     _check_widths("message_geom", He, per_i.shape[-1], K, pl.shape[-1] // 3)
@@ -282,7 +287,7 @@ def _message_geom_cuda(per_i, pjg, h_E, pl, ng, rot9, trans, mask,
     wpack = pack_message_weights(w_in, w_mid, w_out, sd)
     out = (torch.empty(B, L, _H, device=h_E.device, dtype=_F32) if pool
            else torch.empty(B, L, K, _H, device=h_E.device, dtype=sd))
-    lib = _lib()
+    lib = _lib(act)
     err = lib.packppi_message_geom(
         *(_build.ptr(t) for t in (per_i, pjg, h_E, pl, ng, rot9, trans, mask, wpack, b_in,
                                   b_mid, b_out, out)),
@@ -292,7 +297,7 @@ def _message_geom_cuda(per_i, pjg, h_E, pl, ng, rot9, trans, mask,
     return out
 
 
-def _message_chain_cuda(ops, chain_w):
+def _message_chain_cuda(ops, chain_w, act):
     per_i, per_j, h_E = ops[:3]
     w_in, b_in, w_mid, b_mid, w_out, b_out = ops[9:]
     w1, w2 = chain_w[2], chain_w[4]
@@ -302,7 +307,7 @@ def _message_chain_cuda(ops, chain_w):
     wpack = pack_message_weights(w_in, w_mid, w_out, sd)
     cpack = packed_chain_weights(w1, w2, sd)
     out = torch.empty_like(h_E)
-    lib = _lib()
+    lib = _lib(act)
     err = lib.packppi_message_chain(
         *(_build.ptr(t) for t in ops[:9] + (wpack, b_in, b_mid, b_out) + chain_w + (cpack, out)),
         B, L, K, int(sd == torch.bfloat16), _build.stream_ptr(h_E.device))
@@ -311,8 +316,8 @@ def _message_chain_cuda(ops, chain_w):
     return out
 
 
-def _lib():
-    lib = _build.load_library("message")
+def _lib(act="relu"):
+    lib = _build.load_library(_build.lib_name("message", act))
     if lib.packppi_message.argtypes is None:
         ptrs, ints, stream = [ctypes.c_void_p], [ctypes.c_int], [ctypes.c_void_p]
         for entry in (lib.packppi_message, lib.packppi_message_gather):

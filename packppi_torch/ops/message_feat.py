@@ -3,8 +3,8 @@ differentiable.
 
 For every edge row (node i, neighbour slot k) of the kNN graph:
 
-    x = relu(h_E @ W_he + geom @ W_g + b_e + per_i[i] + pj[i, k])
-    x = relu(x @ W_1 + b_1) @ W_2 + b_2
+    x = act(h_E @ W_he + geom @ W_g + b_e + per_i[i] + pj[i, k])
+    x = act(x @ W_1 + b_1) @ W_2 + b_2
 
 with ``W_he``/``W_g`` the ``[:, H:H+He]`` and ``[:, 2H+He:]`` column blocks of
 the reference's first message layer ``W_in`` [H, H + He + H + 9P]. The
@@ -15,6 +15,8 @@ arrives computed: both stay in PyTorch, where autograd has their backward.
 in the stream dtype (``h_E.dtype``, also the compute dtype: ``h_E``,
 ``geom`` and both hidden activations are rounded to it before their
 products; sums, biases, ``per_i`` and the ``pj`` addition are float32).
+``act`` (``ops.activations.ACTS``, relu by default) applies to the float32
+sums, as in the TPU kernel; each activation has its own kernel library.
 
 ``message_feat`` is a ``torch.autograd.Function``: its forward launches the
 CUDA kernel of ``csrc/message_feat.cu`` for CUDA tensors and runs
@@ -37,14 +39,15 @@ import ctypes
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from packppi_torch.ops import _build
+from packppi_torch.ops.activations import activation
 from packppi_torch.ops.packing import packed
 from packppi_torch.ops.precision import matmul_f32acc
 
 
-def message_rows_plain(per_i, pj, h_E, geom, w_in, b_in, w_mid, b_mid, w_out, b_out):
+def message_rows_plain(per_i, pj, h_E, geom, w_in, b_in, w_mid, b_mid, w_out, b_out,
+                       act: str = "relu"):
     """The message of every edge row, float32 [B, L, K, H], before any pool
     or cast, at the kernel's cast points.
 
@@ -59,16 +62,17 @@ def message_rows_plain(per_i, pj, h_E, geom, w_in, b_in, w_mid, b_mid, w_out, b_
     x = (matmul_f32acc(h_E, w[:, H:H + He].t(), cd)
          + matmul_f32acc(geom, w[:, 2 * H + He:].t(), cd) + b_in.float())
     x = x + per_i.float()[..., None, :]
-    x = F.relu(x + pj.float())
-    x = F.relu(matmul_f32acc(x, w_mid.float().t(), cd) + b_mid.float())
+    f = activation(act)
+    x = f(x + pj.float())
+    x = f(matmul_f32acc(x, w_mid.float().t(), cd) + b_mid.float())
     return matmul_f32acc(x, w_out.float().t(), cd) + b_out.float()
 
 
 def message_feat_plain(per_i, pj, h_E, geom, mask, w_in, b_in, w_mid, b_mid, w_out, b_out,
-                       pool: bool):
+                       pool: bool, act: str = "relu"):
     """Plain PyTorch version of the kernel, at the kernel's cast points
     (``message_rows_plain``; ``mask`` [B, L, K])."""
-    x = message_rows_plain(per_i, pj, h_E, geom, w_in, b_in, w_mid, b_mid, w_out, b_out)
+    x = message_rows_plain(per_i, pj, h_E, geom, w_in, b_in, w_mid, b_mid, w_out, b_out, act)
     if pool:
         return (x * mask[..., None]).sum(-2) / float(h_E.shape[-2])
     return x.to(h_E.dtype)
@@ -78,28 +82,28 @@ class _MessageFeat(torch.autograd.Function):
     """Kernel (or plain, on the CPU) forward; recompute-the-plain backward."""
 
     @staticmethod
-    def forward(ctx, pool, mask, *ops):
-        ctx.pool = pool
+    def forward(ctx, pool, act, mask, *ops):
+        ctx.pool, ctx.act = pool, act
         ctx.save_for_backward(mask, *ops)
         per_i, pj, h_E, geom, *weights = ops
         if h_E.device.type == "cpu":
-            return message_feat_plain(per_i, pj, h_E, geom, mask, *weights, pool)
-        return _message_feat_cuda(per_i, pj, h_E, geom, mask, *weights, pool)
+            return message_feat_plain(per_i, pj, h_E, geom, mask, *weights, pool, act)
+        return _message_feat_cuda(per_i, pj, h_E, geom, mask, *weights, pool, act)
 
     @staticmethod
     def backward(ctx, grad_out):
         mask, *ops = ctx.saved_tensors
-        need = ctx.needs_input_grad[2:]
+        need = ctx.needs_input_grad[3:]
         with torch.enable_grad():
             leaves = [t.detach().requires_grad_(n) for t, n in zip(ops, need)]
-            out = message_feat_plain(*leaves[:4], mask, *leaves[4:], ctx.pool)
+            out = message_feat_plain(*leaves[:4], mask, *leaves[4:], ctx.pool, ctx.act)
             grads = iter(torch.autograd.grad(out, [t for t, n in zip(leaves, need) if n],
                                              grad_out.to(out.dtype)))
-        return (None, None, *(next(grads) if n else None for n in need))
+        return (None, None, None, *(next(grads) if n else None for n in need))
 
 
 def message_feat(per_i, pj, h_E, geom, mask, w_in, b_in, w_mid, b_mid, w_out, b_out,
-                 pool: bool):
+                 pool: bool, act: str = "relu"):
     """The differentiable message pass over precomputed features: the CUDA
     kernel for CUDA tensors, ``message_feat_plain`` for CPU tensors (see the
     module docstring for shapes). ``geom`` is taken in the stream dtype."""
@@ -107,7 +111,8 @@ def message_feat(per_i, pj, h_E, geom, mask, w_in, b_in, w_mid, b_mid, w_out, b_
     ops = (per_i, pj.to(sd), h_E, geom.to(sd), w_in, b_in, w_mid, b_mid, w_out, b_out)
     # the kernel reads raw pointers: make every saved operand contiguous
     # before the launch, so forward and backward see the same memory
-    return _MessageFeat.apply(pool, mask.contiguous(), *(t.contiguous() for t in ops))
+    activation(act)
+    return _MessageFeat.apply(pool, act, mask.contiguous(), *(t.contiguous() for t in ops))
 
 
 # kernel launches on the card; the plain path never touches it
@@ -200,7 +205,7 @@ def pack_message_weights(w_in, w_mid, w_out, dtype):
 
 
 def _message_feat_cuda(per_i, pj, h_E, geom, mask, w_in, b_in, w_mid, b_mid, w_out, b_out,
-                       pool):
+                       pool, act):
     B, L, K, He = h_E.shape
     sd = h_E.dtype
     if sd not in (torch.float32, torch.bfloat16):
@@ -228,7 +233,7 @@ def _message_feat_cuda(per_i, pj, h_E, geom, mask, w_in, b_in, w_mid, b_mid, w_o
     wpack = pack_message_weights(w_in, w_mid, w_out, sd)
     out = (torch.empty(B, L, _H, device=h_E.device, dtype=f32) if pool
            else torch.empty(B, L, K, _H, device=h_E.device, dtype=sd))
-    lib = _lib()
+    lib = _lib(act)
     err = lib.packppi_message_feat(
         *(_build.ptr(t) for t in (per_i, pj, h_E, geom, mask, wpack, b_in, b_mid, b_out, out)),
         B * L, K, int(sd == torch.bfloat16), int(pool), _build.stream_ptr(h_E.device))
@@ -237,8 +242,8 @@ def _message_feat_cuda(per_i, pj, h_E, geom, mask, w_in, b_in, w_mid, b_mid, w_o
     return out
 
 
-def _lib():
-    lib = _build.load_library("message_feat")
+def _lib(act="relu"):
+    lib = _build.load_library(_build.lib_name("message_feat", act))
     if lib.packppi_message_feat.argtypes is None:
         lib.packppi_message_feat.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_longlong]
                                              + [ctypes.c_int] * 3 + [ctypes.c_void_p])

@@ -1,7 +1,10 @@
-"""Protein structure container and PDB I/O (pure Python).
+"""Protein structure container and PDB I/O.
 
-A fixed-column PDB reader/writer producing the atom14 layout directly.
-Behavioural contract:
+A fixed-column PDB reader/writer producing the atom14 layout directly. The
+reader runs the native C++ parser (``packppi_torch.native``, float32
+coordinates, as the JAX package's CLIs parse them) where it is built, and
+the pure-Python one below otherwise or with ``PACKPPI_NATIVE=0``; both keep
+this behavioural contract:
 
 * ``ATOM`` and ``HETATM`` records are read; waters dropped; optional
   MSE->MET; non-standard residues skipped;
@@ -96,7 +99,25 @@ def from_pdb_string(pdb_str: str, model_idx: int = 0,
                     chain_id: Optional[Union[str, Sequence[str]]] = None,
                     discard_water: bool = True, mse_to_met: bool = False,
                     ignore_non_std: bool = True) -> Protein:
-    """Parse a PDB string into an atom14 ``Protein``."""
+    """Parse a PDB string into an atom14 ``Protein``: the native parser's
+    arrays when its library is available, else ``from_pdb_string_python``'s.
+    """
+    from packppi_torch import native
+
+    parsed = native.parse_pdb_native(pdb_str, model_idx, chain_id, discard_water, mse_to_met,
+                                     ignore_non_std)
+    if parsed is not None:
+        return Protein(**parsed)
+    return from_pdb_string_python(pdb_str, model_idx, chain_id, discard_water, mse_to_met,
+                                  ignore_non_std)
+
+
+def from_pdb_string_python(pdb_str: str, model_idx: int = 0,
+                           chain_id: Optional[Union[str, Sequence[str]]] = None,
+                           discard_water: bool = True, mse_to_met: bool = False,
+                           ignore_non_std: bool = True) -> Protein:
+    """The pure-Python parser (float64 coordinates as written in the file):
+    the behavioural specification the native parser follows."""
     if isinstance(chain_id, str):
         chain_id = [chain_id]
     chains = _parse_atom_records(pdb_str, model_idx)

@@ -5,7 +5,11 @@ The port's parameter names are the reference checkpoint's (``encoder.*``,
 dict loads with ``load_state_dict(strict=True)``. ``from_flax_params`` maps
 the JAX package's flax parameter tree onto those names (the inverse of
 ``tools/convert_checkpoint.py::convert_diffusion_state_dict``), and
-``affinity_from_flax_params`` does the same for the affinity network.
+``affinity_from_flax_params`` does the same for the affinity network. A
+vanilla stack (``use_ipmp=False``) has no reference checkpoint in the
+repository; its layers take the names of ``models.ipmp.VanillaMPNNLayer``
+(``mpnn_layers.N.node_message_fn``, ``.node_dense``, ``.edge_message_fn``,
+each ``W_in``, ``W_inter.N``, ``W_out``, and ``.norm.0-2``).
 ESM-2's weights keep HuggingFace ``EsmModel``'s names
 (``esm_from_jax_params``, ``load_esm_state_dict``).
 """
@@ -98,9 +102,26 @@ def _factored_message(d, prefix, out, geom_dim):
     _linear(d["Dense_2"], f"{prefix}.W_out", out)
 
 
+def _vanilla_layer(layer: Mapping, pre: str, out) -> None:
+    """A flax ``VanillaMPNNLayer_N`` (``MLP_0`` node message, ``MLP_1`` FFN,
+    ``MLP_2`` edge message, ``LayerNorm_0-2``) -> the port's
+    ``models.ipmp.VanillaMPNNLayer`` names: ``{pre}.node_message_fn``,
+    ``.node_dense``, ``.edge_message_fn``, ``.norm.0-2``."""
+    for flax_name, name in (("MLP_0", "node_message_fn"), ("MLP_1", "node_dense"),
+                            ("MLP_2", "edge_message_fn")):
+        _mlp(layer[flax_name], f"{pre}.{name}", out)
+    for n in range(3):
+        _layernorm(layer[f"LayerNorm_{n}"], f"{pre}.norm.{n}", out)
+
+
 def _ipmp_stack(stack: Mapping, prefix: str, out) -> None:
-    """A flax ``MessagePassingStack`` -> ``{prefix}.mpnn_layers.N.*``."""
+    """A flax ``MessagePassingStack`` -> ``{prefix}.mpnn_layers.N.*`` (its
+    ``InvariantPointLayer_N`` or, with ``use_ipmp=False``, its
+    ``VanillaMPNNLayer_N``)."""
     for i in range(len(stack)):
+        if f"VanillaMPNNLayer_{i}" in stack:
+            _vanilla_layer(stack[f"VanillaMPNNLayer_{i}"], f"{prefix}.mpnn_layers.{i}", out)
+            continue
         layer = stack[f"InvariantPointLayer_{i}"]
         pre = f"{prefix}.mpnn_layers.{i}"
         _linear(layer["Dense_0"], f"{pre}.points_fn_node", out)

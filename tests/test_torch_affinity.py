@@ -147,6 +147,30 @@ def test_all_modes_match_the_jax_net(golden, brs):
                                            err_msg=f"{mode} strict={strict}")
 
 
+def test_vanilla_mutation_stack_matches_the_jax_net(brs):
+    """``use_ipmp=False`` (and ``k_neighbors`` 16, the vanilla sums'
+    divisor) in the mutation stack, with JAX-initialised weights through
+    ``affinity_from_flax_params``; the activation (gelu) reaches the stack
+    too."""
+    batch, jbatch = _batches(brs)
+    kw = dict(use_ipmp=False, k_neighbors=16, num_mpnn_layers=2, act="gelu")
+    rng = np.random.default_rng(6)
+    L = batch.mut_mask.shape[1]
+    h = [rng.normal(size=(1, L, 128)).astype(np.float32) for _ in range(2)]
+    args = (jbatch.wild(), jbatch.mutant(), *map(jnp.asarray, h), jnp.asarray(jbatch.mut_mask))
+    jnet = JaxAffinityNet(JaxNetworkConfig(**kw), "network")
+    params = jax.tree_util.tree_map(np.asarray, jnet.init(jax.random.key(1), *args))
+    want = jnet.apply(params, *args)
+    sd = affinity_from_flax_params(params)
+    assert any(".node_message_fn." in k for k in sd)
+    net = AffinityNet(NetworkConfig(**kw), "network").eval()
+    load_weights(net, sd)
+    with torch.no_grad():
+        got = net(batch.wild(), batch.mutant(), *map(torch.from_numpy, h), batch.mut_mask)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-4)
+
+
 def test_esm_loss_matches_jax():
     """The antisymmetric loss over embeddings, plain and weighted (a
     zero-weight row pads the batch)."""

@@ -1,7 +1,8 @@
 """The port's residual chain (plain version, as the wrapper runs it on CPU
 tensors) against the JAX package's Pallas ``fused_chain`` in interpret
 mode: node chain (float32 message, post-mask) and edge chain (message in the
-stream dtype, pre-mask), float32 and bf16.
+stream dtype, pre-mask), float32 and bf16; the edge chain under each
+activation of the table.
 
 Tolerances: float32 <= 3e-5 (the JAX package's own fused-vs-unfused bound).
 bf16: the same values are rounded at the same points, but the float32 sums
@@ -60,7 +61,7 @@ def case():
         lnb_s=rng.uniform(0.5, 1.5, H).astype(f32), lnb_b=rng.normal(0, .1, H).astype(f32))
 
 
-def _run_both(c, dtype, edge, use_mask=True):
+def _run_both(c, dtype, edge, use_mask=True, act="relu"):
     tdt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
     jdt = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}[dtype]
     t = lambda k: torch.from_numpy(c[k])
@@ -68,12 +69,13 @@ def _run_both(c, dtype, edge, use_mask=True):
     msg = t("msg").to(tdt) if edge else t("msg")
     mask = t("mask") if use_mask else None
     ours = chain(x, msg, mask, t("lna_s"), t("lna_b"), t("f1").T.contiguous(), t("f1b"),
-                 t("f2").T.contiguous(), t("f2b"), t("lnb_s"), t("lnb_b"), pre_mask=edge)
+                 t("f2").T.contiguous(), t("f2b"), t("lnb_s"), t("lnb_b"), pre_mask=edge, act=act)
     j = lambda k: jnp.asarray(c[k])
     args = (jnp.asarray(c["x"], jdt), jnp.asarray(c["msg"], jdt if edge else jnp.float32),
             j("mask")[:, None] if use_mask else None,
             j("lna_s"), j("lna_b"), j("f1"), j("f1b"), j("f2"), j("f2b"), j("lnb_s"), j("lnb_b"))
-    run = jax.jit(lambda *a: fused_chain(*a, compute_dtype=jdt, pre_mask=edge, interpret=True))
+    run = jax.jit(lambda *a: fused_chain(*a, act_name=act, compute_dtype=jdt, pre_mask=edge,
+                                         interpret=True))
     ref = run.lower(*args).compile(compiler_options={"xla_allow_excess_precision": False})(*args)
     return ours, np.asarray(ref.astype(jnp.float32))
 
@@ -98,6 +100,26 @@ def test_chain_bf16_matches_pallas_kernel(case, edge):
     assert ours.dtype == torch.bfloat16
     dmax, dmean = _bf16_readings(ours.float().numpy(), ref)
     assert dmax <= BF16_MAX_REL and dmean <= BF16_MEAN_REL, (dmax, dmean)
+
+
+ACTS = ["relu", "gelu", "elu", "selu", "celu", "leaky_relu", "silu", "sigmoid"]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"], ids=["f32", "bf16"])
+@pytest.mark.parametrize("act", ACTS)
+def test_chain_activation_matches_pallas_kernel(case, act, dtype):
+    """Every activation of the table (``act_name`` of ``fused_chain``), on
+    the edge chain, at the limits above; the activations differ enough to
+    be told apart."""
+    ours, ref = _run_both(case, dtype, True, act=act)
+    if dtype == "float32":
+        np.testing.assert_allclose(ours.numpy(), ref, atol=3e-5, rtol=0)
+    else:
+        dmax, dmean = _bf16_readings(ours.float().numpy(), ref)
+        assert dmax <= BF16_MAX_REL and dmean <= BF16_MEAN_REL, (dmax, dmean)
+    if act != "relu":
+        relu = _run_both(case, dtype, True)[1]
+        assert np.abs(ref - relu).max() > 1e-2
 
 
 @pytest.mark.parametrize("edge", [False, True], ids=["node", "edge"])

@@ -1,6 +1,6 @@
-"""Port kNN graph and gathers against the JAX package. ``lax.top_k`` and
-``torch.topk`` may order ties differently, so neighbour SETS are compared
-per row."""
+"""Port kNN graph and gathers against the JAX package: neighbour sets per
+row, and the tables index for index (the port orders equal distances by
+column, as ``lax.top_k`` does)."""
 import os
 
 import jax.numpy as jnp
@@ -66,3 +66,16 @@ def test_gather_nodes_matches_jax(batch):
         ours = gather_nodes(torch.from_numpy(nodes), torch.from_numpy(idx))
         ref = jax_gather_nodes(jnp.asarray(nodes), jnp.asarray(idx, jnp.int32))
         np.testing.assert_array_equal(ours.numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("block", [None, 100])
+def test_knn_orders_ties_as_jax_and_returns_contiguous_tables(batch, block):
+    """Equal distances come in column order, as ``lax.top_k`` gives them, so
+    the tables equal the JAX package's index for index, padded rows (all
+    ties) included; the kernels take the tables as they come (contiguous)."""
+    ca, mask = batch.X[:, :, 1], batch.residue_mask
+    D, idx = masked_knn(ca, mask, 32, block=block)
+    assert D.is_contiguous() and idx.is_contiguous()
+    _, jidx = jax_masked_knn(jnp.asarray(ca.numpy()), jnp.asarray(mask.numpy()), 32, block=block)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+    assert (mask == 0).any()

@@ -106,8 +106,14 @@ def test_pack_cli_with_proximal_without_gpu_raises(tmp_path):
 def test_unimplemented_config_values_raise():
     from packppi_torch.models import ChiScoreNetwork, NetworkConfig
 
-    for bad in (dict(use_ipmp=False), dict(static_edge_dtype="bfloat16"), dict(act="gelu")):
-        with pytest.raises(ValueError, match="not implemented"):
+    # every value the JAX package accepts builds; values outside its tables raise
+    for good in (dict(use_ipmp=False), dict(static_edge_dtype="bfloat16"),
+                 dict(static_edge_dtype="int8"), dict(act="gelu"), dict(k_neighbors=16),
+                 dict(geometry_lanes=True), dict(coalesce_gathers=True)):
+        ChiScoreNetwork(NetworkConfig(**good))
+    for bad, what in ((dict(static_edge_dtype="float16"), "static_edge_dtype"),
+                      (dict(act="tanh"), "act")):
+        with pytest.raises(ValueError, match=what):
             ChiScoreNetwork(NetworkConfig(**bad))
     # local geometry is implemented; with a global-point kernel it is refused
     with pytest.raises(ValueError, match="incompatible"):

@@ -501,6 +501,104 @@ def test_message_chain_and_layer_kernels_follow_weights_written_in_place(cuda, k
         assert not torch.equal(got, first)
 
 
+ACTS = ["relu", "gelu", "elu", "selu", "celu", "leaky_relu", "silu", "sigmoid"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("pool", [True, False], ids=["pool", "edge"])
+@pytest.mark.parametrize("act", ACTS)
+def test_message_kernel_takes_every_activation(cuda, act, pool, dtype):
+    """Each activation's message library against its plain version; a
+    non-relu library gives other values than relu's."""
+    from packppi_torch.ops.message import message, message_plain
+
+    ops = _message_operands(cuda, dtype)
+    before = message.launches
+    got = message(*ops, pool, act)
+    torch.cuda.synchronize()
+    assert message.launches == before + 1
+    _close(got, message_plain(*ops, pool, act), dtype)
+    if act != "relu":
+        assert not torch.equal(got, message(*ops, pool))
+
+
+@pytest.mark.parametrize("dtype,msg_dtype", [(torch.float32, torch.float32),
+                                             (torch.bfloat16, torch.bfloat16)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("pre_mask", [False, True], ids=["node", "edge"])
+@pytest.mark.parametrize("act", ACTS)
+def test_chain_kernel_takes_every_activation(cuda, act, pre_mask, dtype, msg_dtype):
+    from packppi_torch.ops.chain import chain, chain_plain
+
+    ops = _chain_operands(cuda, dtype, msg_dtype)
+    got = chain(*ops, pre_mask, act)
+    torch.cuda.synchronize()
+    _close(got, chain_plain(*ops, pre_mask, act), dtype)
+    if act != "relu":
+        assert not torch.equal(got, chain(*ops, pre_mask))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("kernel", TC_KERNELS + FUSED_KERNELS)
+def test_every_message_kernel_takes_gelu(cuda, kernel, dtype):
+    """Rows 1, 5, 3, 4 (pool and edge) and 1b, 6 with gelu."""
+    if kernel in FUSED_KERNELS:
+        fn, plain, ops, *_ = _fused_case(kernel, cuda, dtype)
+        _close(fn(*ops, act="gelu"), plain(*ops, act="gelu"), dtype)
+        return
+    fn, plain, ops = _tc_message_case(kernel, cuda, dtype)
+    for pool in (True, False):
+        _close(fn(*ops, pool, "gelu"), plain(*ops, pool, "gelu"), dtype)
+
+
+@pytest.mark.parametrize("act", ["gelu", "elu", "selu", "celu", "leaky_relu", "silu"])
+def test_activation_kernels_pass_a_nan_on(cuda, act):
+    """As relu's: one NaN h_E entry makes that edge's message NaN."""
+    from packppi_torch.ops.chain import chain
+    from packppi_torch.ops.message import message
+
+    ops = list(_message_operands(cuda, torch.bfloat16))
+    ops[2][1, 5, 3, 7] = float("nan")
+    edge = message(*ops, False, act)
+    assert edge[1, 5, 3].isnan().all() and edge.isnan().sum().item() == H
+    cops = list(_chain_operands(cuda, torch.float32, torch.float32))
+    cops[1][3, 7] = float("nan")
+    got = chain(*cops, False, act)
+    assert got[3].isnan().all() and got.isnan().sum().item() == H
+
+
+def test_relu_build_is_the_flagless_build(cuda):
+    """relu is the library built with no activation flag: "chain@relu"
+    (built with -DPACKPPI_ACT=0) gives the same bits, and an unknown
+    activation is refused before any build."""
+    import ctypes
+
+    from packppi_torch.ops import _build
+    from packppi_torch.ops.chain import _lib, chain, packed_chain_weights
+
+    assert _build.lib_name("chain", "relu") == "chain"
+    with pytest.raises(ValueError, match="activation"):
+        chain(*_chain_operands(cuda, torch.float32, torch.float32), False, "tanh")
+    with pytest.raises(ValueError, match="takes no activation"):
+        _build.lib_name("clash", "gelu")
+    for dtype in (torch.float32, torch.bfloat16):
+        ops = _chain_operands(cuda, dtype, dtype)
+        want = chain(*ops, True)
+        flagged = _build.load_library("chain@relu")
+        flagged.packppi_chain.argtypes = _lib().packppi_chain.argtypes
+        x, msg, mask, *w = ops
+        out = torch.empty_like(x)
+        err = flagged.packppi_chain(
+            *(_build.ptr(t) for t in (x, msg, mask, *w, packed_chain_weights(w[2], w[4], dtype),
+                                      out)),
+            x.shape[0], int(dtype == torch.bfloat16), int(dtype == torch.bfloat16), 1,
+            _build.stream_ptr(x.device))
+        assert err == 0
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+        assert isinstance(flagged, ctypes.CDLL)
+
+
 def _clash_operands(device, B=2, L=23, seed=2):
     """A random crowded cloud: B complexes of L residues in a small box (so
     many pairs overlap), some atoms absent, residue indices with a chain

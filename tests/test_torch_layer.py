@@ -73,7 +73,7 @@ def _j(t, dtype):
     return jnp.asarray(t.float().numpy()).astype(dtype)
 
 
-def _jax(case, ops, dtype, pool):
+def _jax(case, ops, dtype, pool, act="relu"):
     """The JAX pass on the port's operands: ``_fused_pass`` in interpret
     mode (float32) or the kernel body run eagerly (bf16)."""
     sd = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}[dtype]
@@ -91,7 +91,7 @@ def _jax(case, ops, dtype, pool):
     gm = _j(geom[0], sd).reshape(L * K, 9 * P)
     ma = _j(mask[0], f32)
     mv = _j(mask_V[0], f32)[:, None] if pool else None
-    kw = dict(K=K, act_name="relu", compute_dtype=sd, stream_dtype=sd)
+    kw = dict(K=K, act_name=act, compute_dtype=sd, stream_dtype=sd)
     if dtype == "float32":
         out = _fused_pass(x, pi, pj, he, gm, ma, mv, weights, pool=pool, blk=64,
                           interpret=True, **kw)
@@ -124,6 +124,23 @@ def _two_kernel(ops, pool):
         msg = message_feat_plain(per_i, pjg, h_E, geom, mask, *w[:6], False)
         return chain_plain(h_E.reshape(-1, H), msg.reshape(-1, H), mask.reshape(-1).float(),
                            *w[6:], True).reshape(h_E.shape)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"], ids=["f32", "bf16"])
+@pytest.mark.parametrize("pool", [True, False], ids=["node", "edge"])
+def test_layer_gelu_matches_pallas_kernel(case, pool, dtype):
+    """Row 6 with ``act="gelu"`` in the message MLP and the chain's FFN, at
+    the limits of the relu tests."""
+    ops = _operands(case, {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype], pool)
+    with torch.no_grad():
+        ours = (layer_node if pool else layer_edge)(*ops, act="gelu")
+    ref = _jax(case, ops, dtype, pool, "gelu")
+    if dtype == "float32":
+        np.testing.assert_allclose(ours.numpy(), ref, atol=3e-5, rtol=0)
+    else:
+        dmax, dmean = _readings(ours.float().numpy(), ref)
+        assert dmax <= BF16_MAX_REL and dmean <= BF16_MEAN_REL, (dmax, dmean)
+    assert np.abs(ref - _jax(case, ops, dtype, pool)).max() > 1e-2
 
 
 @pytest.mark.parametrize("pool", [True, False], ids=["node", "edge"])

@@ -22,8 +22,8 @@ import os
 import numpy as np
 import pytest
 import torch
-import torch.nn.functional as F
 
+from packppi_torch.ops.activations import ACTS
 from packppi_torch.ops.chain import _ln
 from packppi_torch.ops.graph import gather_nodes
 from packppi_torch.ops.message import geometry_edge_features
@@ -75,7 +75,8 @@ TC = dict(message=mm_3xtf32(16), chain=mm_3xtf32(32))
 PLAIN_TF32 = dict(message=mm_tf32, chain=mm_tf32)
 
 
-def message_rows(per_i, pj, h_E, geom, w_in, b_in, w_mid, b_mid, w_out, b_out, mm):
+def message_rows(per_i, pj, h_E, geom, w_in, b_in, w_mid, b_mid, w_out, b_out, mm,
+                 act="relu"):
     """The message of every edge row [B, L, K, H]: [h_E | geom | 8 zero
     columns] against the packed weight matrix's W_e, W_1 and W_2."""
     B, L, Kn, _ = h_E.shape
@@ -83,24 +84,24 @@ def message_rows(per_i, pj, h_E, geom, w_in, b_in, w_mid, b_mid, w_out, b_out, m
     rows = lambda t: t.reshape(B * L * Kn, -1).float()
     a = torch.cat([rows(h_E), rows(geom), torch.zeros(B * L * Kn, K1 - H - G)], 1)
     per_row = per_i.float()[:, :, None].expand(B, L, Kn, H)
-    x = F.relu(mm(a, w[:K1]) + b_in + rows(per_row) + rows(pj))
-    x = F.relu(mm(x, w[K1:K1 + H]) + b_mid)
+    x = ACTS[act](mm(a, w[:K1]) + b_in + rows(per_row) + rows(pj))
+    x = ACTS[act](mm(x, w[K1:K1 + H]) + b_mid)
     return (mm(x, w[K1 + H:]) + b_out).reshape(B, L, Kn, H)
 
 
-def chain_rows(x0, lna_w, lna_b, w1, b1, w2, b2, lnb_w, lnb_b, mm):
+def chain_rows(x0, lna_w, lna_b, w1, b1, w2, b2, lnb_w, lnb_b, mm, act="relu"):
     """LN_b(xx + FFN(xx)), xx = LN_a(x0), over rows [N, H]."""
     xx = _ln(x0, lna_w, lna_b)
-    h = F.relu(mm(xx, w1.t()) + b1)
+    h = ACTS[act](mm(xx, w1.t()) + b1)
     return _ln(xx + mm(h, w2.t()) + b2, lnb_w, lnb_b)
 
 
-def edge_pass(h_E, per_i, pj, geom, mask, *weights, mm):
+def edge_pass(h_E, per_i, pj, geom, mask, *weights, mm, act="relu"):
     """The edge passes of the fold and of the whole layer (in float32 the
     two residuals are one): x0 = h_E + m * mask, out = chain(x0) * mask."""
-    m = message_rows(per_i, pj, h_E, geom, *weights[:6], mm["message"])
+    m = message_rows(per_i, pj, h_E, geom, *weights[:6], mm["message"], act)
     x0 = h_E + m * mask[..., None]
-    y = chain_rows(x0.reshape(-1, H), *weights[6:], mm["chain"]).reshape(h_E.shape)
+    y = chain_rows(x0.reshape(-1, H), *weights[6:], mm["chain"], act).reshape(h_E.shape)
     return y * mask[..., None]
 
 
@@ -129,10 +130,14 @@ def kernels(case):
         lops = _layer_operands(case, torch.float32, pool)
         out[name] = ((lambda mm, fn=fn, lops=lops: fn(*lops, mm=mm)),
                      _jax_layer(case, lops, "float32", pool))
+    # gelu between the products of the message MLP and of the chain's FFN
+    out["layer_edge_gelu"] = ((lambda mm: edge_pass(*lops, mm=mm, act="gelu")),
+                              _jax_layer(case, lops, "float32", False, "gelu"))
     return out
 
 
-@pytest.mark.parametrize("kernel", ["message_chain", "layer_node", "layer_edge"])
+@pytest.mark.parametrize("kernel", ["message_chain", "layer_node", "layer_edge",
+                                    "layer_edge_gelu"])
 def test_message_chain_and_layer_3xtf32_hold_the_float32_limit(kernels, kernel):
     model, ref = kernels[kernel]
     with torch.no_grad():

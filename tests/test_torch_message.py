@@ -2,7 +2,7 @@
 tensors) against the JAX package's lane-major Pallas kernel
 ``fused_message_geom_lanes`` in interpret mode, fed as
 ``FactoredMessageMLP.geom_fused_lanes`` feeds it: pool and edge, float32
-and bf16.
+and bf16, and the edge pass under each activation of the table.
 
 Tolerances: float32 <= 2e-5 (the JAX package's own kernel-vs-unfused
 bound). bf16 against the kernel: max |d| <= 2^-6 * max|ref| and mean |d|
@@ -85,8 +85,8 @@ def case():
         p_local=(3 * rng.normal(size=(1, L, P, 3))).astype(f32))
 
 
-def _port_mlp(params):
-    mlp = FactoredMessageMLP(H, H, 9 * P)
+def _port_mlp(params, act="relu"):
+    mlp = FactoredMessageMLP(H, H, 9 * P, act)
     p = params
     w_in = np.concatenate([p["Dense_i"]["kernel"], p["Dense_e"]["kernel"][:H],
                            p["Dense_j"]["kernel"], p["Dense_e"]["kernel"][H:]], 0)
@@ -97,10 +97,10 @@ def _port_mlp(params):
     return mlp
 
 
-def _run_both(case, dtype, pool):
+def _run_both(case, dtype, pool, act="relu"):
     tdt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
     jdt = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}[dtype]
-    mlp = _port_mlp(case["params"])
+    mlp = _port_mlp(case["params"], act)
     with torch.no_grad():
         ours = mlp(torch.from_numpy(case["h_V"]).to(tdt), torch.from_numpy(case["h_E"]).to(tdt),
                    case["idx"], torch.from_numpy(case["p_local"]), case["frames"],
@@ -110,11 +110,11 @@ def _run_both(case, dtype, pool):
                        jnp.asarray(case["h_E"], jdt), jnp.asarray(case["idx"].numpy()),
                        jnp.asarray(case["p_local"]), jnp.asarray(fr.rot.numpy()),
                        jnp.asarray(fr.trans.numpy()), jnp.asarray(case["mask"].numpy()),
-                       pool, jdt)
+                       pool, jdt, act)
     return ours, np.asarray(ref.astype(jnp.float32))[None]
 
 
-def _jax_message(params, h_V, h_E, idx, p_local, rot, trans, mask, pool, cd):
+def _jax_message(params, h_V, h_E, idx, p_local, rot, trans, mask, pool, cd, act="relu"):
     """``FactoredMessageMLP.geom_fused_lanes``'s operand preparation for one
     structure, then the Pallas kernel: float32 through
     ``fused_message_geom_lanes(interpret=True)``; bf16 through the kernel
@@ -139,7 +139,7 @@ def _jax_message(params, h_V, h_E, idx, p_local, rot, trans, mask, pool, cd):
                p["Dense_2"]["kernel"], p["Dense_2"]["bias"])
     if cd == jnp.float32:
         return fused_message_geom_lanes(per_i, pjg, h_E[0], stack, ngT, mask[0], w_he, w_g,
-                                        *weights, K=K, P=P, pool=pool, blk=128,
+                                        *weights, K=K, P=P, act_name=act, pool=pool, blk=128,
                                         compute_dtype=cd, interpret=True)
 
     class Out:                      # the kernel's output ref
@@ -153,7 +153,7 @@ def _jax_message(params, h_V, h_E, idx, p_local, rot, trans, mask, pool, cd):
     out = Out()
     _geom_lanes_kernel(per_i, pjg.reshape(L * K, H), h_E[0].reshape(L * K, H), stack, ngT.reshape(L * K, -1),
                        mask[0], w_he, w_g.T, row(b_e), jnp.asarray(w1), row(b1), jnp.asarray(w2), row(b2), out,
-                       K=K, P=P, act_name="relu", pool=pool, compute_dtype=cd)
+                       K=K, P=P, act_name=act, pool=pool, compute_dtype=cd)
     return out.value if pool else out.value.reshape(L, K, H)
 
 
@@ -222,6 +222,27 @@ def test_message_bf16_tolerance_rejects_unrounded(case, pool):
     control = control if pool else control.bfloat16()
     _, dmean = _bf16_readings(control.float().numpy(), _jax_unfused_bf16(case, pool))
     assert dmean > 4 * BF16_MEAN_REL, dmean
+
+
+ACTS = ["relu", "gelu", "elu", "selu", "celu", "leaky_relu", "silu", "sigmoid"]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"], ids=["f32", "bf16"])
+@pytest.mark.parametrize("act", ACTS)
+def test_message_activation_matches_pallas_kernel(case, act, dtype):
+    """Every activation of the table (``act_name`` of the JAX kernel), on the
+    edge pass: float32 within 2e-5; bf16 at the kernel comparison's limits
+    above. The activations differ enough to be told apart."""
+    ours, ref = _run_both(case, dtype, False, act)
+    if dtype == "float32":
+        np.testing.assert_allclose(ours.numpy(), ref, atol=2e-5, rtol=0)
+    else:
+        d = np.abs(ours.float().numpy() - ref)
+        scale = np.abs(ref).max()
+        assert d.max() <= 2.0 ** -6 * scale and d.mean() <= 2.0 ** -10 * scale, (d.max(), scale)
+    if act != "relu":
+        assert np.abs(ours.float().numpy() - _run_both(case, dtype, False)[0].float().numpy()
+                      ).max() > 1e-2
 
 
 def test_wrapper_takes_plain_version_on_cpu(case):

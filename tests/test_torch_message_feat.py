@@ -78,7 +78,7 @@ def _jax_operands(c, jdt):
             j("w1"), j("b1"), j("w2"), j("b2"))
 
 
-def _kernel_body_eager(ops, pool, cd):
+def _kernel_body_eager(ops, pool, cd, act="relu"):
     """``_fused_kernel`` called eagerly on one block of all L nodes."""
     per_i, pj, he, geom, mask, w_he, w_g, b_e, w1, b1, w2, b2 = ops
 
@@ -92,7 +92,7 @@ def _kernel_body_eager(ops, pool, cd):
     out = Out()
     _fused_kernel(per_i, pj.reshape(L * K, H), he.reshape(L * K, H), geom.reshape(L * K, G),
                   mask, w_he, w_g, row(b_e), w1, row(b1), w2, row(b2), out,
-                  K=K, act_name="relu", pool=pool, compute_dtype=cd)
+                  K=K, act_name=act, pool=pool, compute_dtype=cd)
     return out.value if pool else out.value.reshape(L, K, H)
 
 
@@ -132,6 +132,26 @@ def test_plain_bf16_matches_pallas_kernel_body_and_reference(case, pool):
     assert np.abs(control[0].float().numpy() - ref).mean() > 4 * BF16_MEAN_REL * np.abs(ref).max()
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"], ids=["f32", "bf16"])
+@pytest.mark.parametrize("pool", [True, False], ids=["node", "edge"])
+def test_plain_gelu_matches_pallas_kernel(case, pool, dtype):
+    """Row 3 with ``act="gelu"``: float32 against the interpreted kernel
+    (2e-5), bf16 against its body run eagerly (the limits above)."""
+    tdt, jdt = {"float32": (torch.float32, jnp.float32),
+                "bfloat16": (torch.bfloat16, jnp.bfloat16)}[dtype]
+    ours = message_feat_plain(*_port_operands(case, tdt), pool, "gelu")
+    ops = _jax_operands(case, jdt)
+    if dtype == "float32":
+        ref = np.asarray(fused_message(*ops, K=K, act_name="gelu", pool=pool, compute_dtype=jdt,
+                                       blk=64, interpret=True))
+        np.testing.assert_allclose(ours[0].numpy(), ref, atol=2e-5, rtol=0)
+    else:
+        ref = np.asarray(_kernel_body_eager(ops, pool, jdt, "gelu").astype(jnp.float32))
+        d = np.abs(ours[0].float().numpy() - ref)
+        scale = np.abs(ref).max()
+        assert d.max() <= BF16_MAX_REL * scale and d.mean() <= 2.0 ** -10 * scale
+
+
 def test_node_variant_divides_by_k_not_by_valid_neighbours(case):
     ops = _port_operands(case, torch.float32)
     edge = message_feat_plain(*ops, False)
@@ -146,6 +166,17 @@ def test_function_gradients_match_jax_custom_vjp(case, pool):
     """``message_feat`` (plain forward on the CPU, recomputed backward)
     against ``jax.grad`` through ``fused_message_diff(interpret=True)``, for
     every differentiable operand."""
+    _check_function_gradients(case, pool, "relu")
+
+
+@pytest.mark.parametrize("pool", [True, False], ids=["node", "edge"])
+def test_function_gelu_gradients_match_jax_custom_vjp(case, pool):
+    """The same with ``act="gelu"``: the recomputed backward differentiates
+    the gelu plain version."""
+    _check_function_gradients(case, pool, "gelu")
+
+
+def _check_function_gradients(case, pool, act):
     rng = np.random.default_rng(5)
     cot = rng.uniform(0.5, 1.5, (L, H) if pool else (L, K, H)).astype(np.float32)
 
@@ -154,7 +185,7 @@ def test_function_gradients_match_jax_custom_vjp(case, pool):
     for i in diff:
         ops[i] = ops[i].clone().requires_grad_(True)
     before = message_feat.launches
-    out = message_feat(*ops, pool)
+    out = message_feat(*ops, pool, act)
     loss = 0.5 * (torch.from_numpy(cot) * out[0] ** 2).sum()
     grads = dict(zip(diff, torch.autograd.grad(loss, [ops[i] for i in diff])))
     assert message_feat.launches == before                  # only kernel launches count
@@ -166,7 +197,7 @@ def test_function_gradients_match_jax_custom_vjp(case, pool):
         full = list(jops)
         for i, v in zip(jdiff, a):
             full[i] = v
-        out = fused_message_diff(*full, K=K, act_name="relu", pool=pool, blk=64,
+        out = fused_message_diff(*full, K=K, act_name=act, pool=pool, blk=64,
                                  compute_dtype=jnp.float32, interpret=True)
         return 0.5 * (jnp.asarray(cot) * out ** 2).sum()
 

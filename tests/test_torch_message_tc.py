@@ -29,9 +29,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-import torch.nn.functional as F
 
 from packppi_tpu.ops.pallas_ipmp import fused_message
+from packppi_torch.ops.activations import ACTS
 from packppi_torch.ops.graph import gather_nodes
 from packppi_torch.ops.message import geometry_edge_features
 from packppi_torch.ops.message_feat import (_DEPTH, _K1, _fragment_index, _panel_index,
@@ -84,7 +84,7 @@ def mm_tf32(a, w):
 
 
 def message_tc_model(per_i, pj, h_E, geom, mask, w_in, b_in, w_mid, b_mid, w_out, b_out,
-                     pool, mm):
+                     pool, mm, act="relu"):
     """The message MLP of the float32 kernels with the products ``mm``:
     [h_E | geom | 8 zero columns] against the packed weight matrix's
     W_e, W_1 and W_2 (``message_weight_matrix``)."""
@@ -93,13 +93,13 @@ def message_tc_model(per_i, pj, h_E, geom, mask, w_in, b_in, w_mid, b_mid, w_out
     rows = lambda t: t.reshape(B * L * K, -1).float()
     a = torch.cat([rows(h_E), rows(geom), torch.zeros(B * L * K, _K1 - H - G)], 1)
     per_row = per_i.float()[:, :, None].expand(B, L, K, H)
-    x = F.relu(mm(a, w[:_K1]) + b_in + rows(per_row) + rows(pj))
-    x = F.relu(mm(x, w[_K1:_K1 + H]) + b_mid)
+    x = ACTS[act](mm(a, w[:_K1]) + b_in + rows(per_row) + rows(pj))
+    x = ACTS[act](mm(x, w[_K1:_K1 + H]) + b_mid)
     x = (mm(x, w[_K1 + H:]) + b_out).reshape(B, L, K, H)
     return (x * mask[..., None]).sum(-2) / float(K) if pool else x
 
 
-def _lanes_case(case, pool):
+def _lanes_case(case, pool, act="relu"):
     """(port operands as ``message_feat`` takes them, the JAX kernel's
     output) for ``fused_message_geom_lanes`` on 40 residues of 1BRS."""
     mlp = _port_mlp(case["params"])
@@ -111,7 +111,7 @@ def _lanes_case(case, pool):
     ref = _jax_message(case["params"], jnp.asarray(case["h_V"]), jnp.asarray(case["h_E"]),
                        jnp.asarray(case["idx"].numpy()), jnp.asarray(case["p_local"]),
                        jnp.asarray(fr.rot.numpy()), jnp.asarray(fr.trans.numpy()),
-                       jnp.asarray(case["mask"].numpy()), pool, jnp.float32)
+                       jnp.asarray(case["mask"].numpy()), pool, jnp.float32, act)
     feat_ops = (per_i, gather_nodes(per_j, idx), h_E, geom, mask, *weights)
     return [t.detach() for t in feat_ops], np.asarray(ref)[None]
 
@@ -143,13 +143,17 @@ def _geom_case(c, pool):
 
 
 @pytest.mark.parametrize("pool", [True, False], ids=["node", "edge"])
-@pytest.mark.parametrize("kernel", ["lanes", "feat", "geom"])
+@pytest.mark.parametrize("kernel", ["lanes", "feat", "geom", "lanes_gelu"])
 def test_message_3xtf32_holds_the_float32_limit(case, feat_case, geom_case, kernel, pool):
+    """``lanes_gelu``: the JAX kernel with ``act_name="gelu"``, the model
+    applying gelu to the same float32 sums."""
     ops, ref = {"lanes": lambda: _lanes_case(case, pool),
                 "feat": lambda: _feat_case(feat_case, pool),
-                "geom": lambda: _geom_case(geom_case, pool)}[kernel]()
-    got = message_tc_model(*ops, pool, mm_3xtf32_chunks).numpy()
-    control = message_tc_model(*ops, pool, mm_tf32).numpy()
+                "geom": lambda: _geom_case(geom_case, pool),
+                "lanes_gelu": lambda: _lanes_case(case, pool, "gelu")}[kernel]()
+    act = "gelu" if kernel.endswith("gelu") else "relu"
+    got = message_tc_model(*ops, pool, mm_3xtf32_chunks, act).numpy()
+    control = message_tc_model(*ops, pool, mm_tf32, act).numpy()
     assert got.shape == ref.shape
     err, cerr = np.abs(got - ref).max(), np.abs(control - ref).max()
     assert err <= F32_TOL, err

@@ -182,9 +182,9 @@ def case():
         p_local=(3 * rng.normal(size=(1, L, P, 3))).astype(f32))
 
 
-def port_mlp(params):
+def port_mlp(params, act="relu"):
     """The port's FactoredMessageMLP on the JAX MLP's parameters."""
-    mlp = FactoredMessageMLP(H, H, 9 * P)
+    mlp = FactoredMessageMLP(H, H, 9 * P, act)
     p = params
     w_in = np.concatenate([p["Dense_i"]["kernel"], p["Dense_e"]["kernel"][:H],
                            p["Dense_j"]["kernel"], p["Dense_e"]["kernel"][H:]], 0)
@@ -208,21 +208,21 @@ def _inputs(case, tdt):
             case["idx"], torch.from_numpy(case["p_local"]), case["frames"], case["mask"])
 
 
-def _port(case, route, tdt, pool):
+def _port(case, route, tdt, pool, act="relu"):
     """The port's route on CPU tensors (its wrapper; the plain version runs)."""
-    mlp = port_mlp(case["params"])
+    mlp = port_mlp(case["params"], act)
     args = _inputs(case, tdt)
     with torch.no_grad():
         if route == "fold":
-            return message_chain(*mlp.operands(*args), *port_chain_weights(case["chain"]))
+            return message_chain(*mlp.operands(*args), *port_chain_weights(case["chain"]), act)
         return mlp(*args, pool=pool, fused=route)
 
 
-def _jax(case, route, dtype, pool):
+def _jax(case, route, dtype, pool, act="relu"):
     """The JAX FactoredMessageMLP's method for the route; float32 through
     the jitted entry in interpret mode, bf16 through ``eager_entries``."""
     jdt = {"float32": None, "bfloat16": jnp.bfloat16}[dtype]
-    mlp = JaxMessageMLP(H, H, 9 * P, dtype=jdt)
+    mlp = JaxMessageMLP(H, H, 9 * P, act=act, dtype=jdt)
     variables = {"params": jax.tree_util.tree_map(jnp.asarray, case["params"])}
     fr = case["frames"]
     frames = JaxRigid(jnp.asarray(fr.rot.numpy()), jnp.asarray(fr.trans.numpy()))
@@ -281,6 +281,23 @@ def test_route_bf16_tolerance_rejects_unrounded(case, route, pool):
     control = control if pool else control.bfloat16()
     _, dmean = _readings(control.float().numpy(), _jax(case, route, "bfloat16", pool))
     assert dmean > 4 * BF16_MEAN_REL, dmean
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"], ids=["f32", "bf16"])
+@pytest.mark.parametrize("route,pool", ROUTES, ids=IDS)
+def test_route_gelu_matches_pallas_kernel(case, route, pool, dtype):
+    """Rows 4, 5 and 1b with ``act="gelu"`` (the JAX kernels' ``act_name``),
+    at the limits of the relu tests above."""
+    ours = _port(case, route, {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype],
+                 pool, "gelu")
+    ref = _jax(case, route, dtype, pool, "gelu")
+    if dtype == "float32":
+        np.testing.assert_allclose(ours.numpy(), ref, atol=3e-5 if route == "fold" else 2e-5,
+                                   rtol=0)
+    else:
+        dmax, dmean = _readings(ours.float().numpy(), ref)
+        assert dmax <= BF16_MAX_REL and dmean <= BF16_MEAN_REL, (dmax, dmean)
+    assert np.abs(ref - _jax(case, route, dtype, pool)).max() > 1e-2   # gelu is not relu
 
 
 def test_fold_equals_message_then_chain(case):

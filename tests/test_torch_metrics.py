@@ -32,12 +32,12 @@ def _pdb(name):
 
 
 def _both(name):
-    """The port's parse of a PDB, and the same arrays as the JAX package's
-    ``Protein`` (its native parser rounds coordinates through float32)."""
-    from packppi_tpu.structure import Protein as JaxProtein
+    """The port's parse of a PDB and the JAX package's, each package parsing
+    the file itself (both native parsers: the same float32 coordinates)."""
+    from packppi_tpu.structure import from_pdb_file as jax_from_pdb_file
 
-    prot = from_pdb_file(_pdb(name), mse_to_met=True)
-    return prot, JaxProtein(**{f.name: getattr(prot, f.name) for f in dataclasses.fields(prot)})
+    return (from_pdb_file(_pdb(name), mse_to_met=True),
+            jax_from_pdb_file(_pdb(name), mse_to_met=True))
 
 
 def _perturbed(prot, sigma=0.4, seed=0):

@@ -12,7 +12,9 @@ from packppi_tpu.structure import from_pdb_file as jax_from_pdb_file
 from packppi_tpu.structure import to_pdb as jax_to_pdb
 from packppi_tpu.structure.featurize import featurize as jax_featurize
 from packppi_torch.data import ProteinBatch, bucket_length, stack_batch
+from packppi_torch import native as port_native
 from packppi_torch.structure import featurize, from_pdb_file, to_pdb
+from packppi_torch.structure.protein import from_pdb_string_python
 
 from conftest import FIXTURES
 
@@ -28,17 +30,29 @@ def _threads():
 
 @pytest.fixture(scope="module")
 def parsed():
-    """(port, JAX package) parses; the JAX side on its pure-Python parser,
-    the behavioural spec (its native parser reads coordinates as float32,
-    and once loaded in a process it ignores ``PACKPPI_NATIVE``)."""
-    out = {}
+    """(port, JAX package) parses, each package parsing the file itself:
+    both through their native parsers (float32 coordinates), which this
+    machine builds."""
+    assert port_native.get_lib() is not None and jax_native.get_lib() is not None
+    return {name: (from_pdb_file(os.path.join(FIXTURES, name), mse_to_met=True),
+                   jax_from_pdb_file(os.path.join(FIXTURES, name), mse_to_met=True))
+            for name in PDBS}
+
+
+def test_pure_python_parser_matches_jax_package():
+    """The pure-Python parsers, the behavioural spec, agree too (the JAX
+    side's native parser patched away; float64 coordinates)."""
+    path = os.path.join(FIXTURES, "1brs.pdb")
+    text = open(path).read()
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jax_native, "parse_pdb_native", lambda *args, **kwargs: None)
-        for name in PDBS:
-            path = os.path.join(FIXTURES, name)
-            out[name] = (from_pdb_file(path, mse_to_met=True),
-                         jax_from_pdb_file(path, mse_to_met=True))
-    return out
+        ref = jax_from_pdb_file(path, mse_to_met=True)
+    ours = from_pdb_string_python(text, mse_to_met=True)
+    assert ours.atom_positions.dtype == np.float64
+    for field in ("atom_positions", "aaindex", "atom_mask", "residue_index",
+                  "chain_id", "b_factors"):
+        np.testing.assert_array_equal(getattr(ours, field), getattr(ref, field),
+                                      err_msg=field)
 
 
 @pytest.mark.parametrize("name", PDBS)

@@ -24,10 +24,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-import torch.nn.functional as F
 
 from packppi_tpu.ops.pallas_attention import flash_mha
 from packppi_tpu.ops.pallas_layer import fused_chain
+from packppi_torch.ops.activations import ACTS
 from packppi_torch.ops.chain import _ln
 
 CHAIN_TOL, ATTN_TOL = 3e-5, 1e-5
@@ -88,18 +88,21 @@ def test_tf32_rounding_and_split():
     assert abs(bias(x - hi - lo)) < 0.5 * bias(x - hc - tf32_cut(x - hc))
 
 
-def _chain_model(c, edge, mm):
+def _chain_model(c, edge, mm, act="relu"):
     t = lambda k: torch.from_numpy(c[k])
     mask = t("mask")[:, None]
     msg = t("msg") * mask if edge else t("msg")
     xx = _ln(t("x") + msg, t("lna_s"), t("lna_b"))
-    h = F.relu(mm(xx, t("f1")) + t("f1b"))
+    h = ACTS[act](mm(xx, t("f1")) + t("f1b"))
     h = mm(h, t("f2")) + t("f2b")
     return (_ln(xx + h, t("lnb_s"), t("lnb_b")) * mask).numpy()
 
 
-@pytest.mark.parametrize("edge", [False, True], ids=["node", "edge"])
-def test_chain_3xtf32_holds_the_float32_limit(edge):
+@pytest.mark.parametrize("edge,act", [(False, "relu"), (True, "relu"), (True, "gelu")],
+                         ids=["node", "edge", "edge-gelu"])
+def test_chain_3xtf32_holds_the_float32_limit(edge, act):
+    """The activation sits between the two products, on the float32 sum,
+    where the JAX kernel applies its ``act_name``."""
     rng = np.random.default_rng(0)
     f32, H, N = np.float32, 128, 300
     xavier = lambda i, o: (rng.uniform(-1, 1, (i, o)) * np.sqrt(6 / (i + o))).astype(f32)
@@ -112,10 +115,10 @@ def test_chain_3xtf32_holds_the_float32_limit(edge):
     j = lambda k: jnp.asarray(c[k])
     want = np.asarray(fused_chain(
         j("x"), j("msg"), j("mask")[:, None], j("lna_s"), j("lna_b"), j("f1"), j("f1b"),
-        j("f2"), j("f2b"), j("lnb_s"), j("lnb_b"), compute_dtype=jnp.float32, pre_mask=edge,
-        interpret=True))
-    got = np.abs(_chain_model(c, edge, mm_3xtf32) - want).max()
-    control = np.abs(_chain_model(c, edge, mm_tf32) - want).max()
+        j("f2"), j("f2b"), j("lnb_s"), j("lnb_b"), act_name=act, compute_dtype=jnp.float32,
+        pre_mask=edge, interpret=True))
+    got = np.abs(_chain_model(c, edge, mm_3xtf32, act) - want).max()
+    control = np.abs(_chain_model(c, edge, mm_tf32, act) - want).max()
     assert got <= CHAIN_TOL, got
     assert control > CHAIN_TOL, control
 

@@ -312,27 +312,34 @@ def test_dropout_draws_in_training_and_not_in_validation(full_width_run):
 
 def test_dropped_model_keys_are_named():
     """``network_config`` builds the same ``NetworkConfig`` as the fields it
-    keeps and names the keys it drops: of ``configs/model/affinity.yaml``'s,
-    ``k_neighbors`` (``mode`` and ``strict_parity`` are the trainer's)."""
+    keeps and names the keys it drops: ``configs/model/affinity.yaml``
+    drops none (``k_neighbors`` is a field; ``mode`` and ``strict_parity``
+    are the trainer's), and an unknown key given on the command line is
+    named."""
     import dataclasses
 
     from packppi_torch.models import NetworkConfig
     from packppi_torch.utils.config import network_config
 
-    model = load_config(CONFIG, []).model
-    records = []
-    handler = logging.Handler()
-    handler.emit = records.append
-    logger = logging.getLogger("packppi_torch.utils.config")
-    logger.addHandler(handler)
-    try:
-        cfg = network_config(model)
-    finally:
-        logger.removeHandler(handler)
-    fields = {f.name for f in dataclasses.fields(NetworkConfig)}
-    assert cfg == NetworkConfig(**{k: model[k] for k in fields if k in model})
-    assert [r.getMessage() for r in records] == [
-        "model config keys not used by the port's network: k_neighbors"]
+    def build(overrides):
+        model = load_config(CONFIG, overrides).model
+        records = []
+        handler = logging.Handler()
+        handler.emit = records.append
+        logger = logging.getLogger("packppi_torch.utils.config")
+        logger.addHandler(handler)
+        try:
+            cfg = network_config(model)
+        finally:
+            logger.removeHandler(handler)
+        fields = {f.name for f in dataclasses.fields(NetworkConfig)}
+        assert cfg == NetworkConfig(**{k: model[k] for k in fields if k in model})
+        return cfg, [r.getMessage() for r in records]
+
+    cfg, messages = build([])
+    assert messages == [] and cfg.k_neighbors == load_config(CONFIG, []).model.k_neighbors
+    _, messages = build(["model.foo=1"])
+    assert messages == ["model config keys not used by the port's network: foo"]
 
 
 def test_card_shapes_are_refused_before_any_data_is_read(tmp_path, monkeypatch):
