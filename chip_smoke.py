@@ -145,7 +145,23 @@ fatal on failure:
     ``/ddg`` of 2FTL KI15G within 2e-3 kcal/mol of the shipped JAX
     prediction), first and warm latencies, and two concurrent seeded
     ``/pack`` requests equal to their lone answers; any answer but 200
-    fails.
+    fails;
+15. multi-device (``packppi_torch.parallel``), ranks on the one card (their
+    times are no scaling measurement): a world of one over NCCL (the dry
+    run; a training step through the mesh code against the step without a
+    mesh: equal losses, parameters as close as two one-device steps); two
+    ranks sharing ``cuda:0`` over gloo (the best-of-4 bf16 T1124 pack with
+    ``--use_proximal``, 150 + 150 launches a rank, the same winner and chis
+    as one device; a float32 DP training step at B = 2 a rank against one
+    device at B = 4, loss 1e-5 relative and every gradient at the card vs
+    CPU limits; ESM-2 650M under tensor parallelism at T = 896, 33
+    attention launches a rank on 10 heads, 1e-4 of max|ref|; directory mode
+    at ``--batch_size 2`` against one device at 4); three ranks (ESM-2 650M
+    over 3 pipeline stages, M = 2, 22 attention launches a stage, 1e-4);
+    four ranks, 2 x 2 (the eight-stage dry run; ``cli.train_diffusion``
+    with FSDP for an epoch and a resume, its checkpoint trained on one
+    device). Every rank reports its wall, peak memory, launches and the
+    time of each process-group call.
 
 It then prints the ``kernels`` JSON line, the card's name and power limit,
 and ``{"ok": true, "device": {...}}`` as the last line.
@@ -2754,8 +2770,8 @@ def phase_train_affinity_esm(torch, esm_weights):
     """``cli.train_affinity model.mode=esm`` on 4 + 4 mutations, one epoch,
     embeddings extracted with ESM-2 650M (the random weights of
     ``phase_ddg_esm``'s file): 33 attention launches per extraction, two
-    extractions per mutation, finite losses. Deletes the weight file.
-    Returns the attention launches."""
+    extractions per mutation, finite losses. Returns the attention
+    launches."""
     from packppi_torch.cli import train_affinity
 
     data = skempi_copy("skempi_esm", rows=(("1BRS", 4), ("2FTL", 4)))
@@ -2770,7 +2786,6 @@ def phase_train_affinity_esm(torch, esm_weights):
     (result,) = train_affinity.main(argv)
     wall = time.perf_counter() - t0
     got = read_launches()
-    esm_weights.unlink()
     extracted = len(list((data / "dataset_cache").glob("esm_*.npz")))
     (rec,) = affinity_records(result["run_dir"])
     log(f"cli.train_affinity model.mode=esm, 4 + 4 mutations: {wall:.2f} s (reading the 650M "
@@ -3239,6 +3254,483 @@ def phase_native():
         f"({n} interface residues of {len(prot.aaindex)}), host")
 
 
+# ---- phase_multidevice --------------------------------------------------------
+# Ranks of one launch (packppi_torch.parallel.launch) on the one card: a world
+# of one over NCCL, and 2, 3 and 4 ranks sharing cuda:0 over gloo
+# (share_device=True). Their times say nothing of scaling over cards.
+
+COLLECTIVE_KEYS = ("gloo:", "nccl:", "c10d::")       # the process group's profiler events
+MD_ESM_TOL = 1e-4                       # of max|ref|, float32 ESM-2 under TP and PP
+KERNEL_NAMES = ("message", "message_feat", "chain", "clash_fwd", "clash_bwd", "attention",
+                "message_geom", "message_gather", "message_chain", "layer_node", "layer_edge")
+
+
+def collective_ms(prof):
+    """{collective op name: (calls, CPU ms)} of a profile: the time each
+    rank spent in the process group's calls."""
+    out = {}
+    for e in prof.key_averages():
+        if e.key.startswith(COLLECTIVE_KEYS):
+            out[e.key] = (e.count, round(e.cpu_time_total / 1e3, 3))
+    return out
+
+
+def rank_report(torch, t0, prof=None, **more):
+    """What every multi-device rank returns: its rank, wall seconds, peak
+    memory, launches and collective times."""
+    from packppi_torch.parallel.launch import current
+
+    torch.cuda.synchronize()
+    return {"rank": current().rank, "backend": current().backend,
+            "wall_s": round(time.perf_counter() - t0, 3),
+            "peak_mib": round(torch.cuda.max_memory_allocated() / 2 ** 20, 1),
+            "launches": read_launches(),
+            "collectives": collective_ms(prof) if prof is not None else {}, **more}
+
+
+def md_train_step(torch, mesh, device, capture):
+    """One float32 training step of the knobs configuration on this rank's
+    rows of 4 x T1124 at L = 1,024 (random weights from seed 0); returns the
+    loss, and with ``capture`` the reduced gradients and the parameters after
+    the step (on the CPU)."""
+    from packppi_torch.models import NetworkConfig, TorsionalDiffusion
+    from packppi_torch.parallel.mesh import batch_rows
+    from packppi_torch.train.diffusion_task import init_state, make_train_step
+
+    batch = t1124_train_batch(device)
+    batch = type(batch)(*(t[batch_rows(mesh, TRAIN_B)] for t in batch))
+    state = init_state(TorsionalDiffusion(NetworkConfig(**TRAIN_KNOBS)), 0, device, mesh=mesh)
+    grads = {}
+    reduce = state.sharded.reduce_grads
+
+    def reduce_and_capture():
+        reduce()
+        grads.update({k: (p.grad.detach().cpu().clone() if p.grad is not None
+                          else torch.zeros(p.shape))
+                      for k, p in state.model.net.named_parameters()})
+
+    if capture:
+        state.sharded.reduce_grads = reduce_and_capture
+    zero_launches()
+    loss = make_train_step(state.model, state.optimizer)(state, batch).item()
+    launches = read_launches()
+    params = {k: v.detach().cpu().clone() for k, v in state.params.items()} if capture else None
+    return loss, grads, params, launches
+
+
+def md_rank_nccl():
+    """Phase a's rank (a world of one over NCCL on cuda:0): one DP training
+    step through the mesh code against the same step without a mesh, bit for
+    bit, and the communicator's all-reduce and broadcast."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from packppi_torch.parallel import launch as ranks
+    from packppi_torch.parallel.mesh import make_mesh
+    from packppi_torch.train.diffusion_task import make_train_step
+
+    import os
+
+    # deterministic index_add_ and cuBLAS workspaces (read when the first
+    # cuBLAS handle is made, after this): the step is then repeatable bit for
+    # bit, so the meshed one can be held to one device bit for bit
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    t0 = time.perf_counter()
+    device = ranks.current().device
+    mesh = make_mesh(1)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        loss_m, _, params_m, launches_m = md_train_step(torch, mesh, device, True)
+        ones = []
+        for _ in range(2):      # the step without a mesh, twice
+            state = new_train_state(torch, 0, device, **TRAIN_KNOBS)
+            loss = make_train_step(state.model, state.optimizer)(state, t1124_train_batch(device))
+            ones.append((loss.item(), {k: v.detach().cpu() for k, v in state.params.items()}))
+        x = torch.tensor([loss_m], device=device)
+        y = ranks.broadcast(ranks.all_reduce(x.clone()), 0)
+
+    def max_d(a, b):
+        return max((a[k] - b[k]).abs().max().item() for k in a)
+
+    return rank_report(torch, t0, prof, loss=loss_m, comm_ok=bool(torch.equal(x, y)),
+                       launches_step=launches_m,
+                       same_loss=loss_m == ones[0][0] == ones[1][0],
+                       d_mesh=max_d(params_m, ones[0][1]), d_repeat=max_d(ones[0][1], ones[1][1]))
+
+
+def md_rank_two(pack_argv, esm_file, tokens):
+    """Phase b's rank (2 ranks sharing cuda:0 over gloo): the best-of-4
+    pack with its rows over the ranks, one DP training step (B = 2 a rank)
+    and ESM-2 650M's forward under tensor parallelism (10 heads a rank)."""
+    import contextlib
+    import io
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from packppi_torch.cli import pack
+    from packppi_torch.models.esm2 import ESM2, ESM2Config, TensorParallelESM2
+    from packppi_torch.parallel import launch as ranks
+    from packppi_torch.parallel.mesh import make_mesh
+
+    device = ranks.current().device
+    out = {}
+    rows = make_mesh(1)                       # (data 2, model 1)
+    heads = make_mesh(2)                      # (data 1, model 2)
+
+    ranks.barrier()                           # each part's clock starts on every rank at once
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    args = pack.build_parser().parse_args(pack_argv)
+    text = io.StringIO()
+    with profile(activities=[ProfilerActivity.CPU]) as prof, contextlib.redirect_stdout(text):
+        metric = pack._run(args, device, rows)
+    out["pack"] = rank_report(torch, t0, prof, stdout=text.getvalue(), metric=metric)
+
+    ranks.barrier()
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        loss, grads, params, launches = md_train_step(torch, rows, device, ranks.is_main())
+    out["train"] = rank_report(torch, t0, prof, loss=loss, grads=grads, params=params)
+    out["train"]["launches"] = launches
+
+    blob = torch.load(esm_file, map_location="cpu", mmap=True, weights_only=True)
+    with torch.device("meta"):
+        model = ESM2(ESM2Config(attention_impl="auto"))
+    model.load_state_dict(blob["state_dict"], assign=True)
+    ranks.barrier()
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    tp = TensorParallelESM2(model.eval(), heads, device)
+    ids, mask = (torch.from_numpy(a).to(device) for a in tokens)
+    zero_launches()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        emb = tp.forward(ids, mask)
+    out["esm_tp"] = rank_report(torch, t0, prof, emb=emb.cpu() if ranks.is_main() else None,
+                                heads=tp.tensors["encoder.layer.0.attention.self.query.weight"]
+                                .shape[0] // model.cfg.head_dim)
+    return out
+
+
+def md_rank_pipeline(esm_file, tokens):
+    """Phase c's rank (3 ranks sharing cuda:0): ESM-2 650M over 3 stages of
+    11 blocks, two microbatches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from packppi_torch.models.esm2 import (ESM2, ESM2Config, esm2_pipeline_forward,
+                                           place_pipeline_stage)
+    from packppi_torch.parallel import launch as ranks
+    from packppi_torch.parallel.mesh import make_mesh
+
+    device = ranks.current().device
+    mesh = make_mesh(3)
+    blob = torch.load(esm_file, map_location="cpu", mmap=True, weights_only=True)
+    with torch.device("meta"):
+        model = ESM2(ESM2Config(attention_impl="auto"))
+    model.load_state_dict(blob["state_dict"], assign=True)
+    ranks.barrier()
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    place_pipeline_stage(model.eval(), mesh, device)
+    ids, mask = (torch.from_numpy(a).to(device) for a in tokens)
+    zero_launches()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        emb = esm2_pipeline_forward(model, ids, mask, mesh, n_microbatches=2)
+    return rank_report(torch, t0, prof, emb=emb.cpu() if ranks.is_main() else None)
+
+
+def esm_token_rows(n):
+    """T1124's wild-type and mutant ESM-2 tokens (the first ``n`` of them),
+    padded to 896 as the extractor pads them, with their masks."""
+    import numpy as np
+
+    from packppi_torch.models.esm2 import PAD_ID
+
+    toks = t1124_esm_tokens()[:n]
+    T = max(128, -(-max(map(len, toks)) // 128) * 128)
+    ids = np.full((n, T), PAD_ID, np.int64)
+    mask = np.zeros((n, T), np.float32)
+    for i, t in enumerate(toks):
+        ids[i, :len(t)], mask[i, :len(t)] = t, 1.0
+    return ids, mask
+
+
+def log_ranks(what, reports):
+    for r in reports:
+        log(f"  {what} rank {r['rank']} ({r['backend']}): wall {r['wall_s']:.3f} s, peak memory "
+            f"{r['peak_mib']:.1f} MiB, launches "
+            f"{ {k: v for k, v in r['launches'].items() if v} }, collectives "
+            f"{r['collectives']}")
+
+
+def wrapped_chi_diff(np, a, b, mask):
+    d = np.abs(np.angle(np.exp(1j * (a - b)))) * mask
+    return float(d.max()), float(d.sum() / max(mask.sum(), 1))
+
+
+def chis_of(pdb):
+    import numpy as np
+
+    from packppi_torch.structure import featurize, from_pdb_file
+
+    f = featurize(from_pdb_file(pdb, mse_to_met=True))
+    return np.asarray(f["SC_D"]), np.asarray(f["SC_D_mask"])
+
+
+def phase_multidevice(torch, esm_weights):
+    """Ranks on the one card: (a) a world of one over NCCL, the dry run and
+    a DP step bit for bit against one device; (b) 2 ranks sharing the card:
+    the sharded best-of-4 pack, a DP training step, ESM-2 650M under tensor
+    parallelism and directory mode, each against one device; (c) 3 ranks:
+    ESM-2 650M pipelined over 3 stages; (d) 4 ranks (2 x 2): the dry run's
+    eight stages and ``cli.train_diffusion`` with FSDP for an epoch and a
+    resume. Launch counts come from every rank. Returns the launches per
+    rank of the sharded paths, a kernel each."""
+    import numpy as np
+
+    from packppi_torch.cli import pack, train_diffusion
+    from packppi_torch.parallel.dryrun import dryrun_multichip
+    from packppi_torch.parallel.launch import launch
+    from packppi_torch.train.diffusion_task import make_train_step
+
+    t_phase = time.perf_counter()
+    per_rank = {}
+    log(f"multi-device: ranks sharing one card are not a scaling measurement ({card_line()})")
+
+    # a. a world of one over NCCL
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(1, "cuda")
+    log(f"  dryrun_multichip(1) over NCCL: {len(dry['lines'])} stages in "
+        f"{time.perf_counter() - t0:.2f} s (launch included), launches "
+        f"{ {k: v for k, v in dry['launches'][0].items() if v} }")
+    (a,) = launch(md_rank_nccl, 1, "cuda")
+    log_ranks("DP step, world of one, NCCL", [a])
+    log(f"  DP step through the mesh code vs the step without a mesh (deterministic algorithms): "
+        f"losses equal bit for bit {a['same_loss']}; parameters after the step max |d| "
+        f"{a['d_mesh']:.3e}, two steps without a mesh max |d| {a['d_repeat']:.3e}")
+    if not (a["same_loss"] and a["d_mesh"] == a["d_repeat"] == 0.0 and a["comm_ok"]
+            and a["backend"] == "nccl"):
+        fail(f"the NCCL world of one departs from one device, or its all-reduce and broadcast "
+             f"({a['comm_ok']})")
+    if (a["launches_step"]["message_feat"], a["launches_step"]["chain"]) != (5, 5):
+        fail(f"the meshed step launched {a['launches_step']}")
+
+    # b. 2 ranks sharing the card over gloo
+    pack_argv = ["--input", str(T1124), "--ckpt", str(PIPELINE_GOLDEN), "--n_samples", "4",
+                 "--use_proximal", "--precision", "bfloat16", "--n_steps", str(STEPS)]
+    one_out = OUT / "md_pack_one"
+    t0 = time.perf_counter()
+    one = pack.run(pack.build_parser().parse_args(
+        pack_argv + ["--outdir", str(one_out), "--n_devices", "1"]))
+    log(f"  best-of-4 on one device: {time.perf_counter() - t0:.2f} s")
+    esm_tokens = esm_token_rows(1)
+    t0 = time.perf_counter()
+    reports = launch(md_rank_two, 2, "cuda", pack_argv + ["--outdir", str(OUT / "md_pack_two")],
+                     str(esm_weights), esm_tokens, share_device=True)
+    log(f"  2 ranks (pack, training step, ESM-2 TP): {time.perf_counter() - t0:.2f} s, "
+        f"start-up included")
+    for part in ("pack", "train", "esm_tp"):
+        log_ranks(part, [r[part] for r in reports])
+    # the pack: the same winner, chis within the bf16 limits
+    best = [int(line.rsplit(" ", 1)[1]) for line in reports[0]["pack"]["stdout"].splitlines()
+            if "keeping sample" in line]
+    one_best = None
+    for r in reports:
+        got = r["pack"]["launches"]
+        if (got["message"], got["chain"]) != (150, 150):
+            fail(f"sharded pack, rank {r['rank']}: launches {got} (150 message, 150 chain)")
+    got0 = reports[0]["pack"]["launches"]
+    if (got0["clash_fwd"], got0["clash_bwd"]) != (51 + 1, 50):
+        fail(f"sharded pack, rank 0: clash launches {got0} (52 forward with the best-of "
+             f"sums, 50 gradient)")
+    chi1, m1 = chis_of(one_out / "structure.pdb")
+    chi2, _ = chis_of(OUT / "md_pack_two" / "structure.pdb")
+    d_max, d_mean = wrapped_chi_diff(np, chi2, chi1, m1)
+    # the bf16 limit: twice the distance of the one-device bf16 sample from
+    # its float32 sample (the same rows, seed and weights)
+    from packppi_torch.data import stack_batch
+    from packppi_torch.models import NetworkConfig, TorsionalDiffusion
+    from packppi_torch.structure import featurize, from_pdb_file
+    from packppi_torch.weights import load_weights
+
+    feats = featurize(from_pdb_file(T1124, mse_to_met=True))
+    batch = stack_batch([feats] * 4, "cuda")
+    samples = {}
+    for dt in ("bfloat16", "float32"):
+        m = TorsionalDiffusion(NetworkConfig(compute_dtype=dt, fused_messages="geom_lanes",
+                                             fused_chain=True))
+        load_weights(m.net, PIPELINE_GOLDEN)
+        m.to("cuda")
+        samples[dt] = m.sample(batch, torch.Generator(device="cuda").manual_seed(0),
+                               n_steps=STEPS).cpu().numpy()
+    with torch.no_grad():
+        from packppi_torch.ops.clash import compute_residue_clash
+
+        sums = (compute_residue_clash(batch, torch.from_numpy(samples["bfloat16"]).cuda())
+                * batch.residue_mask).sum(-1)
+    one_best = int(sums.argmin())
+    L = len(feats["residue_type"])
+    lim_max, lim_mean = wrapped_chi_diff(np, samples["bfloat16"][one_best, :L],
+                                         samples["float32"][one_best, :L], m1)
+    log(f"  best-of-4 winner: 2 ranks {best}, one device {one_best}; chis of the written PDBs, "
+        f"2 ranks vs one device: max {d_max:.3e} mean {d_mean:.3e} rad (limits twice the bf16 "
+        f"vs float32 sample distance: {2 * lim_max:.3e}, {2 * lim_mean:.3e}); sampling "
+        f"{reports[0]['pack']['metric']['sampling_seconds']:.3f} s on rank 0, "
+        f"{one['sampling_seconds']:.3f} s on one device")
+    if best != [one_best] or d_max > 2 * lim_max or d_mean > 2 * lim_mean:
+        fail("the sharded best-of-4 pack departs from one device")
+    # the training step
+    state = new_train_state(torch, 0, **TRAIN_KNOBS)
+    batch = t1124_train_batch("cuda")
+    loss_1 = state.model.loss(batch, state.generator)
+    loss_1.backward()
+    grads_1 = {k: p.grad.detach().cpu().clone() if p.grad is not None else torch.zeros(p.shape)
+               for k, p in state.model.net.named_parameters()}
+    lr = state.optimizer.param_groups[0]["lr"]
+    state.optimizer.step()
+    tr = reports[0]["train"]
+    rel = abs(tr["loss"] - loss_1.item()) / abs(loss_1.item())
+    log(f"  DP training step (B = 2 a rank): loss {tr['loss']:.6f} vs one device "
+        f"{loss_1.item():.6f} (relative {rel:.2e}, limit 1e-5)")
+    if rel > 1e-5:
+        fail("the DP training step's loss departs from one device")
+    compare_param_grads("DP step vs one device", tr["grads"], grads_1, GRAD_REL_TOL_DEVICES)
+    d_param = max((tr["params"][k] - v.detach().cpu()).abs().max().item()
+                  for k, v in state.params.items())
+    log(f"  parameters after the step: max |d| {d_param:.3e} (limit 2 lr = {2 * lr:.1e}: the "
+        f"most one Adam step can differ by where a gradient element changes sign)")
+    if d_param > 2 * lr:
+        fail("the DP step's parameters depart from one device")
+    for r in reports:
+        got = r["train"]["launches"]
+        if (got["message_feat"], got["chain"]) != (5, 5):
+            fail(f"DP step, rank {r['rank']}: launches {got} (5 message_feat, 5 chain)")
+    del state, batch
+    # ESM-2 under TP
+    ref_model = esm2_650m(torch, "cuda", weights=torch.load(
+        esm_weights, map_location="cuda", weights_only=True)["state_dict"])
+    with torch.no_grad():
+        ref = ref_model(*(torch.from_numpy(a).cuda() for a in esm_tokens)).cpu()
+    emb = reports[0]["esm_tp"]["emb"]
+    d = (emb - ref).abs().max().item() / ref.abs().max().item()
+    log(f"  ESM-2 650M TP at T = {esm_tokens[0].shape[1]}: max|d| / max|ref| {d:.2e} (limit "
+        f"{MD_ESM_TOL:g}); heads a rank {reports[0]['esm_tp']['heads']}")
+    if d > MD_ESM_TOL:
+        fail("ESM-2 under tensor parallelism departs from one device")
+    for r in reports:
+        if r["esm_tp"]["launches"]["attention"] != 33 or r["esm_tp"]["heads"] != 10:
+            fail(f"ESM-2 TP rank {r['rank']}: {r['esm_tp']['launches']} on "
+                 f"{r['esm_tp']['heads']} heads (33 launches on 10 heads)")
+    for path, part in (("pack_best_of_4", "pack"), ("dp_train_step", "train"),
+                       ("esm2_tp", "esm_tp")):
+        for k in KERNEL_NAMES:
+            counts = [r[part]["launches"][k] for r in reports]
+            if any(counts):
+                per_rank.setdefault(k, {})[path] = counts
+    # directory mode at 2 ranks against one device with the same chunk
+    corpus = OUT / "corpus"
+    common = ["--input", str(corpus), "--ckpt", str(PIPELINE_GOLDEN), "--n_samples", "2",
+              "--use_proximal"]
+    sums = {}
+    for tag, extra in (("two", ["--batch_size", "2", "--n_devices", "2", "--share_device"]),
+                       ("one", ["--batch_size", "4", "--n_devices", "1"]),
+                       ("one_f32", ["--batch_size", "4", "--n_devices", "1", "--precision",
+                                    "float32"])):
+        t0 = time.perf_counter()
+        out = OUT / f"md_directory_{tag}"
+        pack.run_directory(pack.build_parser().parse_args(common + extra + ["--outdir", str(out)]))
+        sums[tag] = json.loads((out / "summary.json").read_text())
+        log(f"  cli.pack --input corpus {' '.join(extra)}: {time.perf_counter() - t0:.2f} s, "
+            f"{sums[tag]['n'] / sums[tag]['seconds']:.3f} complexes/s")
+    # directory mode's bf16 limit (ROADMAP C): each complex within twice its
+    # own bf16-to-float32 distance; the ranks' launches hold 2 rows where one
+    # device's hold 4, and cuBLAS picks its bf16-path GEMMs by the row count
+    worst = []
+    for r2, r1, rf in zip(*(sums[t]["results"] for t in ("two", "one", "one_f32"))):
+        c2, _ = chis_of(r2["output"])
+        c1, mk = chis_of(r1["output"])
+        cf, _ = chis_of(rf["output"])
+        worst.append((wrapped_chi_diff(np, c2, c1, mk)[0], wrapped_chi_diff(np, c1, cf, mk)[0],
+                      Path(r2["output"]).name))
+    bits = sum(d == 0.0 for d, _, _ in worst)
+    log(f"  directory mode, 2 ranks vs one device: {sums['two']['n']} structures, {bits} equal "
+        f"bit for bit in their chis; chi max |d| (limit twice the bf16 vs float32 distance) "
+        + ", ".join(f"{n}: {d:.3e} ({2 * lim:.3e})" for d, lim, n in worst))
+    if sums["two"]["n"] != sums["one"]["n"] or any(d > 2 * lim for d, lim, _ in worst):
+        fail("directory mode on 2 ranks departs from one device")
+
+    # c. 3 ranks: ESM-2 650M over 3 pipeline stages
+    tokens2 = esm_token_rows(2)
+    with torch.no_grad():
+        ref2 = ref_model(*(torch.from_numpy(a).cuda() for a in tokens2)).cpu()
+    del ref_model
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    reports = launch(md_rank_pipeline, 3, "cuda", str(esm_weights), tokens2, share_device=True)
+    log(f"  3 ranks (ESM-2 650M pipeline, 3 stages x 11 blocks, M = 2): "
+        f"{time.perf_counter() - t0:.2f} s, start-up included")
+    log_ranks("pipeline", reports)
+    d = (reports[0]["emb"] - ref2).abs().max().item() / ref2.abs().max().item()
+    log(f"  pipeline vs the sequential forward: max|d| / max|ref| {d:.2e} (limit {MD_ESM_TOL:g})")
+    if d > MD_ESM_TOL:
+        fail("the ESM-2 pipeline departs from the sequential forward")
+    for r in reports:
+        if r["launches"]["attention"] != 11 * 2:
+            fail(f"pipeline stage {r['rank']}: {r['launches']} (11 a microbatch, 2 microbatches)")
+    per_rank.setdefault("attention", {})["esm2_pp"] = [r["launches"]["attention"] for r in reports]
+
+    # d. 4 ranks (2 x 2): the dry run's eight stages and the trainer with FSDP
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(4, "cuda", share_device=True)
+    log(f"  dryrun_multichip(4), 2 x 2 sharing the card: {len(dry['lines'])} stages in "
+        f"{time.perf_counter() - t0:.2f} s; launches per rank "
+        f"{[{k: v for k, v in r.items() if v} for r in dry['launches']]}")
+    if len(dry["lines"]) != 8 or any(not r["message"] or not r["attention"]
+                                     for r in dry["launches"]):
+        fail("the 4-rank dry run skipped a stage or a rank launched no kernel")
+    for k in KERNEL_NAMES:
+        counts = [r[k] for r in dry["launches"]]
+        if any(counts):
+            per_rank.setdefault(k, {})["dryrun_4"] = counts
+    base, crops = OUT / "md_train_run", OUT / "md_crops"
+    for d in (base, crops):
+        shutil.rmtree(d, ignore_errors=True)
+    crops.mkdir(parents=True)
+    for f in sorted((OUT / "crops").glob("*.pdb"))[:64]:     # 64 of phase_trainer's crops
+        shutil.copy(f, crops / f.name)
+    argv = ["--share_device", "trainer=debug", f"data.data_dir={crops}",
+            "data.split_fractions=[0.5,0.25,0.25]", "data.batch_size=4",
+            "sample.n_diffusion_steps=3", f"output_dir={base}",
+            "trainer.n_devices=4", "trainer.model_parallel=2"]
+    argv += [f"model.{k}={str(v).lower()}" for k, v in TRAIN_KNOBS.items()]
+    resume = []
+    for epochs in (1, 2):
+        t0 = time.perf_counter()
+        (result,) = train_diffusion.main(argv + [f"trainer.max_epochs={epochs}"] + resume)
+        m = result["metrics"]
+        resume = [f"ckpt_path={m['last_ckpt']}"]
+        log(f"  cli.train_diffusion on 4 ranks (2 x 2, FSDP), max_epochs={epochs}: "
+            f"{time.perf_counter() - t0:.2f} s, epochs_run {m['epochs_run']}, best val/loss "
+            f"{m['best_val_loss']:.5f}, test/loss {m['test_loss']:.5f}")
+        if (m["epochs_run"] != epochs or not np.isfinite(m["best_val_loss"])
+                or not np.isfinite(m["test_loss"])):
+            fail("the 4-rank trainer did not train, validate, test or resume")
+    blob = torch.load(m["last_ckpt"], map_location="cpu", weights_only=True)
+    state = new_train_state(torch, 0, **TRAIN_KNOBS)
+    state.load_state_dict(blob)               # the 4-rank checkpoint at one device
+    step = make_train_step(state.model, state.optimizer)
+    loss = step(state, t1124_train_batch("cuda", copies=1, target_len=1024)).item()
+    log(f"  the 4-rank checkpoint resumes on one device: a step's loss {loss:.5f}")
+    if not math.isfinite(loss):
+        fail("the 4-rank checkpoint did not train on one device")
+    log(f"phase_multidevice: {time.perf_counter() - t_phase:.1f} s; launches per rank "
+        f"{json.dumps(per_rank)}")
+    return per_rank
+
+
 def main():
     import torch
 
@@ -3284,6 +3776,8 @@ def main():
     phase_pack_unfused(torch)
     affinity_launches = phase_train_affinity(torch)
     affinity_launches["attention"] = phase_train_affinity_esm(torch, esm_weights)
+    multidevice_launches = phase_multidevice(torch, esm_weights)
+    esm_weights.unlink()
     serve_launches = phase_serve(torch)
 
     kernels = []
@@ -3330,6 +3824,7 @@ def main():
             "launches_directory_chunk": directory_launches.get(name, 0),
             "launches_affinity_training": affinity_launches[name],
             "launches_serve": serve_launches[name],
+            "launches_per_rank_sharded": multidevice_launches.get(name, {}),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": r.get("library_ms")})

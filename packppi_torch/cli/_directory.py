@@ -6,7 +6,11 @@ length bucket, and take fixed-size chunks of a bucket one device pass at a
 time, the tail chunk padded with repeats of its last member. Host work
 (structure merge, PDB writes, metric suites) runs on a writer pool while
 the device takes the next chunk; a failed writer becomes a record of its
-error, not an abort. One device: ``--n_devices`` above 1 raises.
+error, not an abort.
+
+On ``--n_devices`` ranks (``on_ranks``) a chunk holds ``batch_size`` rows a
+rank: every rank walks the same chunks, runs its rows (``sharding_env``) and
+the results are gathered to rank 0, whose writer pool writes them.
 """
 from __future__ import annotations
 
@@ -66,15 +70,54 @@ def load_directory(input_path, require_chis: bool = False):
 
 
 def resolve_n_devices(args) -> int:
-    """1: directory mode runs on one device. ``None`` and 1 are accepted;
-    more raises until multi-device lands (ROADMAP A #12)."""
-    n = getattr(args, "n_devices", None) or 1
-    if n < 1:
-        raise SystemExit(f"--n_devices must be >= 1 (got {n})")
-    if n > 1:
-        raise SystemExit(f"--n_devices {n}: directory mode runs on one device "
-                         "(multi-device is ROADMAP A #12)")
-    return n
+    """Ranks of a run: ``--n_devices`` (None: every visible card, one on the
+    CPU), a request above the visible cards clamped with a warning, as the
+    JAX package clamps to its devices; ``--device cpu --n_devices N`` runs N
+    ranks on the host."""
+    import torch
+
+    from packppi_torch.parallel.launch import resolve_ranks
+
+    device = getattr(args, "device", None) or ("cuda" if torch.cuda.is_available() else "cpu")
+    return resolve_ranks(getattr(args, "n_devices", None), torch.device(device),
+                         share_device=bool(getattr(args, "share_device", False)))
+
+
+def on_ranks(fn, args, device, n_devices: int):
+    """``fn(args, device, mesh)`` on one device (mesh None), or on
+    ``n_devices`` ranks over a data mesh (``args.share_device``: every rank
+    on one card over gloo); returns rank 0's result."""
+    if n_devices == 1:
+        return fn(args, device, None)
+    from packppi_torch.parallel.launch import launch
+
+    return launch(_rank_entry, n_devices, device, fn, args,
+                  share_device=bool(getattr(args, "share_device", False)))[0]
+
+
+def _rank_entry(fn, args):
+    from packppi_torch.parallel.launch import current
+    from packppi_torch.parallel.mesh import make_mesh
+
+    return fn(args, current().device, make_mesh(1))
+
+
+def sharding_env(mesh):
+    """``(rows, gather)`` of a pass over a data mesh: ``rows(n)`` is this
+    rank's slice of ``n`` rows (``n`` divisible by the ranks), ``gather(x)``
+    the rows of every rank, on every rank. On one device (``mesh`` None) the
+    whole range and the identity."""
+    if mesh is None:
+        return (lambda n: slice(0, n)), (lambda x: x)
+    from packppi_torch.parallel.mesh import batch_rows, gather_rows
+
+    return (lambda n: batch_rows(mesh, n)), (lambda x: gather_rows(mesh, x))
+
+
+def padded_rows(n: int, mesh) -> int:
+    """``n`` rounded up to a multiple of the ranks."""
+    d = 1 if mesh is None else mesh.data
+    return -(-n // d) * d
 
 
 def bucket_indices(feats) -> dict:
@@ -103,7 +146,8 @@ def run_chunks(by_bucket: dict, per_chunk: int, dispatch, submit_writes,
                 chunk = members[s:s + per_chunk]
                 padded = chunk + [chunk[-1]] * (per_chunk - len(chunk))
                 out = dispatch(padded, bucket)
-                submit_writes(pool, futures, chunk, out)
+                if out is not None:         # None: a rank other than 0
+                    submit_writes(pool, futures, chunk, out)
         results = []
         for f in futures:
             try:

@@ -23,6 +23,9 @@ def run_training(train_fn_loader, default_cfg_name: str, description: str, argv=
     p.add_argument("--config", default=None, help="task config YAML")
     p.add_argument("--device", default=None,
                    help="cuda (default) or cpu; without a GPU, cpu must be asked for")
+    p.add_argument("--share_device", action="store_true",
+                   help="trainer.n_devices ranks all on one card over gloo (checks on a "
+                        "one-card machine; NCCL takes a card a rank)")
     p.add_argument("-m", "--multirun", action="store_true",
                    help="sweep comma-separated override values "
                         "(e.g. -m trainer.lr=1e-4,3e-4)")
@@ -52,7 +55,7 @@ def run_training(train_fn_loader, default_cfg_name: str, description: str, argv=
         (run_dir / "config.yaml").write_text(yaml.safe_dump(cfg.to_dict()))
         if args.multirun:
             print(f"[multirun {i + 1}/{len(jobs)}] {job} -> {run_dir}")
-        metrics = train_fn(cfg, device=device)
+        metrics = train_fn(cfg, device=device, share_device=args.share_device)
         value = get_metric_value(metrics, cfg.get("optimized_metric"))
         results.append({"job": i, "overrides": job, "run_dir": str(run_dir),
                         "metrics": {k: v for k, v in metrics.items()

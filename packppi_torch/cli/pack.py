@@ -76,8 +76,13 @@ def build_parser():
                    help="directory mode: sampler rows per device pass "
                         "(complexes per pass = batch_size // n_samples)")
     p.add_argument("--n_devices", type=int, default=None,
-                   help="directory mode: devices (1; more raises until "
-                        "multi-device lands)")
+                   help="ranks, one a card (default: every visible card; one on the "
+                        "CPU, where --device cpu --n_devices N runs N ranks over gloo): "
+                        "best-of-N samples (when N divides by them) or directory rows "
+                        "shard over them")
+    p.add_argument("--share_device", action="store_true",
+                   help="run every rank on one card over gloo (checks on a one-card "
+                        "machine; NCCL takes a card a rank)")
     p.add_argument("--metrics", action="store_true",
                    help="directory mode: run the metric suite of every "
                         "structure on the writer pool and record it in "
@@ -110,28 +115,48 @@ def _model(args, device):
     return model.to(device)
 
 
-def _refine(model, batch, sc):
+def _refine(model, batch, sc, n_rows=None):
     """The proximal refinement of every row with the per-row accept rule:
-    ``(chis, accept [B], objective initial [B], final [B])``, on the device."""
+    ``(chis, accept [B], objective initial [B], final [B])``, on the device
+    (``n_rows``: ``batch`` is a rank's rows of that many)."""
     from packppi_torch.sampling import proximal_optimize
 
     cfg = model.sample_cfg
     res = proximal_optimize(batch, sc, cfg.violation_tolerance_factor,
-                            cfg.clash_overlap_tolerance, cfg.lamda, cfg.num_steps)
+                            cfg.clash_overlap_tolerance, cfg.lamda, cfg.num_steps,
+                            n_rows=n_rows)
     first, last = res.row_losses[0], res.row_losses[-1]
     accept = last < first
     return torch.where(accept[:, None, None], res.SC_D, sc), accept, first, last
 
 
 def run(args) -> dict:
-    from packppi_torch.data import ProteinBatch, stack_batch
+    """Pack one structure. ``--n_samples N`` over ``--n_devices`` ranks when
+    they divide N (as the JAX CLI shards best-of-N): each rank samples its
+    N / ranks rows of the one-device draw, the clash sums are gathered, one
+    winner is chosen, and rank 0 refines and writes it."""
+    from packppi_torch.cli._directory import on_ranks, resolve_n_devices
     from packppi_torch.device import resolve_device
+
+    device = resolve_device(args.device)
+    n_devices = resolve_n_devices(args)
+    n_samples = max(1, args.n_samples)
+    if n_devices > 1 and n_samples % n_devices == 0:
+        print(f"sharding {n_samples} samples over {n_devices} devices")
+        return on_ranks(_run, args, device, n_devices)
+    return _run(args, device, None)
+
+
+def _run(args, device, mesh) -> dict:
+    from packppi_torch.cli._directory import sharding_env
+    from packppi_torch.data import ProteinBatch, stack_batch
     from packppi_torch.geometry import atom14_coords_from_torsions
+    from packppi_torch.models.torsional_diffusion import Rows
     from packppi_torch.ops.clash import compute_residue_clash
+    from packppi_torch.parallel.launch import is_main
     from packppi_torch.structure import featurize, from_pdb_file, to_pdb
     from packppi_torch.utils.analysis import ProteinAnalysis, as_floats
 
-    device = resolve_device(args.device)
     model = _model(args, device)
     outdir = Path(args.outdir)
     outdir.mkdir(parents=True, exist_ok=True)
@@ -140,25 +165,32 @@ def run(args) -> dict:
     feats = featurize(prot)
     L = len(feats["residue_type"])
     n_samples = max(1, args.n_samples)
-    # best-of-N: the protein repeated along the batch axis
-    batch = stack_batch([feats] * n_samples, device,
+    take, gather = sharding_env(mesh)
+    mine = take(n_samples)
+    # best-of-N: the protein repeated along the batch axis (this rank's rows)
+    batch = stack_batch([feats] * (mine.stop - mine.start), device,
                         target_len=L if args.exact_length else None)
     generator = torch.Generator(device=device).manual_seed(args.seed)
+    rows = None if mesh is None else Rows(mine.start, n_samples, mesh.data_group)
 
     t0 = time.perf_counter()
     sc = model.sample(batch, generator, n_steps=args.n_steps,
-                      corrector_steps=args.corrector_steps)
+                      corrector_steps=args.corrector_steps, rows=rows)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t_sample = time.perf_counter() - t0
 
     if n_samples > 1:
         with torch.no_grad():
-            per_sample = (compute_residue_clash(batch, sc) * batch.residue_mask).sum(-1)
+            per_sample = gather((compute_residue_clash(batch, sc)
+                                 * batch.residue_mask).sum(-1))
+        sc = gather(sc)
         best = int(per_sample.argmin())
+        if not is_main():
+            return None
         print(f"best-of-{n_samples}: clash sums {np.round(per_sample.cpu().numpy(), 2)}"
               f" -> keeping sample {best}")
-        batch = ProteinBatch(*(t[best:best + 1] for t in batch))
+        batch = ProteinBatch(*(t[:1] for t in batch))      # every row is the protein
         sc = sc[best:best + 1]
 
     timing = {"sampling_seconds": t_sample}
@@ -202,65 +234,89 @@ def run(args) -> dict:
 
 def run_directory(args) -> list:
     """Pack every PDB of a directory, a length bucket's complexes
-    ``batch_size // n_samples`` at a time (``cli._directory``).
+    ``batch_size x ranks // n_samples`` at a time (``cli._directory``).
 
-    Each chunk is one device pass: sample ``batch_size`` rows (each complex
-    repeated ``n_samples`` times), keep each complex's least clashing row
-    (``compute_residue_clash``, argmin, ``index_select``; skipped at
-    ``--n_samples 1``), with ``--use_proximal`` refine the winners in one
-    batch and accept per row on its own objective, rebuild atom14
-    coordinates, and read them back once. The writer pool then merges each
-    complex, writes its PDB and, with ``--metrics``, runs ``get_metric``,
-    while the device takes the next chunk. ``summary.json`` holds ``n``,
-    ``seconds`` (end to end, loading excluded), ``n_devices``,
-    ``n_samples``, ``use_proximal`` and one record a structure.
+    Each chunk is one device pass: sample the chunk's rows (each complex
+    repeated ``n_samples`` times; on ranks, each rank its rows of the
+    one-device draw), keep each complex's least clashing row
+    (``compute_residue_clash``, argmin over the gathered sums; skipped at
+    ``--n_samples 1``), with ``--use_proximal`` refine the winners (each
+    rank its rows) and accept per row on its own objective, rebuild atom14
+    coordinates, and read them back once (gathered to rank 0). The writer
+    pool then merges each complex, writes its PDB and, with ``--metrics``,
+    runs ``get_metric``, while the device takes the next chunk.
+    ``summary.json`` holds ``n``, ``seconds`` (end to end, loading
+    excluded), ``n_devices``, ``n_samples``, ``use_proximal`` and one record
+    a structure.
 
     The noise of every chunk comes from one ``torch.Generator`` seeded with
     ``--seed``, drawn chunk after chunk (the JAX CLI splits a key per chunk
     instead, so the two differ draw for draw). A directory of one structure
-    at ``--batch_size 1`` draws what ``run`` draws on that structure.
+    at ``--batch_size 1`` draws what ``run`` draws on that structure, and N
+    ranks at ``--batch_size b`` draw what one device draws at ``N x b``.
     """
-    from packppi_torch.cli._directory import (bucket_indices, load_directory,
-                                              resolve_n_devices, run_chunks)
-    from packppi_torch.data import ProteinBatch, stack_batch
+    from packppi_torch.cli._directory import on_ranks, resolve_n_devices
     from packppi_torch.device import resolve_device
+
+    device = resolve_device(args.device)
+    return on_ranks(_run_directory, args, device, resolve_n_devices(args))
+
+
+def _run_directory(args, device, mesh) -> list:
+    from packppi_torch.cli._directory import (bucket_indices, load_directory, padded_rows,
+                                              run_chunks, sharding_env)
+    from packppi_torch.data import ProteinBatch, stack_batch
     from packppi_torch.geometry import atom14_coords_from_torsions
+    from packppi_torch.models.torsional_diffusion import Rows
     from packppi_torch.ops.clash import compute_residue_clash
+    from packppi_torch.parallel.launch import is_main
     from packppi_torch.structure import to_pdb
     from packppi_torch.utils.analysis import ProteinAnalysis, as_floats
 
-    device = resolve_device(args.device)
-    n_devices = resolve_n_devices(args)
+    n_devices = 1 if mesh is None else mesh.data
     model = _model(args, device)
     outdir = Path(args.outdir)
     outdir.mkdir(parents=True, exist_ok=True)
     proteins, feats, _ = load_directory(args.input)
 
     n_samples = max(1, args.n_samples)
-    per_chunk = max(1, max(args.batch_size, 1) // n_samples)     # complexes a pass
+    # a fixed row budget a pass: batch_size rows a rank
+    per_chunk = max(1, max(args.batch_size, 1) * n_devices // n_samples)   # complexes a pass
+    n_rows = padded_rows(per_chunk * n_samples, mesh)                      # sampler rows
+    n_win = padded_rows(per_chunk, mesh)                                   # winner rows
+    take, gather = sharding_env(mesh)
     generator = torch.Generator(device=device).manual_seed(args.seed)
     analysis = (ProteinAnalysis(args.molprobity_loc, tmp_dir=str(outdir / "tmp"))
-                if args.metrics else None)
+                if args.metrics and is_main() else None)
     strict = not args.no_strict_parity
 
     def pack_chunk(batch):
+        mine = take(n_rows)
+        rows = None if mesh is None else Rows(mine.start, n_rows, mesh.data_group)
         sc = model.sample(batch, generator, n_steps=args.n_steps,
-                          corrector_steps=args.corrector_steps)
+                          corrector_steps=args.corrector_steps, rows=rows)
         base = torch.arange(per_chunk, device=device) * n_samples
         win = base
         if n_samples > 1:
             with torch.no_grad():
-                clash = (compute_residue_clash(batch, sc) * batch.residue_mask).sum(-1)
-            win = base + clash.view(per_chunk, n_samples).argmin(1)
-        wb = ProteinBatch(*(t.index_select(0, base) for t in batch))
-        sc = sc.index_select(0, win)
+                clash = gather((compute_residue_clash(batch, sc) * batch.residue_mask).sum(-1))
+            win = base + clash[:per_chunk * n_samples].view(per_chunk, n_samples).argmin(1)
+        # the winner rows pad to the rank count with repeats of the last
+        pad = n_win - per_chunk
+        base, win = (torch.cat([v, v[-1:].expand(pad)]) for v in (base, win))
+        batch, sc = ProteinBatch(*(gather(t) for t in batch)), gather(sc)
+        mine = take(n_win)
+        wb = ProteinBatch(*(t.index_select(0, base[mine]) for t in batch))
+        sc = sc.index_select(0, win[mine])
         out = {}
         if args.use_proximal:
-            sc, out["accept"], out["first"], out["last"] = _refine(model, wb, sc)
+            sc, out["accept"], out["first"], out["last"] = _refine(
+                model, wb, sc, None if mesh is None else n_win)
         with torch.no_grad():
             out["coords"] = atom14_coords_from_torsions(wb.X, wb.residue_type, wb.BB_D, sc)
         out["atom_mask"] = wb.atom_mask
-        return {k: v.cpu().numpy() for k, v in out.items()}
+        out = {k: gather(v)[:per_chunk] for k, v in out.items()}
+        return {k: v.cpu().numpy() for k, v in out.items()} if is_main() else None
 
     def write_one(i, out, row) -> dict:
         path, prot = proteins[i]
@@ -287,7 +343,8 @@ def run_directory(args) -> list:
 
     def dispatch(padded, bucket):
         rows = [feats[i] for i in padded for _ in range(n_samples)]
-        return pack_chunk(stack_batch(rows, device, target_len=bucket))
+        rows += [rows[-1]] * (n_rows - len(rows))
+        return pack_chunk(stack_batch(rows[take(n_rows)], device, target_len=bucket))
 
     def submit(pool, futures, chunk, out):
         for row, i in enumerate(chunk):
@@ -296,6 +353,8 @@ def run_directory(args) -> list:
     t0 = time.perf_counter()
     results = run_chunks(bucket_indices(feats), per_chunk, dispatch, submit)
     elapsed = time.perf_counter() - t0
+    if not is_main():
+        return None
     print(f"packed {len(results)} complexes in {elapsed:.2f}s on {device} "
           f"({len(results) / elapsed:.3f} complexes/s)")
     (outdir / "summary.json").write_text(json.dumps(

@@ -43,8 +43,12 @@ def build_parser():
     p.add_argument("--batch_size", type=int, default=1,
                    help="directory mode: structures per device pass")
     p.add_argument("--n_devices", type=int, default=None,
-                   help="directory mode: devices (1; more raises until "
-                        "multi-device lands)")
+                   help="directory mode: ranks, one a card (default: every visible "
+                        "card; one on the CPU, where --device cpu --n_devices N runs N "
+                        "ranks over gloo); each chunk's rows shard over them")
+    p.add_argument("--share_device", action="store_true",
+                   help="run every rank on one card over gloo (checks on a one-card "
+                        "machine; NCCL takes a card a rank)")
     p.add_argument("--no_clashscore", action="store_true",
                    help="directory mode: skip the per-structure before/after "
                         "clashscores (host work on the writer pool)")
@@ -58,15 +62,17 @@ def build_parser():
     return p
 
 
-def _optimize(args, batch):
+def _optimize(args, batch, n_rows=None):
     """The refinement of every row of ``batch`` from its own chis, accepted
     per row: ``(coords, accept [B], objective initial [B], final [B])`` on
-    the device; a rejected row is rebuilt from its input chis."""
+    the device; a rejected row is rebuilt from its input chis. ``n_rows``:
+    ``batch`` is a rank's rows of that many."""
     from packppi_torch.geometry import atom14_coords_from_torsions
     from packppi_torch.sampling import proximal_optimize
 
     res = proximal_optimize(batch, batch.SC_D, args.violation_tolerance_factor,
-                            args.clash_overlap_tolerance, args.lamda, args.num_steps)
+                            args.clash_overlap_tolerance, args.lamda, args.num_steps,
+                            n_rows=n_rows)
     first, last = res.row_losses[0], res.row_losses[-1]
     accept = last < first
     sc = torch.where(accept[:, None, None], res.SC_D, batch.SC_D)
@@ -150,23 +156,34 @@ def run_directory(args) -> list:
     ``--no_clashscore``, its clashscores before and after, while the device
     takes the next chunk. ``summary.json`` holds ``n``, ``seconds``,
     ``n_devices``, ``num_steps``, ``skipped`` and one record a structure.
+    On ``--n_devices`` ranks a chunk holds ``batch_size`` structures a rank,
+    each rank refines its rows, and rank 0 writes.
     """
-    from packppi_torch.cli._directory import (bucket_indices, load_directory,
-                                              resolve_n_devices, run_chunks)
-    from packppi_torch.data import stack_batch
+    from packppi_torch.cli._directory import on_ranks, resolve_n_devices
     from packppi_torch.device import resolve_device
-    from packppi_torch.structure import to_pdb
-    from packppi_torch.utils.analysis import ProteinAnalysis
 
     device = resolve_device(args.device)
     n_devices = resolve_n_devices(args)
     if args.num_steps < 1:
         raise SystemExit("--num_steps must be >= 1")
+    return on_ranks(_run_directory, args, device, n_devices)
+
+
+def _run_directory(args, device, mesh) -> list:
+    from packppi_torch.cli._directory import (bucket_indices, load_directory, run_chunks,
+                                              sharding_env)
+    from packppi_torch.data import stack_batch
+    from packppi_torch.parallel.launch import is_main
+    from packppi_torch.structure import to_pdb
+    from packppi_torch.utils.analysis import ProteinAnalysis
+
+    n_devices = 1 if mesh is None else mesh.data
     outdir = Path(args.outdir)
     outdir.mkdir(parents=True, exist_ok=True)
     proteins, feats, skipped = load_directory(args.input, require_chis=True)
-    per_chunk = max(args.batch_size, 1)
-    analysis = (None if args.no_clashscore else
+    per_chunk = max(args.batch_size, 1) * n_devices
+    take, gather = sharding_env(mesh)
+    analysis = (None if args.no_clashscore or not is_main() else
                 ProteinAnalysis(args.molprobity_loc, tmp_dir=str(outdir / "tmp")))
 
     def write_one(i, out, row) -> dict:
@@ -192,11 +209,14 @@ def run_directory(args) -> list:
         return rec
 
     def dispatch(padded, bucket):
-        batch = stack_batch([feats[i] for i in padded], device, target_len=bucket)
-        coords, accept, first, last = _optimize(args, batch)
+        batch = stack_batch([feats[i] for i in padded[take(per_chunk)]], device,
+                            target_len=bucket)
+        coords, accept, first, last = _optimize(args, batch,
+                                                None if mesh is None else per_chunk)
         out = {"coords": coords, "atom_mask": batch.atom_mask, "accept": accept,
                "first": first, "last": last}
-        return {k: v.cpu().numpy() for k, v in out.items()}
+        out = {k: gather(v) for k, v in out.items()}          # every rank takes part
+        return {k: v.cpu().numpy() for k, v in out.items()} if is_main() else None
 
     def submit(pool, futures, chunk, out):
         for row, i in enumerate(chunk):
@@ -205,6 +225,8 @@ def run_directory(args) -> list:
     t0 = time.perf_counter()
     results = run_chunks(bucket_indices(feats), per_chunk, dispatch, submit)
     elapsed = time.perf_counter() - t0
+    if not is_main():
+        return None
     print(f"optimized {len(results)} structures in {elapsed:.2f}s on {device} "
           f"({len(results) / elapsed:.3f} structures/s)")
     (outdir / "summary.json").write_text(json.dumps(

@@ -31,11 +31,15 @@ class BucketedLoader:
         stack_fn: ``(features list, target_len=...) -> batch`` (default:
             ``stack_batch`` onto ``device``).
         prefetch: number of batches prepared ahead on a worker thread.
+        rows: a rank's rows of each batch (``parallel.batch_rows``): the
+            plan and the padded length are the whole batch's, and only
+            these rows are read and stacked.
     """
 
     def __init__(self, dataset, batch_size: int, device="cpu", shuffle: bool = True,
                  seed: int = 0, drop_last: bool = False,
-                 stack_fn: Optional[Callable] = None, prefetch: int = 2):
+                 stack_fn: Optional[Callable] = None, prefetch: int = 2,
+                 rows: Optional[slice] = None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -43,6 +47,7 @@ class BucketedLoader:
         self.drop_last = drop_last
         self.stack_fn = stack_fn or functools.partial(stack_batch, device=device)
         self.prefetch = prefetch
+        self.rows = rows
         self.epoch = 0
         self._lengths: Optional[list[int]] = None
 
@@ -84,6 +89,11 @@ class BucketedLoader:
         return self._plan()
 
     def _make(self, batch_idx):
+        if self.rows is not None:
+            self._ensure_lengths()
+            target = max(bucket_length(self._lengths[i]) for i in batch_idx)
+            return self.stack_fn([self.dataset[i] for i in batch_idx[self.rows]],
+                                 target_len=target)
         feats = [self.dataset[i] for i in batch_idx]
         target = max(bucket_length(len(f["residue_type"])) for f in feats)
         return self.stack_fn(feats, target_len=target)

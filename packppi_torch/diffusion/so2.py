@@ -264,15 +264,17 @@ class SO2Schedule:
 
     def step_correct(self, x: torch.Tensor, x_score: torch.Tensor, x_mask: torch.Tensor,
                      generator: Optional[torch.Generator] = None,
-                     noise: Optional[torch.Tensor] = None, snr: float = 0.16) -> torch.Tensor:
+                     noise: Optional[torch.Tensor] = None, snr: float = 0.16,
+                     batch_mean=torch.mean) -> torch.Tensor:
         """Langevin corrector: the step size from the masked per-protein
-        score and noise norms, averaged over the batch."""
+        score and noise norms, averaged over the batch (``batch_mean`` of the
+        [B] norms; a batch split over ranks passes the global batch's)."""
         m = x_mask.to(x.dtype)
         axes = tuple(range(1, x.ndim))
-        score_norm = torch.sqrt(torch.sum(x_score ** 2 * m, dim=axes)).mean()
+        score_norm = batch_mean(torch.sqrt(torch.sum(x_score ** 2 * m, dim=axes)))
         if noise is None:
             noise = _randn(x.shape, generator, x.device, x.dtype)
-        noise_norm = torch.sqrt(torch.sum(noise ** 2 * m, dim=axes)).mean()
+        noise_norm = batch_mean(torch.sqrt(torch.sum(noise ** 2 * m, dim=axes)))
         step_size = (snr * noise_norm / score_norm) ** 2 * 2
         x_next = x + step_size * x_score + torch.sqrt(step_size * 2) * noise
         return torch.where(x_mask, x_next, x)

@@ -168,10 +168,14 @@ class ESM2(nn.Module):
         return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias, ln.eps)
 
     def _dot(self, x, lin: nn.Linear):
+        return self._mm(x, lin.weight, lin.bias)
+
+    def _mm(self, x, weight, bias=None):
         if self.cfg.compute_dtype == "float32":
-            return F.linear(x.float(), lin.weight, lin.bias)
+            return F.linear(x.float(), weight, bias)
         bf = torch.bfloat16
-        return F.linear(x.to(bf), lin.weight.to(bf)).float() + lin.bias
+        out = F.linear(x.to(bf), weight.to(bf)).float()
+        return out if bias is None else out + bias
 
     def embed(self, input_ids, attention_mask):
         """Token embeddings with the token-dropout rescale and padding zeroed,
@@ -199,22 +203,41 @@ class ESM2(nn.Module):
 
     def layer_forward(self, layer: _Layer, x, kbias, cos, sin):
         """One pre-LN block."""
+        return self.block(dict(layer.named_parameters()), x, kbias, cos, sin)
+
+    def block(self, lp: dict, x, kbias, cos, sin, reduce=None):
+        """One pre-LN block over the tensors ``lp`` (a ``_Layer``'s names).
+        Under tensor parallelism ``lp`` holds a rank's heads and FFN columns
+        and ``reduce`` sums the two partial output projections over the
+        ranks before their biases are added."""
         cfg = self.cfg
         B, T, _ = x.shape
-        H, D = cfg.num_heads, cfg.head_dim
+        D = cfg.head_dim
+        H = lp["attention.self.query.weight"].shape[0] // D
         cd = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
-        att = layer.attention
-        ln = self._ln(x, att.LayerNorm)
+
+        def ln(y, name):
+            return F.layer_norm(y.float(), (cfg.hidden_size,), lp[f"{name}.weight"],
+                                lp[f"{name}.bias"], cfg.layer_norm_eps)
+
+        def dot(y, name):
+            return self._mm(y, lp[f"{name}.weight"], lp[f"{name}.bias"])
+
+        def out_proj(y, name):
+            if reduce is None:
+                return dot(y, name)
+            return reduce(self._mm(y, lp[f"{name}.weight"])) + lp[f"{name}.bias"]
+
+        h = ln(x, "attention.LayerNorm")
         to_heads = lambda y: y.reshape(B, T, H, D).transpose(1, 2)
         # ESM scales the query by d_h^-0.5 before rotary
-        q = apply_rope(to_heads(self._dot(ln, att.self.query)) * (D ** -0.5), cos, sin)
-        k = apply_rope(to_heads(self._dot(ln, att.self.key)), cos, sin)
-        v = to_heads(self._dot(ln, att.self.value))
+        q = apply_rope(to_heads(dot(h, "attention.self.query")) * (D ** -0.5), cos, sin)
+        k = apply_rope(to_heads(dot(h, "attention.self.key")), cos, sin)
+        v = to_heads(dot(h, "attention.self.value"))
         ctx = self._attention(*(t.to(cd).contiguous() for t in (q, k, v)), kbias)
-        x = x + self._dot(ctx.transpose(1, 2).reshape(B, T, H * D), att.output.dense)
-        ln = self._ln(x, layer.LayerNorm)
-        h = F.gelu(self._dot(ln, layer.intermediate.dense), approximate="none")
-        return x + self._dot(h, layer.output.dense)
+        x = x + out_proj(ctx.transpose(1, 2).reshape(B, T, H * D), "attention.output.dense")
+        h = F.gelu(dot(ln(x, "LayerNorm"), "intermediate.dense"), approximate="none")
+        return x + out_proj(h, "output.dense")
 
     def forward(self, input_ids, attention_mask, num_layers: Optional[int] = None):
         """``num_layers`` runs the first N blocks only (then the final
@@ -224,6 +247,106 @@ class ESM2(nn.Module):
         for layer in self.encoder.layer[:num_layers]:
             x = self.layer_forward(layer, x, kbias, cos, sin)
         return self._ln(x, self.encoder.emb_layer_norm_after)
+
+
+def esm2_tp_shards(model: ESM2) -> dict:
+    """``{name: axis or None}``: tensor parallelism over ``model`` as the JAX
+    package's ``esm2_param_shardings`` lays it out. q/k/v and FFN-in are
+    split on their output axis (axis 0 of a ``[out, in]`` weight, and their
+    biases), the attention output and FFN-out on their input axis (axis 1;
+    their biases whole); the embedding and LayerNorms replicate."""
+    out = {}
+    for name, _ in model.named_parameters():
+        axis = None
+        if ".attention.self." in name or ".intermediate.dense." in name:
+            axis = 0
+        elif name.endswith("output.dense.weight"):
+            axis = 1
+        out[name] = axis
+    return out
+
+
+class TensorParallelESM2:
+    """ESM-2 under tensor parallelism over ``mesh.model``: each rank holds
+    its ``num_heads / model`` heads of q/k/v, its share of the FFN columns
+    and the matching input slices of the two output projections, on
+    ``device`` (the whole model may stay on the CPU). Each block runs the
+    attention kernel on the rank's own heads and ends its two halves with an
+    all-reduce over ``model``; rows split over ``data``. ``forward`` gives
+    the rank's rows of ``ESM2.forward``, equal up to float32 summation
+    order."""
+
+    def __init__(self, model: ESM2, mesh, device):
+        cfg = model.cfg
+        if cfg.num_heads % mesh.model:
+            raise ValueError(f"{cfg.num_heads} heads do not split over model={mesh.model}")
+        self.model, self.mesh = model, mesh
+        # the embedding and final LayerNorm run whole, from the model
+        model.embeddings.to(device)
+        model.encoder.emb_layer_norm_after.to(device)
+        axes = esm2_tp_shards(model)
+        self.tensors = {}
+        with torch.no_grad():
+            for name, t in model.encoder.layer.named_parameters(prefix="encoder.layer"):
+                axis = axes[name]
+                piece = t if axis is None else t.chunk(mesh.model, axis)[mesh.model_index]
+                self.tensors[name] = piece.detach().to(device).contiguous()
+
+    def _reduce(self, part):
+        from packppi_torch.parallel.launch import all_reduce
+
+        return all_reduce(part, self.mesh.model_group)
+
+    @torch.no_grad()
+    def forward(self, input_ids, attention_mask):
+        """The rank's rows (``parallel.batch_rows``) of the GLOBAL batch's
+        ``[B, T]`` ids and mask -> their last hidden states."""
+        from packppi_torch.parallel.mesh import batch_rows
+
+        model, t = self.model, self.tensors
+        rows = batch_rows(self.mesh, input_ids.shape[0])
+        x, kbias = model.embed(input_ids[rows], attention_mask[rows])
+        cos, sin = rope_tables(input_ids.shape[1], model.cfg.head_dim, x.device)
+        for i in range(model.cfg.num_layers):
+            pre = f"encoder.layer.{i}."
+            lp = {k[len(pre):]: v for k, v in t.items() if k.startswith(pre)}
+            x = model.block(lp, x, kbias, cos, sin, reduce=self._reduce)
+        return model._ln(x, model.encoder.emb_layer_norm_after)
+
+
+def place_pipeline_stage(model: ESM2, mesh, device) -> None:
+    """Move what stage ``mesh.model_index`` of ``esm2_pipeline_forward``
+    runs to ``device``: the embedding, the final LayerNorm and its
+    ``num_layers / model`` blocks (the other blocks stay where they are)."""
+    per = model.cfg.num_layers // mesh.model
+    s = mesh.model_index
+    model.embeddings.to(device)
+    model.encoder.emb_layer_norm_after.to(device)
+    for layer in model.encoder.layer[s * per:(s + 1) * per]:
+        layer.to(device)
+
+
+@torch.no_grad()
+def esm2_pipeline_forward(model: ESM2, input_ids, attention_mask, mesh,
+                          n_microbatches: Optional[int] = None):
+    """``ESM2.forward`` with the blocks pipelined over ``mesh.model`` stages
+    (``parallel.pipeline_apply``, GPipe): ids and mask of the GLOBAL batch
+    in, the rank's rows of the last hidden state out. ``n_microbatches``
+    defaults to the rows of a data shard, as in the JAX package."""
+    from packppi_torch.parallel.pipeline import pipeline_apply
+
+    x, kbias = model.embed(input_ids, attention_mask)
+    cos, sin = rope_tables(input_ids.shape[1], model.cfg.head_dim, x.device)
+
+    def apply_layer(layer, carry):
+        x, kbias = carry
+        return model.layer_forward(layer, x, kbias, cos, sin), kbias
+
+    if n_microbatches is None:
+        n_microbatches = max(1, x.shape[0] // mesh.data)
+    x, _ = pipeline_apply(mesh, list(model.encoder.layer), (x, kbias), apply_layer,
+                          n_microbatches)
+    return model._ln(x, model.encoder.emb_layer_norm_after)
 
 
 def init_esm_weights(model: ESM2, seed: int, std: float = 0.02) -> None:

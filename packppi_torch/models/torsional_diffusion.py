@@ -24,6 +24,28 @@ from packppi_torch.models.diffusion_net import ChiScoreNetwork, NetworkConfig
 
 
 @dataclasses.dataclass(frozen=True)
+class Rows:
+    """A batch that holds rows ``[start, start + n)`` of a global batch of
+    ``total`` rows, split over ranks (``group``: the mesh's data axis).
+    Every draw is made at the global batch's shape and sliced to these rows,
+    and batch means are taken over the global batch, so the sampler gives
+    one device's numbers at any rank count."""
+
+    start: int
+    total: int
+    group: object = None
+
+    def draw(self, shape, generator, device) -> torch.Tensor:
+        full = torch.randn((self.total,) + tuple(shape[1:]), generator=generator, device=device)
+        return full[self.start:self.start + shape[0]]
+
+    def mean(self, x: torch.Tensor) -> torch.Tensor:
+        from packppi_torch.parallel.launch import all_reduce
+
+        return all_reduce(x.sum(), self.group) / self.total
+
+
+@dataclasses.dataclass(frozen=True)
 class SampleConfig:
     """The reverse process (annealed temperature; "ode" or "sde") and the
     proximal refinement that follows sampling."""
@@ -83,6 +105,29 @@ class TorsionalDiffusion(nn.Module):
         standard-normal ``noise_*`` [B, L, 4] replace the draws from
         ``generator``.
         """
+        num, chi_count = self.loss_terms(batch, generator, deterministic, t=t,
+                                         noise_pi=noise_pi, noise_2pi=noise_2pi, eps=eps)
+        return num / torch.clamp(chi_count, min=1.0)
+
+    def train_draws(self, B: int, L: int, generator: torch.Generator, device):
+        """``(t [B], noise_pi [B, L, 4], noise_2pi [B, L, 4])``: what ``loss``
+        draws from ``generator`` for a batch of ``B`` rows of ``L`` residues,
+        in its order. Ranks that each hold rows of one global batch draw the
+        global batch's and keep their rows, so every rank count gives one
+        device's draws."""
+        t = self.schedule_2pi.sample_train_t((B,), generator, device)
+        noise = [torch.randn((B, L, 4), generator=generator, device=device)
+                 for _ in range(2)]
+        return t, noise[0], noise[1]
+
+    def loss_terms(self, batch: ProteinBatch, generator: Optional[torch.Generator] = None,
+                   deterministic: bool = False, *, t: Optional[torch.Tensor] = None,
+                   noise_pi: Optional[torch.Tensor] = None,
+                   noise_2pi: Optional[torch.Tensor] = None, eps: float = 1e-6):
+        """``(numerator, chi count)`` of ``loss``: the normalised squared
+        error summed over the batch's chis, and the number of chis. The loss
+        of a batch split over ranks is the sum of the numerators over the sum
+        of the counts (never a mean of the ranks' losses)."""
         B, L = batch.residue_mask.shape
         device = batch.SC_D.device
         if t is None:
@@ -104,25 +149,33 @@ class TorsionalDiffusion(nn.Module):
         score_norm = torch.where(batch.chi_1pi_periodic_mask, sn_pi, sn_2pi)
 
         pred = pred * torch.sqrt(score_norm) * batch.SC_D_mask
-        chi_sum = torch.clamp(batch.SC_D_mask.sum(), min=1.0)
-        return torch.sum((target - pred) ** 2 / (score_norm + eps)) / chi_sum
+        return torch.sum((target - pred) ** 2 / (score_norm + eps)), batch.SC_D_mask.sum()
 
     @torch.no_grad()
     def sample(self, batch: ProteinBatch, generator: Optional[torch.Generator] = None,
                n_steps: int = 30, corrector_steps: int = 0,
-               init_sc: Optional[torch.Tensor] = None, return_trajectory: bool = False):
+               init_sc: Optional[torch.Tensor] = None, return_trajectory: bool = False,
+               rows: Optional[Rows] = None):
         """Reverse diffusion from t=1 to 0. Returns SC_D [B, L, 4], and with
         ``return_trajectory`` also the [n_steps, B, L, 4] network inputs.
 
         ``init_sc`` replaces the t=1 noise (ODE sampling's only randomness),
         for replaying a recorded trajectory. SDE steps and
         ``corrector_steps`` Langevin sub-steps per iteration draw from
-        ``generator``.
+        ``generator``. ``rows``: ``batch`` is these rows of a global batch
+        split over ranks (``Rows``).
         """
+        draw = (lambda x: None) if rows is None else (
+            lambda x: rows.draw(x.shape, generator, x.device))
         if init_sc is None:
             if generator is None:
                 raise ValueError("sample needs a generator or init_sc")
-            sc = self.init_noise(batch, generator)
+            if rows is None:
+                sc = self.init_noise(batch, generator)
+            else:
+                t1 = torch.ones(batch.residue_mask.shape, device=batch.SC_D.device)
+                sc = self.add_chi_noise(batch, t1, noise_pi=draw(batch.SC_D),
+                                        noise_2pi=draw(batch.SC_D), with_score=False)[0]
         else:
             sc = torch.as_tensor(init_sc, dtype=torch.float32, device=batch.SC_D.device)
 
@@ -137,15 +190,20 @@ class TorsionalDiffusion(nn.Module):
             t = torch.full(batch.residue_mask.shape, float(time), device=sc.device)
             score, _ = self.net(batch, sc, t, static=static, skip_last_edge_update=True)
             traj.append(sc)
-            sc_next = self.schedule_pi.step(sc, score, float(time), float(dt), m1, generator)
+            sde = self.schedule_pi.mode == "sde"
+            sc_next = self.schedule_pi.step(sc, score, float(time), float(dt), m1, generator,
+                                            draw(score) if sde else None)
             sc_next = self.schedule_2pi.step(sc_next, score, float(time), float(dt), m2,
-                                             generator)
+                                             generator, draw(score) if sde else None)
             sc = wrap_angle(sc_next) * batch.SC_D_mask
             for _ in range(corrector_steps):
                 # each periodicity's step size from its own masked norms
                 score, _ = self.net(batch, sc, t, static=static, skip_last_edge_update=True)
-                sc_next = self.schedule_pi.step_correct(sc, score, m1, generator)
-                sc_next = self.schedule_2pi.step_correct(sc_next, score, m2, generator)
+                mean = torch.mean if rows is None else rows.mean
+                sc_next = self.schedule_pi.step_correct(sc, score, m1, generator, draw(sc),
+                                                        batch_mean=mean)
+                sc_next = self.schedule_2pi.step_correct(sc_next, score, m2, generator,
+                                                         draw(sc_next), batch_mean=mean)
                 sc = wrap_angle(sc_next) * batch.SC_D_mask
         if return_trajectory:
             return sc, torch.stack(traj)

@@ -138,6 +138,19 @@ def load_library(name: str) -> ctypes.CDLL:
         return lib
 
 
+def launch_kernel(lib: ctypes.CDLL, entry: str, what: str, device, *args) -> None:
+    """Call the C entry point ``entry`` of ``lib`` with ``args`` and the
+    current stream of ``device``, and raise on its error code. The entry
+    points launch on the calling thread's current CUDA device, so ``device``
+    (the operands') is made current for the call: a wrapper called on
+    ``cuda:1`` while ``cuda:0`` is current launches on ``cuda:1``."""
+    import torch
+
+    with torch.cuda.device(device):
+        err = getattr(lib, entry)(*args, stream_ptr(device))
+    check(lib, err, what)
+
+
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     """Raise if a C entry point returned a CUDA error code."""
     if err != 0:

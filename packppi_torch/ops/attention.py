@@ -56,9 +56,10 @@ def _mha_cuda(q, k, v, key_bias):
     _build.check_aligned("attention", q=q, k=k, v=v)
     out = torch.empty(B, H, T, D, dtype=torch.float32, device=q.device)
     lib = _lib()
-    err = lib.packppi_mha(*(_build.ptr(t) for t in (q, k, v, key_bias, out)),
-                          B, H, T, D, int(dt == torch.bfloat16), _build.stream_ptr(q.device))
-    _build.check(lib, err, "attention kernel launch")
+    _build.launch_kernel(
+        lib, "packppi_mha", "attention kernel launch", q.device,
+        *(_build.ptr(t) for t in (q, k, v, key_bias, out)),
+        B, H, T, D, int(dt == torch.bfloat16))
     mha.launches += 1
     return out
 

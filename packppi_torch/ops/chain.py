@@ -130,12 +130,11 @@ def _chain_cuda(x, msg, mask, lna_w, lna_b, w1, b1, w2, b2, lnb_w, lnb_b, pre_ma
     wpack = packed_chain_weights(w1, w2, sd)
     out = torch.empty_like(x)
     lib = _lib(act)
-    err = lib.packppi_chain(
+    _build.launch_kernel(
+        lib, "packppi_chain", "chain kernel launch", x.device,
         *(_build.ptr(t) for t in (x, msg, mask, lna_w, lna_b, w1, b1, w2, b2,
                                   lnb_w, lnb_b, wpack, out)),
-        N, int(sd == torch.bfloat16), int(msg.dtype == torch.bfloat16), int(pre_mask),
-        _build.stream_ptr(x.device))
-    _build.check(lib, err, "chain kernel launch")
+        N, int(sd == torch.bfloat16), int(msg.dtype == torch.bfloat16), int(pre_mask))
     chain.launches += 1
     return out
 

@@ -367,10 +367,11 @@ def _pack_cuda(positions, atom_exists, atom_radius, residue_index) -> Culling:
                       torch.empty(B, T, T, dtype=torch.int16, device=dev),
                       torch.empty(B, T, dtype=torch.int32, device=dev))
     lib = _lib()
-    err = lib.packppi_clash_pack(*(_build.ptr(t) for t in (positions, atom_exists, atom_radius,
-                                                           residue_index, *culling[:3])),
-                                 B, L, _build.stream_ptr(dev))
-    _build.check(lib, err, "clash packing kernel launch")
+    _build.launch_kernel(
+        lib, "packppi_clash_pack", "clash packing kernel launch", dev,
+        *(_build.ptr(t) for t in (positions, atom_exists, atom_radius, residue_index,
+                                  *culling[:3])),
+        B, L)
     return culling
 
 
@@ -383,10 +384,10 @@ def clash_forward_cuda(positions, atom_exists, atom_radius, residue_index, tol_s
     culling = _pack_cuda(positions, atom_exists, atom_radius, residue_index)
     out = torch.empty(B, L, 14, dtype=torch.float32, device=positions.device)
     lib = _lib()
-    err = lib.packppi_clash_forward(
+    _build.launch_kernel(
+        lib, "packppi_clash_forward", "clash forward kernel launch", positions.device,
         *(_build.ptr(t) for t in (*culling, out)),
-        B, L, float(tol_soft), int(cull), _build.stream_ptr(positions.device))
-    _build.check(lib, err, "clash forward kernel launch")
+        B, L, float(tol_soft), int(cull))
     between_residue_clash.launches_fwd += 1
     return out, culling
 
@@ -411,10 +412,10 @@ def clash_backward_cuda(positions, atom_exists, atom_radius, residue_index, w, t
             "counts": (culling.counts, (B, T), torch.int32)})
     out = torch.empty_like(positions)
     lib = _lib()
-    err = lib.packppi_clash_backward(
+    _build.launch_kernel(
+        lib, "packppi_clash_backward", "clash gradient kernel launch", positions.device,
         *(_build.ptr(t) for t in (culling.records, culling.keys, w, *culling[2:], out)),
-        B, L, float(tol_soft), int(cull), int(build), _build.stream_ptr(positions.device))
-    _build.check(lib, err, "clash gradient kernel launch")
+        B, L, float(tol_soft), int(cull), int(build))
     between_residue_clash.launches_bwd += 1
     return out
 

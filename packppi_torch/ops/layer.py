@@ -153,10 +153,10 @@ def _layer_node_cuda(ops, nodes_per_block, act):
                            per_i=per_i, pjg=pjg, h_E=h_E, geom=geom)
     out = torch.empty_like(h_V)
     lib = _lib(act)
-    err = lib.packppi_layer_node(
+    _build.launch_kernel(
+        lib, "packppi_layer_node", "layer_node kernel launch", h_E.device,
         *(_build.ptr(t) for t in ops[:7] + (wpack, b_in, b_mid, b_out, *chain_w, cpack, out)),
-        B * L, K, nodes_per_block, int(sd == torch.bfloat16), _build.stream_ptr(h_E.device))
-    _build.check(lib, err, "layer_node kernel launch")
+        B * L, K, nodes_per_block, int(sd == torch.bfloat16))
     layer_node.launches += 1
     return out
 
@@ -170,10 +170,10 @@ def _layer_edge_cuda(ops, act):
                            per_i=per_i, pjg=pjg, h_E=h_E, geom=geom)
     out = torch.empty_like(h_E)
     lib = _lib(act)
-    err = lib.packppi_layer_edge(
+    _build.launch_kernel(
+        lib, "packppi_layer_edge", "layer_edge kernel launch", h_E.device,
         *(_build.ptr(t) for t in ops[:5] + (wpack, b_in, b_mid, b_out, *chain_w, cpack, out)),
-        B * L, K, int(sd == torch.bfloat16), _build.stream_ptr(h_E.device))
-    _build.check(lib, err, "layer_edge kernel launch")
+        B * L, K, int(sd == torch.bfloat16))
     layer_edge.launches += 1
     return out
 

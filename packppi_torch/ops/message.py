@@ -260,10 +260,10 @@ def _indexed_cuda(entry, per_i, per_j, h_E, idx, p_local, rot, trans, pg, mask,
     out = (torch.empty(B, L, _H, device=h_E.device, dtype=_F32) if pool
            else torch.empty(B, L, K, _H, device=h_E.device, dtype=sd))
     lib = _lib(act)
-    err = getattr(lib, entry)(*(_build.ptr(t) for t in ops[:9] + (wpack, b_in, b_mid, b_out, out)),
-                              B, L, K, int(sd == torch.bfloat16), int(pool),
-                              _build.stream_ptr(h_E.device))
-    _build.check(lib, err, f"{name} kernel launch")
+    _build.launch_kernel(
+        lib, entry, f"{name} kernel launch", h_E.device,
+        *(_build.ptr(t) for t in ops[:9] + (wpack, b_in, b_mid, b_out, out)),
+        B, L, K, int(sd == torch.bfloat16), int(pool))
     return out
 
 
@@ -288,11 +288,11 @@ def _message_geom_cuda(per_i, pjg, h_E, pl, ng, rot9, trans, mask,
     out = (torch.empty(B, L, _H, device=h_E.device, dtype=_F32) if pool
            else torch.empty(B, L, K, _H, device=h_E.device, dtype=sd))
     lib = _lib(act)
-    err = lib.packppi_message_geom(
+    _build.launch_kernel(
+        lib, "packppi_message_geom", "message_geom kernel launch", h_E.device,
         *(_build.ptr(t) for t in (per_i, pjg, h_E, pl, ng, rot9, trans, mask, wpack, b_in,
                                   b_mid, b_out, out)),
-        B * L, K, int(sd == torch.bfloat16), int(pool), _build.stream_ptr(h_E.device))
-    _build.check(lib, err, "message_geom kernel launch")
+        B * L, K, int(sd == torch.bfloat16), int(pool))
     message_geom.launches += 1
     return out
 
@@ -308,10 +308,10 @@ def _message_chain_cuda(ops, chain_w, act):
     cpack = packed_chain_weights(w1, w2, sd)
     out = torch.empty_like(h_E)
     lib = _lib(act)
-    err = lib.packppi_message_chain(
+    _build.launch_kernel(
+        lib, "packppi_message_chain", "message_chain kernel launch", h_E.device,
         *(_build.ptr(t) for t in ops[:9] + (wpack, b_in, b_mid, b_out) + chain_w + (cpack, out)),
-        B, L, K, int(sd == torch.bfloat16), _build.stream_ptr(h_E.device))
-    _build.check(lib, err, "message_chain kernel launch")
+        B, L, K, int(sd == torch.bfloat16))
     message_chain.launches += 1
     return out
 

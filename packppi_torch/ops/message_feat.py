@@ -234,10 +234,10 @@ def _message_feat_cuda(per_i, pj, h_E, geom, mask, w_in, b_in, w_mid, b_mid, w_o
     out = (torch.empty(B, L, _H, device=h_E.device, dtype=f32) if pool
            else torch.empty(B, L, K, _H, device=h_E.device, dtype=sd))
     lib = _lib(act)
-    err = lib.packppi_message_feat(
+    _build.launch_kernel(
+        lib, "packppi_message_feat", "message_feat kernel launch", h_E.device,
         *(_build.ptr(t) for t in (per_i, pj, h_E, geom, mask, wpack, b_in, b_mid, b_out, out)),
-        B * L, K, int(sd == torch.bfloat16), int(pool), _build.stream_ptr(h_E.device))
-    _build.check(lib, err, "message_feat kernel launch")
+        B * L, K, int(sd == torch.bfloat16), int(pool))
     message_feat.launches += 1
     return out
 

@@ -1,5 +1,13 @@
-"""The training loops of both task families. One device;
-``trainer.n_devices > 1`` raises.
+"""The training loops of both task families, on one device or a mesh of
+ranks.
+
+``trainer.n_devices`` ranks (null: every visible card, one on the CPU; a
+request above the visible cards is clamped) in a ``(data, model)`` mesh with
+``trainer.model_parallel`` ranks along ``model``: each rank trains on its
+rows of the global batch (``data.batch_size`` x data), the parameters and
+optimizer state FSDP-sharded over ``model`` (``parallel.ShardedParams``).
+Rank 0 alone writes checkpoints (whole tensors, the one-device format),
+logs and split files; a checkpoint of any rank count resumes at any other.
 
 ``train_diffusion``: seeded draws, bucketed loaders, per-epoch validation on
 fixed draws, top-k + last checkpoints with resume, EMA, early stopping,
@@ -23,9 +31,12 @@ from typing import Optional
 import numpy as np
 import torch
 
+from packppi_torch.parallel import launch as ranks
+from packppi_torch.parallel.mesh import (ShardedParams, batch_rows, gather_rows, make_mesh,
+                                         reduce_sum)
 from packppi_torch.train.checkpoints import load_params, save_params
-from packppi_torch.train.diffusion_task import (init_state, make_ema_update, make_optimizer,
-                                                make_train_step)
+from packppi_torch.train.diffusion_task import (global_loss_terms, init_state, make_ema_update,
+                                                make_optimizer, make_train_step)
 from packppi_torch.utils.logging import MetricLogger, get_logger
 
 log = get_logger(__name__)
@@ -60,9 +71,12 @@ class CheckpointManager:
     files (an ``_ema`` sidecar beside each when given), indexed in
     ``index.json``."""
 
-    def __init__(self, directory: str, top_k: int = 3, mode: str = "min"):
+    def __init__(self, directory: str, top_k: int = 3, mode: str = "min",
+                 write: bool = True):
         self.dir = Path(directory)
-        self.dir.mkdir(parents=True, exist_ok=True)
+        self.write = write      # False: the index only (a rank other than 0)
+        if write:
+            self.dir.mkdir(parents=True, exist_ok=True)
         self.top_k = top_k
         self.mode = mode
         self.index_file = self.dir / "index.json"
@@ -74,13 +88,15 @@ class CheckpointManager:
     def save(self, step: int, state: dict, metric: Optional[float] = None,
              ema: Optional[dict] = None) -> None:
         name = f"step_{step:08d}"
-        save_params(self.path(name), state)
-        if ema is not None:
-            # params-only sidecar: `cli.pack --ckpt <...>_ema.pt` loads it directly
-            save_params(ema_path(self.path(name)), ema)
+        if self.write:
+            save_params(self.path(name), state)
+            if ema is not None:
+                # params-only sidecar: `cli.pack --ckpt <...>_ema.pt` loads it directly
+                save_params(ema_path(self.path(name)), ema)
         self.index[name] = {"step": step, "metric": metric}
         self._prune()
-        self.index_file.write_text(json.dumps(self.index))
+        if self.write:
+            self.index_file.write_text(json.dumps(self.index))
 
     def _scored(self):
         scored = [(n, m["metric"]) for n, m in self.index.items() if m["metric"] is not None]
@@ -92,8 +108,9 @@ class CheckpointManager:
         keep.add(max(self.index, key=lambda n: self.index[n]["step"]))
         for name in list(self.index):
             if name not in keep:
-                self.path(name).unlink(missing_ok=True)
-                ema_path(self.path(name)).unlink(missing_ok=True)
+                if self.write:
+                    self.path(name).unlink(missing_ok=True)
+                    ema_path(self.path(name)).unlink(missing_ok=True)
                 del self.index[name]
 
     def latest(self) -> Optional[str]:
@@ -183,18 +200,74 @@ def _mean(losses) -> float:
     return float(torch.stack(losses).mean()) if losses else float("nan")
 
 
-def train_diffusion(cfg, device=None) -> dict:
-    """PackPPI-MSC training from a composed config (``configs/train_diffusion.yaml``)."""
+def mesh_shape(cfg, device, share_device: bool = False) -> tuple:
+    """``(ranks, model_parallel)`` of ``cfg.trainer``: ``n_devices`` as the
+    JAX package resolves it (null: every visible card; clamped to them
+    unless the ranks share a card)."""
+    n = ranks.resolve_ranks(cfg.trainer.get("n_devices"), device, "trainer.n_devices",
+                            share_device)
+    mp = int(cfg.trainer.get("model_parallel", 1) or 1)
+    if n > 1 and n % mp:          # one device trains without a mesh, as in JAX
+        raise ValueError(f"{n} devices not divisible by model_parallel={mp}")
+    return n, mp
+
+
+def _on_ranks(fn, cfg, device, n, mp, share_device):
+    """``fn(cfg, device, mesh)`` on one device (mesh None), or rank 0's
+    result of it over ``n`` ranks, ``mp`` along ``model``."""
+    if n == 1:
+        return fn(cfg, device, None)
+    return ranks.launch(_rank_entry, n, device, fn, cfg, mp, share_device=share_device)[0]
+
+
+def _rank_entry(fn, cfg, mp):
+    mesh = make_mesh(mp)
+    log.info(f"rank {mesh.rank}: mesh {mesh.shape}")
+    return fn(cfg, ranks.current().device, mesh)
+
+
+def _main_first(fn):
+    """``fn()`` on rank 0, then on the other ranks: what rank 0 writes (a
+    split file, a feature cache) the others read whole."""
+    if ranks.current() is None:
+        return fn()
+    out = fn() if ranks.is_main() else None
+    ranks.barrier()
+    return out if ranks.is_main() else fn()
+
+
+def train_diffusion(cfg, device=None, share_device: bool = False) -> dict:
+    """PackPPI-MSC training from a composed config (``configs/train_diffusion.yaml``),
+    on ``trainer.n_devices`` ranks (``share_device``: every rank on one card
+    over gloo, for checks on a one-card machine)."""
     from packppi_torch.device import resolve_device
 
     device = resolve_device(device)
-    _one_device(cfg)
+    n, mp = mesh_shape(cfg, device, share_device)
+    return _on_ranks(_train_diffusion_anomaly, cfg, device, n, mp, share_device)
+
+
+def _train_diffusion_anomaly(cfg, device, mesh):
     # trainer.debug_nans: autograd's anomaly mode for the length of the run
     with torch.autograd.set_detect_anomaly(bool(cfg.trainer.get("debug_nans"))):
-        return _train_diffusion(cfg, device)
+        return _train_diffusion(cfg, device, mesh)
 
 
-def _train_diffusion(cfg, device) -> dict:
+class _NullLogger:
+    def log(self, *args, **kwargs):
+        pass
+
+    def close(self):
+        pass
+
+
+def _metric_logger(cfg, out):
+    if not ranks.is_main():
+        return _NullLogger()
+    return MetricLogger(out / "logs", backends=cfg.get("logger") or ("tensorboard",))
+
+
+def _train_diffusion(cfg, device, mesh=None) -> dict:
     from packppi_torch.data.complex import ComplexDataset, scan_complex_dir, split_entries
     from packppi_torch.data.loader import BucketedLoader
     from packppi_torch.models import SampleConfig, TorsionalDiffusion
@@ -204,27 +277,38 @@ def _train_diffusion(cfg, device) -> dict:
     # a configuration the device cannot run is refused before any data is read
     net_cfg = network_config(cfg.model)
     net_cfg.check_device(device)
+    main = ranks.is_main()
+    n_data = 1 if mesh is None else mesh.data
     out = Path(cfg.output_dir)
     out.mkdir(parents=True, exist_ok=True)
-    metrics_log = MetricLogger(out / "logs", backends=cfg.get("logger") or ("tensorboard",))
-    (out / "config.json").write_text(json.dumps(cfg.to_dict(), indent=1, default=str))
+    metrics_log = _metric_logger(cfg, out)
+    if main:
+        (out / "config.json").write_text(json.dumps(cfg.to_dict(), indent=1, default=str))
 
     # ---- data ---------------------------------------------------------------
     codes = scan_complex_dir(cfg.data.data_dir, cfg.data.pdb_suffix)
     if not codes:
         raise SystemExit(f"no PDBs matching *{cfg.data.pdb_suffix}.pdb in {cfg.data.data_dir}")
-    splits = split_entries(codes, cfg.data.split_fractions, cfg.data.split_seed,
-                           split_file=str(out / "split.json"))
     cache = Path(cfg.data.data_dir) / cfg.data.cache_dir
-    ds = {k: ComplexDataset(cfg.data.data_dir, v, cache_dir=str(cache),
-                            suffix=cfg.data.pdb_suffix,
-                            len_region=cfg.data.len_region).filtered()
-          for k, v in splits.items()}
-    batch_size = cfg.data.batch_size
+
+    def datasets():
+        splits = split_entries(codes, cfg.data.split_fractions, cfg.data.split_seed,
+                               split_file=str(out / "split.json"))
+        return {k: ComplexDataset(cfg.data.data_dir, v, cache_dir=str(cache),
+                                  suffix=cfg.data.pdb_suffix,
+                                  len_region=cfg.data.len_region).filtered()
+                for k, v in splits.items()}
+
+    ds = _main_first(datasets)
+    # the global batch is batch_size rows a data shard; each rank reads its rows
+    batch_size = cfg.data.batch_size * n_data
+    rows = None if mesh is None else batch_rows(mesh, batch_size)
     loaders = {
         "train": BucketedLoader(ds["train"], batch_size, device, shuffle=True, seed=cfg.seed,
-                                drop_last=True),
-        "val": BucketedLoader(ds["val"], batch_size, device, shuffle=False, prefetch=0),
+                                drop_last=True, rows=rows),
+        # sharded batches stay divisible by the data axis
+        "val": BucketedLoader(ds["val"], batch_size, device, shuffle=False, prefetch=0,
+                              drop_last=mesh is not None, rows=rows),
     }
     log.info(f"data: {len(ds['train'])} train / {len(ds['val'])} val / "
              f"{len(ds['test'])} test complexes")
@@ -241,11 +325,12 @@ def _train_diffusion(cfg, device) -> dict:
     model = TorsionalDiffusion(net_cfg, sample_cfg)
     lr = make_lr(cfg.trainer, steps_per_epoch)
     state = init_state(model, cfg.seed, device, lambda p: make_optimizer(
-        p, lr=float(cfg.trainer.lr), weight_decay=float(cfg.trainer.weight_decay)))
+        p, lr=float(cfg.trainer.lr), weight_decay=float(cfg.trainer.weight_decay)), mesh=mesh)
     accum = int(cfg.trainer.grad_accum_steps)
     train_step = make_train_step(model, state.optimizer, lr, accum)
 
-    ckpt_mgr = CheckpointManager(out / "checkpoints", top_k=cfg.trainer.checkpoint_top_k)
+    ckpt_mgr = CheckpointManager(out / "checkpoints", top_k=cfg.trainer.checkpoint_top_k,
+                                 write=main)
     start_epoch = 0
     resume = cfg.get("ckpt_path") or ckpt_mgr.latest()
     if resume:
@@ -255,14 +340,32 @@ def _train_diffusion(cfg, device) -> dict:
         # the loader's shuffle is seeded by the epoch: take it up where it stopped
         loaders["train"].epoch = start_epoch
     ema_decay, ema, ema_step = init_ema(cfg, state.params, resume)
+    sharded = state.sharded
+    if ema is not None and sharded is not None:
+        ema = sharded.local(ema)            # the EMA of this rank's slices
+    full_ema = (lambda: ema) if sharded is None or ema is None else (lambda: sharded.full(ema))
 
     def eval_loss(loader, stream, params):
         losses = []
         with torch.no_grad(), swapped_params(model.net, params):
             for i, batch in enumerate(loader):
-                losses.append(model.loss(batch, eval_generator(cfg.seed, stream, i, device),
-                                         deterministic=True))
+                g = eval_generator(cfg.seed, stream, i, device)
+                if mesh is None:
+                    losses.append(model.loss(batch, g, deterministic=True))
+                else:
+                    losses.append(global_loss_terms(model, mesh, batch, g, True)[0])
         return losses
+
+    def sample_rows(batch, generator):
+        """The sampler on this rank's rows, then the global batch's chis."""
+        if mesh is None:
+            return batch, model.sample(batch, generator, n_steps=cfg.sample.n_diffusion_steps)
+        from packppi_torch.models.torsional_diffusion import Rows
+
+        B = batch.residue_mask.shape[0]
+        sc = model.sample(batch, generator, n_steps=cfg.sample.n_diffusion_steps,
+                          rows=Rows(mesh.data_index * B, B * mesh.data, mesh.data_group))
+        return type(batch)(*(gather_rows(mesh, t) for t in batch)), gather_rows(mesh, sc)
 
     # ---- epochs -------------------------------------------------------------
     best_val = float("inf")
@@ -275,7 +378,7 @@ def _train_diffusion(cfg, device) -> dict:
         for batch in loaders["train"]:
             losses.append(train_step(state, batch))
             if ema is not None:
-                ema_step(ema, state.params)
+                ema_step(ema, state.masters)
             if len(losses) % log_every == 0:
                 metrics_log.log(state.step, {"train/loss": _mean(losses[-log_every:])})
         train_loss = _mean(losses)
@@ -284,7 +387,8 @@ def _train_diffusion(cfg, device) -> dict:
         if (epoch + 1) % cfg.trainer.val_every_epochs == 0 and len(ds["val"]):
             # with EMA on, validation, sampling and best-checkpoint selection
             # all evaluate the EMA weights (what inference will use)
-            vlosses = eval_loss(loaders["val"], VAL_STREAM, ema)
+            ema_now = full_ema()
+            vlosses = eval_loss(loaders["val"], VAL_STREAM, ema_now)
             val_loss = _mean(vlosses)
             best_val = min(best_val, val_loss) if vlosses else best_val
             metrics_log.log(state.step, {"val/loss": val_loss, "train/loss_epoch": train_loss})
@@ -294,9 +398,9 @@ def _train_diffusion(cfg, device) -> dict:
                 if batch is not None:
                     # the same draw at every sampling evaluation: chi metrics
                     # are comparable from epoch to epoch
-                    with swapped_params(model.net, ema):
-                        sc = model.sample(batch, eval_generator(cfg.seed, SAMPLE_STREAM, 0, device),
-                                          n_steps=cfg.sample.n_diffusion_steps)
+                    with swapped_params(model.net, ema_now):
+                        batch, sc = sample_rows(
+                            batch, eval_generator(cfg.seed, SAMPLE_STREAM, 0, device))
                     metrics_log.log(state.step,
                                     chi_metrics(batch.SC_D, sc, batch.SC_D_mask,
                                                 batch.chi_1pi_periodic_mask), prefix="val/")
@@ -305,8 +409,9 @@ def _train_diffusion(cfg, device) -> dict:
         # on the validation cadence and at the end; by cadence, not by
         # finiteness: an epoch with no validation batch must still save
         if (epoch + 1) % cfg.trainer.val_every_epochs == 0 or epoch == cfg.trainer.max_epochs - 1:
+            # whole tensors (gathered on every rank); rank 0 writes them
             ckpt_mgr.save(state.step, state.state_dict(),
-                          metric=val_loss if np.isfinite(val_loss) else None, ema=ema)
+                          metric=val_loss if np.isfinite(val_loss) else None, ema=full_ema())
         if stopper.should_stop(epoch, val_loss):
             log.info(f"early stopping at epoch {epoch}: no val/loss improvement in "
                      f"{stopper.patience} validation check(s)")
@@ -314,14 +419,16 @@ def _train_diffusion(cfg, device) -> dict:
 
     # ---- the held-out test on the best checkpoint ---------------------------
     test_loss = float("nan")
+    ranks.barrier()                         # rank 0's checkpoints are on disk
     if len(ds["test"]):
         best = ckpt_mgr.best()
-        test_params = ema
+        test_params = full_ema()
         if best:
             state.load_state_dict(load_params(best, map_location=device))
             if ema is not None and ema_path(best).exists():
                 test_params = {k: v.to(device) for k, v in load_params(ema_path(best)).items()}
-        test_loader = BucketedLoader(ds["test"], batch_size, device, shuffle=False, prefetch=0)
+        test_loader = BucketedLoader(ds["test"], batch_size, device, shuffle=False, prefetch=0,
+                                     drop_last=mesh is not None, rows=rows)
         test_loss = _mean(eval_loss(test_loader, TEST_STREAM, test_params))
         metrics_log.log(state.step, {"test/loss": test_loss})
         log.info(f"test loss (best ckpt): {test_loss:.4f}")
@@ -331,41 +438,45 @@ def _train_diffusion(cfg, device) -> dict:
             "best_ckpt": ckpt_mgr.best(), "last_ckpt": ckpt_mgr.latest()}
 
 
-def _one_device(cfg):
-    if int(cfg.trainer.get("n_devices") or 1) > 1 or int(cfg.trainer.get("model_parallel", 1)
-                                                         or 1) > 1:
-        raise NotImplementedError(
-            "packppi_torch trains on one device; multi-device training is slice 7 of the "
-            "port (ROADMAP.md): set trainer.n_devices=1")
-
-
-def _optimizer(net: torch.nn.Module, lr: float, weight_decay: float):
+def _optimizer(net: torch.nn.Module, lr: float, weight_decay: float, mesh=None):
     """AdamW over ``net``'s parameters, each with a zero gradient from the
     start: a parameter the loss does not reach still takes every step, as
-    under optax, where its gradient is zeros."""
+    under optax, where its gradient is zeros. Under a ``mesh`` the optimizer
+    works on the ``ShardedParams`` layout, which ``optimizer.sharded``
+    holds (None on one device)."""
     for p in net.parameters():
         p.grad = torch.zeros_like(p)
-    return make_optimizer(net.parameters(), lr=lr, weight_decay=weight_decay)
+    sharded = None if mesh is None else ShardedParams(mesh, net)
+    params = net.parameters() if sharded is None else sharded.parameters()
+    optimizer = make_optimizer(params, lr=lr, weight_decay=weight_decay)
+    optimizer.sharded = sharded
+    return optimizer
 
 
-def affinity_optimizer(model, lr: float, weight_decay: float):
+def affinity_optimizer(model, lr: float, weight_decay: float, mesh=None):
     """AdamW over the affinity network (the backbone stays frozen)."""
     for p in model.backbone.parameters():
         p.requires_grad_(False)
-    return _optimizer(model.net, lr, weight_decay)
+    return _optimizer(model.net, lr, weight_decay, mesh)
 
 
-def make_affinity_train_step(model, optimizer, lr):
+def make_affinity_train_step(model, optimizer, lr, mesh=None, backbone=contextlib.nullcontext):
     """``train_step(batch, opt_steps) -> loss``: the loss with dropout, its
     backward and one AdamW step at the schedule's rate ``lr`` (a float or a
     callable of ``opt_steps``). A non-finite loss zeroes the gradients and
     the step is still taken, as in the JAX package; the choice is made on
-    the device, with no read-back."""
+    the device, with no read-back. Under a ``mesh`` the batch is this rank's
+    rows: the loss is the global batch's mean (the rows' means summed over
+    ``data``, each over ``data``) and the choice is made on it. ``backbone``:
+    the context the frozen backbone runs in (its FSDP gather)."""
     params = list(model.net.parameters())
+    n_data = 1 if mesh is None else mesh.data
 
     def train_step(batch, opt_steps: int) -> torch.Tensor:
-        loss = model.loss(batch, deterministic=False)
-        loss.backward()
+        with backbone():
+            local = model.loss(batch, deterministic=False) / n_data
+        loss = local if mesh is None else reduce_sum(mesh, local)
+        local.backward()
         ok = torch.isfinite(loss)
         with torch.no_grad():
             for p in params:
@@ -377,12 +488,56 @@ def make_affinity_train_step(model, optimizer, lr):
 
 
 def _adamw_step(optimizer, lr, opt_steps: int) -> None:
-    """One AdamW update at the schedule's learning rate for ``opt_steps``."""
+    """One AdamW update at the schedule's learning rate for ``opt_steps``
+    (under a mesh the gradients reduced first and the whole tensors
+    gathered after)."""
+    sharded = getattr(optimizer, "sharded", None)
+    if sharded is not None:
+        sharded.reduce_grads()
     if callable(lr):
         for group in optimizer.param_groups:
             group["lr"] = lr(opt_steps)
     optimizer.step()
     optimizer.zero_grad(set_to_none=False)
+    if sharded is not None:
+        with torch.no_grad():
+            for p in sharded.params.values():
+                p.grad.zero_()
+        sharded.gather()
+
+
+def _backbone_context(model, mesh):
+    """The frozen backbone under FSDP when ``mesh.model`` > 1: only its
+    slices stay resident, gathered whole for each use."""
+    if mesh is None or mesh.model == 1:
+        return contextlib.nullcontext
+    sharded = ShardedParams(mesh, model.backbone.net)
+    sharded.release()
+    return sharded.gathered
+
+
+def _weighted_loss(pred, pred_inv, ddg, w, mesh):
+    """The antisymmetric MSE of a batch whose rows carry weights ``w``
+    (zero on padding rows), over every rank's rows of ``mesh.data``."""
+    num = 0.5 * (torch.sum(w * (pred - ddg) ** 2) + torch.sum(w * (pred_inv + ddg) ** 2))
+    den = w.sum()
+    if mesh is not None:
+        num, den = reduce_sum(mesh, num), reduce_sum(mesh, den)
+    return num / torch.clamp(den, min=1e-9)
+
+
+def _pad_rows(tensors, mesh):
+    """A ragged evaluation batch padded to a multiple of ``mesh.data`` with
+    repeats of its last row, and weights (1, then 0 on the padding); then
+    this rank's rows of each."""
+    n = tensors[0].shape[0]
+    pad = -n % (1 if mesh is None else mesh.data)
+    w = torch.cat([torch.ones(n), torch.zeros(pad)]).to(tensors[0].device)
+    out = [torch.cat([t, t[-1:].expand(pad, *t.shape[1:])], 0) if pad else t for t in tensors]
+    if mesh is not None:
+        rows = batch_rows(mesh, n + pad)
+        out, w = [t[rows] for t in out], w[rows]
+    return out, w
 
 
 def esm_batches(entries, batch_size: int, shuffle: bool, seed: int, load_item, device):
@@ -413,7 +568,8 @@ def esm_batches(entries, batch_size: int, shuffle: bool, seed: int, load_item, d
         yield tuple(torch.from_numpy(a).to(device) for a in (wt, mt, ddg))
 
 
-def _train_affinity_esm(cfg, splits, cache_dir: Path, out: Path, metrics_log, device) -> dict:
+def _train_affinity_esm(cfg, splits, cache_dir: Path, out: Path, metrics_log, device,
+                        mesh=None) -> dict:
     """esm mode: the ddG head over ESM-2 embeddings, cached per mutation as
     ``<cache_dir>/esm_<pdb>_<id>.npz`` (``wt``, ``mut``) or extracted with
     the ESM-2 weights of ``esm_weights`` (a ``.pt`` as ``cli.ddg
@@ -454,7 +610,8 @@ def _train_affinity_esm(cfg, splits, cache_dir: Path, out: Path, metrics_log, de
         return wt, mut, np.float32(e["ddG"])
 
     make_batches = functools.partial(esm_batches, load_item=load_item, device=device)
-    batch_size = int(cfg.data.batch_size)
+    n_data = 1 if mesh is None else mesh.data
+    batch_size = int(cfg.data.batch_size) * n_data
     if len(splits["train"]) < batch_size:
         raise SystemExit(
             f"train split ({len(splits['train'])} mutations) yields no full "
@@ -475,59 +632,93 @@ def _train_affinity_esm(cfg, splits, cache_dir: Path, out: Path, metrics_log, de
         pred, pred_inv = net(None, None, wt, mt, None, pool_mask(wt))
         return 0.5 * (torch.mean((pred - ddg) ** 2) + torch.mean((pred_inv + ddg) ** 2))
 
-    optimizer = _optimizer(net, float(cfg.trainer.lr), float(cfg.trainer.weight_decay))
-    _, ema, ema_step = init_ema(cfg, net.state_dict(), resume)
+    def eval_loss(wt, mt, ddg):
+        if mesh is None:
+            return loss_of(wt, mt, ddg)
+        (wt, mt, ddg), w = _pad_rows((wt, mt, ddg), mesh)
+        return _weighted_loss(*net(None, None, wt, mt, None, pool_mask(wt)), ddg, w, mesh)
 
-    ckpt_mgr = CheckpointManager(out / "checkpoints", top_k=cfg.trainer.checkpoint_top_k)
+    optimizer = _optimizer(net, float(cfg.trainer.lr), float(cfg.trainer.weight_decay), mesh)
+    sharded = optimizer.sharded
+    _, ema, ema_step = init_ema(cfg, net.state_dict(), resume)
+    masters = net.state_dict if sharded is None else (
+        lambda: {k: v.detach() for k, v in sharded.masters.items()})
+    if ema is not None and sharded is not None:
+        ema = sharded.local(ema)
+    full = (lambda d: d) if sharded is None else (lambda d: None if d is None else sharded.full(d))
+    rows = None if mesh is None else batch_rows(mesh, batch_size)
+
+    ckpt_mgr = CheckpointManager(out / "checkpoints", top_k=cfg.trainer.checkpoint_top_k,
+                                 write=ranks.is_main())
     best_val, step = float("inf"), 0
     stopper = EarlyStopper(cfg.trainer)
     for epoch in range(cfg.trainer.max_epochs):
         losses = []
         for wt, mt, ddg in make_batches(splits["train"], batch_size, True, cfg.seed + epoch):
-            loss = loss_of(wt, mt, ddg)
-            loss.backward()
+            if rows is not None:
+                wt, mt, ddg = wt[rows], mt[rows], ddg[rows]
+            local = loss_of(wt, mt, ddg) / n_data
+            loss = local if mesh is None else reduce_sum(mesh, local)
+            local.backward()
             _adamw_step(optimizer, None, step)
             if ema is not None:
-                ema_step(ema, net.state_dict())
+                ema_step(ema, masters())
             losses.append(loss.detach())
             step += 1
-        with torch.no_grad(), swapped_params(net, ema):
-            vlosses = [loss_of(wt, mt, ddg)
+        with torch.no_grad(), swapped_params(net, full(ema)):
+            vlosses = [eval_loss(wt, mt, ddg)
                        for wt, mt, ddg in make_batches(splits["valid"], batch_size, False, 0)]
         train_loss, val_loss = _mean(losses), _mean(vlosses)
         best_val = min(best_val, val_loss)
         metrics_log.log(step, {"train/loss": train_loss, "val/loss": val_loss})
         log.info(f"epoch {epoch}: train {train_loss:.4f} val {val_loss:.4f}")
         ckpt_mgr.save(step, net.state_dict(),
-                      metric=val_loss if np.isfinite(val_loss) else None, ema=ema)
+                      metric=val_loss if np.isfinite(val_loss) else None, ema=full(ema))
         if stopper.should_stop(epoch, val_loss):
             log.info(f"early stopping at epoch {epoch}")
             break
     metrics_log.close()
+    ranks.barrier()
     return {"best_val_loss": best_val, "best_ckpt": ckpt_mgr.best(),
             "last_ckpt": ckpt_mgr.latest()}
 
 
-def train_affinity(cfg, device=None) -> dict:
-    """PackPPI-AP training from a composed config (``configs/train_affinity.yaml``).
+def train_affinity(cfg, device=None, share_device: bool = False) -> dict:
+    """PackPPI-AP training from a composed config (``configs/train_affinity.yaml``),
+    on ``trainer.n_devices`` ranks (``share_device`` as ``train_diffusion``).
     Dropout draws come from torch's global generator, seeded with
     ``cfg.seed`` inside the run and restored after it."""
     from packppi_torch.device import resolve_device
-
     from packppi_torch.utils.config import network_config
 
     device = resolve_device(device)
-    _one_device(cfg)
     # esm mode builds the head alone; otherwise a configuration the device
     # cannot run is refused before any data is read
+    if cfg.model.mode != "esm":
+        network_config(cfg.model).check_device(device)
+    n, mp = mesh_shape(cfg, device, share_device)
+    if cfg.model.mode == "esm" and n > 1:
+        # never scale the global batch past what the split can fill
+        from packppi_torch.data import skempi
+
+        entries = skempi.load_skempi_entries(cfg.data.data_dir, cfg.data.pdb_dirname,
+                                             cfg.data.meta_filename, list(cfg.data.block_list))
+        train = skempi.cv_split(entries, cfg.data.num_cvfolds, cfg.data.cvfold_index,
+                                cfg.data.split_seed)["train"]
+        dp = max(1, min(n // mp, len(train) // max(1, int(cfg.data.batch_size))))
+        n = dp * mp
+    return _on_ranks(_train_affinity_seeded, cfg, device, n, mp, share_device)
+
+
+def _train_affinity_seeded(cfg, device, mesh):
+    from packppi_torch.utils.config import network_config
+
     net_cfg = None if cfg.model.mode == "esm" else network_config(cfg.model)
-    if net_cfg is not None:
-        net_cfg.check_device(device)
     devices = [device] if device.type == "cuda" else []
     with torch.random.fork_rng(devices=devices), \
             torch.autograd.set_detect_anomaly(bool(cfg.trainer.get("debug_nans"))):
         torch.manual_seed(int(cfg.seed))
-        return _train_affinity(cfg, net_cfg, device)
+        return _train_affinity(cfg, net_cfg, device, mesh)
 
 
 class _SkempiDataset:
@@ -556,16 +747,17 @@ class _SkempiDataset:
         return feats
 
 
-def _train_affinity(cfg, net_cfg, device) -> dict:
+def _train_affinity(cfg, net_cfg, device, mesh=None) -> dict:
     from packppi_torch.data import skempi
     from packppi_torch.data.loader import BucketedLoader
     from packppi_torch.models.affinity import AffinityModel
     from packppi_torch.utils.metrics import spearman
     from packppi_torch.weights import init_weights, load_weights
 
+    main = ranks.is_main()
     out = Path(cfg.output_dir)
     out.mkdir(parents=True, exist_ok=True)
-    metrics_log = MetricLogger(out / "logs", backends=cfg.get("logger") or ("tensorboard",))
+    metrics_log = _metric_logger(cfg, out)
 
     entries = skempi.load_skempi_entries(cfg.data.data_dir, cfg.data.pdb_dirname,
                                          cfg.data.meta_filename, list(cfg.data.block_list))
@@ -577,23 +769,28 @@ def _train_affinity(cfg, net_cfg, device) -> dict:
     cache_dir = Path(cfg.data.data_dir) / cfg.data.cache_dir
     cache_dir.mkdir(parents=True, exist_ok=True)
     if net_cfg is None:
-        return _train_affinity_esm(cfg, splits, cache_dir, out, metrics_log, device)
+        return _train_affinity_esm(cfg, splits, cache_dir, out, metrics_log, device, mesh)
 
-    batch_size = int(cfg.data.batch_size)
+    n_data = 1 if mesh is None else mesh.data
+    batch_size = int(cfg.data.batch_size) * n_data
+    rows = None if mesh is None else batch_rows(mesh, batch_size)
+    ds = {k: _SkempiDataset(splits[k], cache_dir) for k in ("train", "valid")}
+    # rank 0 writes the feature cache; the other ranks read it whole
+    _main_first(lambda: [d[i] for d in ds.values() for i in range(len(d))])
     stack = functools.partial(skempi.stack_affinity_batch, device=device)
     loaders = {
-        "train": BucketedLoader(_SkempiDataset(splits["train"], cache_dir), batch_size,
-                                shuffle=True, seed=cfg.seed, drop_last=True, stack_fn=stack),
+        "train": BucketedLoader(ds["train"], batch_size, shuffle=True, seed=cfg.seed,
+                                drop_last=True, stack_fn=stack, rows=rows),
         # an empty validation fold gives no batch: val/loss is NaN and
         # checkpoints are saved without a metric, as in the JAX package
-        "val": BucketedLoader(_SkempiDataset(splits["valid"], cache_dir), batch_size,
-                              shuffle=False, prefetch=0, stack_fn=stack),
+        "val": BucketedLoader(ds["valid"], batch_size, shuffle=False, prefetch=0,
+                              drop_last=mesh is not None, stack_fn=stack, rows=rows),
     }
     steps_per_epoch = len(loaders["train"])
     if steps_per_epoch == 0:
         raise SystemExit(
             f"train split ({len(splits['train'])} mutations) yields no full batches at "
-            f"global batch {batch_size} (data.batch_size x 1 devices) — lower "
+            f"global batch {batch_size} (data.batch_size x {n_data} devices) — lower "
             "data.batch_size or trainer.n_devices")
 
     model = AffinityModel(net_cfg, cfg.model.mode, bool(cfg.model.get("strict_parity", True)))
@@ -604,7 +801,8 @@ def _train_affinity(cfg, net_cfg, device) -> dict:
         init_weights(model.backbone.net, cfg.seed + 1)
     # the frozen backbone is part of the model: with it beside the affinity
     # checkpoints, `cli.ddg --pre_ckpt <out>/backbone.pt` reproduces the run
-    save_params(out / "backbone.pt", model.backbone.net.state_dict())
+    if main:
+        save_params(out / "backbone.pt", model.backbone.net.state_dict())
     init_weights(model.net, cfg.seed)
     resume = cfg.get("ckpt_path")
     if resume:
@@ -616,11 +814,19 @@ def _train_affinity(cfg, net_cfg, device) -> dict:
 
     lr = make_lr(cfg.trainer, steps_per_epoch)
     optimizer = affinity_optimizer(model, float(cfg.trainer.lr),
-                                   float(cfg.trainer.weight_decay))
+                                   float(cfg.trainer.weight_decay), mesh)
+    sharded = optimizer.sharded
+    backbone = _backbone_context(model, mesh)
     _, ema, ema_step = init_ema(cfg, model.net.state_dict(), resume)
-    train_step = make_affinity_train_step(model, optimizer, lr)
+    masters = model.net.state_dict if sharded is None else (
+        lambda: {k: v.detach() for k, v in sharded.masters.items()})
+    if ema is not None and sharded is not None:
+        ema = sharded.local(ema)
+    full = (lambda d: d) if sharded is None else (lambda d: None if d is None else sharded.full(d))
+    train_step = make_affinity_train_step(model, optimizer, lr, mesh, backbone)
 
-    ckpt_mgr = CheckpointManager(out / "checkpoints", top_k=cfg.trainer.checkpoint_top_k)
+    ckpt_mgr = CheckpointManager(out / "checkpoints", top_k=cfg.trainer.checkpoint_top_k,
+                                 write=main)
     best_val, step = float("inf"), 0
     stopper = EarlyStopper(cfg.trainer)
     for epoch in range(cfg.trainer.max_epochs):
@@ -628,7 +834,7 @@ def _train_affinity(cfg, net_cfg, device) -> dict:
         for batch in loaders["train"]:
             losses.append(train_step(batch, step))
             if ema is not None:
-                ema_step(ema, model.net.state_dict())
+                ema_step(ema, masters())
             step += 1
         train_loss = _mean(losses)
 
@@ -636,12 +842,15 @@ def _train_affinity(cfg, net_cfg, device) -> dict:
         # the EMA weights (what inference will use); the loss and the
         # predictions come from one forward without dropout
         vlosses, preds, labels = [], [], []
-        with torch.no_grad(), swapped_params(model.net, ema):
+        with torch.no_grad(), swapped_params(model.net, full(ema)):
             for batch in loaders["val"]:
-                ddg, ddg_inv = model.predict(batch)
+                with backbone():
+                    ddg, ddg_inv = model.predict(batch)
                 y = batch.ddg
-                vlosses.append(0.5 * (torch.mean((ddg - y) ** 2)
-                                      + torch.mean((ddg_inv + y) ** 2)))
+                local = 0.5 * (torch.mean((ddg - y) ** 2) + torch.mean((ddg_inv + y) ** 2))
+                vlosses.append(local if mesh is None else reduce_sum(mesh, local / n_data))
+                if mesh is not None:
+                    ddg, y = gather_rows(mesh, ddg), gather_rows(mesh, y)
                 preds.append(ddg.cpu().numpy())
                 labels.append(y.cpu().numpy())
         val_loss = _mean(vlosses)
@@ -656,11 +865,12 @@ def _train_affinity(cfg, net_cfg, device) -> dict:
         metrics_log.log(step, {"train/loss": train_loss, "val/loss": val_loss, **extras})
         log.info(f"epoch {epoch}: train {train_loss:.4f} val {val_loss:.4f} {extras}")
         ckpt_mgr.save(step, model.net.state_dict(),
-                      metric=val_loss if np.isfinite(val_loss) else None, ema=ema)
+                      metric=val_loss if np.isfinite(val_loss) else None, ema=full(ema))
         if stopper.should_stop(epoch, val_loss):
             log.info(f"early stopping at epoch {epoch}")
             break
 
+    ranks.barrier()
     metrics_log.close()
     return {"best_val_loss": best_val, "best_ckpt": ckpt_mgr.best(),
             "last_ckpt": ckpt_mgr.latest(), "backbone": str(out / "backbone.pt")}

@@ -196,13 +196,21 @@ def test_directory_prox_writes_raw_input_on_reject(corpus, tmp_path):
 
 @pytest.mark.parametrize("cli", [pack, prox], ids=["pack", "prox"])
 def test_more_than_one_device_raises(cli, corpus, tmp_path):
+    """Several ranks run (tests/test_torch_multidevice.py); what raises is a
+    device count below 1, and ranks on a card this machine does not have
+    (no silent fallback to the CPU). ``--n_devices`` defaults to every
+    visible card, one on the CPU."""
     args = cli.build_parser().parse_args(["--input", str(corpus), "--outdir", str(tmp_path),
-                                          "--device", "cpu", "--n_devices", "2"])
-    with pytest.raises(SystemExit, match="A #12"):
-        cli.run_directory(args)
-    assert _directory.resolve_n_devices(Namespace(n_devices=None)) == 1
+                                          "--device", "cpu", "--n_devices", "-1"])
     with pytest.raises(SystemExit, match=">= 1"):
-        _directory.resolve_n_devices(Namespace(n_devices=-1))
+        cli.run_directory(args)
+    assert _directory.resolve_n_devices(Namespace(n_devices=None, device="cpu")) == 1
+    assert _directory.resolve_n_devices(Namespace(n_devices=3, device="cpu")) == 3
+    if not torch.cuda.is_available():
+        args = cli.build_parser().parse_args(["--input", str(corpus), "--outdir",
+                                              str(tmp_path), "--n_devices", "2"])
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.run_directory(args)
 
 
 def test_run_chunks_pads_the_tail_and_records_writer_failures():

@@ -19,7 +19,7 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "packppi_tpu"))
 print(len(names), bad)
 assert not bad, bad
-assert len(names) >= 54, names
+assert len(names) >= 59, names
 for n in ("packppi_torch.ops.clash", "packppi_torch.sampling.proximal", "packppi_torch.cli.prox",
           "packppi_torch.ops.message_feat", "packppi_torch.train.loop",
           "packppi_torch.train.diffusion_task", "packppi_torch.train.checkpoints",
@@ -31,7 +31,9 @@ for n in ("packppi_torch.ops.clash", "packppi_torch.sampling.proximal", "packppi
           "packppi_torch.data.skempi", "packppi_torch.cli.ddg", "packppi_torch.ops.layer",
           "packppi_torch.cli._directory", "packppi_torch.utils.analysis",
           "packppi_torch.structure.interface", "packppi_torch.structure.hydrogens",
-          "packppi_torch.structure.hbond_networks"):
+          "packppi_torch.structure.hbond_networks", "packppi_torch.parallel",
+          "packppi_torch.parallel.launch", "packppi_torch.parallel.mesh",
+          "packppi_torch.parallel.pipeline", "packppi_torch.parallel.dryrun"):
     assert n in names, n
 """
 

@@ -1058,3 +1058,47 @@ def test_server_lock_serializes_concurrent_requests(cuda, tmp_path):
         srv.shutdown()
     assert [s for s, _ in both] == [200, 200]
     assert [p["pdb"] for _, p in both] == alone and overlaps == [False, False]
+
+
+# ---- ranks on the card ---------------------------------------------------------
+
+def test_kernel_wrappers_launch_on_the_operands_device(cuda):
+    """Every wrapper launches through the device-guarded helper: the
+    attention kernel on cuda:0 while another card is current, where there
+    is one, and on cuda:0 here."""
+    from packppi_torch.ops.attention import mha, mha_plain
+
+    g = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn(1, 2, 64, 64, generator=g).to(cuda) for _ in range(3))
+    bias = torch.zeros(1, 64, device=cuda)
+    other = torch.cuda.device_count() - 1
+    with torch.cuda.device(other):
+        got = mha(q, k, v, bias)
+    assert got.device == q.device
+    np.testing.assert_allclose(got.cpu().numpy(), mha_plain(q, k, v, bias).cpu().numpy(),
+                               atol=1e-5)
+
+
+def test_nccl_world_of_one_runs_the_dry_run(cuda):
+    from packppi_torch.parallel.dryrun import dryrun_multichip
+
+    report = dryrun_multichip(1, "cuda")
+    assert len(report["lines"]) == 3 and report["launches"][0]["message"] > 0
+
+
+def test_ranks_sharing_the_card_run_the_dry_run(cuda):
+    """Four ranks (2 x 2) on one card over gloo: every stage, every rank
+    through the kernels."""
+    from packppi_torch.parallel.dryrun import dryrun_multichip
+
+    report = dryrun_multichip(4, "cuda", share_device=True)
+    assert len(report["lines"]) == 8
+    assert all(r["message"] > 0 and r["attention"] > 0 for r in report["launches"])
+
+
+def test_more_ranks_than_cards_needs_share_device(cuda):
+    from packppi_torch.parallel.launch import launch
+
+    n = torch.cuda.device_count() + 1
+    with pytest.raises(RuntimeError, match="share_device=True"):
+        launch(print, n, "cuda")

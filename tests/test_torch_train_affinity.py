@@ -344,8 +344,9 @@ def test_dropped_model_keys_are_named():
 
 def test_card_shapes_are_refused_before_any_data_is_read(tmp_path, monkeypatch):
     """A width the kernels are not built for is refused for a CUDA device
-    (before the trainer reads its data) and accepted on the CPU; several
-    devices are refused."""
+    (before the trainer reads its data) and accepted on the CPU; so is a
+    device count the mesh cannot split (several devices train:
+    tests/test_torch_multidevice.py)."""
     from packppi_torch.models import NetworkConfig
     from packppi_torch.train import loop
 
@@ -362,13 +363,16 @@ def test_card_shapes_are_refused_before_any_data_is_read(tmp_path, monkeypatch):
     import packppi_torch.data.skempi as skempi
     import packppi_torch.device as device_mod
 
-    monkeypatch.setattr(device_mod, "resolve_device", lambda d: torch.device("cuda"))
     read = []
     monkeypatch.setattr(skempi, "load_skempi_entries", lambda *a, **k: read.append(a))
+    with pytest.raises(ValueError, match="not divisible by model_parallel=2"):
+        loop.train_affinity(load_config(CONFIG, _overrides(
+            tmp_path, tmp_path / "out", "trainer.n_devices=3", "trainer.model_parallel=2")),
+            device="cpu")
+    assert read == []
+    monkeypatch.setattr(device_mod, "resolve_device", lambda d: torch.device("cuda"))
     ov = _overrides(tmp_path, tmp_path / "out", "model.hidden_dim=64",
                     "model.node_features=64", "model.edge_features=64")
     with pytest.raises(ValueError, match="hidden_dim=64"):
         loop.train_affinity(load_config(CONFIG, ov), device="cuda")
     assert read == []
-    with pytest.raises(NotImplementedError, match="one device"):
-        loop.train_affinity(load_config(CONFIG, ov + ["trainer.n_devices=2"]), device="cpu")

@@ -199,8 +199,12 @@ def _train_cfg(corpus, out, *extra):
 
 
 def test_more_than_one_device_is_refused(corpus, tmp_path):
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        train_diffusion(_train_cfg(corpus, tmp_path, "trainer.n_devices=4"), device="cpu")
+    """Several ranks train (tests/test_torch_multidevice.py); what is refused
+    is a device count the mesh cannot split, before anything is written."""
+    with pytest.raises(ValueError, match="not divisible by model_parallel=2"):
+        train_diffusion(_train_cfg(corpus, tmp_path, "trainer.n_devices=3",
+                                   "trainer.model_parallel=2"), device="cpu")
+    assert not (tmp_path / "split.json").exists()
 
 
 def test_two_epoch_training_resumes_and_its_checkpoint_packs(corpus, tmp_path):
