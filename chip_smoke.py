@@ -267,15 +267,16 @@ def phase_build():
     # feature-message and whole-layer sources (rows 3 and 6)
     act_builds = [_build.lib_name(s, a) for a in _build.ACTS[1:] for s in ("message", "chain")]
     act_builds += [_build.lib_name("message_feat", "gelu"), _build.lib_name("layer", "gelu")]
+    wide = width_builds()
     t0 = time.perf_counter()
-    _build.build_all([*SOURCES, *act_builds])
-    log(f"build: {time.perf_counter() - t0:.3f} s (nvcc, sm_90a, {len(SOURCES)} sources and "
-        f"{len(act_builds)} activation libraries in parallel)")
-    for name in [*SOURCES, *act_builds]:
+    _build.build_all([*SOURCES, *act_builds, *wide])
+    log(f"build: {time.perf_counter() - t0:.3f} s (nvcc, sm_90a, {len(SOURCES)} sources, "
+        f"{len(act_builds)} activation libraries and {len(wide)} width libraries in parallel)")
+    for name in [*SOURCES, *act_builds, *wide]:
         for line in _build.build_log(name).splitlines():
             # every ptxas line (entry, registers, shared memory, spills) of the
             # tensor-core kernels; registers and spills of the others
-            if ("registers" in line or "spill" in line
+            if ("registers" in line or "spill" in line or "Performance Loss" in line
                     or (name in TENSOR_CORE_SOURCES and "ptxas" in line)):
                 log(f"  {name}: {line.strip()}")
 
@@ -360,11 +361,11 @@ def readings(got, want):
     return d.max().item(), d.mean().item(), want.float().abs().max().item()
 
 
-def check_close(name, got, want, dtype):
+def check_close(name, got, want, dtype, mean_rel=BF16_MEAN_REL):
     dmax, dmean, scale = readings(got, want)
     ok = bool(got.float().isfinite().all()) and (
         dmax <= F32_TOL if dtype == "float32"
-        else dmax <= BF16_MAX_REL * scale and dmean <= BF16_MEAN_REL * scale)
+        else dmax <= BF16_MAX_REL * scale and dmean <= mean_rel * scale)
     rel = f"  (/max|ref|: {dmax / scale:.3e}, {dmean / scale:.3e})" if dtype != "float32" else ""
     log(f"  {name}: max|d| {dmax:.6g}  mean|d| {dmean:.6g}  max|ref| {scale:.6g}{rel}  "
         f"{'ok' if ok else 'OUT OF TOLERANCE'}")
@@ -380,7 +381,7 @@ def upcast(ops):
                  and t.element_size() == 2 else t for t in ops)
 
 
-def check_controls(name, got, want, unrounded, rows):
+def check_controls(name, got, want, unrounded, rows, mean_rel=BF16_MEAN_REL):
     """Two wrong answers the bf16 tolerance must reject: the plain version
     without its rounding points (mean limit), and the kernel's output with
     the first ``rows`` rows zeroed, as if a block were dropped (max limit)."""
@@ -389,9 +390,9 @@ def check_controls(name, got, want, unrounded, rows):
     dropped[:rows] = 0
     dmax, _, _ = readings(dropped, want.reshape(dropped.shape))
     log(f"    controls: unrounded mean|d|/max|ref| {cmean / scale:.3e} "
-        f"(limit {BF16_MEAN_REL:.3e}); dropped block max|d|/max|ref| {dmax / scale:.3e} "
+        f"(limit {mean_rel:.3e}); dropped block max|d|/max|ref| {dmax / scale:.3e} "
         f"(limit {BF16_MAX_REL:.3e})")
-    if cmean <= 4 * BF16_MEAN_REL * scale or dmax <= BF16_MAX_REL * scale:
+    if cmean <= 4 * mean_rel * scale or dmax <= BF16_MAX_REL * scale:
         fail(f"{name}: the bf16 tolerance does not reject its controls")
 
 
@@ -2165,7 +2166,7 @@ def variant_cases(static, h_V, layer, frames, mask_V, act="relu"):
     for variant, pool, mlp, pts in (("node", True, layer.node_message_fn, layer.points_fn_node),
                                     ("edge", False, layer.edge_message_fn, layer.points_fn_edge)):
         args = (h_V, static.h_E, static.idx, layer._points(pts, h_V), frames, static.mask_attend)
-        first = ROWS_PER_BLOCK // K if pool else ROWS_PER_BLOCK
+        first = max(ROWS_PER_BLOCK // K, 1) if pool else ROWS_PER_BLOCK
         bind = lambda f, pool=pool: (lambda *o: f(*o, pool, act))
         with_act = lambda f: functools.partial(f, act=act)
         cases.append(("message_geom", variant, bind(message_geom), bind(message_geom_plain),
@@ -2191,15 +2192,15 @@ def variant_cases(static, h_V, layer, frames, mask_V, act="relu"):
     return cases
 
 
-def check_variant(torch, name, fn, plain, ops, first, dtype_name):
+def check_variant(torch, name, fn, plain, ops, first, dtype_name, mean_rel=BF16_MEAN_REL):
     """One new kernel against its plain version (and, in bf16, the two
     controls); returns (output, max |d|)."""
     got = fn(*ops)
     torch.cuda.synchronize()
     want = plain(*ops)
-    err = check_close(f"{name} {tuple(got.shape)}", got, want, dtype_name)
+    err = check_close(f"{name} {tuple(got.shape)}", got, want, dtype_name, mean_rel)
     if dtype_name == "bfloat16":
-        check_controls(name, got, want, plain(*upcast(ops)).to(got.dtype), first)
+        check_controls(name, got, want, plain(*upcast(ops)).to(got.dtype), first, mean_rel)
     return got, err
 
 
@@ -2331,10 +2332,11 @@ def phase_variant_kernels(torch, timer):
 
 # the kernels of the variant routings whose products the SASS must show on
 # tensor cores: HGMMA (wgmma) in bf16, HMMA (mma.sync) in float32; the
-# gathered-operand message kernel (row 4) has a POOL instantiation of each
+# gathered-operand message kernel (row 4) has a POOL instantiation of each,
+# and every one a K <= 64 and a K > 64 (SPAN, its last flag) instantiation
 SASS_KERNELS = {"message": ("message_chain_kernel", "message_geom_kernel"),
                 "layer": ("layer_node_kernel", "layer_edge_kernel")}
-SASS_INSTANCES = 10
+SASS_INSTANCES = 20
 
 
 def phase_sass():
@@ -2353,14 +2355,16 @@ def phase_sass():
     for source, names in SASS_KERNELS.items():
         for fn, c in counts(paths[source]).items():
             for name in names:
-                m = re.search(rf"{name}I(13__nv_bfloat16|f)(E|Lb([01])E)", fn)
+                m = re.search(rf"{name}I(13__nv_bfloat16|f)((?:Lb[01]E)+)E", fn)
                 if not m:
                     continue
                 seen += 1
                 dtype = "float32" if m.group(1) == "f" else "bfloat16"
-                pool = {"0": " edge", "1": " pool"}.get(m.group(3), "")
+                flags = re.findall(r"Lb([01])E", m.group(2))
+                pool = {"0": " edge", "1": " pool"}[flags[0]] if len(flags) == 2 else ""
+                span = " K>64" if flags[-1] == "1" else ""
                 unit = "HMMA" if dtype == "float32" else "HGMMA"
-                log(f"  sass {name} {dtype}{pool}: HGMMA {c['HGMMA']}, HMMA {c['HMMA']}, "
+                log(f"  sass {name} {dtype}{pool}{span}: HGMMA {c['HGMMA']}, HMMA {c['HMMA']}, "
                     f"FFMA {c['FFMA']}")
                 if c[unit] == 0:
                     fail(f"{name} {dtype} has no {unit}: its products are not on tensor cores")
@@ -2932,6 +2936,352 @@ def phase_serve(torch):
 # the vanilla MPNN (use_ipmp=False), and the native host library
 STATIC_TOL_RAD = 0.01          # the JAX package's bound for a narrower edge cache
 VANILLA_SEED = 7
+
+
+# (H, He, P, K) of phase_widths: hidden_dim, edge_features, n_points and
+# top_k each away from 128 / 128 / 8 / 32 in some entry, He != H in two, K
+# past the 64-row tile in one. The two edge passes that add the message to
+# h_E (message_chain, layer_edge) need He = H: where He != H they run at
+# (H, H, P, K).
+WIDTH_GRID = ((64, 64, 4, 16), (256, 256, 8, 32), (128, 64, 16, 48), (128, 128, 8, 96),
+              (96, 160, 3, 24))
+WIDE = dict(hidden_dim=256, node_features=256, edge_features=256)   # the wide pack
+WIDE_TRAIN = dict(WIDE, n_points=4)                                  # the wide training step
+WIDE_K = 96                                                          # the dense-graph pack
+WIDTH_SEED = 3
+# phase_widths' bf16 mean limit, relative to max|ref|. Rounding flips grow
+# with the width: two sound versions of the node pass (the plain one summing
+# in float32 and in float64, at the same rounding points) differ by up to
+# about 2e-5 of max|ref| at H = 256 on these random networks, past
+# BF16_MEAN_REL (phase_widths logs that floor beside every bf16 reading).
+# 2^-15 lies above it, and 4x 2^-15 under the plain versions without their
+# rounding points (2.3e-4 to 6.5e-4 here), so the controls still fail it.
+WIDTH_BF16_MEAN_REL = 2.0 ** -15
+
+
+def width_builds():
+    """The libraries phase_widths and the wide packs and step launch."""
+    from packppi_torch.ops import _build
+
+    names = []
+    for H, He, P, _ in WIDTH_GRID:
+        names += [_build.lib_name(source, "relu", H, He, P)
+                  for source in ("message", "message_feat", "layer")]
+        # the edge passes on h_E at He = H
+        names += [_build.lib_name(source, "relu", H, H, P) for source in ("message", "layer")]
+        names.append(_build.lib_name("chain", "relu", H))
+    names.append(_build.lib_name("message_feat", "relu", 256, 256, WIDE_TRAIN["n_points"]))
+    return list(dict.fromkeys(n for n in names if "@" in n))
+
+
+def width_config(H, He, P, K):
+    return dict(hidden_dim=H, node_features=H, edge_features=He, n_points=P, top_k=K)
+
+
+def width_network(torch, dtype_name, seed, **cfg):
+    """A score network of ``cfg`` in ``dtype_name`` on the card, with random
+    weights from ``seed``: init_weights' Xavier kernels, and its zero biases
+    and unit LayerNorm scales each moved by 0.1 of a unit normal (so that a
+    bias or a scale that a kernel misplaced shows)."""
+    from packppi_torch.models import ChiScoreNetwork, NetworkConfig
+    from packppi_torch.weights import init_weights
+
+    net = ChiScoreNetwork(NetworkConfig(compute_dtype=dtype_name, **cfg)).eval()
+    init_weights(net, seed)
+    g = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for p in net.parameters():
+            if p.ndim == 1:
+                p.add_(0.1 * torch.randn(p.shape, generator=g))
+    return net.to("cuda")
+
+
+def width_cases(torch, static, h_V, layer, frames, mask_V, edge_chains):
+    """variant_cases' five kernels (the edge-chain passes only with
+    ``edge_chains``) and the message (lanes), feature-message and chain
+    kernels on layer 0: (kernel, variant, fn, plain, operands, rows of a
+    first block, message rows, chain rows)."""
+    from packppi_torch.models.ipmp import chain_operands
+    from packppi_torch.ops.chain import chain, chain_plain
+    from packppi_torch.ops.message import message, message_plain
+    from packppi_torch.ops.message_feat import message_feat, message_feat_plain
+
+    K = static.idx.shape[-1]
+    erows, nrows = static.idx.numel(), h_V.shape[0] * h_V.shape[1]
+    cases = [c for c in variant_cases(static, h_V, layer, frames, mask_V)
+             if edge_chains or c[0] not in ("message_chain", "layer_edge")]
+    for variant, pool, mlp, pts in (("node", True, layer.node_message_fn, layer.points_fn_node),
+                                    ("edge", False, layer.edge_message_fn, layer.points_fn_edge)):
+        args = (h_V, static.h_E, static.idx, layer._points(pts, h_V), frames, static.mask_attend)
+        first = max(ROWS_PER_BLOCK // K, 1) if pool else ROWS_PER_BLOCK
+        bind = lambda f, pool=pool: (lambda *o: f(*o, pool))
+        cases.append(("message", variant, bind(message), bind(message_plain),
+                      mlp.operands(*args), first, erows, 0))
+        feat = mlp.feat_operands(*args)
+        cases.append(("message_feat", variant, bind(message_feat), bind(message_feat_plain),
+                      feat, first, erows, 0))
+        msg = message_feat_plain(*feat, pool)
+        if pool:
+            cops = chain_operands(h_V, msg, mask_V, layer.norm[0], layer.node_dense,
+                                  layer.norm[1])
+        elif edge_chains:
+            cops = chain_operands(static.h_E, msg, static.mask_attend, layer.norm[2],
+                                  layer.edge_dense, layer.norm[3])
+        else:
+            continue
+        cases.append(("chain", variant, (lambda *o, p=pool: chain(*o, not p)),
+                      (lambda *o, p=pool: chain_plain(*o, not p)), cops, ROWS_PER_BLOCK, 0,
+                      cops[0].shape[0]))
+    return cases
+
+
+class float64_sums:
+    """The plain versions' products summed in float64 for a ``with`` block
+    (the same operands, rounded at the same points): a second sound version
+    whose distance from the first is the width's rounding-flip floor."""
+
+    MODULES = ("packppi_torch.ops.chain", "packppi_torch.ops.message_feat")
+
+    def __enter__(self):
+        import importlib
+
+        from packppi_torch.ops.precision import round_to
+
+        def mm(x, w, cd):
+            return (round_to(x.float(), cd).double() @ round_to(w.float(), cd).double()).float()
+
+        self.mods = [importlib.import_module(m) for m in self.MODULES]
+        self.prev = [m.matmul_f32acc for m in self.mods]
+        for m in self.mods:
+            m.matmul_f32acc = mm
+
+    def __exit__(self, *exc):
+        for m, f in zip(self.mods, self.prev):
+            m.matmul_f32acc = f
+
+
+def width_ops(H, He, P, erows, crows):
+    """Operations of message rows and chain rows at (H, He, P)."""
+    return 2 * (He + 9 * P + 2 * H) * H * erows + 16 * H * H * crows
+
+
+def phase_widths(torch, timer):
+    """Every templated kernel route at each width of WIDTH_GRID, float32 and
+    bf16 (with the two controls), on T1124's graph (L = 768) and a network
+    of those widths with random weights from a seed: against its plain
+    version, timed beside it and its bound; in float32 the gradients of the
+    two differentiable passes against autograd through the plain versions;
+    at K = 96 the node pass bit for bit at 1, 2 and 16 nodes a block.
+    Returns {(kernel, dtype, variant, H, He, P, K): record}."""
+    import numpy as np
+
+    from packppi_torch.ops.chain import chain, chain_plain
+    from packppi_torch.ops.layer import layer_node
+    from packppi_torch.ops.message_feat import message_feat, message_feat_plain
+
+    t_phase = time.perf_counter()
+    batch = t1124_batch("cuda")
+    rng = np.random.default_rng(0)
+    records = {}
+    for H, He, P, K in WIDTH_GRID:
+        for dtype_name in ("float32", "bfloat16"):
+            nets = [(True, width_network(torch, dtype_name, WIDTH_SEED,
+                                         **width_config(H, He, P, K)))]
+            if He != H:
+                nets = [(False, nets[0][1]),
+                        (True, width_network(torch, dtype_name, WIDTH_SEED,
+                                             **width_config(H, H, P, K)))]
+            for edge_chains, net in nets:
+                with torch.no_grad():
+                    static, h_V, layer, frames = layer0_state(torch, net, batch)
+                    cases = width_cases(torch, static, h_V, layer, frames, batch.residue_mask,
+                                        edge_chains)
+                he = static.h_E.shape[-1]
+                for name, variant, fn, plain, ops, first, erows, crows in cases:
+                    # the companion network at He = H runs the passes on h_E alone
+                    on_h_E = name in ("message_chain", "layer_edge") or (name, variant) == (
+                        "chain", "edge")
+                    if he != He and not on_h_E:
+                        continue
+                    label = f"{name} {variant} {dtype_name} H={H} He={he} P={P} K={K}"
+                    with torch.no_grad():
+                        got, err = check_variant(torch, label, fn, plain, ops, first, dtype_name,
+                                                 WIDTH_BF16_MEAN_REL)
+                        if dtype_name == "bfloat16":
+                            with float64_sums():
+                                floor = plain(*ops)
+                            _, fmean, scale = readings(floor, plain(*ops))
+                            log(f"    floor: the plain version with float64 sums, mean|d|/"
+                                f"max|ref| {fmean / scale:.3e}")
+                        nb = sum(_nbytes(t) for t in ops) + _nbytes(got)
+                        no = width_ops(H, he, P, erows, crows)
+                        records[(name, dtype_name, variant, H, he, P, K)] = dict(
+                            max_abs_err=err, ms=timer(lambda: fn(*ops)),
+                            plain_ms=timer(lambda: plain(*ops), 3),
+                            bound=bound_ms(nb, no, dtype_name), bytes=nb, operations=no)
+                    if name == "layer_node" and K > ROWS_PER_BLOCK and dtype_name == "bfloat16":
+                        with torch.no_grad():
+                            for npb in (1, 16):
+                                same = torch.equal(layer_node(*ops, nodes_per_block=npb), got)
+                                log(f"    {label}: {npb} nodes a block bit for bit: {same}")
+                                if not same:
+                                    fail("layer_node's result depends on its blocking")
+                    if dtype_name == "float32" and name in ("message_feat", "chain"):
+                        pool = variant == "node"
+                        skip = 4 if name == "message_feat" else 2          # the mask
+                        tagged = [(t, i != skip and t is not None) for i, t in enumerate(ops)]
+                        cot = torch.as_tensor(rng.uniform(0.5, 1.5, tuple(got.shape)).astype(
+                            np.float32), device="cuda")
+                        if name == "message_feat":
+                            kf = lambda *a, p=pool: message_feat(*a, p)
+                            pf = lambda *a, p=pool: message_feat_plain(*a, p)
+                        else:
+                            kf = lambda *a, p=pool: chain(*a, not p)
+                            pf = lambda *a, p=pool: chain_plain(*a, not p)
+                        names = [f"operand {i}" for i, (_, g) in enumerate(tagged) if g]
+                        check_grads(torch, f"{label} gradients", names,
+                                    grads_of(torch, kf, tagged, cot),
+                                    grads_of(torch, pf, tagged, cot))
+                del static, h_V, layer, cases
+    for (k, d, v, H, He, P, K), r in records.items():
+        log(f"  time {k} {v} {d} H={H} He={He} P={P} K={K} T1124: kernel {r['ms']:.4f} ms  "
+            f"plain {r['plain_ms']:.4f} ms  bound {r['bound'][0]:.4f} ms ({r['bound'][1]}; "
+            f"{rate_line(r)})")
+    log(f"phase widths: {time.perf_counter() - t_phase:.1f} s, {len(records)} kernel checks")
+    return records
+
+
+def wide_checkpoint(torch, cfg, seed):
+    """A state dict of a score network of ``cfg`` with random weights from
+    ``seed`` (width_network's), written to smoke_out for cli.pack."""
+    path = OUT / f"wide_{seed}_{'_'.join(f'{v}' for v in cfg.values())}.pt"
+    OUT.mkdir(exist_ok=True)
+    net = width_network(torch, "float32", seed, **cfg)
+    torch.save({k: v.cpu() for k, v in net.state_dict().items()}, path)
+    return path
+
+
+def evaluation_routes(torch, what, weights, batch, cfg):
+    """One T1124 network evaluation per dtype through the kernels and on the
+    unfused route, same weights and inputs, within phase_pack_unfused's
+    limits (float32 1e-3, bf16 6e-2)."""
+    from packppi_torch.models import ChiScoreNetwork, NetworkConfig
+    from packppi_torch.weights import load_weights
+
+    for dtype_name, tol in (("float32", 1e-3), ("bfloat16", UNFUSED_BF16_TOL)):
+        out = {}
+        for route, extra in (("kernels", {}), ("unfused", dict(fused_messages=False,
+                                                               fused_chain=False))):
+            net = ChiScoreNetwork(NetworkConfig(compute_dtype=dtype_name, **cfg, **extra)).eval()
+            load_weights(net, weights)
+            net.to("cuda")
+            g = torch.Generator().manual_seed(0)
+            sc = batch.SC_D + torch.randn(batch.SC_D.shape, generator=g).to("cuda")
+            t = torch.full(batch.residue_mask.shape, 0.5, device="cuda")
+            zero_launches()
+            with torch.no_grad():
+                out[route] = net(batch, sc, t, static=net.encode_static(batch),
+                                 skip_last_edge_update=True)
+            got = read_launches()
+            want = 5 if route == "kernels" else 0
+            if got != expect_launches(message=want, chain=want):
+                fail(f"{what} {dtype_name} evaluation, {route} route: launches {got}")
+        ds, dh = ((out["kernels"][i] - out["unfused"][i]).abs().max().item() for i in (0, 1))
+        log(f"  {what} {dtype_name} evaluation, kernel vs unfused route: score {ds:.3e}, h_V "
+            f"{dh:.3e} (bound {tol:g})")
+        if not (ds <= tol and dh <= tol):
+            fail(f"{what}: the kernel route disagrees with the unfused route in {dtype_name}")
+
+
+def phase_width_packs(torch):
+    """T1124 through ``cli.pack`` (bf16, 30 steps, --use_proximal, the
+    metric suite) at hidden_dim = node_features = edge_features = 256 on
+    random weights from a seed (a checkpoint whose widths cli.pack reads),
+    and at the default widths with ``--top_k 96``: 150 message and 150
+    chain launches each, 51 and 50 clash; one network evaluation of each
+    against the unfused route (phase_pack_unfused's limits); the chis of an
+    unfused 30-step sample beside the kernels' (reported). Returns the
+    wide pack's launches."""
+    from packppi_torch.cli import pack
+
+    t_phase = time.perf_counter()
+    batch = t1124_batch("cuda")
+    mask = batch.SC_D_mask.cpu().numpy() > 0
+    result = None
+    for what, ckpt, extra, cfg in (
+            ("H=He=256", wide_checkpoint(torch, WIDE, WIDTH_SEED), [], WIDE),
+            (f"top_k={WIDE_K}", PIPELINE_GOLDEN, ["--top_k", str(WIDE_K)], dict(top_k=WIDE_K))):
+        outdir = OUT / f"pack_wide_{what.replace('=', '').replace(' ', '')}"
+        args = pack.build_parser().parse_args([
+            "--input", str(T1124), "--ckpt", str(ckpt), "--precision", "bfloat16",
+            "--n_steps", str(STEPS), "--seed", "0", "--use_proximal", "--outdir", str(outdir),
+            *extra])
+        torch.cuda.synchronize()
+        zero_launches()
+        t0 = time.perf_counter()
+        metrics = pack.run(args)
+        wall = time.perf_counter() - t0
+        got = read_launches()
+        log(f"pack T1124 bf16 {STEPS} steps --use_proximal at {what}: sampling "
+            f"{metrics['sampling_seconds']:.4f} s, whole run {wall:.3f} s, launches {got}")
+        want = expect_launches(message=5 * STEPS, chain=5 * STEPS, clash_fwd=PROX_STEPS + 1,
+                               clash_bwd=PROX_STEPS)
+        if got != want:
+            fail(f"the pack at {what}: launches {got}, expected {want}")
+        check_structure(outdir)
+        check_metric_suite(metrics, outdir, True)
+        result = result or got
+        evaluation_routes(torch, f"T1124 at {what}", ckpt, batch, cfg)
+        kern = option_model(torch, "bfloat16", ckpt, **cfg)
+        unf = option_model(torch, "bfloat16", ckpt, fused_messages=False, fused_chain=False, **cfg)
+        sc, got, _ = sample_counted(torch, kern, batch)
+        sc_u, _, _ = sample_counted(torch, unf, batch)
+        gmax, g99 = chi_gap(sc, sc_u, mask)
+        log(f"  {STEPS}-step samples at {what}, kernels vs unfused route: chis max {gmax:.4e} "
+            f"rad, 99th percentile {g99:.4e} rad; finite {bool(sc.isfinite().all())}")
+        if not bool(sc.isfinite().all()):
+            fail(f"the sample at {what} is not finite")
+    log(f"phase width packs: {time.perf_counter() - t_phase:.1f} s")
+    return result
+
+
+def phase_width_train(torch):
+    """One float32 training step's loss and parameter gradients at B = 4 x
+    L = 1,024 with the training knobs at hidden_dim = edge_features = 256,
+    n_points = 4, against the same step on the unfused route (same weights
+    and draws; phase_loss_grads' limits): 5 feature-message and 5 chain
+    launches."""
+    t_phase = time.perf_counter()
+    batch = t1124_train_batch("cuda")
+    g = torch.Generator(device="cuda").manual_seed(11)
+    draws = dict(t=torch.rand(TRAIN_B, generator=g, device="cuda"),
+                 noise_pi=torch.randn(batch.SC_D.shape, generator=g, device="cuda"),
+                 noise_2pi=torch.randn(batch.SC_D.shape, generator=g, device="cuda"))
+    results = {}
+    for name, cfg in (("kernels", TRAIN_KNOBS), ("unfused", dict(dropout=0.0))):
+        state = new_train_state(torch, 5, "cuda", **WIDE_TRAIN, **cfg)
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = state.model.loss(batch, None, **draws)
+        loss.backward()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        want = 5 if name == "kernels" else 0
+        if (launches["message_feat"], launches["chain"], launches["message"]) != (want, want, 0):
+            fail(f"wide training step ({name}): launches {launches}")
+        results[name] = (loss.item(), param_grads(state.model.net))
+        log(f"  loss B={TRAIN_B} L={TRAIN_L} float32 at {WIDE_TRAIN}, {name}: "
+            f"{loss.item():.7f} ({wall:.3f} s with its backward); launches message_feat "
+            f"{launches['message_feat']}, chain {launches['chain']}")
+        del state
+    d = abs(results["kernels"][0] - results["unfused"][0])
+    if not d <= 1e-5:
+        fail(f"wide training step: loss of kernels vs unfused differs by {d:.3e} (limit 1e-5)")
+    compare_param_grads(f"wide training step gradients, kernels vs unfused (loss |d| {d:.3e})",
+                        results["kernels"][1], results["unfused"][1], GRAD_REL_TOL)
+    log(f"phase width train: {time.perf_counter() - t_phase:.1f} s")
 
 
 def phase_activations(torch, timer):
@@ -3741,44 +4091,57 @@ def main():
     import packppi_torch  # noqa: F401  (fails outside a checkout)
 
     t_start = time.perf_counter()
-    phase_versions(torch)
-    phase_build()
+    seconds = {}
+
+    def run(phase, *args):
+        """One phase, its seconds kept for the summary line."""
+        t0 = time.perf_counter()
+        out = phase(*args)
+        seconds[phase.__name__] = round(time.perf_counter() - t0, 1)
+        return out
+
+    run(phase_versions, torch)
+    run(phase_build)
     timer = Timer(torch)
-    records = phase_kernels(torch, timer)
-    records.update(phase_message_feat(torch, timer))
-    records.update(phase_variant_kernels(torch, timer))
-    act_times = phase_activations(torch, timer)
-    phase_sass()
-    phase_function_grads(torch)
-    clash_records = phase_clash_kernels(torch, timer)
-    attention_records = phase_attention(torch, timer)
-    phase_golden(torch)
-    phase_golden_variants(torch)
-    phase_prox_golden(torch)
-    phase_network_vs_cpu(torch)
-    launches = phase_pack(torch)
-    directory_launches = phase_directory(torch)
-    variant_launches = phase_pack_variants(torch)
-    sc = phase_latency(torch)
-    phase_profile(torch, sc)
-    phase_loss_grads(torch)
-    train_launches = phase_train(torch)
-    phase_trainer(torch)
-    phase_gelu_path(torch)
-    phase_static_edge_dtype(torch)
-    phase_vanilla(torch)
-    phase_native()
-    phase_shipped_checkpoint(torch)
-    cpu_esm = phase_esm(torch)
-    attention_launches, esm_weights = phase_ddg_esm(torch, cpu_esm)
+    records = run(phase_kernels, torch, timer)
+    records.update(run(phase_message_feat, torch, timer))
+    records.update(run(phase_variant_kernels, torch, timer))
+    act_times = run(phase_activations, torch, timer)
+    width_records = run(phase_widths, torch, timer)
+    run(phase_sass)
+    run(phase_function_grads, torch)
+    clash_records = run(phase_clash_kernels, torch, timer)
+    attention_records = run(phase_attention, torch, timer)
+    run(phase_golden, torch)
+    run(phase_golden_variants, torch)
+    run(phase_prox_golden, torch)
+    run(phase_network_vs_cpu, torch)
+    launches = run(phase_pack, torch)
+    run(phase_width_packs, torch)
+    run(phase_width_train, torch)
+    directory_launches = run(phase_directory, torch)
+    variant_launches = run(phase_pack_variants, torch)
+    sc = run(phase_latency, torch)
+    run(phase_profile, torch, sc)
+    run(phase_loss_grads, torch)
+    train_launches = run(phase_train, torch)
+    run(phase_trainer, torch)
+    run(phase_gelu_path, torch)
+    run(phase_static_edge_dtype, torch)
+    run(phase_vanilla, torch)
+    run(phase_native)
+    run(phase_shipped_checkpoint, torch)
+    cpu_esm = run(phase_esm, torch)
+    attention_launches, esm_weights = run(phase_ddg_esm, torch, cpu_esm)
     del cpu_esm
-    phase_ddg_eval(torch)
-    phase_pack_unfused(torch)
-    affinity_launches = phase_train_affinity(torch)
-    affinity_launches["attention"] = phase_train_affinity_esm(torch, esm_weights)
-    multidevice_launches = phase_multidevice(torch, esm_weights)
+    run(phase_ddg_eval, torch)
+    run(phase_pack_unfused, torch)
+    affinity_launches = run(phase_train_affinity, torch)
+    affinity_launches["attention"] = run(phase_train_affinity_esm, torch, esm_weights)
+    multidevice_launches = run(phase_multidevice, torch, esm_weights)
     esm_weights.unlink()
-    serve_launches = phase_serve(torch)
+    serve_launches = run(phase_serve, torch)
+    log(f"seconds by phase: {json.dumps(seconds)}")
 
     kernels = []
     for name, source, replaces in (
@@ -3833,6 +4196,12 @@ def main():
                                 "node" if name == "layer_node" else "edge"))
         if by_act:
             kernels[-1]["ms_by_activation"] = by_act
+        # the same kernel at the widths of phase_widths (T1124's graph)
+        kernels[-1]["widths"] = [
+            {"H": H, "He": He, "P": P, "K": K, "dtype": d, "variant": v,
+             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+             "bound_ms": r["bound"][0], "bound_by": r["bound"][1]}
+            for (k, d, v, H, He, P, K), r in width_records.items() if k == name]
     log(f"whole script: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card_line())

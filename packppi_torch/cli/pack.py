@@ -53,6 +53,9 @@ def build_parser():
     p.add_argument("--use_proximal", action="store_true",
                    help="refine the sample with the proximal clash optimizer")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--top_k", type=int, default=32,
+                   help="neighbours each residue attends (NetworkConfig.top_k); the network's "
+                        "other widths are the checkpoint's")
     p.add_argument("--no_fused", action="store_true",
                    help="run the network without its kernels: message passes and "
                         "residual chains as plain tensor operations (the JAX "
@@ -94,21 +97,25 @@ def build_parser():
 
 def _model(args, device):
     """The sampler with its weights, on ``device``; a configuration the
-    device cannot run is refused first. Local geometry runs the
-    feature-message kernel (the in-kernel-geometry kernels need global
-    points) and ``--no_fused`` no kernel at all, as the JAX CLI does."""
+    device cannot run is refused first. The network takes the checkpoint's
+    widths (``weights.network_widths``; the defaults without one) and
+    ``--top_k``. Local geometry runs the feature-message kernel (the
+    in-kernel-geometry kernels need global points) and ``--no_fused`` no
+    kernel at all, as the JAX CLI does."""
     from packppi_torch.models import NetworkConfig, TorsionalDiffusion
-    from packppi_torch.weights import init_weights, load_weights
+    from packppi_torch.weights import init_weights, load_weights, network_widths, read_state_dict
 
     fused = not args.no_fused
     local = args.geometry == "local"
+    state = read_state_dict(args.ckpt) if args.ckpt else {}
     cfg = NetworkConfig(compute_dtype=args.precision, geometry_mode=args.geometry,
                         fused_messages=(True if local else "geom_lanes") if fused else False,
-                        fused_chain=fused)
+                        fused_chain=fused, top_k=getattr(args, "top_k", 32),
+                        **network_widths(state))
     cfg.check_device(device)
     model = TorsionalDiffusion(cfg)
     if args.ckpt:
-        load_weights(model.net, args.ckpt)
+        load_weights(model.net, state)
     else:
         print("WARNING: no --ckpt given; sampling with random weights from --seed")
         init_weights(model.net, args.seed)

@@ -1,13 +1,14 @@
 // Post-message residual chain of one IPMP block.
 //
 // Replaces packppi_tpu/ops/pallas_layer.py::_chain_kernel (entry
-// fused_chain). Over flat rows [N, 128] in the stream type T (bf16 or
-// float32, also the compute type of the FFN products):
+// fused_chain). Over flat rows [N, H] in the stream type T (bf16 or
+// float32, also the compute type of the FFN products), H = kH of the build
+// (csrc/tile.cuh):
 //   [m = msg * mask]                       (pre_mask: edge chains)
 //   x0 = rnd(x + rnd(m))                   residual add in T
 //   xx = rnd(LN_a(x0))                     LayerNorm in float32
-//   h  = rnd(act(rnd(xx . W1 + b1)))      W1 [512, 128] Linear layout
-//   h  = rnd(h . W2 + b2)                  W2 [128, 512]
+//   h  = rnd(act(rnd(xx . W1 + b1)))      W1 [4H, H] Linear layout
+//   h  = rnd(h . W2 + b2)                  W2 [H, 4H]
 //   y  = LN_b(xx + h) [* mask], written in T
 // rnd rounds to T at every point the unfused flax chain rounds; LayerNorm is
 // flax's (eps 1e-6, variance mean(x^2) - mean(x)^2 clamped at 0). A block
@@ -16,7 +17,7 @@
 // instruction for instruction: bf16 on wgmma (csrc/chain_wgmma.cuh), float32
 // in 3xTF32 on mma.sync (csrc/chain_mma.cuh).
 //
-// What bounds it: 2 * 2 * 128 * 512 = 262,144 operations per row against
+// What bounds it (H = 128): 2 * 2 * 128 * 512 = 262,144 operations per row against
 // 512-768 bytes of row traffic (bf16) and the weights read once: at T1124's
 // 24,576 edge rows 6.4 GFLOP and 19 MB, bound by operations at the bf16
 // tensor-core rate (0.0065 ms) and about equally by bytes (0.0057 ms); in
@@ -27,10 +28,11 @@
 // by bulk copies through a ring; where there are fewer tiles than SMs (the
 // 768 node rows of T1124: 12 tiles) four warpgroups split a tile's hidden
 // slices, adding their second products in turn so a row's bits do not
-// depend on the launch's size. float32: 64-row tiles where every SM gets a
+// depend on the launch's size (from H = 160 on, with five to eight
+// slices, one warpgroup takes them all). float32: 64-row tiles where every SM gets a
 // block, else 16 rows (which regroups LN_b's row sums: the same values to
 // about 1e-7 of their scale, not the same bits);
-// [128, 32] float32 chunks, each loaded while the one before it is
+// [H, 32] float32 chunks ([H, 16] from H = 224 on), each loaded while the one before it is
 // multiplied, split into TF32 parts once a block.
 
 #include "chain_mma.cuh"
@@ -50,14 +52,14 @@ __device__ __forceinline__ void residual_x0(const T* __restrict__ x, const M* __
   const int warp = threadIdx.x >> 5;
   constexpr int kBatch = R / kWarps < 8 ? R / kWarps : 8;
   for (int rb = warp; rb < R; rb += kWarps * kBatch) {
-    float xv[kBatch][4], mv[kBatch][4], mk[kBatch];
+    float xv[kBatch][kLnQ], mv[kBatch][kLnQ], mk[kBatch];
 #pragma unroll
     for (int b = 0; b < kBatch; ++b) {
       const int64_t g = row0 + rb + kWarps * b;
       const bool in = g < N;
       mk[b] = in && mask ? mask[g] : 1.f;
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
+      for (int q = 0; q < kLnQ; ++q) {
         const int c = lane + 32 * q;
         xv[b][q] = in ? to_f32<T>(x[g * kH + c]) : 0.f;
         mv[b][q] = in ? to_f32<M>(msg[g * kH + c]) : 0.f;
@@ -68,7 +70,7 @@ __device__ __forceinline__ void residual_x0(const T* __restrict__ x, const M* __
       const int r = rb + kWarps * b;
       const bool in = row0 + r < N;
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
+      for (int q = 0; q < kLnQ; ++q) {
         const float m = pre_mask && mask ? rnd<M>(mv[b][q] * mk[b]) : mv[b][q];
         put(r, lane + 32 * q, in ? rnd<T>(xv[b][q] + rnd<T>(m)) : 0.f);
       }
@@ -106,9 +108,9 @@ chain_wgmma_kernel(const __nv_bfloat16* __restrict__ x, const M* __restrict__ ms
 }
 
 // float32 in 3xTF32 on mma.sync: R = 16 or 64 rows a block of 8 warps
-// (at 16 rows, three blocks an SM)
+// (at 16 rows and H <= 128, three blocks an SM)
 template <int R>
-__global__ void __launch_bounds__(kThreads, R == 16 ? 3 : 1)
+__global__ void __launch_bounds__(kThreads, R == 16 && kH <= 128 ? 3 : 1)
 chain_f32_kernel(const float* __restrict__ x, const float* __restrict__ msg,
                  const float* __restrict__ mask, ChainWeights w, float* __restrict__ out, int N,
                  bool pre_mask) {
@@ -117,7 +119,7 @@ chain_f32_kernel(const float* __restrict__ x, const float* __restrict__ msg,
   float* XX = reinterpret_cast<float*>(smem);  // [R][kLdA] xx (product input, residual)
   const int64_t row0 = int64_t(blockIdx.x) * R;
 
-  float4 pre[4];
+  float4 pre[kWPieces];
   fetch_w(pre, w, 0);  // the first weight chunk is in flight while xx is formed
   residual_x0<float, float, R, kThreads / 32>(x, msg, mask, row0, N, pre_mask,
                                               [&](int r, int c, float v) { XX[r * C::kLdA + c] = v; });
@@ -155,18 +157,25 @@ cudaError_t launch_kernel(K kernel, int blocks, int threads, size_t smem, cudaSt
   return cudaGetLastError();
 }
 
+template <typename M, int KS>
+cudaError_t launch_wg(const __nv_bfloat16* x, const M* msg, const float* mask,
+                      const ChainWeights& w, const __nv_bfloat16* wpack, __nv_bfloat16* out, int N,
+                      bool pre_mask, int tiles, cudaStream_t stream) {
+  return launch_kernel(chain_wgmma_kernel<M, KS>, tiles, ChainWg<KS>::kThreads,
+                       ChainWg<KS>::kBytes, stream, x, msg, mask, w, wpack, out, N, pre_mask);
+}
+
 template <typename M>
 cudaError_t launch_bf16(const __nv_bfloat16* x, const M* msg, const float* mask,
                         const ChainWeights& w, const __nv_bfloat16* wpack, __nv_bfloat16* out,
                         int N, bool pre_mask, int sms, cudaStream_t stream) {
   const int tiles = (N + kTileRows - 1) / kTileRows;
   // fewer tiles than SMs (the node passes): four warpgroups a tile, each
-  // taking one of the four hidden slices
-  if (tiles < sms)
-    return launch_kernel(chain_wgmma_kernel<M, 4>, tiles, ChainWg<4>::kThreads,
-                         ChainWg<4>::kBytes, stream, x, msg, mask, w, wpack, out, N, pre_mask);
-  return launch_kernel(chain_wgmma_kernel<M, 1>, tiles, ChainWg<1>::kThreads, ChainWg<1>::kBytes,
-                       stream, x, msg, mask, w, wpack, out, N, pre_mask);
+  // taking one of the four hidden slices (H <= 128)
+  if constexpr (kWgSlices == 4) {
+    if (tiles < sms) return launch_wg<M, 4>(x, msg, mask, w, wpack, out, N, pre_mask, tiles, stream);
+  }
+  return launch_wg<M, 1>(x, msg, mask, w, wpack, out, N, pre_mask, tiles, stream);
 }
 
 cudaError_t launch_f32(const float* x, const float* msg, const float* mask, const ChainWeights& w,
@@ -181,10 +190,10 @@ cudaError_t launch_f32(const float* x, const float* msg, const float* mask, cons
 
 }  // namespace packppi
 
-// C entry point (ctypes). x and out [N,128] in the stream type (bf16 if
-// bf16 != 0, else f32); msg [N,128] in the stream type if msg_bf16 == bf16
-// else f32; mask [N] f32 or null (no masking); LayerNorm weights [128],
-// w1 [512,128], b1 [512], w2 [128,512], b2 [128], all f32; wpack, for bf16
+// C entry point (ctypes). x and out [N,H] in the stream type (bf16 if
+// bf16 != 0, else f32); msg [N,H] in the stream type if msg_bf16 == bf16
+// else f32; mask [N] f32 or null (no masking); LayerNorm weights [H],
+// w1 [4H,H], b1 [4H], w2 [H,4H], b2 [H], all f32; wpack, for bf16
 // only, W1 and W2 as bf16 in the panel layout of csrc/chain_wgmma.cuh
 // (ops/chain.py::pack_chain_weights; the kernel then reads w1 and w2 no
 // more). Returns a cudaError_t.

@@ -6,7 +6,7 @@
 //
 // rnd rounds to the stream type T (the identity for float32); LayerNorm is
 // flax's (eps 1e-6, variance mean(x^2) - mean(x)^2 clamped at 0). A row is
-// held 4 values a lane across one warp (columns lane + 32 q), so every
+// held H / 32 values a lane across one warp (columns lane + 32 q), so every
 // caller (chain.cu, the folded edge pass of message.cu, the whole-layer
 // passes of layer.cu) reduces a row in the same order and gets the same
 // bits from the same x0.
@@ -16,25 +16,26 @@
 
 namespace packppi {
 
-constexpr int kF = 4 * kH;  // FFN hidden width
+constexpr int kF = 4 * kH;     // FFN hidden width
+constexpr int kLnQ = kH / 32;  // values of a row a lane holds
 
 struct ChainWeights {
-  const float* lna_w;  // [128]
+  const float* lna_w;  // [H]
   const float* lna_b;
-  const float* w1;     // [512, 128]
-  const float* b1;     // [512]
-  const float* w2;     // [128, 512]
-  const float* b2;     // [128]
+  const float* w1;     // [4H, H]
+  const float* b1;     // [4H]
+  const float* w2;     // [H, 4H]
+  const float* b2;     // [H]
   const float* lnb_w;
   const float* lnb_b;
 };
 
-// LayerNorm statistics of one row held 4 values a lane across a warp:
+// LayerNorm statistics of one row held kLnQ values a lane across a warp:
 // (mean, 1 / sqrt(var + eps)).
-__device__ __forceinline__ float2 ln_stats(const float (&v)[4]) {
+__device__ __forceinline__ float2 ln_stats(const float (&v)[kLnQ]) {
   float s = 0.f, s2 = 0.f;
 #pragma unroll
-  for (int q = 0; q < 4; ++q) {
+  for (int q = 0; q < kLnQ; ++q) {
     s += v[q];
     s2 += v[q] * v[q];
   }
@@ -52,20 +53,20 @@ template <typename T, int R, int kWarps, typename X0, typename Put>
 __device__ __forceinline__ void ln_a_rows(const ChainWeights& w, int nvalid, X0 x0, Put put) {
   const int lane = threadIdx.x & 31;
   for (int r = threadIdx.x >> 5; r < R; r += kWarps) {
-    float v[4] = {0.f, 0.f, 0.f, 0.f};
+    float v[kLnQ] = {};
     if (r < nvalid) {
-      float x[4];
+      float x[kLnQ];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) x[q] = x0(r, lane + 32 * q);
+      for (int q = 0; q < kLnQ; ++q) x[q] = x0(r, lane + 32 * q);
       const float2 st = ln_stats(x);
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
+      for (int q = 0; q < kLnQ; ++q) {
         const int c = lane + 32 * q;
         v[q] = rnd<T>((x[q] - st.x) * st.y * w.lna_w[c] + w.lna_b[c]);
       }
     }
 #pragma unroll
-    for (int q = 0; q < 4; ++q) put(r, lane + 32 * q, v[q]);
+    for (int q = 0; q < kLnQ; ++q) put(r, lane + 32 * q, v[q]);
   }
 }
 

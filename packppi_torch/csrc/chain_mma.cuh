@@ -1,8 +1,8 @@
 // The residual chain in float32 on tensor cores, over one tile of R rows
 // (R = 16 or 64). From x0 rows in shared memory (chain_mma):
 //   xx = LN_a(x0)                          csrc/chain_common.cuh
-//   h  = act(xx . W1 + b1)                W1 [512, 128] Linear layout
-//   h  = h . W2 + b2                       W2 [128, 512]
+//   h  = act(xx . W1 + b1)                W1 [4H, H] Linear layout
+//   h  = h . W2 + b2                       W2 [H, 4H]
 //   y  = LN_b(xx + h)                      handed to store(row, col, y, y')
 // (in float32 every rounding point of the bf16 chain is the identity; bf16
 // runs on wgmma, csrc/chain_wgmma.cuh). chain.cu, message.cu's
@@ -14,18 +14,20 @@
 //
 // The products run in 3xTF32 on mma.sync m16n8k8 (csrc/mma.cuh), each
 // weight chunk's partial summed from zero and added to the running sum. 8
-// warps; a warp owns a (R / RW) x (128 / CW) block of each [R, 128]
-// product, RW x CW = 8 (2 x 4 at R = 64, 1 x 8 at 16). The hidden is made
-// 128 columns at a time: its [R, 128] slice lives in shared memory, while
-// the second product's [R, 128] sum stays in registers across the four
-// slices.
+// warps; a warp owns a (R / RW) x (8 kNT) block of each [R, H] product, RW
+// x CW = 8 (2 x 4 at R = 64, 1 x 8 at 16), kNT = ceil(H / 8 / CW) n-tiles
+// of 8 columns: where CW does not divide H / 8 (R = 16 at H = 32, 96, 160,
+// 224) the last column warps own fewer tiles, or none. The hidden is made H
+// columns at a time: its [R, H] slice lives in shared memory, while the
+// second product's [R, H] sum stays in registers across the four slices.
 //
-// Weights stream from L2 in [128, 32] float32 chunks (32 chunks a tile: W1
-// then W2 for each slice). Each chunk is loaded into registers while the
-// chunk before it is multiplied, then split into its TF32 hi and lo parts
-// in the other of two shared-memory stages once for all warps, with one
-// barrier a chunk. LN_b's row sums combine the CW warps of a row through
-// `stats`.
+// Weights stream from L2 in [H, kWk] float32 chunks (kWk = 32, 16 from H =
+// 224 on so that two stages fit beside the tiles; 32 chunks a tile at H =
+// 128: W1 then W2 for each slice). Each chunk is loaded into registers
+// while the chunk before it is multiplied, then split into its TF32 hi and
+// lo parts in the other of two shared-memory stages once for all warps,
+// with one barrier a chunk. LN_b's row sums combine the CW warps of a row
+// through `stats`.
 #pragma once
 
 #include "chain_common.cuh"
@@ -33,50 +35,64 @@
 
 namespace packppi {
 
-constexpr int kWk = 32;                          // k of one staged weight chunk
-constexpr int kSlices = kF / kH;                 // hidden slices of 128
-constexpr int kWChunks = 2 * kSlices * (kH / kWk);
+constexpr int kWk = kH <= 192 ? 32 : 16;         // k of one staged weight chunk
+constexpr int kSlices = kF / kH;                 // hidden slices of H
+constexpr int kWChunksSlice = kH / kWk;          // chunks of one product of a slice
+constexpr int kWChunks = 2 * kSlices * kWChunksSlice;
+constexpr int kWRowPieces = kWk / 4;             // float4 pieces of a chunk row
+constexpr int kWAll = kH * kWRowPieces;          // float4 pieces of a chunk
+constexpr int kWPieces = (kWAll + kThreads - 1) / kThreads;  // a thread's
 
 template <int R>
 struct ChainMma {
   static constexpr int kRW = R == 64 ? 2 : 1;                  // warps along rows
   static constexpr int kCW = 8 / kRW;                          // warps along columns
   static constexpr int kMT = R / kRW / 16;                     // m16 tiles a warp
-  static constexpr int kNT = kH / kCW / 8;                     // n8 tiles a warp
+  static constexpr int kNT = (kH / 8 + kCW - 1) / kCW;         // n8 tiles a warp, at most
+  static constexpr bool kRagged = (kH / 8) % kCW != 0;         // some warps own fewer
   static constexpr int kLdA = kH + 4;                          // XX and Hs row (floats)
   static constexpr int kLdW = kWk + 4;                         // staged weight row
   static constexpr size_t kABytes = size_t(R) * kLdA * sizeof(float);
   static constexpr size_t kWBytes = size_t(kH) * kLdW * 8;     // hi + lo
   static constexpr size_t kBytes = 2 * kABytes + 2 * kWBytes + size_t(R) * kCW * sizeof(float2);
-  static_assert(kMT >= 1 && kNT % 2 == 0, "warp tile");
+  static_assert(kMT >= 1 && kNT >= 1, "warp tile");
+  static_assert(kBytes <= 232448, "the chain's tiles and weight stages fit a block");
+  // n-tile nt of the warp whose columns start at wc0 lies inside H
+  __device__ static bool owns(int wc0, int nt) { return !kRagged || wc0 + 8 * nt < kH; }
 };
 
-// Chunk c of a tile is [128, 32] floats: slice hc = c / 8; c % 8 < 4 is W1
-// rows hc * 128 + n, k = (c % 4) * 32 + j; else W2 rows n, k = hc * 128 +
-// (c % 4) * 32 + j (n < 128, j < 32). A thread loads the float4 pieces
-// tid + 256 i, i < 4 (row piece / 8, columns 4 (piece % 8) ...).
-__device__ __forceinline__ void fetch_w(float4 (&v)[4], const ChainWeights& w, int c) {
-  const int hc = c >> 3, kc = c & 3;
-  const bool second = (c >> 2) & 1;
+// Chunk c of a tile is [H, kWk] floats: slice hc = c / (2 kWChunksSlice);
+// the first kWChunksSlice of a slice are W1 rows hc * H + n, k = kc * kWk +
+// j; the others W2 rows n, k = hc * H + kc * kWk + j (kc = c %
+// kWChunksSlice, n < H, j < kWk). A thread loads the float4 pieces tid +
+// 256 i, i < kWPieces (row piece / kWRowPieces, columns 4 (piece %
+// kWRowPieces) ...).
+__device__ __forceinline__ void fetch_w(float4 (&v)[kWPieces], const ChainWeights& w, int c) {
+  const unsigned uc = c;
+  const int hc = uc / (2 * kWChunksSlice), kc = uc % kWChunksSlice;
+  const bool second = (uc / kWChunksSlice) & 1;
   const float* base = second ? w.w2 + hc * kH + kc * kWk : w.w1 + size_t(hc) * kH * kH + kc * kWk;
   const int ld = second ? kF : kH;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int e = threadIdx.x + kThreads * i;
-    v[i] = __ldg(reinterpret_cast<const float4*>(base + size_t(e >> 3) * ld) + (e & 7));
+  for (int i = 0; i < kWPieces; ++i) {
+    const unsigned e = threadIdx.x + kThreads * i;
+    if (kWAll % kThreads == 0 || e < kWAll)
+      v[i] = __ldg(reinterpret_cast<const float4*>(base + size_t(e / kWRowPieces) * ld) +
+                   (e % kWRowPieces));
   }
 }
 
 // the fetched pieces into a stage, split into TF32 hi and lo parts (two
-// [128][kLdW] arrays), once for all warps
+// [H][kLdW] arrays), once for all warps
 template <int R>
-__device__ __forceinline__ void stash_w(const float4 (&v)[4], unsigned char* stage) {
+__device__ __forceinline__ void stash_w(const float4 (&v)[kWPieces], unsigned char* stage) {
   using C = ChainMma<R>;
   uint32_t* hi = reinterpret_cast<uint32_t*>(stage);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int e = threadIdx.x + kThreads * i;
-    const int at = (e >> 3) * C::kLdW + (e & 7) * 4;
+  for (int i = 0; i < kWPieces; ++i) {
+    const unsigned e = threadIdx.x + kThreads * i;
+    if (kWAll % kThreads != 0 && e >= kWAll) continue;
+    const int at = (e / kWRowPieces) * C::kLdW + (e % kWRowPieces) * 4;
     uint4 h, l;
     split_tf32(v[i].x, h.x, l.x);
     split_tf32(v[i].y, h.y, l.y);
@@ -119,6 +135,7 @@ __device__ __forceinline__ void chunk_product(float (&acc)[ChainMma<R>::kMT][Cha
     }
 #pragma unroll
     for (int nt = 0; nt < C::kNT; ++nt) {
+      if (!C::owns(wc0, nt)) continue;
       const int o = (wc0 + nt * 8 + g) * C::kLdW + ks * 8 + t;
 #pragma unroll
       for (int mt = 0; mt < C::kMT; ++mt)
@@ -137,7 +154,8 @@ __device__ __forceinline__ void chunk_product(float (&acc)[ChainMma<R>::kMT][Cha
 // c + 1 in the other stage, barrier.
 template <int R>
 __device__ __forceinline__ void chain_step(float (&acc)[ChainMma<R>::kMT][ChainMma<R>::kNT][4],
-                                           const float* A, int a_col, int c, float4 (&pre)[4],
+                                           const float* A, int a_col, int c,
+                                           float4 (&pre)[kWPieces],
                                            const ChainWeights& w, unsigned char* Wst, int lane,
                                            int wr0, int wc0) {
   using C = ChainMma<R>;
@@ -163,7 +181,7 @@ __device__ __forceinline__ void zero_acc(float (&acc)[ChainMma<R>::kMT][ChainMma
 // (fetch_w), loaded by the caller before it formed xx. store(row, col, y,
 // y1) takes columns col and col + 1 of a row < nvalid.
 template <int R, typename Store>
-__device__ __forceinline__ void chain_ffn_mma(unsigned char* smem, float4 (&pre)[4],
+__device__ __forceinline__ void chain_ffn_mma(unsigned char* smem, float4 (&pre)[kWPieces],
                                               const ChainWeights& w, int nvalid, Store store) {
   using C = ChainMma<R>;
   const int lane = threadIdx.x & 31;
@@ -171,7 +189,7 @@ __device__ __forceinline__ void chain_ffn_mma(unsigned char* smem, float4 (&pre)
   const int g = lane >> 2, t = lane & 3;
   const int wcol = warp % C::kCW;
   const int wr0 = (warp / C::kCW) * (R / C::kRW);
-  const int wc0 = wcol * (kH / C::kCW);
+  const int wc0 = wcol * (8 * C::kNT);
 
   const float* XX = reinterpret_cast<const float*>(smem);         // [R][kLdA]
   float* Hs = reinterpret_cast<float*>(smem + C::kABytes);        // [R][kLdA] one hidden slice
@@ -185,13 +203,14 @@ __device__ __forceinline__ void chain_ffn_mma(unsigned char* smem, float4 (&pre)
   for (int hc = 0; hc < kSlices; ++hc) {
     zero_acc<R>(acc);
 #pragma unroll
-    for (int kc = 0; kc < kH / kWk; ++kc)
-      chain_step<R>(acc, XX, kc * kWk, hc * 8 + kc, pre, w, Wst, lane, wr0, wc0);
-    // hidden columns hc * 128 + col: act(xx . W1 + b1)
+    for (int kc = 0; kc < kWChunksSlice; ++kc)
+      chain_step<R>(acc, XX, kc * kWk, hc * 2 * kWChunksSlice + kc, pre, w, Wst, lane, wr0, wc0);
+    // hidden columns hc * H + col: act(xx . W1 + b1)
 #pragma unroll
     for (int mt = 0; mt < C::kMT; ++mt)
 #pragma unroll
       for (int nt = 0; nt < C::kNT; ++nt) {
+        if (!C::owns(wc0, nt)) continue;
         const int col = wc0 + nt * 8 + 2 * t;
         const float b0 = w.b1[hc * kH + col], b1 = w.b1[hc * kH + col + 1];
 #pragma unroll
@@ -204,8 +223,9 @@ __device__ __forceinline__ void chain_ffn_mma(unsigned char* smem, float4 (&pre)
     __syncthreads();
     // acc2 += h[:, slice] . W2[:, slice]^T
 #pragma unroll
-    for (int kc = 0; kc < kH / kWk; ++kc)
-      chain_step<R>(acc2, Hs, kc * kWk, hc * 8 + 4 + kc, pre, w, Wst, lane, wr0, wc0);
+    for (int kc = 0; kc < kWChunksSlice; ++kc)
+      chain_step<R>(acc2, Hs, kc * kWk, (2 * hc + 1) * kWChunksSlice + kc, pre, w, Wst, lane,
+                    wr0, wc0);
   }
 
   // z = xx + h . W2 + b2 in acc2; LN_b's row sums over the CW warps
@@ -219,6 +239,7 @@ __device__ __forceinline__ void chain_ffn_mma(unsigned char* smem, float4 (&pre)
       for (int nt = 0; nt < C::kNT; ++nt)
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
+          if (!C::owns(wc0, nt)) continue;
           const int col = wc0 + nt * 8 + 2 * t + j;
           float& z = acc2[mt][nt][2 * r + j];
           z = XX[row * C::kLdA + col] + (z + w.b2[col]);
@@ -247,6 +268,7 @@ __device__ __forceinline__ void chain_ffn_mma(unsigned char* smem, float4 (&pre)
       const float rs = rsqrtf(fmaxf(s2 / float(kH) - mean * mean, 0.f) + 1e-6f);
 #pragma unroll
       for (int nt = 0; nt < C::kNT; ++nt) {
+        if (!C::owns(wc0, nt)) continue;
         const int col = wc0 + nt * 8 + 2 * t;
         store(row, col,
               (acc2[mt][nt][2 * r] - mean) * rs * w.lnb_w[col] + w.lnb_b[col],
@@ -261,7 +283,7 @@ __device__ __forceinline__ void chain_ffn_mma(unsigned char* smem, float4 (&pre)
 // its first [R][kLdA] floats, which x0 may occupy (each lane overwrites
 // only the values it read).
 template <int R, typename X0, typename Store>
-__device__ __forceinline__ void chain_mma(unsigned char* smem, float4 (&pre)[4],
+__device__ __forceinline__ void chain_mma(unsigned char* smem, float4 (&pre)[kWPieces],
                                           const ChainWeights& w, int nvalid, X0 x0, Store store) {
   float* XX = reinterpret_cast<float*>(smem);
   __syncthreads();  // x0 is written

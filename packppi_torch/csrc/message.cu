@@ -22,7 +22,8 @@
 // global points from its local planes and frame, as _geom_fused_kernel does.
 //
 // Per edge (i, j = idx[i, k]) of one block of whole nodes (kRows = 64 edge
-// rows: 64 / K nodes of K edges):
+// rows: 64 / K nodes of K edges; from K = 65 on one node a block, its edge
+// rows 64 at a time, pooled across them in order):
 //   geom = [p_i (xyz interleaved, 3P) | |p_i| (P) | R_i^T (pg_j - t_i)
 //           (interleaved, 3P) | |.| (P) | |pg_i - pg_j| (P)]     float32
 //   x = act([h_E | geom] . W_e + b_e + per_i[i] + per_j[j])
@@ -42,6 +43,8 @@
 // csrc/chain_mma.cuh in float32), as chain.cu runs it. The routes differ
 // only in how they fill the body's tile: by index (lanes, gather, chain),
 // or from the gathered streams (geom).
+//
+// H, He and P are the build's (csrc/tile.cuh); K is a launch argument.
 //
 // What bounds it: per edge row 2 * (He + 9P + 2H) * H = 116,736 operations
 // (plus 262,144 for the folded chain) on ~512 bytes of stream traffic
@@ -114,7 +117,7 @@ __device__ __forceinline__ void load_indexed_tile_tc(const MessageTile<T>& s,
     jrow[tid] = valid ? idx[erow0 + tid] : -1;
     s.mrow()[tid] = valid ? mask[erow0 + tid] : 0.f;
   }
-  tile_rows(s, h_E, kH, 0, erow0, rows);
+  tile_rows<T, kHe>(s, h_E, 0, erow0, rows);
   cp_async_commit();
   tile_zero_pad(s);
   __syncthreads();  // jrow
@@ -124,14 +127,14 @@ __device__ __forceinline__ void load_indexed_tile_tc(const MessageTile<T>& s,
     const int64_t j = jrow[r];
     if (j < 0) {
 #pragma unroll
-      for (int q = 0; q < 9; ++q) tile_put(s, r, kH + geom_column(p, q), 0.f);
+      for (int q = 0; q < 9; ++q) tile_put(s, r, kHe + geom_column(p, q), 0.f);
       continue;
     }
     const int64_t i = nrow0 + node0 + r / K;
     const float* pl = p_local + (i * kP + p) * 3;
     const float* pgi = pg + i * 3 * kP;
     const float* pgj = pg + (nrow0 + j) * 3 * kP;
-    edge_features([&](int c, float v) { tile_put(s, r, kH + c, v); }, p, pl[0], pl[1], pl[2],
+    edge_features([&](int c, float v) { tile_put(s, r, kHe + c, v); }, p, pl[0], pl[1], pl[2],
                   rot + i * 9, trans + i * 3, pgi[p], pgi[kP + p], pgi[2 * kP + p], pgj[p],
                   pgj[kP + p], pgj[2 * kP + p]);
   }
@@ -141,7 +144,8 @@ __device__ __forceinline__ void load_indexed_tile_tc(const MessageTile<T>& s,
   tile_publish<T>();
 }
 
-template <typename T, bool POOL, int ROUTE>
+// SPAN (K > kRows): one node a block, its edge rows kRows at a time
+template <typename T, bool POOL, int ROUTE, bool SPAN>
 __global__ void __launch_bounds__(MessageTc<T>::kThreads, MessageTc<T>::kMinBlocks)
 message_kernel(const float* __restrict__ per_i, const T* __restrict__ per_j,
                const T* __restrict__ h_E, const int64_t* __restrict__ idx,
@@ -152,17 +156,28 @@ message_kernel(const float* __restrict__ per_i, const T* __restrict__ per_j,
                const float* __restrict__ b_out, void* __restrict__ out_ptr, int L, int K) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const MessageTile<T> s(smem_raw);
-  const int nb = kRows / K;                  // whole nodes per block
+  const int nb = SPAN ? 1 : kRows / K;       // whole nodes per block
   const int node0 = blockIdx.x * nb;
-  const int rows = min(nb, L - node0) * K;   // valid edge rows of this block
   const int64_t nrow0 = int64_t(blockIdx.y) * L;       // first node row of batch b
   const int64_t erow0 = (nrow0 + node0) * K;           // first global edge row
 
   message_tc_prefetch(s, wpack);  // the first weight units load while the tile is formed
-  load_indexed_tile_tc<T>(s, h_E, idx, p_local, rot, trans, pg, mask, K, rows, erow0, nrow0,
-                          node0);
-  message_tc<T, POOL>(s, per_i, per_j, wpack, b_in, b_mid, b_out, out_ptr, K, rows, erow0,
-                      nrow0 + node0);
+  if constexpr (!SPAN) {
+    const int rows = min(nb, L - node0) * K;           // valid edge rows of this block
+    load_indexed_tile_tc<T>(s, h_E, idx, p_local, rot, trans, pg, mask, K, rows, erow0, nrow0,
+                            node0);
+    message_tc<T, POOL>(s, per_i, per_j, wpack, b_in, b_mid, b_out, out_ptr, K, rows, erow0,
+                        nrow0 + node0);
+  } else {
+    for (int k0 = 0; k0 < K; k0 += kRows) {
+      if (k0 > 0) message_tc_next_tile(s, wpack);
+      const int rows = min(kRows, K - k0);
+      load_indexed_tile_tc<T>(s, h_E, idx, p_local, rot, trans, pg, mask, K, rows, erow0 + k0,
+                              nrow0, node0);
+      message_tc<T, POOL, true>(s, per_i, per_j, wpack, b_in, b_mid, b_out, out_ptr, K, rows,
+                                erow0 + k0, nrow0 + node0, k0 == 0, k0 + kRows >= K);
+    }
+  }
 }
 
 // Row 4's tile: the h_E rows (asynchronous 16-byte copies), pjrow = the
@@ -187,7 +202,7 @@ __device__ __forceinline__ void load_geom_tile_tc(const MessageTile<T>& s,
     s.pjrow()[tid] = valid ? erow0 + tid : -1;
     s.mrow()[tid] = valid ? mask[erow0 + tid] : 0.f;
   }
-  tile_rows(s, h_E, kH, 0, erow0, rows);
+  tile_rows<T, kHe>(s, h_E, 0, erow0, rows);
   cp_async_commit();
   tile_zero_pad(s);
 
@@ -195,7 +210,7 @@ __device__ __forceinline__ void load_geom_tile_tc(const MessageTile<T>& s,
     const int r = e % kRows, p = e / kRows;
     if (r >= rows) {
 #pragma unroll
-      for (int q = 0; q < 9; ++q) tile_put(s, r, kH + geom_column(p, q), 0.f);
+      for (int q = 0; q < 9; ++q) tile_put(s, r, kHe + geom_column(p, q), 0.f);
       continue;
     }
     const int64_t i = node0 + r / K;
@@ -207,7 +222,7 @@ __device__ __forceinline__ void load_geom_tile_tc(const MessageTile<T>& s,
     const float pgy = R[3] * plx + R[4] * ply + R[5] * plz + t[1];
     const float pgz = R[6] * plx + R[7] * ply + R[8] * plz + t[2];
     const float* ngj = ng + (erow0 + r) * 3 * kP;
-    edge_features([&](int c, float v) { tile_put(s, r, kH + c, v); }, p, plx, ply, plz, R, t,
+    edge_features([&](int c, float v) { tile_put(s, r, kHe + c, v); }, p, plx, ply, plz, R, t,
                   pgx, pgy, pgz, ngj[p], ngj[kP + p], ngj[2 * kP + p]);
   }
   tile_publish<T>();
@@ -215,7 +230,7 @@ __device__ __forceinline__ void load_geom_tile_tc(const MessageTile<T>& s,
 
 // Row 4 over N = B*L node rows, flattened: the tile from the gathered
 // operands, then the tensor-core body of rows 1 and 5.
-template <typename T, bool POOL>
+template <typename T, bool POOL, bool SPAN>
 __global__ void __launch_bounds__(MessageTc<T>::kThreads, MessageTc<T>::kMinBlocks)
 message_geom_kernel(const float* __restrict__ per_i, const T* __restrict__ pjg,
                     const T* __restrict__ h_E, const float* __restrict__ pl,
@@ -226,20 +241,31 @@ message_geom_kernel(const float* __restrict__ per_i, const T* __restrict__ pjg,
                     void* __restrict__ out_ptr, int64_t N, int K) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const MessageTile<T> s(smem_raw);
-  const int nb = kRows / K;
+  const int nb = SPAN ? 1 : kRows / K;
   const int64_t node0 = int64_t(blockIdx.x) * nb;
-  const int rows = (N - node0 < nb ? int(N - node0) : nb) * K;
   const int64_t erow0 = node0 * K;
 
   message_tc_prefetch(s, wpack);  // the first weight units load while the tile is formed
-  load_geom_tile_tc<T>(s, h_E, pl, ng, rot, trans, mask, K, rows, erow0, node0);
-  message_tc<T, POOL>(s, per_i, pjg, wpack, b_in, b_mid, b_out, out_ptr, K, rows, erow0, node0);
+  if constexpr (!SPAN) {
+    const int rows = (N - node0 < nb ? int(N - node0) : nb) * K;
+    load_geom_tile_tc<T>(s, h_E, pl, ng, rot, trans, mask, K, rows, erow0, node0);
+    message_tc<T, POOL>(s, per_i, pjg, wpack, b_in, b_mid, b_out, out_ptr, K, rows, erow0,
+                        node0);
+  } else {
+    for (int k0 = 0; k0 < K; k0 += kRows) {
+      if (k0 > 0) message_tc_next_tile(s, wpack);
+      const int rows = min(kRows, K - k0);
+      load_geom_tile_tc<T>(s, h_E, pl, ng, rot, trans, mask, K, rows, erow0 + k0, node0);
+      message_tc<T, POOL, true>(s, per_i, pjg, wpack, b_in, b_mid, b_out, out_ptr, K, rows,
+                                erow0 + k0, node0, k0 == 0, k0 + kRows >= K);
+    }
+  }
 }
 
 // Row 1b: the lanes route's edge tile and message, then the edge chain on
-// the same 64 rows without leaving the block; writes the new h_E
-// [B*L*K, H] in T.
-template <typename T>
+// the same 64 rows without leaving the block, tile by tile; writes the new
+// h_E [B*L*K, H] in T (He = H).
+template <typename T, bool SPAN>
 __global__ void __launch_bounds__(EdgeChain<T>::kThreads, EdgeChain<T>::kMinBlocks)
 message_chain_kernel(const float* __restrict__ per_i, const T* __restrict__ per_j,
                      const T* __restrict__ h_E, const int64_t* __restrict__ idx,
@@ -251,30 +277,41 @@ message_chain_kernel(const float* __restrict__ per_i, const T* __restrict__ per_
                      const __nv_bfloat16* __restrict__ cpack, T* __restrict__ out, int L, int K) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const MessageTile<T> s(smem_raw, EdgeChain<T>::kTables);
-  const int nb = kRows / K;
+  const int nb = SPAN ? 1 : kRows / K;
   const int node0 = blockIdx.x * nb;
-  const int rows = min(nb, L - node0) * K;
   const int64_t nrow0 = int64_t(blockIdx.y) * L;
   const int64_t erow0 = (nrow0 + node0) * K;
 
   message_tc_prefetch(s, wpack);  // the first weight units load while the tile is formed
-  load_indexed_tile_tc<T>(s, h_E, idx, p_local, rot, trans, pg, mask, K, rows, erow0, nrow0,
-                          node0);
-  edge_chain<T, true>(s, per_i, per_j, h_E, wpack, b_in, b_mid, b_out, cw, cpack, out, K, rows,
-                      erow0, nrow0 + node0);
+  if constexpr (!SPAN) {
+    const int rows = min(nb, L - node0) * K;
+    load_indexed_tile_tc<T>(s, h_E, idx, p_local, rot, trans, pg, mask, K, rows, erow0, nrow0,
+                            node0);
+    edge_chain<T, true>(s, per_i, per_j, h_E, wpack, b_in, b_mid, b_out, cw, cpack, out, K,
+                        rows, erow0, nrow0 + node0);
+  } else {
+    for (int k0 = 0; k0 < K; k0 += kRows) {
+      if (k0 > 0) message_tc_next_tile(s, wpack);
+      const int rows = min(kRows, K - k0);
+      load_indexed_tile_tc<T>(s, h_E, idx, p_local, rot, trans, pg, mask, K, rows, erow0 + k0,
+                              nrow0, node0);
+      edge_chain<T, true>(s, per_i, per_j, h_E, wpack, b_in, b_mid, b_out, cw, cpack, out, K,
+                          rows, erow0 + k0, nrow0 + node0, k0 + kRows < K);
+    }
+  }
 }
 
-template <typename T, bool POOL, int ROUTE>
+template <typename T, bool POOL, int ROUTE, bool SPAN>
 cudaError_t launch(const void* per_i, const void* per_j, const void* h_E, const void* idx,
                    const void* p_local, const void* rot, const void* trans, const void* pg,
                    const void* mask, const void* wpack, const void* b_in, const void* b_mid,
                    const void* b_out, void* out, int B, int L, int K, cudaStream_t stream) {
-  auto kernel = message_kernel<T, POOL, ROUTE>;
+  auto kernel = message_kernel<T, POOL, ROUTE, SPAN>;
   constexpr size_t kBytes = MessageTcBytes<T>::kTotal;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(kBytes));
   if (err != cudaSuccess) return err;
-  const int nb = kRows / K;
+  const int nb = nodes_per_block(K);
   dim3 grid((L + nb - 1) / nb, B);
   kernel<<<grid, MessageTc<T>::kThreads, kBytes, stream>>>(
       static_cast<const float*>(per_i), static_cast<const T*>(per_j),
@@ -286,17 +323,17 @@ cudaError_t launch(const void* per_i, const void* per_j, const void* h_E, const 
   return cudaGetLastError();
 }
 
-template <typename T, bool POOL>
+template <typename T, bool POOL, bool SPAN>
 cudaError_t launch_geom(const void* per_i, const void* pjg, const void* h_E, const void* pl,
                         const void* ng, const void* rot, const void* trans, const void* mask,
                         const void* wpack, const void* b_in, const void* b_mid,
                         const void* b_out, void* out, int64_t N, int K, cudaStream_t stream) {
-  auto kernel = message_geom_kernel<T, POOL>;
+  auto kernel = message_geom_kernel<T, POOL, SPAN>;
   constexpr size_t kBytes = MessageTcBytes<T>::kTotal;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(kBytes));
   if (err != cudaSuccess) return err;
-  const int nb = kRows / K;
+  const int nb = nodes_per_block(K);
   const int64_t blocks = (N + nb - 1) / nb;
   kernel<<<dim3((unsigned)blocks), MessageTc<T>::kThreads, kBytes, stream>>>(
       static_cast<const float*>(per_i), static_cast<const T*>(pjg), static_cast<const T*>(h_E),
@@ -307,19 +344,19 @@ cudaError_t launch_geom(const void* per_i, const void* pjg, const void* h_E, con
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool SPAN>
 cudaError_t launch_chain(const void* per_i, const void* per_j, const void* h_E, const void* idx,
                          const void* p_local, const void* rot, const void* trans,
                          const void* pg, const void* mask, const void* wpack, const void* b_in,
                          const void* b_mid, const void* b_out, const ChainWeights& cw,
                          const void* cpack, void* out, int B, int L, int K,
                          cudaStream_t stream) {
-  auto kernel = message_chain_kernel<T>;
+  auto kernel = message_chain_kernel<T, SPAN>;
   constexpr size_t kBytes = EdgeChain<T>::kBytes;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(kBytes));
   if (err != cudaSuccess) return err;
-  const int nb = kRows / K;
+  const int nb = nodes_per_block(K);
   dim3 grid((L + nb - 1) / nb, B);
   kernel<<<grid, EdgeChain<T>::kThreads, kBytes, stream>>>(
       static_cast<const float*>(per_i), static_cast<const T*>(per_j),
@@ -338,16 +375,22 @@ int message_entry(const void* per_i, const void* per_j, const void* h_E, const v
                   const void* mask, const void* wpack, const void* b_in, const void* b_mid,
                   const void* b_out, void* out, int B, int L, int K, int bf16, int pool,
                   void* stream) {
-  if (K < 1 || K > kRows || B < 1 || L < 1 || !wpack) return int(cudaErrorInvalidValue);
+  if (K < 1 || B < 1 || L < 1 || !wpack) return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define PACKPPI_ARGS per_i, per_j, h_E, idx, p_local, rot, trans, pg, mask, wpack, b_in, b_mid, \
                      b_out, out, B, L, K, s
   cudaError_t err;
-  if (bf16)
-    err = pool ? launch<__nv_bfloat16, true, ROUTE>(PACKPPI_ARGS)
-               : launch<__nv_bfloat16, false, ROUTE>(PACKPPI_ARGS);
+  if (K > kRows)
+    err = bf16 ? (pool ? launch<__nv_bfloat16, true, ROUTE, true>(PACKPPI_ARGS)
+                       : launch<__nv_bfloat16, false, ROUTE, true>(PACKPPI_ARGS))
+               : (pool ? launch<float, true, ROUTE, true>(PACKPPI_ARGS)
+                       : launch<float, false, ROUTE, true>(PACKPPI_ARGS));
+  else if (bf16)
+    err = pool ? launch<__nv_bfloat16, true, ROUTE, false>(PACKPPI_ARGS)
+               : launch<__nv_bfloat16, false, ROUTE, false>(PACKPPI_ARGS);
   else
-    err = pool ? launch<float, true, ROUTE>(PACKPPI_ARGS) : launch<float, false, ROUTE>(PACKPPI_ARGS);
+    err = pool ? launch<float, true, ROUTE, false>(PACKPPI_ARGS)
+               : launch<float, false, ROUTE, false>(PACKPPI_ARGS);
 #undef PACKPPI_ARGS
   return int(err);
 }
@@ -355,15 +398,15 @@ int message_entry(const void* per_i, const void* per_j, const void* h_E, const v
 }  // namespace packppi
 
 // C entry points (ctypes); each returns a cudaError_t. Stream tensors are
-// bf16 if bf16 != 0, else f32. K <= 64.
+// bf16 if bf16 != 0, else f32. H, He and P are the build's; any K >= 1.
 //
 // packppi_message (row 1) and packppi_message_gather (row 5): per_i
-// [B,L,128] f32; per_j [B,L,128] and h_E [B,L,K,128] in the stream type; idx
-// [B,L,K] int64 (node index within the batch row); p_local [B,L,8,3], rot
-// [B,L,3,3], trans [B,L,3], pg [B,L,24], mask [B,L,K] f32; wpack the
+// [B,L,H] f32; per_j [B,L,H] and h_E [B,L,K,He] in the stream type; idx
+// [B,L,K] int64 (node index within the batch row); p_local [B,L,P,3], rot
+// [B,L,3,3], trans [B,L,3], pg [B,L,3P], mask [B,L,K] f32; wpack the
 // message weights packed for the stream type
-// (ops/message_feat.py::pack_message_weights, message_tc.cuh); biases [128]
-// f32; out [B,L,128] f32 (pool) or [B,L,K,128] in the stream type.
+// (ops/message_feat.py::pack_message_weights, message_tc.cuh); biases [H]
+// f32; out [B,L,H] f32 (pool) or [B,L,K,H] in the stream type.
 extern "C" int packppi_message(const void* per_i, const void* per_j, const void* h_E,
                                const void* idx, const void* p_local, const void* rot,
                                const void* trans, const void* pg, const void* mask,
@@ -386,11 +429,11 @@ extern "C" int packppi_message_gather(const void* per_i, const void* per_j, cons
                                                    L, K, bf16, pool, stream);
 }
 
-// packppi_message_geom (row 4), over N = B*L node rows: per_i [N,128] f32;
-// pjg [N*K,128] and h_E [N*K,128] in the stream type; pl [N,24] local point
-// planes [x | y | z], ng [N*K,24] gathered neighbour global-point planes,
+// packppi_message_geom (row 4), over N = B*L node rows: per_i [N,H] f32;
+// pjg [N*K,H] and h_E [N*K,He] in the stream type; pl [N,3P] local point
+// planes [x | y | z], ng [N*K,3P] gathered neighbour global-point planes,
 // rot [N,9] (row-major), trans [N,3], mask [N*K] f32; wpack and the biases
-// as for packppi_message; out [N,128] f32 (pool) or [N*K,128] in the stream
+// as for packppi_message; out [N,H] f32 (pool) or [N*K,H] in the stream
 // type.
 extern "C" int packppi_message_geom(const void* per_i, const void* pjg, const void* h_E,
                                     const void* pl, const void* ng, const void* rot,
@@ -399,28 +442,35 @@ extern "C" int packppi_message_geom(const void* per_i, const void* pjg, const vo
                                     void* out, long long N, int K, int bf16, int pool,
                                     void* stream) {
   using namespace packppi;
-  if (K < 1 || K > kRows || N < 1 || !wpack ||
-      (N + kRows / K - 1) / (kRows / K) > 0x7fffffffLL)
+  if (K < 1 || N < 1 || !wpack ||
+      (N + nodes_per_block(K) - 1) / nodes_per_block(K) > 0x7fffffffLL)
     return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define PACKPPI_ARGS per_i, pjg, h_E, pl, ng, rot, trans, mask, wpack, b_in, b_mid, b_out, out, \
                      int64_t(N), K, st
   cudaError_t err;
-  if (bf16)
-    err = pool ? launch_geom<__nv_bfloat16, true>(PACKPPI_ARGS)
-               : launch_geom<__nv_bfloat16, false>(PACKPPI_ARGS);
+  if (K > kRows)
+    err = bf16 ? (pool ? launch_geom<__nv_bfloat16, true, true>(PACKPPI_ARGS)
+                       : launch_geom<__nv_bfloat16, false, true>(PACKPPI_ARGS))
+               : (pool ? launch_geom<float, true, true>(PACKPPI_ARGS)
+                       : launch_geom<float, false, true>(PACKPPI_ARGS));
+  else if (bf16)
+    err = pool ? launch_geom<__nv_bfloat16, true, false>(PACKPPI_ARGS)
+               : launch_geom<__nv_bfloat16, false, false>(PACKPPI_ARGS);
   else
-    err = pool ? launch_geom<float, true>(PACKPPI_ARGS) : launch_geom<float, false>(PACKPPI_ARGS);
+    err = pool ? launch_geom<float, true, false>(PACKPPI_ARGS)
+               : launch_geom<float, false, false>(PACKPPI_ARGS);
 #undef PACKPPI_ARGS
   return int(err);
 }
 
 // packppi_message_chain (row 1b): packppi_message's operands (edge pass,
 // the message weights packed as there), then the chain's: LayerNorm weights
-// [128], w1 [512,128], b1 [512], w2 [128,512], b2 [128], all f32; cpack,
+// [H], w1 [4H,H], b1 [4H], w2 [H,4H], b2 [H], all f32; cpack,
 // for bf16 only, w1 and w2 as the chain kernel's bf16 panels
 // (ops/chain.py::pack_chain_weights; the kernel then reads w1 and w2 no
-// more); out [B,L,K,128] in the stream type, the updated h_E.
+// more); out [B,L,K,H] in the stream type, the updated h_E. The message is
+// added to h_E: a build with He != H has no such kernel and refuses.
 extern "C" int packppi_message_chain(const void* per_i, const void* per_j, const void* h_E,
                                      const void* idx, const void* p_local, const void* rot,
                                      const void* trans, const void* pg, const void* mask,
@@ -431,8 +481,10 @@ extern "C" int packppi_message_chain(const void* per_i, const void* per_j, const
                                      const void* cpack, void* out, int B, int L, int K, int bf16,
                                      void* stream) {
   using namespace packppi;
-  if (K < 1 || K > kRows || B < 1 || L < 1 || !wpack || (bf16 && !cpack))
-    return int(cudaErrorInvalidValue);
+#if PACKPPI_HE != PACKPPI_H
+  return int(cudaErrorInvalidValue);
+#else
+  if (K < 1 || B < 1 || L < 1 || !wpack || (bf16 && !cpack)) return int(cudaErrorInvalidValue);
   const ChainWeights cw{static_cast<const float*>(lna_w), static_cast<const float*>(lna_b),
                         static_cast<const float*>(w1), static_cast<const float*>(b1),
                         static_cast<const float*>(w2), static_cast<const float*>(b2),
@@ -440,8 +492,12 @@ extern "C" int packppi_message_chain(const void* per_i, const void* per_j, const
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define PACKPPI_ARGS per_i, per_j, h_E, idx, p_local, rot, trans, pg, mask, wpack, b_in, b_mid, \
                      b_out, cw, cpack, out, B, L, K, s
-  const cudaError_t err = bf16 ? launch_chain<__nv_bfloat16>(PACKPPI_ARGS)
-                               : launch_chain<float>(PACKPPI_ARGS);
+  const cudaError_t err =
+      K > kRows ? (bf16 ? launch_chain<__nv_bfloat16, true>(PACKPPI_ARGS)
+                        : launch_chain<float, true>(PACKPPI_ARGS))
+                : (bf16 ? launch_chain<__nv_bfloat16, false>(PACKPPI_ARGS)
+                        : launch_chain<float, false>(PACKPPI_ARGS));
 #undef PACKPPI_ARGS
   return int(err);
+#endif
 }

@@ -185,6 +185,116 @@ __device__ __forceinline__ void wgmma_m64n128k16_bf16_rs(float (&d)[64], const u
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d += a . b, m64n32k16, bf16 operands from shared memory (both K-major),
+// float32 sums
+__device__ __forceinline__ void wgmma_m64n32k16_bf16(float (&d)[16], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d += a . b, m64n32k16, A from registers, B from shared memory (K-major)
+__device__ __forceinline__ void wgmma_m64n32k16_bf16_rs(float (&d)[16], const uint32_t (&a)[4],
+                                                        uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += a . b, m64n64k16, bf16 operands from shared memory (both K-major),
+// float32 sums
+__device__ __forceinline__ void wgmma_m64n64k16_bf16(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d += a . b, m64n64k16, A from registers, B from shared memory (K-major)
+__device__ __forceinline__ void wgmma_m64n64k16_bf16_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                        uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += a . b over a [64, N] product (N a multiple of 32, at most 256) in
+// column pieces of 128, 64 and 32, each one wgmma: its accumulator is the
+// piece's registers of d (d[4 j + i] is c_i of column tile j whatever the
+// split) and its B the piece's rows of the K-major B tile (128 bytes a
+// row, so a piece of c0 columns on starts c0 * 128 bytes further; the
+// 128-byte swizzle repeats every 8 rows). a_s / b_s: shared-memory
+// addresses of the tiles' k-step (both in the 128-byte swizzle).
+template <int N, int C0 = 0>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint32_t a_s, uint32_t b_s) {
+  static_assert(N % 32 == 0 && N <= 256, "wgmma N");
+  constexpr int kRest = N - C0;
+  if constexpr (kRest >= 128) {
+    wgmma_m64n128k16_bf16(*reinterpret_cast<float(*)[64]>(&d[C0 / 2]), sw128_desc(a_s),
+                          sw128_desc(b_s + C0 * 128));
+    wgmma_bf16<N, C0 + 128>(d, a_s, b_s);
+  } else if constexpr (kRest >= 64) {
+    wgmma_m64n64k16_bf16(*reinterpret_cast<float(*)[32]>(&d[C0 / 2]), sw128_desc(a_s),
+                         sw128_desc(b_s + C0 * 128));
+    wgmma_bf16<N, C0 + 64>(d, a_s, b_s);
+  } else if constexpr (kRest >= 32) {
+    wgmma_m64n32k16_bf16(*reinterpret_cast<float(*)[16]>(&d[C0 / 2]), sw128_desc(a_s),
+                         sw128_desc(b_s + C0 * 128));
+  }
+}
+
+// the same with A from registers (per warp the m16n8k16 A fragment of its
+// 16 rows)
+template <int N, int C0 = 0>
+__device__ __forceinline__ void wgmma_bf16_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                              uint32_t b_s) {
+  static_assert(N % 32 == 0 && N <= 256, "wgmma N");
+  constexpr int kRest = N - C0;
+  if constexpr (kRest >= 128) {
+    wgmma_m64n128k16_bf16_rs(*reinterpret_cast<float(*)[64]>(&d[C0 / 2]), a,
+                             sw128_desc(b_s + C0 * 128));
+    wgmma_bf16_rs<N, C0 + 128>(d, a, b_s);
+  } else if constexpr (kRest >= 64) {
+    wgmma_m64n64k16_bf16_rs(*reinterpret_cast<float(*)[32]>(&d[C0 / 2]), a,
+                            sw128_desc(b_s + C0 * 128));
+    wgmma_bf16_rs<N, C0 + 64>(d, a, b_s);
+  } else if constexpr (kRest >= 32) {
+    wgmma_m64n32k16_bf16_rs(*reinterpret_cast<float(*)[16]>(&d[C0 / 2]), a,
+                            sw128_desc(b_s + C0 * 128));
+  }
+}
+
 // mbarriers and bulk copies by the TMA unit (sm_90): a copy writes shared
 // memory through the async proxy, so wgmma reads it with no proxy fence,
 // and it completes on an mbarrier that counts its bytes

@@ -11,9 +11,35 @@
 
 namespace packppi {
 
+// The network's widths, chosen when the library is built (ops/_build.py
+// lib_name): -DPACKPPI_H=, -DPACKPPI_HE=, -DPACKPPI_P= (no flag: 128, 128,
+// 8), one library per (source, activation, widths). The neighbour count K
+// is a launch argument.
+#ifndef PACKPPI_H
+#define PACKPPI_H 128
+#endif
+#ifndef PACKPPI_HE
+#define PACKPPI_HE 128
+#endif
+#ifndef PACKPPI_P
+#define PACKPPI_P 8
+#endif
+
 constexpr int kThreads = 256;     // the float32 tensor-core kernels' block
 constexpr int kRows = 64;         // edge rows of a message tile
-constexpr int kH = 128;           // hidden width of the IPMP streams (== He)
+constexpr int kH = PACKPPI_H;     // hidden width H of the IPMP node stream and messages
+constexpr int kHe = PACKPPI_HE;   // width He of the edge stream h_E
+constexpr int kP = PACKPPI_P;     // points a node
+static_assert(kH % 32 == 0 && kH >= 32 && kH <= 256, "H: a multiple of 32 from 32 to 256");
+static_assert(kHe % 32 == 0 && kHe >= 32 && kHe <= 256, "He: a multiple of 32 from 32 to 256");
+static_assert(kP >= 1 && kP <= 16, "P: 1 to 16 points");
+
+__host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
+__host__ __device__ constexpr int cmin(int a, int b) { return a < b ? a : b; }
+// 128-byte swizzled panels of 64 bf16 k a row needed for a depth of k
+__host__ __device__ constexpr int panels64(int k) { return (k + 63) / 64; }
+// k-steps of 16 of panel p (64 k each) inside a depth of k
+__host__ __device__ constexpr int ksteps16(int k, int p) { return cmin(4, (k - 64 * p) / 16); }
 
 template <typename T> __device__ __forceinline__ float to_f32(T v);
 template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }

@@ -18,11 +18,11 @@ from packppi_torch.geometry.rigid import bb_frames_from_atom14, scale_translatio
 from packppi_torch.models.encoder import ProteinEncoder
 from packppi_torch.models.ipmp import MessagePassingStack, relative_frame_transforms
 from packppi_torch.models.layers import MLP
+from packppi_torch.ops._build import width_refusals
 from packppi_torch.ops.activations import ACTS
 
 GLOBAL_POINT_KERNELS = ("geom", "geom_lanes", "geom_gather")
 STATIC_EDGE_DTYPES = ("float32", "bfloat16", "int8")
-MAX_KERNEL_K = 64      # the message and layer kernels take K <= 64 neighbours
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,22 +138,19 @@ class NetworkConfig:
 
     def check_device(self, device) -> None:
         """Refuse, before any data is read, a configuration whose kernels
-        cannot run on ``device``: the CUDA kernels are built for H = He =
-        128, P = 8 points and K <= 64 neighbours (any activation of the
-        table). The CPU runs the plain versions at any width."""
+        cannot run on ``device``: the CUDA kernels are built for hidden_dim
+        and edge_features every multiple of 32 from 32 to 256 and n_points
+        1 to 16 (a library per width and activation, ``ops._build``), any
+        top_k. The CPU runs the plain versions at any width."""
         if torch.device(device).type != "cuda" or not self.runs_kernels():
             return
-        widths = {"hidden_dim": (self.hidden_dim, 128), "edge_features": (self.edge_features, 128),
-                  "n_points": (self.n_points, 8)}
-        bad = [f"{k}={v}" for k, (v, want) in widths.items() if v != want]
-        if self.top_k > MAX_KERNEL_K:
-            bad.append(f"top_k={self.top_k}")
+        bad = width_refusals(self.hidden_dim, self.edge_features, self.n_points)
         if bad:
             raise ValueError(
                 f"NetworkConfig({', '.join(bad)}) cannot run on {device}: the CUDA kernels "
-                f"are built for hidden_dim = edge_features = 128, n_points = 8 and top_k <= "
-                f"{MAX_KERNEL_K}; use those widths, --device cpu, or fused_messages=False with "
-                "fused_chain=False")
+                "are built for hidden_dim and edge_features a multiple of 32 from 32 to 256 "
+                "and n_points 1 to 16; use such widths, --device cpu, or "
+                "fused_messages=False with fused_chain=False")
 
     @property
     def dtype(self) -> torch.dtype:

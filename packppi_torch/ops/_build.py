@@ -12,6 +12,14 @@ chosen at build time: a build name ``"<source>@<act>"`` compiles the source
 with ``-DPACKPPI_ACT=<index in ACTS>`` into its own library
 (``<source>@<act>-<hash>.so``); the bare source name is relu, built with
 no such flag. A library per activation keeps every body free of a switch.
+
+They take the network's widths at build time too: H (``hidden_dim``), He
+(``edge_features``) and P (``n_points``), any of ``KERNEL_H`` and
+``KERNEL_P`` (``width_refusals``); the neighbour count K is a launch
+argument. Away from the default widths (128, 128, 8) the build name carries
+them, ``"<source>@<act>@H<H>-He<He>-P<P>"`` (``chain@<act>@H<H>``: the chain
+takes H only), compiled with ``-DPACKPPI_H=``, ``-DPACKPPI_HE=`` and
+``-DPACKPPI_P=``; at the default widths the name and the flags are as above.
 """
 from __future__ import annotations
 
@@ -34,6 +42,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 ACTS = ("relu", "gelu", "elu", "selu", "celu", "leaky_relu", "silu", "sigmoid")
 ACT_SOURCES = ("message", "message_feat", "layer", "chain")
 
+# the widths the message, chain and layer kernels are built for (csrc/tile.cuh):
+# H and He every multiple of 32 from 32 to 256 (each row of a LayerNorm is
+# H / 32 values a lane; wgmma's N, which is H, ends at 256), P from 1 to 16
+KERNEL_H = tuple(range(32, 257, 32))
+KERNEL_P = tuple(range(1, 17))
+DEFAULT_WIDTHS = (128, 128, 8)
+
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 
@@ -50,24 +65,66 @@ def _nvcc() -> str:
                        "kernels of packppi_torch are built from csrc/ at first use")
 
 
-def lib_name(source: str, act: str = "relu") -> str:
-    """The build name of ``csrc/<source>.cu`` with activation ``act``."""
+def width_refusals(H: int, He: int = 128, P: int = 8) -> list:
+    """``name=value`` of each width the kernels are not built for (empty
+    when they take H = ``hidden_dim``, He = ``edge_features`` and P =
+    ``n_points``)."""
+    bad = [f"hidden_dim={H}"] if H not in KERNEL_H else []
+    bad += [f"edge_features={He}"] if He not in KERNEL_H else []
+    return bad + ([f"n_points={P}"] if P not in KERNEL_P else [])
+
+
+def check_widths(what: str, H: int, He: int = 128, P: int = 8) -> None:
+    """Raise, naming the width, unless the kernels take (H, He, P)."""
+    bad = width_refusals(H, He, P)
+    if bad:
+        raise ValueError(f"{what}: no kernel is built for {', '.join(bad)} (hidden_dim and "
+                         f"edge_features: a multiple of 32 from 32 to 256; n_points: 1 to 16)")
+
+
+def _width_tag(source: str, H: int, He: int, P: int) -> str:
+    if source == "chain":
+        return "" if H == DEFAULT_WIDTHS[0] else f"H{H}"
+    return "" if (H, He, P) == DEFAULT_WIDTHS else f"H{H}-He{He}-P{P}"
+
+
+def lib_name(source: str, act: str = "relu", H: int = 128, He: int = 128, P: int = 8) -> str:
+    """The build name of ``csrc/<source>.cu`` with activation ``act`` at
+    widths (H, He, P) (the chain reads H only)."""
     if act not in ACTS:
         raise ValueError(f"activation {act!r} is not one of {ACTS}")
-    if act == "relu":
+    tag = _width_tag(source, H, He, P)
+    if act == "relu" and not tag:
         return source
     if source not in ACT_SOURCES:
-        raise ValueError(f"csrc/{source}.cu takes no activation (only {ACT_SOURCES})")
+        raise ValueError(f"csrc/{source}.cu takes no activation and no width "
+                         f"(only {ACT_SOURCES})")
+    if tag:
+        check_widths(f"csrc/{source}.cu", H, He, P)
+        return f"{source}@{act}@{tag}"
     return f"{source}@{act}"
 
 
 def _flags(name: str):
     """(source, nvcc flags) of a build name."""
-    source, _, act = name.partition("@")
-    if not act:
+    source, _, rest = name.partition("@")
+    if not rest:
         return source, NVCC_FLAGS
-    lib_name(source, act)   # refuses an unknown activation or source
-    return source, (*NVCC_FLAGS, f"-DPACKPPI_ACT={ACTS.index(act)}")
+    act, _, tag = rest.partition("@")
+    widths = dict(zip(("H", "He", "P"), DEFAULT_WIDTHS))
+    for part in filter(None, tag.split("-")):
+        key = part.rstrip("0123456789")
+        if key not in widths or not part[len(key):]:
+            raise ValueError(f"build name {name!r}: width {part!r} is not H<n>, He<n> or P<n>")
+        widths[key] = int(part[len(key):])
+    lib_name(source, act, **widths)   # refuses an unknown source, activation or width
+    if tag != _width_tag(source, **widths):
+        raise ValueError(f"build name {name!r}: the widths are not written as lib_name writes them")
+    flags = (*NVCC_FLAGS, f"-DPACKPPI_ACT={ACTS.index(act)}")
+    if tag:
+        flags += (f"-DPACKPPI_H={widths['H']}", f"-DPACKPPI_HE={widths['He']}",
+                  f"-DPACKPPI_P={widths['P']}")
+    return source, flags
 
 
 def _target(name: str) -> Path:

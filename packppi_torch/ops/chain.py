@@ -11,9 +11,10 @@ compute dtype of the FFN products):
 
 ``rnd`` rounds to sd and back, at the points the unfused flax chain rounds;
 LayerNorm is flax's (eps 1e-6, clamped fast variance); ``act`` is one of
-``ops.activations.ACTS`` (relu by default), a kernel library per activation. ``chain`` launches
-the CUDA kernel of ``csrc/chain.cu`` for CUDA tensors and runs
-``chain_plain`` for CPU tensors. The kernel replaces
+``ops.activations.ACTS`` (relu by default), a kernel library per activation
+and per width H (``ops._build.lib_name``; H a multiple of 32 from 32 to 256).
+``chain`` launches the CUDA kernel of ``csrc/chain.cu`` for CUDA tensors and
+runs ``chain_plain`` for CPU tensors. The kernel replaces
 ``packppi_tpu/ops/pallas_layer.py::fused_chain``. In bf16 it reads W1 and
 W2 as one bf16 copy in the layout of its shared-memory panels
 (``pack_chain_weights``), made once for each version of the two weights.
@@ -109,16 +110,13 @@ def chain(x, msg, mask: Optional[torch.Tensor], lna_w, lna_b, w1, b1, w2, b2,
 # kernel launches on the card; the plain path never touches it
 chain.launches = 0
 
-_H = 128
-
 
 def _chain_cuda(x, msg, mask, lna_w, lna_b, w1, b1, w2, b2, lnb_w, lnb_b, pre_mask, act):
     N, H = x.shape
     sd = x.dtype
     if sd not in (torch.float32, torch.bfloat16):
         raise TypeError(f"chain kernel: stream dtype {sd} (float32 or bfloat16)")
-    if H != _H:
-        raise ValueError(f"chain kernel is built for H={_H}, got {H}")
+    _build.check_widths("chain kernel", H)
     if msg.dtype not in (torch.float32, sd):
         raise TypeError(f"chain kernel: msg is {msg.dtype}, expected float32 or {sd}")
     expect = {"msg": (msg, (N, H), msg.dtype)}
@@ -129,7 +127,7 @@ def _chain_cuda(x, msg, mask, lna_w, lna_b, w1, b1, w2, b2, lnb_w, lnb_b, pre_ma
     _build.check_aligned("chain", w1=w1, w2=w2)
     wpack = packed_chain_weights(w1, w2, sd)
     out = torch.empty_like(x)
-    lib = _lib(act)
+    lib = _lib(act, H)
     _build.launch_kernel(
         lib, "packppi_chain", "chain kernel launch", x.device,
         *(_build.ptr(t) for t in (x, msg, mask, lna_w, lna_b, w1, b1, w2, b2,
@@ -139,34 +137,56 @@ def _chain_cuda(x, msg, mask, lna_w, lna_b, w1, b1, w2, b2, lnb_w, lnb_b, pre_ma
     return out
 
 
-_PANELS, _PANEL_K = 16, 64
+_PANEL_K = 64
 
 
-def _panel_index(device):
+def _swizzled(n, k):
+    """Offset of element (n, k) in a [rows n][64 k] bf16 panel: row n is 128
+    bytes, its 16-byte piece p stored at p ^ (n % 8), the 128-byte swizzle
+    that the kernels' wgmma descriptors read."""
+    return n * _PANEL_K + (((k >> 3) ^ (n & 7)) << 3) + (k & 7)
+
+
+def _panel_index(device, H=128):
     """For each bf16 element of the packed weights, its index in
-    ``cat(W1.flatten(), W2.flatten())``. Panel c (16 of [128 n][64 k]) is,
-    slice by slice (hc = c // 4), W1 (k halves c % 2) then W2: W1[128 hc +
-    n, 64 (c % 2) + k] or W2[n, 128 hc + 64 (c % 2) + k]. Within a panel,
-    row n is 128 bytes, its 16-byte piece p stored at p ^ (n % 8): the
-    128-byte swizzle that the kernel's wgmma descriptors read."""
-    c, n, k = np.meshgrid(np.arange(_PANELS), np.arange(_H), np.arange(_PANEL_K), indexing="ij")
-    hc, second, kp = c // 4, (c // 2) % 2, c % 2
-    src = np.where(second == 0, (_H * hc + n) * _H + _PANEL_K * kp + k,
-                   4 * _H * _H + n * 4 * _H + _H * hc + _PANEL_K * kp + k)
-    dst = c * _H * _PANEL_K + n * _PANEL_K + (((k >> 3) ^ (n & 7)) << 3) + (k & 7)
-    index = np.empty(src.size, np.int64)
-    index[dst.ravel()] = src.ravel()
-    return torch.from_numpy(index).to(device)
+    ``cat(W1.flatten(), W2.flatten(), [0])`` (the last index: a zero of the
+    pad). The hidden is made S = min(H, 128) columns at a time, in 4H / S
+    slices; slice hc holds ceil(H / 64) W1 panels of [S n][64 k], W1[S hc +
+    n, 64 j + k], then ceil(S / 64) W2 panels of [H n][64 k], W2[n, S hc +
+    64 j + k], each panel's k past the product's depth zeros (``_swizzled``
+    within a panel). At H = 128: 16 panels of [128 n][64 k], slice by slice
+    W1 (k halves) then W2, no pad."""
+    S = min(H, 128)
+    zero = 8 * H * H
+    parts = []
+    for hc in range(4 * H // S):
+        for j in range(-(-H // _PANEL_K)):
+            n, k = np.meshgrid(np.arange(S), np.arange(_PANEL_K), indexing="ij")
+            src = np.where(_PANEL_K * j + k < H, (S * hc + n) * H + _PANEL_K * j + k, zero)
+            parts.append((src, _swizzled(n, k)))
+        for j in range(-(-S // _PANEL_K)):
+            n, k = np.meshgrid(np.arange(H), np.arange(_PANEL_K), indexing="ij")
+            src = np.where(_PANEL_K * j + k < S, 4 * H * H + n * 4 * H + S * hc + _PANEL_K * j + k,
+                           zero)
+            parts.append((src, _swizzled(n, k)))
+    index = []
+    for src, dst in parts:
+        panel = np.empty(src.size, np.int64)
+        panel[dst.ravel()] = src.ravel()
+        index.append(panel)
+    return torch.from_numpy(np.concatenate(index)).to(device)
 
 
 def pack_chain_weights(w1, w2):
-    """W1 [512, 128] and W2 [128, 512] (float32) as the bf16 panels that the
+    """W1 [4H, H] and W2 [H, 4H] (float32) as the bf16 panels that the
     bf16 chain kernel streams into shared memory as they are (see
     ``_panel_index``)."""
-    index = _PANEL_INDEX.get(w1.device)
+    H = w1.shape[1]
+    key = (w1.device, H)
+    index = _PANEL_INDEX.get(key)
     if index is None:
-        index = _PANEL_INDEX[w1.device] = _panel_index(w1.device)
-    return torch.cat([w1.reshape(-1), w2.reshape(-1)]).to(torch.bfloat16)[index]
+        index = _PANEL_INDEX[key] = _panel_index(w1.device, H)
+    return torch.cat([w1.reshape(-1), w2.reshape(-1), w1.new_zeros(1)]).to(torch.bfloat16)[index]
 
 
 _PANEL_INDEX: dict = {}
@@ -181,10 +201,11 @@ def packed_chain_weights(w1, w2, dtype):
     return packed(pack_chain_weights, w1, w2) if dtype == torch.bfloat16 else None
 
 
-def check_chain_weights(name, ref, lna_w, lna_b, w1, b1, w2, b2, lnb_w, lnb_b):
+def check_chain_weights(name, ref, lna_w, lna_b, w1, b1, w2, b2, lnb_w, lnb_b, H=None):
     """Device, dtype, shape and contiguity of the chain's eight weights (the
-    chain, folded-edge and whole-layer kernels take them alike)."""
-    f32, H = torch.float32, _H
+    chain, folded-edge and whole-layer kernels take them alike) at width H
+    (``ref``'s last dimension unless given)."""
+    f32, H = torch.float32, ref.shape[-1] if H is None else H
     _build.check_operands(name, ref, {
         "lna_w": (lna_w, (H,), f32), "lna_b": (lna_b, (H,), f32),
         "w1": (w1, (4 * H, H), f32), "b1": (b1, (4 * H,), f32),
@@ -193,8 +214,8 @@ def check_chain_weights(name, ref, lna_w, lna_b, w1, b1, w2, b2, lnb_w, lnb_b):
     })
 
 
-def _lib(act="relu"):
-    lib = _build.load_library(_build.lib_name("chain", act))
+def _lib(act="relu", H=128):
+    lib = _build.load_library(_build.lib_name("chain", act, H))
     if lib.packppi_chain.argtypes is None:
         lib.packppi_chain.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         lib.packppi_chain.restype = ctypes.c_int

@@ -22,7 +22,9 @@ body and the chain kernel's, over the packed copies of the message weights
 CUDA tensors and runs its plain twin for CPU tensors, and counts its
 launches. ``act`` (``ops.activations.ACTS``, relu by default; a kernel
 library per activation) is the message MLP's and the chain FFN's
-activation, as ``act_name`` is the TPU kernels'.
+activation, as ``act_name`` is the TPU kernels'. The widths H, He and P
+are the operands' (a library per width, ``ops._build.lib_name``; the edge
+pass adds the message to h_E, so it needs He = H), K any count.
 """
 from __future__ import annotations
 
@@ -32,13 +34,16 @@ import torch
 
 from packppi_torch.ops import _build
 from packppi_torch.ops.chain import chain_tail_plain, check_chain_weights, packed_chain_weights
-from packppi_torch.ops.message_feat import message_rows_plain, pack_message_weights
+from packppi_torch.ops.message_feat import (check_message_widths, message_rows_plain,
+                                            message_weights_expect, pack_message_weights)
 from packppi_torch.ops.precision import round_to
 
 # nodes a block of the node kernel pools before it runs one chain on them
-# (csrc/layer.cu, "Blocking"); at most 16. At T1124 in bf16 (L = 768, K =
-# 32) a node pass took 0.0404 / 0.0444 / 0.0596 / 0.0925 ms with 2 / 4 / 8 /
-# 16 nodes a block (chip_smoke.py, NVIDIA H100 80GB HBM3, 700.00 W)
+# (csrc/layer.cu, "Blocking"); at most 16, at any K (a node of K > 64 edges
+# takes its ceil(K / 64) message tiles in turn, the pooled tile is the
+# same). At T1124 in bf16 (L = 768, K = 32) a node pass took 0.0404 /
+# 0.0444 / 0.0596 / 0.0925 ms with 2 / 4 / 8 / 16 nodes a block
+# (chip_smoke.py, NVIDIA H100 80GB HBM3, 700.00 W)
 NODES_PER_BLOCK = 2
 
 
@@ -102,57 +107,51 @@ def layer_edge(h_E, per_i, pjg, geom, mask,
 layer_node.launches = 0
 layer_edge.launches = 0
 
-_H, _G, _MAX_K, _MAX_NODES = 128, 72, 64, 16
+_MAX_NODES = 16
 _F32 = torch.float32
 
 
 def _message_expect(name, h_E, per_i, pjg, geom, mask, w_in, b_in, w_mid, b_mid, w_out, b_out):
-    """Checks the message operands; returns (B, L, K, sd)."""
+    """Checks the message operands; returns (B, L, K, sd, (H, He, P))."""
     B, L, K, He = h_E.shape
+    H, G = per_i.shape[-1], geom.shape[-1]
     sd = h_E.dtype
     if sd not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{name} kernel: stream dtype {sd} (float32 or bfloat16)")
-    if He != _H or per_i.shape[-1] != _H or geom.shape[-1] != _G:
-        raise ValueError(f"{name} kernel is built for H=He={_H}, 9P={_G}; got "
-                         f"H={per_i.shape[-1]}, He={He}, 9P={geom.shape[-1]}")
-    if K > _MAX_K:
-        raise ValueError(f"{name} kernel takes K <= {_MAX_K} neighbours, got {K}")
+    P = check_message_widths(name, H, He, G, K)
     _build.check_operands(name, h_E, {
-        "per_i": (per_i, (B, L, _H), _F32),
-        "pjg": (pjg, (B, L, K, _H), sd),
-        "geom": (geom, (B, L, K, _G), sd),
+        "per_i": (per_i, (B, L, H), _F32),
+        "pjg": (pjg, (B, L, K, H), sd),
+        "geom": (geom, (B, L, K, G), sd),
         "mask": (mask, (B, L, K), _F32),
-        "w_in": (w_in, (_H, 2 * _H + He + _G), _F32),
-        "b_in": (b_in, (_H,), _F32),
-        "w_mid": (w_mid, (_H, _H), _F32),
-        "b_mid": (b_mid, (_H,), _F32),
-        "w_out": (w_out, (_H, _H), _F32),
-        "b_out": (b_out, (_H,), _F32),
+        **message_weights_expect(w_in, b_in, w_mid, b_mid, w_out, b_out, H, He, G),
     })
-    return B, L, K, sd
+    return B, L, K, sd, (H, He, P)
 
 
-def _packed(name, sd, w_in, w_mid, w_out, w1, w2, **streams):
+def _packed(name, sd, He, w_in, w_mid, w_out, w1, w2, **streams):
     """The packed message and chain weights, once the operands the kernel
     copies or reads 16 bytes at a time are checked for alignment."""
     _build.check_aligned(name, **streams, w1=w1, w2=w2)
-    return pack_message_weights(w_in, w_mid, w_out, sd), packed_chain_weights(w1, w2, sd)
+    return (pack_message_weights(w_in, w_mid, w_out, sd, He),
+            packed_chain_weights(w1, w2, sd))
 
 
 def _layer_node_cuda(ops, nodes_per_block, act):
     h_V, per_i, pjg, h_E, geom, mask, mask_V, *weights = ops
     w_in, b_in, w_mid, b_mid, w_out, b_out, *chain_w = weights
-    B, L, K, sd = _message_expect("layer_node", h_E, per_i, pjg, geom, mask, *weights[:6])
-    check_chain_weights("layer_node", h_E, *chain_w)
-    _build.check_operands("layer_node", h_E, {"h_V": (h_V, (B, L, _H), sd),
+    B, L, K, sd, (H, He, P) = _message_expect("layer_node", h_E, per_i, pjg, geom, mask,
+                                              *weights[:6])
+    check_chain_weights("layer_node", h_E, *chain_w, H=H)
+    _build.check_operands("layer_node", h_E, {"h_V": (h_V, (B, L, H), sd),
                                               "mask_V": (mask_V, (B, L), _F32)})
     if not 1 <= nodes_per_block <= _MAX_NODES:
         raise ValueError(f"layer_node kernel: nodes_per_block {nodes_per_block} "
                          f"(1 to {_MAX_NODES})")
-    wpack, cpack = _packed("layer_node", sd, w_in, w_mid, w_out, chain_w[2], chain_w[4],
+    wpack, cpack = _packed("layer_node", sd, He, w_in, w_mid, w_out, chain_w[2], chain_w[4],
                            per_i=per_i, pjg=pjg, h_E=h_E, geom=geom)
     out = torch.empty_like(h_V)
-    lib = _lib(act)
+    lib = _lib(act, H, He, P)
     _build.launch_kernel(
         lib, "packppi_layer_node", "layer_node kernel launch", h_E.device,
         *(_build.ptr(t) for t in ops[:7] + (wpack, b_in, b_mid, b_out, *chain_w, cpack, out)),
@@ -164,12 +163,16 @@ def _layer_node_cuda(ops, nodes_per_block, act):
 def _layer_edge_cuda(ops, act):
     h_E, per_i, pjg, geom, mask, *weights = ops
     w_in, b_in, w_mid, b_mid, w_out, b_out, *chain_w = weights
-    B, L, K, sd = _message_expect("layer_edge", h_E, per_i, pjg, geom, mask, *weights[:6])
+    B, L, K, sd, (H, He, P) = _message_expect("layer_edge", h_E, per_i, pjg, geom, mask,
+                                              *weights[:6])
+    if He != H:
+        raise ValueError(f"layer_edge kernel adds the message to h_E: edge_features={He} "
+                         f"must equal hidden_dim={H}")
     check_chain_weights("layer_edge", h_E, *chain_w)
-    wpack, cpack = _packed("layer_edge", sd, w_in, w_mid, w_out, chain_w[2], chain_w[4],
+    wpack, cpack = _packed("layer_edge", sd, He, w_in, w_mid, w_out, chain_w[2], chain_w[4],
                            per_i=per_i, pjg=pjg, h_E=h_E, geom=geom)
     out = torch.empty_like(h_E)
-    lib = _lib(act)
+    lib = _lib(act, H, He, P)
     _build.launch_kernel(
         lib, "packppi_layer_edge", "layer_edge kernel launch", h_E.device,
         *(_build.ptr(t) for t in ops[:5] + (wpack, b_in, b_mid, b_out, *chain_w, cpack, out)),
@@ -178,8 +181,8 @@ def _layer_edge_cuda(ops, act):
     return out
 
 
-def _lib(act="relu"):
-    lib = _build.load_library(_build.lib_name("layer", act))
+def _lib(act="relu", H=128, He=128, P=8):
+    lib = _build.load_library(_build.lib_name("layer", act, H, He, P))
     if lib.packppi_layer_node.argtypes is None:
         ptrs, ints, stream = [ctypes.c_void_p], [ctypes.c_int], [ctypes.c_void_p]
         lib.packppi_layer_node.argtypes = ptrs * 21 + [ctypes.c_longlong] + ints * 3 + stream

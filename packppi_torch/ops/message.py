@@ -12,7 +12,8 @@ For every edge (i, j=idx[i, k]) of the kNN graph:
 operands are rounded to it before each product, sums stay float32).
 ``act`` is one of ``ops.activations.ACTS`` (relu by default), applied to
 the float32 sums; every entry point takes it last, and each activation has
-its own kernel library (``ops._build.lib_name``).
+its own kernel library (``ops._build.lib_name``), as each width H, He and P
+has (read from the operands); K is any count of neighbours.
 
 Four entry points, each launching its own kernel of ``csrc/message.cu``
 for CUDA tensors and running its plain twin for CPU tensors (nothing else
@@ -45,7 +46,8 @@ import torch
 from packppi_torch.ops import _build
 from packppi_torch.ops.chain import chain_plain, check_chain_weights, packed_chain_weights
 from packppi_torch.ops.graph import gather_nodes
-from packppi_torch.ops.message_feat import message_feat_plain, pack_message_weights
+from packppi_torch.ops.message_feat import (check_message_widths, message_feat_plain,
+                                            message_weights_expect, pack_message_weights)
 
 GEOM_EPS = 1e-8
 
@@ -198,7 +200,6 @@ message_gather.launches = 0
 message_geom.launches = 0
 message_chain.launches = 0
 
-_H, _P, _MAX_K = 128, 8, 64
 _F32 = torch.float32
 
 
@@ -209,44 +210,27 @@ def _stream_dtype(name, h_E):
     return sd
 
 
-def _check_widths(name, He, H, K, P):
-    if He != _H or H != _H or P != _P:
-        raise ValueError(f"{name} kernel is built for H=He={_H}, P={_P}; got "
-                         f"H={H}, He={He}, P={P}")
-    if K > _MAX_K:
-        raise ValueError(f"{name} kernel takes K <= {_MAX_K} neighbours, got {K}")
-
-
-def _weights_expect(w_in, b_in, w_mid, b_mid, w_out, b_out, He):
-    return {
-        "w_in": (w_in, (_H, 2 * _H + He + 9 * _P), _F32),
-        "b_in": (b_in, (_H,), _F32),
-        "w_mid": (w_mid, (_H, _H), _F32),
-        "b_mid": (b_mid, (_H,), _F32),
-        "w_out": (w_out, (_H, _H), _F32),
-        "b_out": (b_out, (_H,), _F32),
-    }
-
-
 def _indexed_expect(name, per_i, per_j, h_E, idx, p_local, rot, trans, pg, mask,
                     w_in, b_in, w_mid, b_mid, w_out, b_out):
-    """Checks the operands of the indexed-load routes; returns (B, L, K, sd)."""
+    """Checks the operands of the indexed-load routes; returns (B, L, K, sd,
+    (H, He, P))."""
     B, L, K, He = h_E.shape
+    H, P = per_i.shape[-1], p_local.shape[2]
     sd = _stream_dtype(name, h_E)
-    _check_widths(name, He, per_i.shape[-1], K, p_local.shape[2])
+    check_message_widths(name, H, He, 9 * P, K)
     expect = {
-        "per_i": (per_i, (B, L, _H), _F32),
-        "per_j": (per_j, (B, L, _H), sd),
+        "per_i": (per_i, (B, L, H), _F32),
+        "per_j": (per_j, (B, L, H), sd),
         "idx": (idx, (B, L, K), torch.int64),
-        "p_local": (p_local, (B, L, _P, 3), _F32),
+        "p_local": (p_local, (B, L, P, 3), _F32),
         "rot": (rot, (B, L, 3, 3), _F32),
         "trans": (trans, (B, L, 3), _F32),
-        "pg": (pg, (B, L, 3 * _P), _F32),
+        "pg": (pg, (B, L, 3 * P), _F32),
         "mask": (mask, (B, L, K), _F32),
-        **_weights_expect(w_in, b_in, w_mid, b_mid, w_out, b_out, He),
+        **message_weights_expect(w_in, b_in, w_mid, b_mid, w_out, b_out, H, He, 9 * P),
     }
     _build.check_operands(name, h_E, expect)
-    return B, L, K, sd
+    return B, L, K, sd, (H, He, P)
 
 
 def _indexed_cuda(entry, per_i, per_j, h_E, idx, p_local, rot, trans, pg, mask,
@@ -254,12 +238,12 @@ def _indexed_cuda(entry, per_i, per_j, h_E, idx, p_local, rot, trans, pg, mask,
     ops = (per_i, per_j, h_E, idx, p_local, rot, trans, pg, mask, w_in, b_in, w_mid, b_mid,
            w_out, b_out)
     name = entry[len("packppi_"):]
-    B, L, K, sd = _indexed_expect(name, *ops)
+    B, L, K, sd, (H, He, P) = _indexed_expect(name, *ops)
     _build.check_aligned(name, per_i=per_i, per_j=per_j, h_E=h_E)
-    wpack = pack_message_weights(w_in, w_mid, w_out, sd)
-    out = (torch.empty(B, L, _H, device=h_E.device, dtype=_F32) if pool
-           else torch.empty(B, L, K, _H, device=h_E.device, dtype=sd))
-    lib = _lib(act)
+    wpack = pack_message_weights(w_in, w_mid, w_out, sd, He)
+    out = (torch.empty(B, L, H, device=h_E.device, dtype=_F32) if pool
+           else torch.empty(B, L, K, H, device=h_E.device, dtype=sd))
+    lib = _lib(act, H, He, P)
     _build.launch_kernel(
         lib, entry, f"{name} kernel launch", h_E.device,
         *(_build.ptr(t) for t in ops[:9] + (wpack, b_in, b_mid, b_out, out)),
@@ -270,24 +254,25 @@ def _indexed_cuda(entry, per_i, per_j, h_E, idx, p_local, rot, trans, pg, mask,
 def _message_geom_cuda(per_i, pjg, h_E, pl, ng, rot9, trans, mask,
                        w_in, b_in, w_mid, b_mid, w_out, b_out, pool, act):
     B, L, K, He = h_E.shape
+    H, P = per_i.shape[-1], pl.shape[-1] // 3
     sd = _stream_dtype("message_geom", h_E)
-    _check_widths("message_geom", He, per_i.shape[-1], K, pl.shape[-1] // 3)
+    check_message_widths("message_geom", H, He, 9 * P, K)
     expect = {
-        "per_i": (per_i, (B, L, _H), _F32),
-        "pjg": (pjg, (B, L, K, _H), sd),
-        "pl": (pl, (B, L, 3 * _P), _F32),
-        "ng": (ng, (B, L, K, 3 * _P), _F32),
+        "per_i": (per_i, (B, L, H), _F32),
+        "pjg": (pjg, (B, L, K, H), sd),
+        "pl": (pl, (B, L, 3 * P), _F32),
+        "ng": (ng, (B, L, K, 3 * P), _F32),
         "rot9": (rot9, (B, L, 9), _F32),
         "trans": (trans, (B, L, 3), _F32),
         "mask": (mask, (B, L, K), _F32),
-        **_weights_expect(w_in, b_in, w_mid, b_mid, w_out, b_out, He),
+        **message_weights_expect(w_in, b_in, w_mid, b_mid, w_out, b_out, H, He, 9 * P),
     }
     _build.check_operands("message_geom", h_E, expect)
     _build.check_aligned("message_geom", per_i=per_i, pjg=pjg, h_E=h_E)
-    wpack = pack_message_weights(w_in, w_mid, w_out, sd)
-    out = (torch.empty(B, L, _H, device=h_E.device, dtype=_F32) if pool
-           else torch.empty(B, L, K, _H, device=h_E.device, dtype=sd))
-    lib = _lib(act)
+    wpack = pack_message_weights(w_in, w_mid, w_out, sd, He)
+    out = (torch.empty(B, L, H, device=h_E.device, dtype=_F32) if pool
+           else torch.empty(B, L, K, H, device=h_E.device, dtype=sd))
+    lib = _lib(act, H, He, P)
     _build.launch_kernel(
         lib, "packppi_message_geom", "message_geom kernel launch", h_E.device,
         *(_build.ptr(t) for t in (per_i, pjg, h_E, pl, ng, rot9, trans, mask, wpack, b_in,
@@ -301,13 +286,16 @@ def _message_chain_cuda(ops, chain_w, act):
     per_i, per_j, h_E = ops[:3]
     w_in, b_in, w_mid, b_mid, w_out, b_out = ops[9:]
     w1, w2 = chain_w[2], chain_w[4]
-    B, L, K, sd = _indexed_expect("message_chain", *ops)
+    B, L, K, sd, (H, He, P) = _indexed_expect("message_chain", *ops)
+    if He != H:
+        raise ValueError(f"message_chain kernel adds the message to h_E: edge_features={He} "
+                         f"must equal hidden_dim={H}")
     check_chain_weights("message_chain", h_E, *chain_w)
     _build.check_aligned("message_chain", per_i=per_i, per_j=per_j, h_E=h_E, w1=w1, w2=w2)
-    wpack = pack_message_weights(w_in, w_mid, w_out, sd)
+    wpack = pack_message_weights(w_in, w_mid, w_out, sd, He)
     cpack = packed_chain_weights(w1, w2, sd)
     out = torch.empty_like(h_E)
-    lib = _lib(act)
+    lib = _lib(act, H, He, P)
     _build.launch_kernel(
         lib, "packppi_message_chain", "message_chain kernel launch", h_E.device,
         *(_build.ptr(t) for t in ops[:9] + (wpack, b_in, b_mid, b_out) + chain_w + (cpack, out)),
@@ -316,8 +304,8 @@ def _message_chain_cuda(ops, chain_w, act):
     return out
 
 
-def _lib(act="relu"):
-    lib = _build.load_library(_build.lib_name("message", act))
+def _lib(act="relu", H=128, He=128, P=8):
+    lib = _build.load_library(_build.lib_name("message", act, H, He, P))
     if lib.packppi_message.argtypes is None:
         ptrs, ints, stream = [ctypes.c_void_p], [ctypes.c_int], [ctypes.c_void_p]
         for entry in (lib.packppi_message, lib.packppi_message_gather):

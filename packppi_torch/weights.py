@@ -54,6 +54,22 @@ def load_weights(module: nn.Module, state: Union[str, Path, Mapping]) -> None:
                            strict=True)
 
 
+def network_widths(state: Mapping) -> dict:
+    """The ``NetworkConfig`` widths that a reference-named state dict of the
+    score network was made at: ``hidden_dim`` (= ``node_features``),
+    ``edge_features``, ``n_points`` and ``num_mpnn_layers``, read from its
+    parameters' shapes; empty for a stack without points (the vanilla
+    MPNN). ``top_k`` leaves no trace in the weights."""
+    points = state.get("mpnn.mpnn_layers.0.points_fn_node.weight")
+    if points is None:
+        return {}
+    layers = {k.split(".")[2] for k in state if k.startswith("mpnn.mpnn_layers.")}
+    H = int(points.shape[1])
+    return dict(hidden_dim=H, node_features=H,
+                edge_features=int(state["encoder.norm_edges.weight"].shape[0]),
+                n_points=int(points.shape[0]) // 3, num_mpnn_layers=len(layers))
+
+
 def init_weights(module: nn.Module, seed: int) -> None:
     """Random weights from ``seed``: Xavier-uniform Linear kernels, zero
     biases, unit LayerNorm scales (the reference's initialisation)."""

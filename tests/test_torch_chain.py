@@ -239,3 +239,40 @@ def test_packed_weights_are_made_again_only_after_a_write():
     # another tensor, the same values
     assert packed_chain_weights(w1.clone(), w2, torch.bfloat16) is not again
     assert packed_chain_weights(w1, w2, torch.float32) is None   # float32 reads them as they are
+
+
+@pytest.mark.parametrize("H_", [32, 96, 160, 256])
+def test_pack_chain_weights_lays_out_the_wgmma_panels_at_width(H_):
+    """At width H the hidden is made S = min(H, 128) columns at a time: each
+    of the 4H / S slices holds ceil(H / 64) W1 panels of [S n][64 k] over
+    k < H, then ceil(S / 64) W2 panels of [H n][64 k] over the slice's
+    columns, k past the product's depth zeros, rows swizzled by n % 8."""
+    from packppi_torch.ops.chain import pack_chain_weights
+
+    g = torch.Generator().manual_seed(0)
+    w1, w2 = torch.randn(4 * H_, H_, generator=g), torch.randn(H_, 4 * H_, generator=g)
+    S = min(H_, 128)
+    p1, p2 = -(-H_ // 64), -(-S // 64)
+    packed = pack_chain_weights(w1, w2)
+    assert packed.dtype == torch.bfloat16
+    assert packed.numel() == (4 * H_ // S) * 64 * (p1 * S + p2 * H_)
+
+    def panel(at, rows):
+        n, p = torch.arange(rows)[:, None], torch.arange(8)[None, :]
+        block = packed[at:at + rows * 64].reshape(rows, 8, 8)
+        return block[n, p ^ (n % 8)].reshape(rows, 64)
+
+    def padded(w, k0, depth):
+        out = torch.zeros(w.shape[0], 64, dtype=torch.bfloat16)
+        k1 = min(k0 + 64, depth)
+        out[:, :k1 - k0] = w[:, k0:k1].bfloat16()
+        return out
+
+    at = 0
+    for hc in range(4 * H_ // S):
+        for j in range(p1):
+            assert torch.equal(panel(at, S), padded(w1[S * hc:S * hc + S], 64 * j, H_))
+            at += S * 64
+        for j in range(p2):
+            assert torch.equal(panel(at, H_), padded(w2[:, S * hc:S * hc + S], 64 * j, S))
+            at += H_ * 64

@@ -22,8 +22,9 @@ def cuda():
     return torch.device("cuda")
 
 
-def _message_operands(device, dtype, B=2, L=37, K=20, seed=0):
-    """Random operands of odd sizes (partial last block, K not dividing 64)."""
+def _message_operands(device, dtype, B=2, L=37, K=20, seed=0, H=H, He=H, P=P):
+    """Random operands of odd sizes (partial last block, K not dividing 64)
+    at widths H, He and P."""
     g = torch.Generator().manual_seed(seed)
     r = lambda *s: torch.randn(*s, generator=g)
     rot, _ = torch.linalg.qr(r(B, L, 3, 3))
@@ -33,13 +34,13 @@ def _message_operands(device, dtype, B=2, L=37, K=20, seed=0):
     pg = torch.cat([(rot[..., i, None, :] * p_local).sum(-1) + trans[..., i, None]
                     for i in range(3)], -1)
     w = lambda o, i: r(o, i) / np.sqrt(i)
-    ops = (r(B, L, H), r(B, L, H).to(dtype), r(B, L, K, H).to(dtype), idx, p_local,
-           rot.contiguous(), trans, pg, mask, w(H, 3 * H + 9 * P), 0.1 * r(H),
+    ops = (r(B, L, H), r(B, L, H).to(dtype), r(B, L, K, He).to(dtype), idx, p_local,
+           rot.contiguous(), trans, pg, mask, w(H, 2 * H + He + 9 * P), 0.1 * r(H),
            w(H, H), 0.1 * r(H), w(H, H), 0.1 * r(H))
     return tuple(t.to(device).contiguous() for t in ops)
 
 
-def _chain_operands(device, dtype, msg_dtype, N=1000, seed=1):
+def _chain_operands(device, dtype, msg_dtype, N=1000, seed=1, H=H):
     g = torch.Generator().manual_seed(seed)
     r = lambda *s: torch.randn(*s, generator=g)
     ops = (r(N, H).to(dtype), r(N, H).to(msg_dtype), (torch.rand(N, generator=g) > 0.2).float(),
@@ -48,17 +49,18 @@ def _chain_operands(device, dtype, msg_dtype, N=1000, seed=1):
     return tuple(t.to(device).contiguous() for t in ops)
 
 
-def _close(got, want, dtype):
+def _close(got, want, dtype, mean_rel=2.0 ** -16):
     """float32: max |d| <= 1e-4. bf16, relative to max|ref| (chip_smoke.py's
     limits): max |d| <= 2^-6 rejects a dropped block's rows, mean |d| <=
-    2^-16 rejects a kernel without the plain version's rounding points."""
+    2^-16 rejects a kernel without the plain version's rounding points
+    (``mean_rel``: 2^-15 at other widths, WIDTH_MEAN_REL)."""
     d = (got.float() - want.float()).abs()
     scale = want.float().abs().max().item()
     assert torch.isfinite(got.float()).all()
     if dtype == torch.float32:
         assert d.max().item() <= 1e-4
     else:
-        assert d.max().item() <= 2.0 ** -6 * scale and d.mean().item() <= 2.0 ** -16 * scale
+        assert d.max().item() <= 2.0 ** -6 * scale and d.mean().item() <= mean_rel * scale
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -127,14 +129,15 @@ def test_chain_bf16_follows_weights_written_in_place(cuda):
     assert not torch.equal(got, first)
 
 
-def _message_feat_operands(device, dtype, B=2, L=37, K=20, seed=3):
-    """Random operands of odd sizes (partial last block, K not dividing 64)."""
+def _message_feat_operands(device, dtype, B=2, L=37, K=20, seed=3, H=H, He=H, P=P):
+    """Random operands of odd sizes (partial last block, K not dividing 64)
+    at widths H, He and P."""
     g = torch.Generator().manual_seed(seed)
     r = lambda *s: torch.randn(*s, generator=g)
     w = lambda o, i: r(o, i) / np.sqrt(i)
     mask = (torch.rand(B, L, K, generator=g) > 0.1).float()
-    ops = (r(B, L, H), r(B, L, K, H).to(dtype), r(B, L, K, H).to(dtype),
-           (3 * r(B, L, K, 9 * P)).to(dtype), mask, w(H, 3 * H + 9 * P), 0.1 * r(H),
+    ops = (r(B, L, H), r(B, L, K, H).to(dtype), r(B, L, K, He).to(dtype),
+           (3 * r(B, L, K, 9 * P)).to(dtype), mask, w(H, 2 * H + He + 9 * P), 0.1 * r(H),
            w(H, H), 0.1 * r(H), w(H, H), 0.1 * r(H))
     return tuple(t.to(device).contiguous() for t in ops)
 
@@ -222,8 +225,8 @@ def test_message_feat_kernel_refuses_what_it_does_not_take(cuda):
     from packppi_torch.ops.message_feat import message_feat
 
     ops = list(_message_feat_operands(cuda, torch.float32))
-    ops[3] = ops[3][..., :64]                               # 9P must be 72
-    with pytest.raises(ValueError, match="9P=72"):
+    ops[3] = ops[3][..., :64].contiguous()                  # 9 features a point
+    with pytest.raises(ValueError, match="geometry features"):
         message_feat(*ops, True)
     ops = list(_message_feat_operands(cuda, torch.float32))
     ops[0] = ops[0].double()                                # per_i must be float32
@@ -321,13 +324,12 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     ops[3] = ops[3].int()                                   # idx must be int64
     with pytest.raises(TypeError, match="idx"):
         message(*ops, True)
-    cops = list(_chain_operands(cuda, torch.float32, torch.float32))
-    cops[0] = cops[0][:, :64]                               # H must be 128
-    with pytest.raises(ValueError, match="H=128"):
+    cops = _chain_operands(cuda, torch.float32, torch.float32, H=48)
+    with pytest.raises(ValueError, match="hidden_dim=48"):   # H: a multiple of 32
         chain(*cops, False)
 
 
-def _chain_weights(device, seed=4):
+def _chain_weights(device, seed=4, H=H):
     g = torch.Generator().manual_seed(seed)
     r = lambda *s: torch.randn(*s, generator=g)
     w = (1 + 0.1 * r(H), 0.1 * r(H), r(4 * H, H) / np.sqrt(H), 0.1 * r(4 * H),
@@ -1102,3 +1104,130 @@ def test_more_ranks_than_cards_needs_share_device(cuda):
     n = torch.cuda.device_count() + 1
     with pytest.raises(RuntimeError, match="share_device=True"):
         launch(print, n, "cuda")
+
+
+# (H, He, P, K): each width away from 128 / 128 / 8 / 32 in some entry, He !=
+# H in two, K past the 64-row tile in two (130: three tiles a node)
+GPU_WIDTHS = [(64, 64, 4, 16), (256, 256, 8, 32), (128, 64, 16, 48), (128, 128, 8, 96),
+              (96, 160, 3, 24), (32, 32, 1, 130)]
+GPU_WIDTH_IDS = [f"H{h}-He{e}-P{p}-K{k}" for h, e, p, k in GPU_WIDTHS]
+CHAIN_WIDTHS = [32, 64, 96, 160, 192, 224, 256]
+# bf16 mean limit at other widths (chip_smoke.py's WIDTH_BF16_MEAN_REL):
+# rounding flips grow with the width; at H = 256 the node pass reads about
+# twice the distance between the plain version summing in float32 and in
+# float64 (both sound), past 2^-16, and the plain version without its
+# rounding points still reads more than 4x 2^-15
+WIDTH_MEAN_REL = 2.0 ** -15
+
+
+@pytest.fixture(scope="module")
+def width_libs(cuda):
+    """Every library the width tests launch, built in parallel (one nvcc
+    each) before the first of them runs."""
+    from packppi_torch.ops import _build
+
+    names = [_build.lib_name("chain", "relu", h) for h in CHAIN_WIDTHS]
+    for h, he, p, _ in GPU_WIDTHS:
+        for widths in {(h, he, p), (h, h, p)}:
+            names += [_build.lib_name(src, "relu", *widths)
+                      for src in ("message", "message_feat", "layer")]
+    _build.build_all(list(dict.fromkeys(names)))
+    return names
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("pool", [True, False], ids=["pool", "edge"])
+@pytest.mark.parametrize("kernel", TC_KERNELS)
+@pytest.mark.parametrize("widths", GPU_WIDTHS, ids=GPU_WIDTH_IDS)
+def test_tensor_core_message_kernels_match_plain_at_width(cuda, width_libs, widths, kernel, pool,
+                                                          dtype):
+    """B = 2, L = 37 at widths the kernels are built for one library each."""
+    H_, He, P_, K = widths
+    fn, plain, ops = _tc_message_case(kernel, cuda, dtype, K=K, H=H_, He=He, P=P_)
+    before = fn.launches
+    got = fn(*ops, pool)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert got.shape == ((2, 37, H_) if pool else (2, 37, K, H_))
+    _close(got, plain(*ops, pool), dtype, WIDTH_MEAN_REL)
+
+
+@pytest.mark.parametrize("dtype,msg_dtype", [(torch.float32, torch.float32),
+                                             (torch.bfloat16, torch.bfloat16),
+                                             (torch.bfloat16, torch.float32)],
+                         ids=["f32", "bf16", "bf16-f32msg"])
+@pytest.mark.parametrize("pre_mask", [False, True], ids=["node", "edge"])
+@pytest.mark.parametrize("N", [700, 20000])
+@pytest.mark.parametrize("H_", CHAIN_WIDTHS)
+def test_chain_kernel_matches_plain_at_width(cuda, width_libs, H_, N, pre_mask, dtype,
+                                             msg_dtype):
+    """N = 700: fewer tiles than SMs (four warpgroups a bf16 tile up to H =
+    128, 16-row float32 tiles); N = 20,000: one warpgroup, 64-row tiles."""
+    from packppi_torch.ops.chain import chain, chain_plain
+
+    ops = _chain_operands(cuda, dtype, msg_dtype, N=N, H=H_)
+    got = chain(*ops, pre_mask)
+    torch.cuda.synchronize()
+    _close(got, chain_plain(*ops, pre_mask), dtype, WIDTH_MEAN_REL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("kernel", FUSED_KERNELS)
+@pytest.mark.parametrize("widths", GPU_WIDTHS, ids=GPU_WIDTH_IDS)
+def test_message_chain_and_layer_kernels_match_plain_at_width(cuda, width_libs, widths, kernel,
+                                                              dtype):
+    """The fold and the whole layer's passes; the edge passes add the
+    message to h_E, so they run at He = H."""
+    from packppi_torch.ops.layer import layer_edge, layer_edge_plain, layer_node, layer_node_plain
+    from packppi_torch.ops.message import message_chain, message_chain_plain
+
+    H_, He, P_, K = widths
+    He = He if kernel == "layer_node" else H_
+    cw = _chain_weights(cuda, H=H_)
+    if kernel == "message_chain":
+        fn, plain = message_chain, message_chain_plain
+        ops = (*_message_operands(cuda, dtype, K=K, H=H_, He=He, P=P_), *cw)
+    else:
+        per_i, pj, h_E, geom, mask, *w = _message_feat_operands(cuda, dtype, K=K, H=H_, He=He,
+                                                                P=P_)
+        if kernel == "layer_edge":
+            fn, plain = layer_edge, layer_edge_plain
+            ops = (h_E, per_i, pj, geom, mask, *w, *cw)
+        else:
+            fn, plain = layer_node, layer_node_plain
+            g = torch.Generator().manual_seed(6)
+            h_V = torch.randn(2, 37, H_, generator=g).to(cuda, dtype)
+            mask_V = (torch.rand(2, 37, generator=g) > 0.1).float().to(cuda)
+            ops = (h_V, per_i, pj, h_E, geom, mask, mask_V, *w, *cw)
+    got = fn(*ops)
+    torch.cuda.synchronize()
+    _close(got, plain(*ops), dtype, WIDTH_MEAN_REL)
+    if kernel == "layer_node":
+        for npb in (1, 5, 16):
+            assert torch.equal(layer_node(*ops, nodes_per_block=npb), got)
+
+
+@pytest.mark.parametrize("pool", [True, False], ids=["pool", "edge"])
+@pytest.mark.parametrize("widths", GPU_WIDTHS, ids=GPU_WIDTH_IDS)
+def test_message_feat_gradients_match_autograd_through_plain_at_width(cuda, width_libs, widths,
+                                                                     pool):
+    from packppi_torch.ops.message_feat import message_feat, message_feat_plain
+
+    H_, He, P_, K = widths
+    ops = _message_feat_operands(cuda, torch.float32, K=K, H=H_, He=He, P=P_)
+    diff = [i for i in range(len(ops)) if i != 4]              # operand 4 is the mask
+    _grads_close(_function_grads(lambda *a: message_feat(*a, pool), ops, diff),
+                 _function_grads(lambda *a: message_feat_plain(*a, pool), ops, diff))
+
+
+def test_message_chain_and_layer_edge_refuse_he_other_than_h(cuda):
+    from packppi_torch.ops.layer import layer_edge
+    from packppi_torch.ops.message import message_chain
+
+    ops = _message_operands(cuda, torch.float32, H=64, He=96, P=4)
+    with pytest.raises(ValueError, match="edge_features=96"):
+        message_chain(*ops, *_chain_weights(cuda, H=64))
+    per_i, pj, h_E, geom, mask, *w = _message_feat_operands(cuda, torch.float32, H=64, He=96,
+                                                            P=4)
+    with pytest.raises(ValueError, match="edge_features=96"):
+        layer_edge(h_E, per_i, pj, geom, mask, *w, *_chain_weights(cuda, H=64))

@@ -15,7 +15,10 @@ residues of 1BRS, as ``tests/test_torch_message_variants.py`` and
 ``fused_message_geom_lanes(chain_weights=...)`` and ``fused_ipmp_layer``'s
 node and edge passes in interpret mode, within 2e-5 (``chip_smoke.py``'s
 float32 limit for these kernels). The control: plain TF32 (the operands of
-every product rounded to TF32) must exceed it.
+every product rounded to TF32) must exceed it. The ``_at_width`` test holds
+the same model, with the kernels' chunking at each width (the chain's
+weight chunks of 16 k from H = 224 on), at (H, P) in {(64, 4), (128, 4),
+(256, 8)} on ``tests/test_torch_widths.py``'s cases (K = 16, He = H).
 """
 import os
 
@@ -27,7 +30,7 @@ from packppi_torch.ops.activations import ACTS
 from packppi_torch.ops.chain import _ln
 from packppi_torch.ops.graph import gather_nodes
 from packppi_torch.ops.message import geometry_edge_features
-from packppi_torch.ops.message_feat import message_weight_matrix, tf32_split
+from packppi_torch.ops.message_feat import message_depth, message_weight_matrix, tf32_split
 
 from test_torch_layer import _jax as _jax_layer
 from test_torch_layer import _operands as _layer_operands
@@ -36,8 +39,6 @@ from test_torch_message_variants import _jax as _jax_route
 from test_torch_tf32x3 import tf32
 
 F32_TOL = 2e-5
-G = 72
-K1 = 208            # the message's first product's depth, padded (csrc/message_tc.cuh kIn1)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -71,22 +72,31 @@ def mm_tf32(a, w):
     return tf32(a) @ tf32(w)
 
 
-TC = dict(message=mm_3xtf32(16), chain=mm_3xtf32(32))
+def tensor_cores(H):
+    """The float32 kernels' products at width H: the message in 16-k chunks,
+    the chain in 32-k chunks (16 from H = 224 on, csrc/chain_mma.cuh kWk)."""
+    return dict(message=mm_3xtf32(16), chain=mm_3xtf32(32 if H <= 192 else 16))
+
+
+TC = tensor_cores(H)
 PLAIN_TF32 = dict(message=mm_tf32, chain=mm_tf32)
 
 
 def message_rows(per_i, pj, h_E, geom, w_in, b_in, w_mid, b_mid, w_out, b_out, mm,
                  act="relu"):
-    """The message of every edge row [B, L, K, H]: [h_E | geom | 8 zero
-    columns] against the packed weight matrix's W_e, W_1 and W_2."""
-    B, L, Kn, _ = h_E.shape
-    w = message_weight_matrix(w_in, w_mid, w_out).t()            # [464, H] (in, out)
+    """The message of every edge row [B, L, K, H]: [h_E | geom | zero
+    columns to the padded depth] against the packed weight matrix's W_e,
+    W_1 and W_2, at the widths of the operands."""
+    B, L, Kn, He = h_E.shape
+    H_, G = per_i.shape[-1], geom.shape[-1]
+    k1 = message_depth(He, G)
+    w = message_weight_matrix(w_in, w_mid, w_out, He).t()        # [464, H] (in, out)
     rows = lambda t: t.reshape(B * L * Kn, -1).float()
-    a = torch.cat([rows(h_E), rows(geom), torch.zeros(B * L * Kn, K1 - H - G)], 1)
-    per_row = per_i.float()[:, :, None].expand(B, L, Kn, H)
-    x = ACTS[act](mm(a, w[:K1]) + b_in + rows(per_row) + rows(pj))
-    x = ACTS[act](mm(x, w[K1:K1 + H]) + b_mid)
-    return (mm(x, w[K1 + H:]) + b_out).reshape(B, L, Kn, H)
+    a = torch.cat([rows(h_E), rows(geom), torch.zeros(B * L * Kn, k1 - He - G)], 1)
+    per_row = per_i.float()[:, :, None].expand(B, L, Kn, H_)
+    x = ACTS[act](mm(a, w[:k1]) + b_in + rows(per_row) + rows(pj))
+    x = ACTS[act](mm(x, w[k1:k1 + H_]) + b_mid)
+    return (mm(x, w[k1 + H_:]) + b_out).reshape(B, L, Kn, H_)
 
 
 def chain_rows(x0, lna_w, lna_b, w1, b1, w2, b2, lnb_w, lnb_b, mm, act="relu"):
@@ -101,7 +111,8 @@ def edge_pass(h_E, per_i, pj, geom, mask, *weights, mm, act="relu"):
     two residuals are one): x0 = h_E + m * mask, out = chain(x0) * mask."""
     m = message_rows(per_i, pj, h_E, geom, *weights[:6], mm["message"], act)
     x0 = h_E + m * mask[..., None]
-    y = chain_rows(x0.reshape(-1, H), *weights[6:], mm["chain"], act).reshape(h_E.shape)
+    y = chain_rows(x0.reshape(-1, h_E.shape[-1]), *weights[6:], mm["chain"],
+                   act).reshape(h_E.shape)
     return y * mask[..., None]
 
 
@@ -109,7 +120,7 @@ def node_pass(h_V, per_i, pj, h_E, geom, mask, mask_V, *weights, mm):
     """The whole layer's node pass: x0 = h_V + sum_k(m * mask) * (1/K)."""
     m = message_rows(per_i, pj, h_E, geom, *weights[:6], mm["message"])
     x0 = h_V + (m * mask[..., None]).sum(-2) * (1.0 / h_E.shape[-2])
-    y = chain_rows(x0.reshape(-1, H), *weights[6:], mm["chain"]).reshape(h_V.shape)
+    y = chain_rows(x0.reshape(-1, h_V.shape[-1]), *weights[6:], mm["chain"]).reshape(h_V.shape)
     return y * mask_V[..., None]
 
 
@@ -147,3 +158,48 @@ def test_message_chain_and_layer_3xtf32_hold_the_float32_limit(kernels, kernel):
     err, cerr = np.abs(got - ref).max(), np.abs(control - ref).max()
     assert err <= F32_TOL, err
     assert cerr > F32_TOL, cerr
+
+
+@pytest.mark.parametrize("kernel", ["message_chain", "layer_node", "layer_edge"])
+@pytest.mark.parametrize("H_,P_", [(64, 4), (128, 4), (256, 8)], ids=["H64-P4", "H128-P4",
+                                                                      "H256-P8"])
+def test_message_chain_and_layer_3xtf32_hold_the_float32_limit_at_width(width_graph, H_, P_,
+                                                                         kernel):
+    from test_torch_widths import (_inputs as width_inputs, _jax, _jax_layer, make_case,
+                                   port_chain_weights as width_chain, port_mlp as width_mlp)
+
+    c = make_case(width_graph, H_, H_, P_, 16)
+    mlp = width_mlp(c)
+    with torch.no_grad():
+        cw = width_chain(c)
+        if kernel == "message_chain":
+            ops = mlp.operands(*width_inputs(c, torch.float32))
+            per_i, per_j, h_E, idx, p_local, rot, trans, pg, mask, *msg_w = ops
+            geom = geometry_edge_features(p_local, gather_nodes(pg, idx), rot, trans)
+            args = (h_E, per_i, gather_nodes(per_j, idx), geom, mask, *msg_w, *cw)
+            model, ref = edge_pass, _jax(c, "fold", "float32", False)
+        else:
+            per_i, pjg, h_E, geom, mask, *msg_w = mlp.feat_operands(
+                *width_inputs(c, torch.float32))
+            if kernel == "layer_node":
+                mask_V = torch.ones(1, h_E.shape[1])
+                mask_V[0, -3:] = 0.0
+                args = (torch.from_numpy(c["h_V"]), per_i, pjg, h_E, geom, mask, mask_V,
+                        *msg_w, *cw)
+                model, ref = node_pass, _jax_layer(c, args, True)
+            else:
+                args = (h_E, per_i, pjg, geom, mask, *msg_w, *cw)
+                model, ref = edge_pass, _jax_layer(c, args, False)
+        got = model(*args, mm=tensor_cores(H_)).numpy()
+        control = model(*args, mm=PLAIN_TF32).numpy()
+    assert got.shape == ref.shape
+    err, cerr = np.abs(got - ref).max(), np.abs(control - ref).max()
+    assert err <= F32_TOL, err
+    assert cerr > F32_TOL, cerr
+
+
+@pytest.fixture(scope="module")
+def width_graph():
+    from test_torch_widths import graph
+
+    return graph.__wrapped__()

@@ -210,12 +210,15 @@ def test_vanilla_stack_matches_jax(feats, dtype):
 
 def test_vanilla_configuration_launches_no_kernel():
     """The vanilla layer runs no kernel in any routing, so its configuration
-    is allowed on the card at any width; gelu is allowed too."""
-    wide = dict(hidden_dim=64, node_features=64, edge_features=64)
+    is allowed on the card at any width, also one the kernels are not built
+    for (hidden_dim = 320: wgmma's N ends at 256); gelu is allowed too, and
+    the kernels' own widths (hidden_dim = 64)."""
+    wide = dict(hidden_dim=320, node_features=320, edge_features=320)
     assert not NetworkConfig(use_ipmp=False, fused_layers=True).runs_kernels()
     NetworkConfig(use_ipmp=False, **wide).check_device("cuda")
     NetworkConfig(act="gelu").check_device("cuda")
-    with pytest.raises(ValueError, match="hidden_dim=64"):
+    NetworkConfig(hidden_dim=64, node_features=64, edge_features=64).check_device("cuda")
+    with pytest.raises(ValueError, match="hidden_dim=320"):
         NetworkConfig(**wide).check_device("cuda")
 
 

@@ -98,20 +98,36 @@ def _chain_model(c, edge, mm, act="relu"):
     return (_ln(xx + h, t("lnb_s"), t("lnb_b")) * mask).numpy()
 
 
+def _chain_case(H, N=300):
+    rng = np.random.default_rng(0)
+    f32 = np.float32
+    xavier = lambda i, o: (rng.uniform(-1, 1, (i, o)) * np.sqrt(6 / (i + o))).astype(f32)
+    return dict(
+        x=rng.normal(size=(N, H)).astype(f32), msg=rng.normal(size=(N, H)).astype(f32),
+        mask=(rng.uniform(size=N) > 0.2).astype(f32),
+        lna_s=rng.uniform(0.5, 1.5, H).astype(f32), lna_b=rng.normal(0, .1, H).astype(f32),
+        f1=xavier(H, 4 * H), f1b=rng.normal(0, .1, 4 * H).astype(f32),
+        f2=xavier(4 * H, H), f2b=rng.normal(0, .1, H).astype(f32),
+        lnb_s=rng.uniform(0.5, 1.5, H).astype(f32), lnb_b=rng.normal(0, .1, H).astype(f32))
+
+
 @pytest.mark.parametrize("edge,act", [(False, "relu"), (True, "relu"), (True, "gelu")],
                          ids=["node", "edge", "edge-gelu"])
 def test_chain_3xtf32_holds_the_float32_limit(edge, act):
     """The activation sits between the two products, on the float32 sum,
     where the JAX kernel applies its ``act_name``."""
-    rng = np.random.default_rng(0)
-    f32, H, N = np.float32, 128, 300
-    xavier = lambda i, o: (rng.uniform(-1, 1, (i, o)) * np.sqrt(6 / (i + o))).astype(f32)
-    c = dict(x=rng.normal(size=(N, H)).astype(f32), msg=rng.normal(size=(N, H)).astype(f32),
-             mask=(rng.uniform(size=N) > 0.2).astype(f32),
-             lna_s=rng.uniform(0.5, 1.5, H).astype(f32), lna_b=rng.normal(0, .1, H).astype(f32),
-             f1=xavier(H, 4 * H), f1b=rng.normal(0, .1, 4 * H).astype(f32),
-             f2=xavier(4 * H, H), f2b=rng.normal(0, .1, H).astype(f32),
-             lnb_s=rng.uniform(0.5, 1.5, H).astype(f32), lnb_b=rng.normal(0, .1, H).astype(f32))
+    _check_chain_3xtf32(_chain_case(128), edge, act)
+
+
+@pytest.mark.parametrize("edge", [False, True], ids=["node", "edge"])
+@pytest.mark.parametrize("H", [64, 256])
+def test_chain_3xtf32_holds_the_float32_limit_at_width(H, edge):
+    """The same at hidden width H (the FFN 4H wide), where the JAX kernel
+    takes its widths from the weights."""
+    _check_chain_3xtf32(_chain_case(H), edge, "relu")
+
+
+def _check_chain_3xtf32(c, edge, act):
     j = lambda k: jnp.asarray(c[k])
     want = np.asarray(fused_chain(
         j("x"), j("msg"), j("mask")[:, None], j("lna_s"), j("lna_b"), j("f1"), j("f1b"),

@@ -344,21 +344,30 @@ def test_dropped_model_keys_are_named():
 
 def test_card_shapes_are_refused_before_any_data_is_read(tmp_path, monkeypatch):
     """A width the kernels are not built for is refused for a CUDA device
-    (before the trainer reads its data) and accepted on the CPU; so is a
-    device count the mesh cannot split (several devices train:
-    tests/test_torch_multidevice.py)."""
+    (before the trainer reads its data), naming it, and accepted on the CPU;
+    so is a device count the mesh cannot split (several devices train:
+    tests/test_torch_multidevice.py). The kernels take hidden_dim and
+    edge_features every multiple of 32 from 32 to 256, n_points 1 to 16 and
+    any top_k."""
     from packppi_torch.models import NetworkConfig
     from packppi_torch.train import loop
 
-    cfg = NetworkConfig(hidden_dim=64, node_features=64, edge_features=64)
-    with pytest.raises(ValueError, match="hidden_dim=64"):
+    NetworkConfig(hidden_dim=64, node_features=64, edge_features=64).check_device("cuda")
+    NetworkConfig(top_k=96).check_device("cuda")
+    NetworkConfig(hidden_dim=256, node_features=256, edge_features=32, n_points=16,
+                  top_k=128).check_device("cuda")
+    cfg = NetworkConfig(hidden_dim=320, node_features=320, edge_features=320)
+    with pytest.raises(ValueError, match="hidden_dim=320"):
         cfg.check_device("cuda")
     cfg.check_device("cpu")
-    NetworkConfig(hidden_dim=64, node_features=64, edge_features=64, fused_messages=False,
+    NetworkConfig(hidden_dim=320, node_features=320, edge_features=320, fused_messages=False,
                   fused_chain=False).check_device("cuda")
     NetworkConfig().check_device("cuda")
-    with pytest.raises(ValueError, match="top_k=96"):
-        NetworkConfig(top_k=96).check_device("cuda")
+    for bad, field in ((dict(edge_features=48), "edge_features=48"),
+                       (dict(n_points=17), "n_points=17"),
+                       (dict(hidden_dim=16, node_features=16), "hidden_dim=16")):
+        with pytest.raises(ValueError, match=field):
+            NetworkConfig(**bad).check_device("cuda")
 
     import packppi_torch.data.skempi as skempi
     import packppi_torch.device as device_mod
@@ -371,8 +380,8 @@ def test_card_shapes_are_refused_before_any_data_is_read(tmp_path, monkeypatch):
             device="cpu")
     assert read == []
     monkeypatch.setattr(device_mod, "resolve_device", lambda d: torch.device("cuda"))
-    ov = _overrides(tmp_path, tmp_path / "out", "model.hidden_dim=64",
-                    "model.node_features=64", "model.edge_features=64")
-    with pytest.raises(ValueError, match="hidden_dim=64"):
+    ov = _overrides(tmp_path, tmp_path / "out", "model.hidden_dim=320",
+                    "model.node_features=320", "model.edge_features=320")
+    with pytest.raises(ValueError, match="hidden_dim=320"):
         loop.train_affinity(load_config(CONFIG, ov), device="cuda")
     assert read == []

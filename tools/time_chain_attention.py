@@ -45,10 +45,6 @@ _KS = "if (tiles < sms)"
 _STAGES = "constexpr int kStages = 2;"
 VARIANTS = {
     "ks1": [("chain.cu", _KS, "if (false)")],
-    "ks2": [("chain.cu", "chain_wgmma_kernel<M, 4>, tiles, ChainWg<4>::kThreads,\n"
-             "                         ChainWg<4>::kBytes",
-             "chain_wgmma_kernel<M, 2>, tiles, ChainWg<2>::kThreads,\n"
-             "                         ChainWg<2>::kBytes")],
     "stages3": [("chain_wgmma.cuh", _STAGES, "constexpr int kStages = 3;")],
 }
 

@@ -64,15 +64,15 @@ _TC = "message_tc.cuh"
 VARIANTS = {
     # bf16: ring depth (2 stages, three blocks an SM)
     "bf16_s3": [(_TC, "static constexpr int kStages = 2;", "static constexpr int kStages = 3;"),
-                (_TC, "static constexpr int kMinBlocks = 3;",
+                (_TC, "static constexpr int kMinBlocks = kH <= 128 ? 3 : 1;",
                  "static constexpr int kMinBlocks = 2;")],
     "bf16_s4": [(_TC, "static constexpr int kStages = 2;", "static constexpr int kStages = 4;"),
-                (_TC, "static constexpr int kMinBlocks = 3;",
+                (_TC, "static constexpr int kMinBlocks = kH <= 128 ? 3 : 1;",
                  "static constexpr int kMinBlocks = 2;")],
     # float32: ring depth (3 stages, two blocks an SM)
     "f32_s2": [(_TC, "static constexpr int kStages = 3;", "static constexpr int kStages = 2;")],
     "f32_s4": [(_TC, "static constexpr int kStages = 3;", "static constexpr int kStages = 4;"),
-               (_TC, "static constexpr int kMinBlocks = 2;",
+               (_TC, "static constexpr int kMinBlocks = kH <= 128 ? 2 : 1;",
                 "static constexpr int kMinBlocks = 1;")],
     # the bf16 fold and whole-layer edge pass: two blocks an SM (no register cap of 168)
     "fused_bf16_b2": [("message_chain.cuh",
