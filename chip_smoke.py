@@ -1002,36 +1002,27 @@ def phase_network_vs_cpu(torch):
         fail("card and CPU networks disagree")
 
 
-def launch_counters():
-    """name -> (object, attribute) of every kernel's launch count."""
-    from packppi_torch.ops.attention import mha
-    from packppi_torch.ops.chain import chain
-    from packppi_torch.ops.clash import between_residue_clash as brc
-    from packppi_torch.ops.layer import layer_edge, layer_node
-    from packppi_torch.ops.message import message, message_chain, message_gather, message_geom
-    from packppi_torch.ops.message_feat import message_feat
-
-    return {"message": (message, "launches"), "message_feat": (message_feat, "launches"),
-            "chain": (chain, "launches"), "clash_fwd": (brc, "launches_fwd"),
-            "clash_bwd": (brc, "launches_bwd"), "attention": (mha, "launches"),
-            "message_geom": (message_geom, "launches"),
-            "message_gather": (message_gather, "launches"),
-            "message_chain": (message_chain, "launches"),
-            "layer_node": (layer_node, "launches"), "layer_edge": (layer_edge, "launches")}
+_LAUNCH_BASE = {}
 
 
 def zero_launches():
-    for obj, attr in launch_counters().values():
-        setattr(obj, attr, 0)
+    """Count launches from here on (``read_launches``)."""
+    from packppi_torch.utils.trace import counters
+
+    _LAUNCH_BASE.update(counters())
 
 
 def read_launches():
-    return {name: getattr(obj, attr) for name, (obj, attr) in launch_counters().items()}
+    from packppi_torch.utils.trace import counters
+
+    return {name: n - _LAUNCH_BASE.get(name, 0) for name, n in counters().items()}
 
 
 def expect_launches(**counts):
     """Every kernel's expected count: the given ones, 0 for the rest."""
-    return {name: counts.get(name, 0) for name in launch_counters()}
+    from packppi_torch.utils.trace import counters
+
+    return {name: counts.get(name, 0) for name in counters()}
 
 
 def check_structure(outdir):
@@ -2873,7 +2864,7 @@ def phase_serve(torch):
             fail(f"cli.serve {path}: launches {got}, expected {expect}")
         return out, seconds, got
 
-    launches = {k: 0 for k in launch_counters()}
+    launches = {k: 0 for k in read_launches()}
     try:
         health, _, _ = call("GET", "/healthz")
         log(f"  /healthz: {health}")

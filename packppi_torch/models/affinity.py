@@ -28,6 +28,7 @@ from packppi_torch.models.diffusion_net import NetworkConfig
 from packppi_torch.models.encoder import ProteinEncoder
 from packppi_torch.models.ipmp import MessagePassingStack
 from packppi_torch.models.torsional_diffusion import TorsionalDiffusion
+from packppi_torch.utils.trace import span
 
 MODES = ("network", "linear", "esm")
 
@@ -160,10 +161,14 @@ class AffinityModel(nn.Module):
         """(ddg [B], ddg_inv [B]) in "network" or "linear" mode; dropout is
         applied only with ``deterministic=False``."""
         wild, mut = batch.wild(), batch.mutant()
-        h_wt, h_mt = self.pret(wild), self.pret(mut)
+        with span("affinity.backbone"):
+            h_wt = self.pret(wild)
+        with span("affinity.backbone"):
+            h_mt = self.pret(mut)
         self.net.train(not deterministic)
         try:
-            return self.net(wild, mut, h_wt, h_mt, batch.mut_mask, wild.residue_mask)
+            with span("affinity.mutation"):
+                return self.net(wild, mut, h_wt, h_mt, batch.mut_mask, wild.residue_mask)
         finally:
             self.net.eval()
 

@@ -21,6 +21,7 @@ from packppi_torch.data.batch import ProteinBatch
 from packppi_torch.diffusion.so2 import SO2Schedule
 from packppi_torch.geometry.dihedrals import wrap_angle
 from packppi_torch.models.diffusion_net import ChiScoreNetwork, NetworkConfig
+from packppi_torch.utils.trace import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -184,18 +185,20 @@ class TorsionalDiffusion(nn.Module):
         dts = (ts[:-1] - ts[1:]).astype(np.float32)
         m1, m2 = batch.chi_1pi_periodic_mask, batch.chi_2pi_periodic_mask
 
-        static = self.net.encode_static(batch)
+        with span("sample.encode"):
+            static = self.net.encode_static(batch)
         traj = []
         for time, dt in zip(times, dts):
-            t = torch.full(batch.residue_mask.shape, float(time), device=sc.device)
-            score, _ = self.net(batch, sc, t, static=static, skip_last_edge_update=True)
-            traj.append(sc)
-            sde = self.schedule_pi.mode == "sde"
-            sc_next = self.schedule_pi.step(sc, score, float(time), float(dt), m1, generator,
-                                            draw(score) if sde else None)
-            sc_next = self.schedule_2pi.step(sc_next, score, float(time), float(dt), m2,
-                                             generator, draw(score) if sde else None)
-            sc = wrap_angle(sc_next) * batch.SC_D_mask
+            with span("sample.step"):
+                t = torch.full(batch.residue_mask.shape, float(time), device=sc.device)
+                score, _ = self.net(batch, sc, t, static=static, skip_last_edge_update=True)
+                traj.append(sc)
+                sde = self.schedule_pi.mode == "sde"
+                sc_next = self.schedule_pi.step(sc, score, float(time), float(dt), m1, generator,
+                                                draw(score) if sde else None)
+                sc_next = self.schedule_2pi.step(sc_next, score, float(time), float(dt), m2,
+                                                 generator, draw(score) if sde else None)
+                sc = wrap_angle(sc_next) * batch.SC_D_mask
             for _ in range(corrector_steps):
                 # each periodicity's step size from its own masked norms
                 score, _ = self.net(batch, sc, t, static=static, skip_last_edge_update=True)

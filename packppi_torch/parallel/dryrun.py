@@ -73,21 +73,6 @@ def to_batch(arrays: dict, device, cls=None):
                   for f in cls._fields})
 
 
-def launch_counts() -> dict:
-    """The launch counters of every kernel wrapper."""
-    from packppi_torch.ops import attention, chain, clash, layer, message, message_feat
-
-    return {"message": message.message.launches,
-            "message_gather": message.message_gather.launches,
-            "message_geom": message.message_geom.launches,
-            "message_chain": message.message_chain.launches,
-            "message_feat": message_feat.message_feat.launches,
-            "chain": chain.chain.launches, "layer_node": layer.layer_node.launches,
-            "layer_edge": layer.layer_edge.launches, "attention": attention.mha.launches,
-            "clash_fwd": clash.between_residue_clash.launches_fwd,
-            "clash_bwd": clash.between_residue_clash.launches_bwd}
-
-
 def _rows(arrays: dict, rows: slice) -> dict:
     return {k: v[rows] for k, v in arrays.items()}
 
@@ -102,6 +87,7 @@ def _dryrun_rank(n_devices: int) -> dict:
     from packppi_torch.sampling.proximal import proximal_optimize
     from packppi_torch.train.diffusion_task import (global_loss_terms, init_state,
                                                     make_train_step)
+    from packppi_torch.utils.trace import counters
 
     device = current().device
     model_parallel = 2 if n_devices % 2 == 0 and n_devices > 1 else 1
@@ -181,7 +167,7 @@ def _dryrun_rank(n_devices: int) -> dict:
     if model_parallel > 1:
         lines.append(_affinity_stage(model, mesh, device, n_data))
         lines.extend(_esm_stages(mesh, device, n_data, model_parallel))
-    return {"lines": lines, "launches": launch_counts()}
+    return {"lines": lines, "launches": counters()}
 
 
 def _affinity_stage(model, mesh, device, n_data) -> str:

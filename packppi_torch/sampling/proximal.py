@@ -18,6 +18,7 @@ import torch
 
 from packppi_torch.data.batch import ProteinBatch
 from packppi_torch.ops.clash import compute_residue_clash
+from packppi_torch.utils.trace import span
 
 
 def _row_mean(x, mask, eps=1e-10):
@@ -92,17 +93,18 @@ def proximal_optimize(batch: ProteinBatch, SC_D,
         x = z.clone().requires_grad_(True)
         opt = torch.optim.Adam([x], lr=lr)
         for _ in range(num_steps):
-            opt.zero_grad(set_to_none=True)
-            x_eff = torch.where(clash_mask, x, SC_D)
-            prc = compute_residue_clash(batch, x_eff, violation_tolerance_factor,
-                                        clash_overlap_tolerance)
-            row = (_row_mean(((x_eff - z) ** 2).sum(-1), rm)
-                   + lamda * _row_mean(prc, rm))       # [B] independent complexes
-            (row.mean() if n_rows is None else row.sum() / n_rows).backward()
-            # recorded before the step: rows[0] is the initial objective and
-            # rows[-1] the one entering the last step
-            rows.append(row.detach())
-            opt.step()
+            with span("refine.step"):
+                opt.zero_grad(set_to_none=True)
+                x_eff = torch.where(clash_mask, x, SC_D)
+                prc = compute_residue_clash(batch, x_eff, violation_tolerance_factor,
+                                            clash_overlap_tolerance)
+                row = (_row_mean(((x_eff - z) ** 2).sum(-1), rm)
+                       + lamda * _row_mean(prc, rm))       # [B] independent complexes
+                (row.mean() if n_rows is None else row.sum() / n_rows).backward()
+                # recorded before the step: rows[0] is the initial objective and
+                # rows[-1] the one entering the last step
+                rows.append(row.detach())
+                opt.step()
     row_losses = torch.stack(rows)
     return ProximalResult(torch.where(clash_mask, x.detach(), SC_D), row_losses.mean(1),
                           clash_mask, row_losses)

@@ -16,6 +16,7 @@ import numpy as np
 
 from packppi_torch.chem import CHEM
 from packppi_torch.structure.protein import Protein
+from packppi_torch.utils.trace import span
 
 
 def _normalize(v: np.ndarray, axis: int = -1) -> np.ndarray:
@@ -87,6 +88,11 @@ def apply_chain_residue_offsets(residue_index: np.ndarray, chain_indices: np.nda
 
 def featurize(protein: Protein) -> dict[str, np.ndarray]:
     """Protein -> canonical feature dict (all numpy, NaN-scrubbed)."""
+    with span("structure.featurize"):
+        return _featurize(protein)
+
+
+def _featurize(protein: Protein) -> dict[str, np.ndarray]:
     X = protein.atom_positions.astype(np.float32)
     residue_type = protein.aaindex.astype(np.int64)
     atom_mask = protein.atom_mask.astype(np.float32)

@@ -27,6 +27,7 @@ import numpy as np
 from packppi_torch.chem import (ATOM14_NAMES, ATOM37_TYPES, NUM_ATOM14,
                                 RESTYPE_1TO3, RESTYPE_3TO1, RESTYPE_ORDER,
                                 RESTYPES)
+from packppi_torch.utils.trace import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -195,6 +196,11 @@ def _ter_line(serial: int, resname: str, chain: str, resseq) -> str:
 
 def to_pdb(prot: Protein, keep_chains: Optional[list] = None) -> str:
     """Serialize to PDB text (atom14 or atom37 position layouts)."""
+    with span("structure.to_pdb"):
+        return _to_pdb(prot, keep_chains)
+
+
+def _to_pdb(prot: Protein, keep_chains: Optional[list]) -> str:
     atom_mask, aaindex = prot.atom_mask, prot.aaindex
     positions, res_idx = prot.atom_positions, prot.residue_index
     chain_id, bfac = prot.chain_id, prot.b_factors

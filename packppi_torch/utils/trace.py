@@ -1,0 +1,146 @@
+"""Spans and counters of the program, live only while a torch profiler records.
+
+``span(name)`` marks a stretch of host work at the site that does it::
+
+    with span("sample.step"):
+        ...
+
+With no profiler recording it is one check of torch's profiler flag
+(``torch.autograd.profiler._is_profiler_enabled``, which
+``torch.profiler.profile`` sets for its duration): it marks the live stretch
+ended and returns one shared no-op context, and reads no clock, opens no
+annotation and allocates nothing.
+Under a recording profiler it opens ``record_function("packppi." + name)``,
+so the span lies in the profiler's trace beside the kernels it launched, and
+keeps a ``Span`` in memory: its name, ``time.time_ns()`` stamps (the clock
+the profiler's exported Chrome trace is built on: an event lies at ``ts``
+microseconds after the trace's ``baseTimeNanoseconds``), the native id of
+the thread that did the work and the enclosing live span of that thread.
+The profiler records annotations of the thread that started it only; the
+spans in memory hold every thread's.
+
+A live stretch starts at the first span opened under a recording profiler
+after one opened without: it drops what the last stretch kept and takes
+``counters()`` as the stretch's start. Each outermost span that closes takes
+them again as the stretch's end. ``report()`` and ``records()`` read the
+last live stretch and clear nothing.
+"""
+from __future__ import annotations
+
+import contextlib
+import threading
+import time
+from typing import NamedTuple, Optional
+
+from torch.autograd import profiler as _profiler
+from torch.profiler import record_function
+
+_OFF = contextlib.nullcontext()
+
+
+class Span(NamedTuple):
+    name: str
+    start_ns: int               # time.time_ns() at entry
+    end_ns: int
+    thread: int                 # threading.get_native_id(): the trace's ``tid``
+    parent: Optional[str]       # the enclosing live span on the same thread
+
+
+class _Recorder:
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.live = False
+        self.spans: list = []
+        self.start: dict = {}
+        self.end: dict = {}
+        self.local = threading.local()     # each thread's stack of open span names
+
+    def stack(self) -> list:
+        s = getattr(self.local, "stack", None)
+        if s is None:
+            s = self.local.stack = []
+        return s
+
+    def go_live(self) -> None:
+        with self.lock:
+            if not self.live:
+                self.spans = []
+                self.start = counters()
+                self.end = dict(self.start)
+                self.live = True
+
+
+_REC = _Recorder()
+
+
+class _Live:
+    __slots__ = ("name", "parent", "start_ns", "annotation")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        if not _REC.live:
+            _REC.go_live()
+        stack = _REC.stack()
+        self.parent = stack[-1] if stack else None
+        stack.append(self.name)
+        self.annotation = record_function("packppi." + self.name)
+        self.annotation.__enter__()
+        self.start_ns = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        end_ns = time.time_ns()
+        self.annotation.__exit__(*exc)
+        _REC.stack().pop()
+        span = Span(self.name, self.start_ns, end_ns, threading.get_native_id(), self.parent)
+        with _REC.lock:
+            _REC.spans.append(span)
+            if self.parent is None:
+                _REC.end = counters()
+        return False
+
+
+def span(name: str):
+    """A context around host work named ``name``; live only while a torch
+    profiler records."""
+    if not _profiler._is_profiler_enabled:
+        _REC.live = False
+        return _OFF
+    return _Live(name)
+
+
+def counters() -> dict:
+    """Every counter of the program by name: the launches of each kernel
+    wrapper in ``ops/`` (clash forward and gradient apart)."""
+    from packppi_torch.ops import attention, chain, clash, layer, message, message_feat
+
+    return {"message": message.message.launches,
+            "message_gather": message.message_gather.launches,
+            "message_geom": message.message_geom.launches,
+            "message_chain": message.message_chain.launches,
+            "message_feat": message_feat.message_feat.launches,
+            "chain": chain.chain.launches, "layer_node": layer.layer_node.launches,
+            "layer_edge": layer.layer_edge.launches, "attention": attention.mha.launches,
+            "clash_fwd": clash.between_residue_clash.launches_fwd,
+            "clash_bwd": clash.between_residue_clash.launches_bwd}
+
+
+def records() -> list:
+    """The ``Span``s of the last live stretch, in the order they closed."""
+    with _REC.lock:
+        return list(_REC.spans)
+
+
+def report() -> dict:
+    """The last live stretch: ``{"spans": {name: {"n", "total_s"}},
+    "counters": {name: growth from the stretch's start to its end}}``."""
+    with _REC.lock:
+        spans, start, end = list(_REC.spans), dict(_REC.start), dict(_REC.end)
+    out: dict = {}
+    for s in spans:
+        d = out.setdefault(s.name, {"n": 0, "total_s": 0.0})
+        d["n"] += 1
+        d["total_s"] += (s.end_ns - s.start_ns) * 1e-9
+    return {"spans": out, "counters": {k: end[k] - v for k, v in start.items()}}
