@@ -9,16 +9,26 @@ size [L, L] is ever held, so complexes of thousands of residues fit.
 
 Means are taken over the residue mask, so padding changes nothing and the
 complexes of a batch stay independent.
+
+One Adam step is one function (``_Refinement.step``). On the CPU it runs
+eagerly ``num_steps`` times. On the card it is captured once a shape into a
+CUDA graph (``_Graphed``, kept in a small cache) and replayed ``num_steps``
+times, so a step costs one launch of the host's rather than the ~200
+operations of the objective, its backward and Adam; the clash kernels run
+inside the graph.
 """
 from __future__ import annotations
 
+import functools
+import threading
+from collections import OrderedDict
 from typing import NamedTuple, Optional
 
 import torch
 
 from packppi_torch.data.batch import ProteinBatch
-from packppi_torch.ops.clash import compute_residue_clash
-from packppi_torch.utils.trace import span
+from packppi_torch.ops.clash import between_residue_clash, compute_residue_clash
+from packppi_torch.utils.trace import span, tally
 
 
 def _row_mean(x, mask, eps=1e-10):
@@ -72,39 +82,163 @@ class ProximalResult(NamedTuple):
     #                           callers apply the accept rule per complex
 
 
+# the fields of the batch a step reads
+_READ = ("X", "atom_mask", "residue_type", "residue_mask", "residue_index", "BB_D")
+# eager steps on the capture's stream before it (Adam's state, cuBLAS's workspace)
+_WARMUP = 2
+_MAX_GRAPHS = 8
+
+
+class _Refinement:
+    """One refinement's tensors and its Adam step on ``x``, the chis of the
+    optimized residues (``z`` where it starts)."""
+
+    def __init__(self, batch, SC_D, z, clash_mask, num_steps, lr, lamda, tolerances, n_rows):
+        self.batch, self.SC_D, self.z, self.clash_mask = batch, SC_D, z, clash_mask
+        self.lamda, self.tolerances, self.n_rows = lamda, tolerances, n_rows
+        self.x = z.clone().requires_grad_(True)
+        # on the card Adam's step count and bias corrections live on the device,
+        # as a graph needs, whether or not this loop is captured
+        self.opt = torch.optim.Adam([self.x], lr=lr, capturable=z.is_cuda)
+        self.losses = z.new_zeros(num_steps, z.shape[0])     # [num_steps, B]
+        self.slot = torch.zeros(1, dtype=torch.long, device=z.device)
+
+    def step(self):
+        """One Adam step; the objective of every row entering it goes to row
+        ``slot`` of ``losses``, and ``slot`` moves on (on the device)."""
+        self.opt.zero_grad(set_to_none=True)
+        x_eff = torch.where(self.clash_mask, self.x, self.SC_D)
+        rm = self.batch.residue_mask
+        prc = compute_residue_clash(self.batch, x_eff, *self.tolerances)
+        row = (_row_mean(((x_eff - self.z) ** 2).sum(-1), rm)
+               + self.lamda * _row_mean(prc, rm))             # [B] independent complexes
+        (row.mean() if self.n_rows is None else row.sum() / self.n_rows).backward()
+        # recorded before the step: losses[0] is the initial objective and
+        # losses[-1] the one entering the last step
+        self.losses.index_copy_(0, self.slot, row.detach()[None])
+        self.slot.add_(1)
+        self.opt.step()
+
+    def result(self):
+        return torch.where(self.clash_mask, self.x.detach(), self.SC_D), self.losses
+
+
+class _Graphed:
+    """A refinement captured for one shape: static copies of what a step
+    reads, Adam's state, the graph of one step, and the clash launches a
+    replay makes. ``run`` loads a request into the copies and replays the
+    step; a lock keeps requests of one shape apart."""
+
+    def __init__(self, batch, SC_D, z, clash_mask, *args):
+        static = {f: getattr(batch, f).clone() if f in _READ else None
+                  for f in ProteinBatch._fields}
+        self.r = _Refinement(ProteinBatch(**static), SC_D.clone(), z.clone(),
+                             clash_mask.clone(), *args)
+        self.lock = threading.Lock()
+        brc = between_residue_clash
+        before = (brc.launches_fwd, brc.launches_bwd)
+        dev = z.device
+        side = _capture_stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side), torch.enable_grad():
+            for _ in range(_WARMUP):
+                self.r.slot.zero_()
+                self.r.step()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        warm = (brc.launches_fwd, brc.launches_bwd)
+        self.graph = torch.cuda.CUDAGraph()
+        self.r.opt.zero_grad(set_to_none=True)
+        with torch.enable_grad(), torch.cuda.graph(self.graph, stream=side,
+                                                   capture_error_mode="thread_local"):
+            self.r.step()
+        self.launches = (brc.launches_fwd - warm[0], brc.launches_bwd - warm[1])
+        # the warm-up and the capture are set-up: a refinement counts the
+        # launches of its replays alone, as many as the eager loop's
+        brc.launches_fwd, brc.launches_bwd = before
+        tally("graph_captures")
+
+    def run(self, batch, SC_D, z, clash_mask, num_steps):
+        r, brc = self.r, between_residue_clash
+        with self.lock:
+            for f in _READ:
+                getattr(r.batch, f).copy_(getattr(batch, f))
+            for static, t in ((r.SC_D, SC_D), (r.z, z), (r.clash_mask, clash_mask), (r.x, z)):
+                static.detach().copy_(t)
+            for t in r.opt.state[r.x].values():           # step, exp_avg, exp_avg_sq
+                t.zero_()
+            r.slot.zero_()
+            for _ in range(num_steps):
+                with span("refine.step"):
+                    self.graph.replay()
+                    brc.launches_fwd += self.launches[0]
+                    brc.launches_bwd += self.launches[1]
+                    tally("graph_replays")
+            # copies made before the next request of this shape loads its own
+            x, losses = r.result()
+            return x, losses.clone()
+
+
+@functools.lru_cache(maxsize=None)
+def _capture_stream(device):
+    """The one side stream of ``device`` that every capture warms up and
+    captures on (cuBLAS keeps a workspace for each stream it meets)."""
+    return torch.cuda.Stream(device)
+
+
+_GRAPHS: "OrderedDict[tuple, _Graphed]" = OrderedDict()
+_GRAPHS_LOCK = threading.Lock()
+
+
+def _graphed(batch, SC_D, z, clash_mask, num_steps, lr, lamda, tolerances, n_rows):
+    """The cached ``_Graphed`` of this shape and these settings, captured on
+    its first call; the least recently used of more than ``_MAX_GRAPHS`` is
+    dropped with its memory."""
+    key = (SC_D.device, *SC_D.shape[:2], num_steps, lr, lamda, *tolerances, n_rows)
+    with _GRAPHS_LOCK:
+        g = _GRAPHS.get(key)
+        if g is None:
+            g = _GRAPHS[key] = _Graphed(batch, SC_D, z, clash_mask, num_steps, lr, lamda,
+                                        tolerances, n_rows)
+            if len(_GRAPHS) > _MAX_GRAPHS:
+                _GRAPHS.popitem(last=False)
+        _GRAPHS.move_to_end(key)
+    return g
+
+
 def proximal_optimize(batch: ProteinBatch, SC_D,
                       violation_tolerance_factor: float = 12.0,
                       clash_overlap_tolerance: float = 0.5,
                       lamda: float = 1.0,
                       num_steps: int = 50,
                       lr: float = 1e-2, n_rows: Optional[int] = None) -> ProximalResult:
-    """``num_steps`` Adam steps on the chis of the clash-heavy residues.
+    """``num_steps`` Adam steps on the chis of the clash-heavy residues:
+    replays of a CUDA graph for CUDA tensors, eager steps for CPU ones.
     Enables gradients itself, so it may be called under ``torch.no_grad``.
     The per-step losses stay on the device until the caller reads them.
     ``n_rows``: ``batch`` is a rank's rows of a batch of ``n_rows``; each
     row's gradient is scaled as in the whole batch's mean."""
+    if num_steps < 1:
+        raise ValueError(f"proximal_optimize: num_steps is {num_steps}, expected >= 1")
     SC_D = SC_D.detach()
-    clash_mask = find_clash_mask(batch, SC_D, violation_tolerance_factor,
-                                 clash_overlap_tolerance)
+    tolerances = (violation_tolerance_factor, clash_overlap_tolerance)
+    clash_mask = find_clash_mask(batch, SC_D, *tolerances)
     z = SC_D * clash_mask
-    rm = batch.residue_mask
-    rows = []
+    if SC_D.is_cuda:
+        x, row_losses = _graphed(batch, SC_D, z, clash_mask, num_steps, lr, lamda, tolerances,
+                                 n_rows).run(batch, SC_D, z, clash_mask, num_steps)
+    else:
+        x, row_losses = _eager(batch, SC_D, z, clash_mask, num_steps, lr, lamda, tolerances,
+                               n_rows)
+    return ProximalResult(x, row_losses.mean(1), clash_mask, row_losses)
+
+
+def _eager(batch, SC_D, z, clash_mask, num_steps, *args):
+    """The refinement as a loop of eager steps: the CPU's path, and on the
+    card what the graph's replays are held to."""
+    r = _Refinement(batch, SC_D, z, clash_mask, num_steps, *args)
     with torch.enable_grad():
-        x = z.clone().requires_grad_(True)
-        opt = torch.optim.Adam([x], lr=lr)
         for _ in range(num_steps):
             with span("refine.step"):
-                opt.zero_grad(set_to_none=True)
-                x_eff = torch.where(clash_mask, x, SC_D)
-                prc = compute_residue_clash(batch, x_eff, violation_tolerance_factor,
-                                            clash_overlap_tolerance)
-                row = (_row_mean(((x_eff - z) ** 2).sum(-1), rm)
-                       + lamda * _row_mean(prc, rm))       # [B] independent complexes
-                (row.mean() if n_rows is None else row.sum() / n_rows).backward()
-                # recorded before the step: rows[0] is the initial objective and
-                # rows[-1] the one entering the last step
-                rows.append(row.detach())
-                opt.step()
-    row_losses = torch.stack(rows)
-    return ProximalResult(torch.where(clash_mask, x.detach(), SC_D), row_losses.mean(1),
-                          clash_mask, row_losses)
+                r.step()
+                tally("eager_steps")
+    return r.result()

@@ -21,9 +21,13 @@ spans in memory hold every thread's.
 
 A live stretch starts at the first span opened under a recording profiler
 after one opened without: it drops what the last stretch kept and takes
-``counters()`` as the stretch's start. Each outermost span that closes takes
-them again as the stretch's end. ``report()`` and ``records()`` read the
-last live stretch and clear nothing.
+``counters()`` and ``engagement()`` as the stretch's start. Each outermost
+span that closes takes them again as the stretch's end. ``report()`` and
+``records()`` read the last live stretch and clear nothing.
+
+``engagement()`` counts how the refinement's Adam steps ran (CUDA graphs
+captured, graph replays, eager steps); ``tally(name)`` adds one. They are
+kept apart from ``counters()``, whose every entry is a kernel launch.
 """
 from __future__ import annotations
 
@@ -51,8 +55,8 @@ class _Recorder:
         self.lock = threading.Lock()
         self.live = False
         self.spans: list = []
-        self.start: dict = {}
-        self.end: dict = {}
+        self.start: tuple = ({}, {})      # (counters(), engagement())
+        self.end: tuple = ({}, {})
         self.local = threading.local()     # each thread's stack of open span names
 
     def stack(self) -> list:
@@ -65,8 +69,7 @@ class _Recorder:
         with self.lock:
             if not self.live:
                 self.spans = []
-                self.start = counters()
-                self.end = dict(self.start)
+                self.start = self.end = (counters(), engagement())
                 self.live = True
 
 
@@ -98,7 +101,7 @@ class _Live:
         with _REC.lock:
             _REC.spans.append(span)
             if self.parent is None:
-                _REC.end = counters()
+                _REC.end = (counters(), engagement())
         return False
 
 
@@ -127,6 +130,20 @@ def counters() -> dict:
             "clash_bwd": clash.between_residue_clash.launches_bwd}
 
 
+_ENGAGED = {"graph_captures": 0, "graph_replays": 0, "eager_steps": 0}
+
+
+def tally(name: str) -> None:
+    """One more event ``name`` of ``engagement()``."""
+    _ENGAGED[name] += 1
+
+
+def engagement() -> dict:
+    """How the refinement's Adam steps ran, by name: CUDA graphs captured
+    (one a shape), steps run as a replay of one, and steps run eagerly."""
+    return dict(_ENGAGED)
+
+
 def records() -> list:
     """The ``Span``s of the last live stretch, in the order they closed."""
     with _REC.lock:
@@ -135,12 +152,14 @@ def records() -> list:
 
 def report() -> dict:
     """The last live stretch: ``{"spans": {name: {"n", "total_s"}},
-    "counters": {name: growth from the stretch's start to its end}}``."""
+    "counters": {name: growth from the stretch's start to its end},
+    "engagement": {name: the same for ``engagement()``}}``."""
     with _REC.lock:
-        spans, start, end = list(_REC.spans), dict(_REC.start), dict(_REC.end)
+        spans, start, end = list(_REC.spans), _REC.start, _REC.end
     out: dict = {}
     for s in spans:
         d = out.setdefault(s.name, {"n": 0, "total_s": 0.0})
         d["n"] += 1
         d["total_s"] += (s.end_ns - s.start_ns) * 1e-9
-    return {"spans": out, "counters": {k: end[k] - v for k, v in start.items()}}
+    growth = [{k: e[k] - v for k, v in s.items()} for s, e in zip(start, end)]
+    return {"spans": out, "counters": growth[0], "engagement": growth[1]}

@@ -196,6 +196,33 @@ def test_counters_are_every_kernel_wrappers_launches():
     assert c["clash_bwd"] == clash.between_residue_clash.launches_bwd
 
 
+def test_cpu_refinement_counts_eager_steps_apart_from_the_launches():
+    """On the CPU the Adam loop runs eagerly: a 50-step refinement counts 50
+    eager steps, no capture and no replay, in ``engagement()`` and in the
+    profiled stretch's report, and ``counters()`` keeps its 11 launch
+    counters, none of which moved."""
+    from packppi_torch.data import stack_batch
+    from packppi_torch.sampling import proximal_optimize
+    from packppi_torch.structure import featurize, from_pdb_file
+
+    feats = featurize(from_pdb_file(os.path.join(FIXTURES, "1brs.pdb"), mse_to_met=True))
+    batch = stack_batch([feats], torch.device("cpu"), target_len=len(feats["residue_type"]))
+    sc = batch.SC_D + 0.5 * torch.randn(batch.SC_D.shape,
+                                         generator=torch.Generator().manual_seed(0))
+    before, launches = trace.engagement(), trace.counters()
+    _off_span()
+    with profile(activities=[ProfilerActivity.CPU]):
+        proximal_optimize(batch, sc, num_steps=50)
+    after = trace.engagement()
+    assert {k: after[k] - before[k] for k in after} == {
+        "graph_captures": 0, "graph_replays": 0, "eager_steps": 50}
+    rep = trace.report()
+    assert rep["engagement"] == {"graph_captures": 0, "graph_replays": 0, "eager_steps": 50}
+    assert rep["spans"]["refine.step"]["n"] == 50
+    assert len(trace.counters()) == 11 and trace.counters() == launches
+    assert rep["counters"] == {k: 0 for k in launches}
+
+
 @pytest.mark.gpu
 def test_profiled_t1124_pack_counts_its_launches(tmp_path):
     """``cli.pack --use_proximal`` on T1124 under the profiler: 30 steps of 5
@@ -220,3 +247,5 @@ def test_profiled_t1124_pack_counts_its_launches(tmp_path):
     assert rep["spans"]["sample.encode"]["n"] == 1
     assert rep["spans"]["sample.step"]["n"] == 30
     assert rep["spans"]["refine.step"]["n"] == 50
+    # the shape was captured by the first run: the Adam steps are replays
+    assert rep["engagement"] == {"graph_captures": 0, "graph_replays": 50, "eager_steps": 0}
