@@ -122,7 +122,8 @@ fatal on failure:
     attention launches per extraction asserted; time per extraction, peak
     memory; the card against the CPU on the same weights and tokens);
     ``cli.ddg --mode esm`` on T1124 through a weight file written from the
-    same weights (66 launches, a finite ddG); ``cli.ddg --eval_csv`` on the
+    same weights (33 launches: wild type and mutant in one forward, a
+    finite ddG); ``cli.ddg --eval_csv`` on the
     126 SKEMPI mutations in network mode with the converted shipped
     checkpoints, message and chain launches counted, each prediction held
     to the JAX package's ``ddg_eval.jsonl`` (2e-3 kcal/mol);
@@ -138,7 +139,7 @@ fatal on failure:
     step's wall, busy, idle share and peak memory, and one step under the
     knobs configuration against the unfused route (loss and gradients);
     esm mode on 4 + 4 mutations through ESM-2 650M (33 attention launches
-    an extraction);
+    a mutation: wild type and mutant in one forward);
 14. the server: ``cli.serve`` in a thread, warmed with T1124, driven over
     HTTP (``/healthz``; ``/pack`` of T1124 with 2 samples, the refinement
     and metrics: 150 / 150 / 52 / 50 launches; ``/prox``: 51 / 50;
@@ -1812,12 +1813,34 @@ def phase_profile(torch, sc):
 # PackPPI-AP and ESM-2 650M
 # attention kernel vs plain version, float32 max |d| (sums in another order)
 ATTN_F32_TOL = 1e-5
-# shapes (B, H, T, D, padded keys): T1124 through the ESM extractor (741
-# residues, three chain groups, 783 tokens padded to 896); the same with one
-# inter-chain run fewer (763 tokens in 768); two rows at a length that no
-# 64-key tile divides; and a long sequence
+# shapes (B, H, T, D, padded keys: one count for every row, or one per
+# row): T1124 through the ESM extractor (741 residues, three chain groups,
+# 783 tokens padded to 896); the same with one inter-chain run fewer (763
+# tokens in 768); two rows at a length that no 64-key tile divides; a long
+# sequence; the dataset scan's batches of a wild type and four mutants
+# (1BRS 217 tokens, 2FTL 322, T1124 783); and scan batches whose rows are
+# complexes of one length bucket with other token counts, down to one key
 ATTN_SHAPES = {"T1124": (1, 20, 896, 64, 113), "T=768": (1, 20, 768, 64, 5),
-               "B=2 T=763": (2, 20, 763, 64, 7), "T=2048": (1, 20, 2048, 64, 0)}
+               "B=2 T=763": (2, 20, 763, 64, 7), "T=2048": (1, 20, 2048, 64, 0),
+               "B=5 T=256": (5, 20, 256, 64, 39), "B=5 T=384": (5, 20, 384, 64, 62),
+               "B=5 T=896": (5, 20, 896, 64, 113),
+               "B=5 T=896 mixed": (5, 20, 896, 64, [113, 300, 500, 113, 700]),
+               "B=6 T=384 mixed": (6, 20, 384, 64, [62, 0, 127, 383, 130, 64])}
+# float32 only (the scan's precision): the row with one key outputs one
+# row of v, so max|ref| reaches ~3.5 and the bf16 tolerance, scaled by it,
+# no longer rejects the unrounded-weights control (2.9e-5 of max|ref|
+# against the 6.1e-5 needed)
+ATTN_F32_ONLY = ("B=6 T=384 mixed",)
+# ``cli.ddg --eval_csv --mode esm`` against ``cli.ddg --mode esm`` one
+# mutation at a time, on the card, kcal/mol (both --no_strict_parity, so a
+# prediction reads its own residues only): the scan's forward pads a
+# shorter complex to the batch's T and the single path does not, so the
+# float32 GEMMs may sum in other orders (the card reads 8.6e-8 at full
+# width, the CPU 3e-7 at a tiny one)
+DDG_ESM_SCAN_TOL = 1e-5
+# the cut copy of T1124 keeps chain B's residues up to this number:
+# 379 + 151 = 530 residues (552 tokens), in T1124's length bucket (513-768)
+T1124_CUT_B = 157
 # ESM-2 650M float32, card against CPU on the same weights and tokens:
 # max |d| relative to max|ref|
 ESM_DEVICES_TOL = 1e-3
@@ -1832,12 +1855,13 @@ T1124_MUTATION = "LA10A"      # T1124 chain A, residue 10: L -> A
 
 def attention_operands(torch, dtype, B, H, T, D, pad, seed=0):
     """q, k, v ~ N(0, 1) (q scaled by D^-0.5, as ESM-2 scales it) and the
-    key bias with the last ``pad`` keys padded, on the card."""
+    key bias with the last ``pad`` keys of each row padded (``pad`` one
+    count, or a list of one per row), on the card."""
     g = torch.Generator().manual_seed(seed)
     q, k, v = (torch.randn(B, H, T, D, generator=g) for _ in range(3))
     bias = torch.zeros(B, T)
-    if pad:
-        bias[:, T - pad:] = -1e9
+    for b, n in enumerate(pad if isinstance(pad, list) else [pad] * B):
+        bias[b, T - n:] = -1e9 if n else 0.0
     return (*(t.to(dtype).to("cuda").contiguous() for t in (q * D ** -0.5, k, v)),
             bias.to("cuda"))
 
@@ -1851,9 +1875,10 @@ def attention_cost(ops):
 
 def phase_attention(torch, timer):
     """The attention kernel against its plain version on the card at
-    ``ATTN_SHAPES``, float32 and bf16; in bf16 two controls must fail (the
-    weights left unrounded; the first query tile of one head zeroed); two
-    launches on one input must agree bit for bit. Times of the kernel, the
+    ``ATTN_SHAPES``, float32 and bf16 (float32 alone at ``ATTN_F32_ONLY``);
+    in bf16 two controls must fail (the weights left unrounded; the first
+    query tile of one head zeroed); two launches on one input must agree
+    bit for bit. Times of the kernel, the
     plain version and ``scaled_dot_product_attention`` with the same
     additive mask (timed only: the port never calls it). Returns records."""
     import torch.nn.functional as F
@@ -1862,7 +1887,7 @@ def phase_attention(torch, timer):
 
     records = {}
     for label, (B, H, T, D, pad) in ATTN_SHAPES.items():
-        for dtype_name in ("float32", "bfloat16"):
+        for dtype_name in ("float32",) if label in ATTN_F32_ONLY else ("float32", "bfloat16"):
             dt = getattr(torch, dtype_name)
             ops = attention_operands(torch, dt, B, H, T, D, pad)
             got = mha(*ops)
@@ -1957,7 +1982,7 @@ def phase_esm(torch):
     outs = []
     for what, ids in zip(("wild type", "mutant"), tokens):
         zero_launches()
-        out = extract(ids)
+        (out,) = extract([ids])
         got = read_launches()
         T = -(-len(ids) // 128) * 128
         log(f"  extraction of T1124 {what} ({T1124_MUTATION}): {len(ids)} tokens padded to "
@@ -1976,7 +2001,7 @@ def phase_esm(torch):
     times = []
     for _ in range(ESM_REPS):
         t0 = time.perf_counter()
-        extract(tokens[0])                  # returns host numpy: synchronised
+        extract(tokens[:1])                 # returns host numpy: synchronised
         times.append(time.perf_counter() - t0)
     peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
     weights = sum(p.numel() * p.element_size() for p in card.parameters()) / 2 ** 20
@@ -1986,7 +2011,7 @@ def phase_esm(torch):
         f"{weights + peak:.1f} MiB: the weights {weights:.1f} MiB and the extraction's "
         f"{peak:.1f} MiB above what was resident")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        extract(tokens[0])
+        extract(tokens[:1])
     report_profile("ESM-2 650M float32 extraction of T1124", prof, q[2], 1, "extraction")
 
     # the card against the CPU, same weights and tokens; depth cut to 4 only
@@ -2024,7 +2049,7 @@ def phase_esm(torch):
 def phase_ddg_esm(torch, cpu_model):
     """``cli.ddg --mode esm`` on T1124 with ``T1124_MUTATION``: the ESM-2
     weights written from seed 0 into ``smoke_out/`` as a ``.pt`` file,
-    66 attention launches (33 per extraction, wild type and mutant) and no
+    33 attention launches (one forward over wild type and mutant) and no
     other, a finite ddG. Returns the attention launches of the call and the
     weight file (``phase_train_affinity_esm`` trains with it, then deletes
     it)."""
@@ -2050,12 +2075,79 @@ def phase_ddg_esm(torch, cpu_model):
     value = ddg.run_cli(argv)
     wall = time.perf_counter() - t0
     got = read_launches()
-    expect = {**{k: 0 for k in got}, "attention": 2 * cfg.num_layers}
+    expect = {**{k: 0 for k in got}, "attention": cfg.num_layers}
     log(f"cli.ddg --mode esm T1124 {T1124_MUTATION}: ddG {value:.6f} kcal/mol, whole call "
         f"{wall:.3f} s (reading the weights and building the model included), launches {got}")
     if got != expect or not np.isfinite(value):
         fail(f"cli.ddg --mode esm: launches {got} (expected {expect}) or ddG {value}")
     return got["attention"], path
+
+
+def esm_scan_table(name):
+    """A SKEMPI table under ``smoke_out/<name>``: four mutations of T1124
+    and four of a copy cut to chain A and chain B up to residue
+    ``T1124_CUT_B`` (``T1124CUT``), interleaved, so that each batch of four
+    embeds rows of 783 and of 552 tokens in one forward of T = 896.
+    Returns the directory and the ``(pdb, mutation)`` of each row."""
+    d = OUT / name
+    shutil.rmtree(d, ignore_errors=True)
+    (d / "PDBs").mkdir(parents=True)
+    shutil.copy(T1124, d / "PDBs" / "T1124.pdb")
+    kept = [ln for ln in T1124.read_text().splitlines()
+            if not ln.startswith(("ATOM", "HETATM"))
+            or ln[21] == "A" or (ln[21] == "B" and int(ln[22:26]) <= T1124_CUT_B)]
+    (d / "PDBs" / "T1124CUT.pdb").write_text("\n".join(kept) + "\n")
+    header, row = (SKEMPI_MINI / "skempi_v2.csv").read_text().splitlines()[:2]
+    rows = []
+    for full, cut in zip(("VA11K", "LA85Y", "VB11C", "PA356D"),
+                         ("SA14T", "AB48I", "KA310L", "LB85N")):
+        rows += [("T1124", full), ("T1124CUT", cut)]
+    fields = row.split(";")
+    lines = [header] + [";".join([f"{pdb}_A_B", m, m] + fields[3:]) for pdb, m in rows]
+    (d / "skempi_v2.csv").write_text("\n".join(lines) + "\n")
+    return d, [(d / "PDBs" / f"{pdb}.pdb", m) for pdb, m in rows]
+
+
+def phase_ddg_eval_esm(torch, esm_weights):
+    """``cli.ddg --eval_csv --mode esm`` on the card over ``esm_scan_table``
+    (two complexes of one length bucket, so the attention kernel masks
+    other key counts in the rows of one launch): 33 attention launches a
+    batch, the rows in the CSV's order, and each prediction held to
+    ``cli.ddg --mode esm`` on that mutation alone (``DDG_ESM_SCAN_TOL``)."""
+    from packppi_torch.cli import ddg
+
+    data, rows = esm_scan_table("skempi_esm_scan")
+    common = ["--mode", "esm", "--esm_ckpt", str(esm_weights), "--seed", "0",
+              "--no_strict_parity"]
+    outdir = OUT / "ddg_eval_esm"
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    summary = ddg.run_cli(["--eval_csv", str(data), "--outdir", str(outdir), *common])
+    wall = time.perf_counter() - t0
+    got = read_launches()
+    n_batches = -(-len(rows) // 4)
+    log(f"cli.ddg --eval_csv --mode esm, T1124 and T1124CUT interleaved: {summary['n']} "
+        f"mutations in {n_batches} batches, {wall:.2f} s (reading the 650M weights included); "
+        f"launches {got}")
+    if got != expect_launches(attention=33 * n_batches):
+        fail(f"cli.ddg --eval_csv --mode esm: launches {got}, expected {33 * n_batches} "
+             "attention")
+    scan = [json.loads(line) for line in open(outdir / "ddg_eval.jsonl")]
+    if [(r["complex"].split("_")[0], r["mutstr"]) for r in scan] != \
+            [(pdb.stem, m) for pdb, m in rows]:
+        fail("cli.ddg --eval_csv --mode esm: rows out of the CSV's order")
+    worst = 0.0
+    for (pdb, m), r in zip(rows, scan):
+        alone = ddg.run_cli(["--input", str(pdb), "--mutstr", m,
+                             "--outdir", str(OUT / "ddg_esm_alone"), *common])
+        d = abs(r["ddg_pred"] - alone)
+        worst = max(worst, d)
+        log(f"  {pdb.stem} {m}: scan {r['ddg_pred']:.6f}  alone {alone:.6f}  |d| {d:.3e}")
+    log(f"  scan against one mutation at a time: max |d| {worst:.3e} kcal/mol (limit "
+        f"{DDG_ESM_SCAN_TOL:g}) {'ok' if worst <= DDG_ESM_SCAN_TOL else 'OUT OF TOLERANCE'}")
+    if not worst <= DDG_ESM_SCAN_TOL:
+        fail("cli.ddg --eval_csv --mode esm disagrees with the single-mutation path")
 
 
 def phase_ddg_eval(torch):
@@ -2764,8 +2856,8 @@ def affinity_knobs_step(torch, data):
 def phase_train_affinity_esm(torch, esm_weights):
     """``cli.train_affinity model.mode=esm`` on 4 + 4 mutations, one epoch,
     embeddings extracted with ESM-2 650M (the random weights of
-    ``phase_ddg_esm``'s file): 33 attention launches per extraction, two
-    extractions per mutation, finite losses. Returns the attention
+    ``phase_ddg_esm``'s file): 33 attention launches per mutation (wild
+    type and mutant in one forward), finite losses. Returns the attention
     launches."""
     from packppi_torch.cli import train_affinity
 
@@ -2786,7 +2878,7 @@ def phase_train_affinity_esm(torch, esm_weights):
     log(f"cli.train_affinity model.mode=esm, 4 + 4 mutations: {wall:.2f} s (reading the 650M "
         f"weights and {extracted} extractions of wild type and mutant included), launches "
         f"{got}; record {rec}")
-    if extracted != 8 or got != expect_launches(attention=2 * 33 * extracted):
+    if extracted != 8 or got != expect_launches(attention=33 * extracted):
         fail(f"esm training: {extracted} cached pairs, launches {got}")
     if not all(math.isfinite(rec[k]) for k in ("train/loss", "val/loss")):
         fail(f"esm training: record {rec}")
@@ -4125,6 +4217,7 @@ def main():
     cpu_esm = run(phase_esm, torch)
     attention_launches, esm_weights = run(phase_ddg_esm, torch, cpu_esm)
     del cpu_esm
+    run(phase_ddg_eval_esm, torch, esm_weights)
     run(phase_ddg_eval, torch)
     run(phase_pack_unfused, torch)
     affinity_launches = run(phase_train_affinity, torch)

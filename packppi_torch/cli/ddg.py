@@ -6,18 +6,21 @@ the affinity model and print the predicted ddG in kcal/mol; ``ddg.json``
 goes to ``--outdir``. Modes: ``network`` (frozen diffusion backbone, then
 the mutation encoder and IPMP stack on the mutation's local subgraph),
 ``linear`` (the backbone's features and the head) and ``esm`` (ESM-2
-embeddings, from ``--esm_dir``/``--esm_key`` or computed with the ESM-2
-weights of ``--esm_ckpt``, and the head). ``--eval_csv DATA_DIR`` predicts
-every mutation of ``DATA_DIR/skempi_v2.csv`` (PDBs under ``DATA_DIR/PDBs``)
-in ``network`` or ``linear`` mode and reports RMSE, MAE, Pearson and
-Spearman against the measured values. Runs on the CUDA device unless
-``--device cpu`` is given.
+embeddings, computed with the ESM-2 weights of ``--esm_ckpt`` in one
+forward over the wild type and the mutant, or for a single mutation read
+from ``--esm_dir``/``--esm_key``; then the head). ``--eval_csv DATA_DIR``
+predicts every mutation of ``DATA_DIR/skempi_v2.csv`` (PDBs under
+``DATA_DIR/PDBs``) in batches of one length bucket and reports RMSE, MAE,
+Pearson and Spearman against the measured values; in ``esm`` mode each
+batch's distinct sequences go through one ESM-2 forward. Runs on the CUDA
+device unless ``--device cpu`` is given.
 
     python -m packppi_torch.cli.ddg --input complex.pdb --mutstr KI15G \\
         [--mode network|linear|esm] [--ckpt affinity.pt] [--pre_ckpt backbone.pt] \\
         [--esm_ckpt esm2.pt | --esm_dir DIR --esm_key KEY] [--outdir out] \\
         [--seed 0] [--device cuda|cpu] [--no_strict_parity]
     python -m packppi_torch.cli.ddg --eval_csv DATA_DIR --ckpt ... --pre_ckpt ...
+    python -m packppi_torch.cli.ddg --eval_csv DATA_DIR --mode esm --esm_ckpt esm2.pt --ckpt ...
 """
 from __future__ import annotations
 
@@ -45,7 +48,8 @@ def build_parser():
                    help="diffusion backbone state dict (reference names, .pt or .npz)")
     p.add_argument("--mode", default="network", choices=["network", "linear", "esm"])
     p.add_argument("--esm_dir", default=None,
-                   help="esm mode: directory with precomputed <key>.npz (wt/mut) embeddings")
+                   help="esm mode, a single mutation only (not --eval_csv): directory with "
+                        "precomputed <key>.npz (wt/mut) embeddings")
     p.add_argument("--esm_key", default=None, help="esm mode: embedding file stem")
     p.add_argument("--esm_ckpt", default=None,
                    help="esm mode: ESM-2 weights (.pt of tools/convert_hf_esm_to_torch.py)")
@@ -90,45 +94,60 @@ def _write_ddg(args, value: float) -> float:
     return value
 
 
-def _esm_embeddings(args, prot, mutations, feats, device):
-    from packppi_torch.data.esm import get_esm_extractor, load_precomputed
-    from packppi_torch.data.skempi import apply_mutations
+def _esm_head(args, dim: int, device):
+    from packppi_torch.models import NetworkConfig
+    from packppi_torch.models.affinity import AffinityNet
+
+    net = AffinityNet(NetworkConfig(), "esm", not args.no_strict_parity, esm_dim=dim).eval()
+    _weights(net, args.ckpt, args.seed, "--ckpt", "esm head")
+    return net.to(device)
+
+
+def _esm_model(args, device):
+    """ESM-2 from ``--esm_ckpt`` and the head: ``EsmAffinityModel``."""
+    from packppi_torch.data.esm import load_esm_model
+    from packppi_torch.models.affinity import EsmAffinityModel
+
+    esm = load_esm_model(args.esm_ckpt, device)
+    if esm is None:
+        raise SystemExit("esm mode needs --esm_ckpt (ESM-2 weights), or --esm_dir/--esm_key "
+                         "for a single mutation")
+    return EsmAffinityModel(esm, _esm_head(args, esm.cfg.hidden_size, device))
+
+
+def _esm_precomputed(args, device):
+    """The head over the ``--esm_dir`` embeddings: ddG [1], or None when
+    there is no such file."""
+    from packppi_torch.data.esm import load_precomputed
 
     emb = load_precomputed(args.esm_dir, args.esm_key) if args.esm_dir else None
-    if emb is not None:
-        if "wt" not in emb or "mut" not in emb:
-            raise SystemExit("esm npz must contain 'wt' and 'mut' arrays")
-        return emb["wt"], emb["mut"]
-    extractor = get_esm_extractor(args.esm_ckpt, device)
-    if extractor is None:
-        raise SystemExit("esm mode needs --esm_dir/--esm_key or --esm_ckpt (ESM-2 weights)")
-    rt_mut, _ = apply_mutations(prot, mutations)
-    return (extractor(feats["residue_type"], feats["chain_indices"]),
-            extractor(rt_mut, feats["chain_indices"]))
+    if emb is None:
+        return None
+    if "wt" not in emb or "mut" not in emb:
+        raise SystemExit("esm npz must contain 'wt' and 'mut' arrays")
+    wt, mt = (torch.as_tensor(emb[k], device=device)[None] for k in ("wt", "mut"))
+    return _esm_head(args, wt.shape[-1], device)(None, None, wt, mt, None)[0]
 
 
 def run(args) -> float:
-    from packppi_torch.data.skempi import parse_mutation, skempi_features, stack_affinity_batch
+    from packppi_torch.data.skempi import (esm_item, parse_mutation, skempi_features,
+                                           stack_affinity_batch, stack_esm_batch)
     from packppi_torch.device import resolve_device
-    from packppi_torch.models import NetworkConfig
-    from packppi_torch.models.affinity import AffinityNet
     from packppi_torch.structure import from_pdb_file
 
     device = resolve_device(args.device)
     prot = from_pdb_file(args.input, mse_to_met=True)
     mutations = [parse_mutation(m.strip()) for m in args.mutstr.split(",")]
-    feats = skempi_features(prot, mutations)
 
     with torch.no_grad():
         if args.mode == "esm":
-            wt, mt = (torch.as_tensor(e, device=device)[None]
-                      for e in _esm_embeddings(args, prot, mutations, feats, device))
-            net = AffinityNet(NetworkConfig(), "esm", not args.no_strict_parity,
-                              esm_dim=wt.shape[-1]).eval()
-            _weights(net, args.ckpt, args.seed, "--ckpt", "esm head")
-            ddg, _ = net.to(device)(None, None, wt, mt, None)
+            item = esm_item(prot, mutations)          # checks the mutations against the structure
+            ddg = _esm_precomputed(args, device)
+            if ddg is None:
+                # the dataset path's batch of one: wild type and mutant in one forward
+                ddg, _ = _esm_model(args, device).predict(stack_esm_batch([item], device))
         else:
-            batch = stack_affinity_batch([feats], device)
+            batch = stack_affinity_batch([skempi_features(prot, mutations)], device)
             ddg, _ = _affinity_model(args, device).predict(batch)
     return _write_ddg(args, float(ddg[0]))
 
@@ -138,19 +157,25 @@ def run_eval_csv(args) -> dict:
     CSV, per mutation (``ddg_eval.jsonl``, in CSV order) and summarised
     (``ddg_eval_summary.json``) against the measured values."""
     from packppi_torch.data.loader import BucketedLoader
-    from packppi_torch.data.skempi import (load_skempi_entries, skempi_features,
-                                           stack_affinity_batch)
+    from packppi_torch.data.skempi import (esm_item, load_skempi_entries, skempi_features,
+                                           stack_affinity_batch, stack_esm_batch)
     from packppi_torch.device import resolve_device
     from packppi_torch.structure import from_pdb_file
     from packppi_torch.utils.metrics import spearman
 
-    if args.mode == "esm":
-        raise SystemExit("--eval_csv supports network/linear modes; for esm, precompute "
-                         "embeddings")
+    if args.esm_dir:
+        raise SystemExit("--esm_dir embeds a single mutation; --eval_csv --mode esm takes "
+                         "--esm_ckpt (ESM-2 weights)")
     device = resolve_device(args.device)
     entries = load_skempi_entries(args.eval_csv, "PDBs")
     if not entries:
         raise SystemExit(f"no usable SKEMPI entries under {args.eval_csv}")
+    if args.mode == "esm":
+        model, item = _esm_model(args, device), esm_item
+        stack = lambda items, target_len: stack_esm_batch(items, device)   # noqa: E731
+    else:
+        model, item = _affinity_model(args, device), skempi_features
+        stack = functools.partial(stack_affinity_batch, device=device)
 
     # parse-only residue counts, so that planning the batches featurizes nothing
     pdb_len: dict = {}
@@ -167,14 +192,12 @@ def run_eval_csv(args) -> dict:
 
         def __getitem__(self, i):
             e = entries[i]
-            return skempi_features(from_pdb_file(e["pdb_path"], mse_to_met=True),
-                                   e["mutations"], ddg=e["ddG"])
+            return item(from_pdb_file(e["pdb_path"], mse_to_met=True), e["mutations"],
+                        ddg=e["ddG"])
 
     loader = BucketedLoader(Mutations(), args.batch_size, shuffle=False, drop_last=False,
-                            prefetch=2,
-                            stack_fn=functools.partial(stack_affinity_batch, device=device))
+                            prefetch=2, stack_fn=stack)
     order = [i for b in loader.plan() for i in b]    # bucket grouping permutes entries
-    model = _affinity_model(args, device)
     preds, labels = [], []
     with torch.no_grad():
         for batch in loader:

@@ -1,11 +1,13 @@
 """ESM-2 sequence embeddings for PackPPI-AP's ``esm`` mode.
 
 The reference embeds the complex's sequence with ESM-2 650M, chains joined
-by 20 ``<pad>`` tokens and optional ``<mask>`` tokens. Here the embedding
-runs on the port's ``models.esm2.ESM2`` from a local ``.pt`` file
-(``get_esm_extractor``): a HuggingFace-named ``EsmModel`` state dict beside
-the ``ESM2Config`` fields, as ``tools/convert_hf_esm_to_torch.py`` writes
-it from a local HuggingFace copy. Without such a file, embeddings are
+by 20 ``<pad>`` tokens and optional ``<mask>`` tokens (``residue_tokens``).
+Here the embedding runs on the port's ``models.esm2.ESM2`` from a local
+``.pt`` file (``load_esm_model``): a HuggingFace-named ``EsmModel`` state
+dict beside the ``ESM2Config`` fields, as ``tools/convert_hf_esm_to_torch.py``
+writes it from a local HuggingFace copy. ``data.skempi.stack_esm_batch``
+lays out the sequences of a batch for one forward (``models.esm2.embed_rows``,
+``models.affinity.EsmAffinityModel``). Without such a file, embeddings are
 precomputed inputs (``load_precomputed``).
 """
 from __future__ import annotations
@@ -66,37 +68,44 @@ def residue_keep_indices(chain_indices: np.ndarray) -> np.ndarray:
     return np.asarray(keep, dtype=np.int64)
 
 
-def get_esm_extractor(path: Optional[Union[str, Path]], device="cuda"):
-    """A residue-embedding extractor over the ESM-2 weights of ``path`` on
-    ``device``; None when there is no such file.
+def residue_tokens(residue_types: np.ndarray, chain_indices: np.ndarray,
+                   mask_positions: Optional[np.ndarray] = None):
+    """``(ids, rows)``: the ESM-2 token ids of the chain-separated sequence
+    (<cls>, the chains joined by 20 <pad>, <eos>) and, for each residue i,
+    the index of its token in ``ids`` (the pads between chains skipped, the
+    chain ids in any order)."""
+    from packppi_torch.models.esm2 import tokenize
 
-    ``extract(residue_types, chain_indices, mask_positions=None)`` ->
-    [L, hidden] float32 numpy, row i the embedding of residue i."""
+    ids = tokenize(build_chain_separated_sequence(residue_types, chain_indices, mask_positions))
+    rows = np.empty(len(chain_indices), np.int64)
+    rows[chain_grouped_order(chain_indices)] = residue_keep_indices(chain_indices) + 1   # <cls>
+    return ids, rows
+
+
+def esm_model(config: dict, state_dict, device):
+    """The port's ESM-2 with ``config``'s ``ESM2Config`` fields and the
+    HuggingFace-named float32 tensors of ``state_dict`` (taken as its
+    parameters, not copied), attention "auto", on ``device``, in eval mode."""
+    import torch
+
+    from packppi_torch.models.esm2 import ESM2, ESM2Config
+    from packppi_torch.weights import load_esm_state_dict
+
+    with torch.device("meta"):               # no throwaway initialisation of the weights
+        model = ESM2(ESM2Config(**{**config, "attention_impl": "auto"}))
+    load_esm_state_dict(model, state_dict, assign=True)
+    return model.to(device).eval()
+
+
+def load_esm_model(path: Optional[Union[str, Path]], device="cuda"):
+    """``esm_model`` over the ``.pt`` file at ``path``; None when there is
+    no such file."""
     if path is None or not Path(path).is_file():
         return None
     import torch
 
-    from packppi_torch.models.esm2 import ESM2, ESM2Config, make_extractor, tokenize
-    from packppi_torch.weights import load_esm_state_dict
-
     blob = torch.load(path, map_location="cpu", weights_only=True)
-    with torch.device("meta"):               # no throwaway initialisation of the weights
-        model = ESM2(ESM2Config(**{**blob["config"], "attention_impl": "auto"}))
-    load_esm_state_dict(model, blob["state_dict"], assign=True)
-    run_tokens = make_extractor(model.to(device).eval())
-
-    def extract(residue_types, chain_indices, mask_positions=None):
-        seq = build_chain_separated_sequence(residue_types, chain_indices, mask_positions)
-        reps = run_tokens(tokenize(seq))[1:-1]          # drop cls/eos
-        # residues only (the pads between chains dropped), mapped back so
-        # row i is residue i whatever the order of the chain ids
-        keep = residue_keep_indices(chain_indices)
-        perm = chain_grouped_order(chain_indices)
-        out = np.empty((len(perm), reps.shape[-1]), np.float32)
-        out[perm] = reps[keep]
-        return out
-
-    return extract
+    return esm_model(blob["config"], blob["state_dict"], device)
 
 
 def load_precomputed(path: Union[str, Path], entry_key: str) -> Optional[dict]:

@@ -2,7 +2,9 @@
 
 Entry loading (ddG = RT ln(K_mut / K_wt) at 298.15 K), complex-grouped
 cross-validation folds, mutation application with a wild-type check, the
-wild-type + mutant feature twins, and their padded batch. Semantics are the
+wild-type + mutant feature twins and their padded batch, and esm mode's
+items (ESM-2 tokens of the wild type and the mutant) and their batch, each
+distinct sequence once. Semantics are the
 reference's, quirks included: the mutant chi mask is measured on the
 wild-type coordinates with the mutant's atom indexing, and the mutant chis
 are zeroed at the mutated sites.
@@ -20,7 +22,8 @@ import torch
 
 from packppi_torch.chem import ATOM14_NAMES, CHEM, RESTYPE_1TO3, RESTYPES
 from packppi_torch.data.batch import ProteinBatch, bucket_length, pad_features
-from packppi_torch.structure.featurize import featurize, sc_dihedrals
+from packppi_torch.structure.featurize import (chain_indices_of, featurize, residue_mask_of,
+                                               sc_dihedrals)
 from packppi_torch.structure.protein import Protein
 from packppi_torch.utils.logging import get_logger
 
@@ -223,3 +226,65 @@ def stack_affinity_batch(feats_list: list[dict], device: Union[str, torch.device
             arr = arr.astype(np.float32)
         fields[name] = torch.from_numpy(arr).to(device)
     return AffinityBatch(**fields)
+
+
+def esm_item(protein: Protein, mutations: list[dict], ddg: float = 0.0,
+             strict: bool = True) -> dict:
+    """esm mode's input of one mutation, with no geometry: the ESM-2 tokens
+    of the wild type (``wt_tokens``) and of the mutant (``mt_tokens``), each
+    residue's token index (``token_rows``, ``data.esm.residue_tokens``),
+    ``residue_type`` and ``ddg``. As the JAX package's ``cli.ddg --mode
+    esm`` embeds them: the wild type's residue types and chain ids zeroed
+    where the backbone is incomplete, as featurization zeroes them; the
+    mutant's residue types as ``apply_mutations`` gives them."""
+    from packppi_torch.data.esm import residue_tokens
+
+    rm = residue_mask_of(protein.atom_positions.astype(np.float32)).astype(np.int64)
+    chains = chain_indices_of(protein) * rm
+    residue_type = protein.aaindex.astype(np.int64) * rm
+    residue_type_mut, _ = apply_mutations(protein, mutations, strict)
+    wt_tokens, rows = residue_tokens(residue_type, chains)
+    mt_tokens, _ = residue_tokens(residue_type_mut, chains)
+    return {"residue_type": residue_type, "wt_tokens": wt_tokens, "mt_tokens": mt_tokens,
+            "token_rows": rows, "ddg": np.float32(ddg)}
+
+
+class EsmBatch(NamedTuple):
+    """esm mode's batch of B mutations padded to L residues, as tensors on
+    one device: the token rows of one ESM-2 forward and where each
+    mutation's residues lie in its output."""
+
+    input_ids: torch.Tensor       # [R, T] int64: each distinct sequence of the batch once
+    attention_mask: torch.Tensor  # [R, T] float32
+    rows: torch.Tensor            # [2, B, L] int64: wild type, mutant; into R * T, R * T at padding
+    row_mask: torch.Tensor        # [B, L] float32: 1.0 on the mutation's residues
+    ddg: torch.Tensor             # [B]
+
+
+def stack_esm_batch(items: list[dict], device: Union[str, torch.device]) -> EsmBatch:
+    """``esm_item``s -> ``EsmBatch``: their distinct token sequences (a
+    complex's wild type once, however many of its mutations the batch
+    holds) padded to one length (``models.esm2.pad_tokens``), and the map
+    from each mutation's residues to the forward's rows. The residues are
+    padded to the batch's longest mutation, not to a bucket, as esm
+    training pads them: the head pools over padded rows too (strict
+    parity), so a mutation of a batch of one complex reads as it reads
+    alone."""
+    from packppi_torch.models.esm2 import pad_tokens
+
+    L = max(len(it["token_rows"]) for it in items)
+    distinct: dict = {}
+    for it in items:
+        for key in ("wt_tokens", "mt_tokens"):
+            distinct.setdefault(it[key].tobytes(), (len(distinct), it[key]))
+    ids, mask = pad_tokens([t for _, t in distinct.values()])
+    T = ids.shape[1]
+    rows = np.full((2, len(items), L), len(distinct) * T, np.int64)
+    row_mask = np.zeros((len(items), L), np.float32)
+    for b, it in enumerate(items):
+        n = len(it["token_rows"])
+        for side, key in enumerate(("wt_tokens", "mt_tokens")):
+            rows[side, b, :n] = distinct[it[key].tobytes()][0] * T + it["token_rows"]
+        row_mask[b, :n] = 1.0
+    ddg = np.array([float(it["ddg"]) for it in items], np.float32)
+    return EsmBatch(*(torch.from_numpy(a).to(device) for a in (ids, mask, rows, row_mask, ddg)))

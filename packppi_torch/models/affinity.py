@@ -8,7 +8,8 @@ mutation-flag bias added; the ddG head reads the max over residues of
 (mutant - wild type), and its antisymmetric twin (wild type - mutant).
 
 Modes: "network" (all of it), "linear" (the frozen backbone's features and
-the head), "esm" (ESM-2 embeddings and the head). Parameter names are the
+the head), "esm" (ESM-2 embeddings and the head; ``EsmAffinityModel`` runs
+ESM-2 and the head on a dataset batch). Parameter names are the
 reference ``AffinityPrediction``'s (``mutation_encoder.*``,
 ``mutation_mpnn.*``, ``mutation_fusion.{0,2}.*``, ``seq_embedding.weight``,
 ``mut_bias.weight``, ``ddg_predictor.{0,2,4}.*``); the backbone keeps the
@@ -23,9 +24,10 @@ from torch import nn
 
 from packppi_torch.data.batch import ProteinBatch
 from packppi_torch.data.esm import ESM_DIM
-from packppi_torch.data.skempi import AffinityBatch
+from packppi_torch.data.skempi import AffinityBatch, EsmBatch
 from packppi_torch.models.diffusion_net import NetworkConfig
 from packppi_torch.models.encoder import ProteinEncoder
+from packppi_torch.models.esm2 import ESM2, embed_rows
 from packppi_torch.models.ipmp import MessagePassingStack
 from packppi_torch.models.torsional_diffusion import TorsionalDiffusion
 from packppi_torch.utils.trace import span
@@ -191,3 +193,28 @@ class AffinityModel(nn.Module):
             return 0.5 * (torch.mean((pred - ddg) ** 2) + torch.mean((pred_inv + ddg) ** 2))
         w = weights / torch.clamp(weights.sum(), min=1e-9)
         return 0.5 * (torch.sum(w * (pred - ddg) ** 2) + torch.sum(w * (pred_inv + ddg) ** 2))
+
+
+class EsmAffinityModel(nn.Module):
+    """PackPPI-AP in esm mode end to end: ESM-2 (``esm``) embeds every
+    distinct sequence of an ``EsmBatch`` in one forward, and the esm-mode
+    ``AffinityNet`` (``net``) reads the wild type's and the mutants'
+    residue rows."""
+
+    def __init__(self, esm: ESM2, net: AffinityNet):
+        super().__init__()
+        if net.mode != "esm":
+            raise ValueError(f"EsmAffinityModel needs an esm-mode AffinityNet, not {net.mode!r}")
+        self.esm, self.net = esm, net
+
+    def embed(self, batch: EsmBatch):
+        """The wild type's and the mutants' residue rows [B, L, hidden],
+        zeros at padding."""
+        return embed_rows(self.esm, batch.input_ids, batch.attention_mask, batch.rows).unbind(0)
+
+    @torch.no_grad()
+    def predict(self, batch: EsmBatch):
+        """(ddg [B], ddg_inv [B])."""
+        wt, mt = self.embed(batch)
+        with span("affinity.esm_head"):
+            return self.net(None, None, wt, mt, None, batch.row_mask)

@@ -35,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from packppi_torch.ops.attention import mha, mha_plain
+from packppi_torch.utils.trace import span
 
 # The fair-esm / HF ESM-2 alphabet (fixed across all ESM-2 checkpoints):
 # ids 0-3 are specials, 4-30 residue/extra symbols, 31 <null_1>, 32 <mask>.
@@ -368,23 +369,41 @@ def init_esm_weights(model: ESM2, seed: int, std: float = 0.02) -> None:
                 m.bias.zero_()
 
 
+def pad_tokens(seqs, pad_id: int = PAD_ID):
+    """Token sequences -> ``(ids [B, T] int64, mask [B, T] float32)`` numpy:
+    every row padded with ``pad_id`` to one ``T``, the longest sequence
+    rounded up to a multiple of 128, and each row's padding masked."""
+    n = max(len(s) for s in seqs)
+    T = max(128, -(-n // 128) * 128)
+    ids = np.full((len(seqs), T), pad_id, np.int64)
+    mask = np.zeros((len(seqs), T), np.float32)
+    for b, s in enumerate(seqs):
+        ids[b, :len(s)] = s
+        mask[b, :len(s)] = 1.0
+    return ids, mask
+
+
+def embed_rows(model: ESM2, input_ids, attention_mask, rows):
+    """One forward over ``[B, T]`` tokens, read at ``rows``: indices into
+    the forward's ``B * T`` positions, where ``B * T`` names a row of zeros
+    (padding). Returns ``rows.shape + (hidden,)`` on the model's device."""
+    with span("esm.embed"):
+        out = model(input_ids, attention_mask)
+        flat = out.reshape(-1, out.shape[-1])
+        return torch.cat([flat, flat.new_zeros(1, flat.shape[-1])])[rows]
+
+
 def make_extractor(model: ESM2):
-    """``extract(ids) -> [len(ids), hidden]`` float32 numpy for one token
-    sequence (no cls/eos strip: callers slice). The tokens are padded to a
-    multiple of 128 and the padding masked; the model runs where its
+    """``extract(seqs)`` -> one float32 numpy array ``[len(seqs[b]), hidden]``
+    for each token sequence ``seqs[b]`` (cls and eos included), from one
+    forward over all of them (``pad_tokens``). The model runs where its
     parameters lie."""
     device = next(model.parameters()).device
-    cfg = model.cfg
 
     @torch.inference_mode()
-    def extract(ids: np.ndarray) -> np.ndarray:
-        n = len(ids)
-        T = max(128, -(-n // 128) * 128)
-        ids_p = np.full((1, T), cfg.pad_token_id, np.int64)
-        ids_p[0, :n] = ids
-        mask = np.zeros((1, T), np.float32)
-        mask[0, :n] = 1.0
-        out = model(torch.from_numpy(ids_p).to(device), torch.from_numpy(mask).to(device))
-        return out[0, :n].cpu().numpy()
+    def extract(seqs):
+        ids, mask = pad_tokens(seqs, model.cfg.pad_token_id)
+        out = model(*(torch.from_numpy(a).to(device) for a in (ids, mask))).cpu().numpy()
+        return [o[:len(s)] for o, s in zip(out, seqs)]
 
     return extract

@@ -92,26 +92,35 @@ def featurize(protein: Protein) -> dict[str, np.ndarray]:
         return _featurize(protein)
 
 
+def chain_indices_of(protein: Protein) -> np.ndarray:
+    """[L] 1-based chain index of each residue, the chains numbered in the
+    order of their first residue."""
+    _, first_idx = np.unique(protein.chain_id, return_index=True)
+    order = protein.chain_id[np.sort(first_idx)]
+    chain_map = {c: i + 1 for i, c in enumerate(order)}
+    return np.array([chain_map[c] for c in protein.chain_id], np.int64)
+
+
+def residue_mask_of(X: np.ndarray) -> np.ndarray:
+    """[L] 1.0 where the backbone atoms N, CA, C and O are all present."""
+    return np.isfinite(X[:, :4].sum(axis=(-1, -2))).astype(np.float32)
+
+
 def _featurize(protein: Protein) -> dict[str, np.ndarray]:
     X = protein.atom_positions.astype(np.float32)
     residue_type = protein.aaindex.astype(np.int64)
     atom_mask = protein.atom_mask.astype(np.float32)
     residue_index = protein.residue_index.astype(np.int64)
+    chain_indices = chain_indices_of(protein)
 
-    # factorize chain ids in order of first appearance, 1-based
-    _, first_idx = np.unique(protein.chain_id, return_index=True)
-    order = protein.chain_id[np.sort(first_idx)]
-    chain_map = {c: i + 1 for i, c in enumerate(order)}
-    chain_indices = np.array([chain_map[c] for c in protein.chain_id], np.int64)
-
-    if len(order) > 1:
+    if chain_indices.max(initial=0) > 1:
         residue_index = apply_chain_residue_offsets(residue_index, chain_indices)
     if np.abs(residue_index).max() >= 2**24:
         raise ValueError(
             f"residue_index max {residue_index.max()} exceeds the 2^24 "
             "integer-exact f32 range (pathological input numbering?)")
 
-    residue_mask = np.isfinite(X[:, :4].sum(axis=(-1, -2))).astype(np.float32)
+    residue_mask = residue_mask_of(X)
 
     BB_D, BB_D_mask = bb_dihedrals(X, residue_index)
     SC_D, SC_D_mask = sc_dihedrals(X, residue_type)

@@ -573,39 +573,42 @@ def _train_affinity_esm(cfg, splits, cache_dir: Path, out: Path, metrics_log, de
     """esm mode: the ddG head over ESM-2 embeddings, cached per mutation as
     ``<cache_dir>/esm_<pdb>_<id>.npz`` (``wt``, ``mut``) or extracted with
     the ESM-2 weights of ``esm_weights`` (a ``.pt`` as ``cli.ddg
-    --esm_ckpt`` takes it). Only the head is built: its network
-    configuration is the default one, as in the JAX package."""
-    from packppi_torch.data.esm import get_esm_extractor
-    from packppi_torch.data.skempi import apply_mutations
+    --esm_ckpt`` takes it; wild type and mutant in one forward). Only the
+    head is built: its network configuration is the default one, as in the
+    JAX package."""
+    from packppi_torch.data.esm import load_esm_model
+    from packppi_torch.data.skempi import esm_item, stack_esm_batch
     from packppi_torch.models import NetworkConfig
     from packppi_torch.models.affinity import AffinityNet
-    from packppi_torch.structure import featurize, from_pdb_file
+    from packppi_torch.models.esm2 import embed_rows
+    from packppi_torch.structure import from_pdb_file
+    from packppi_torch.structure.featurize import residue_mask_of
     from packppi_torch.weights import init_weights
 
-    extractor = get_esm_extractor(cfg.get("esm_weights"), device)
+    esm = load_esm_model(cfg.get("esm_weights"), device)
 
     def load_item(e):
         cache = cache_dir / f"esm_{e['pdb_id']}_{e['id']}.npz"
         if cache.exists():
             with np.load(cache) as z:
                 return z["wt"], z["mut"], np.float32(e["ddG"])
-        if extractor is None:
+        if esm is None:
             raise SystemExit(
                 "ESM mode needs either cached embeddings under "
                 f"{cache_dir} (esm_<pdb>_<id>.npz with wt/mut arrays) or ESM-2 weights "
                 "(esm_weights=<file.pt>, as tools/convert_hf_esm_to_torch.py writes them)")
         prot = from_pdb_file(e["pdb_path"], mse_to_met=True)
-        feats = featurize(prot)
         try:
             # strict: a mutation that does not apply would train wt == mut
             # embeddings against a nonzero ddG, and cache the pair
-            rt_mut, _ = apply_mutations(prot, e["mutations"], strict=True)
+            batch = stack_esm_batch([esm_item(prot, e["mutations"], strict=True)], device)
         except ValueError as err:
             log.warning(f"skipping {e['pdb_id']}/{e['id']}: {err}")
             return None
-        rm = feats["residue_mask"][:, None]
-        wt = extractor(feats["residue_type"], feats["chain_indices"]) * rm
-        mut = extractor(rt_mut, feats["chain_indices"]) * rm
+        rm = residue_mask_of(prot.atom_positions.astype(np.float32))[:, None]
+        with torch.inference_mode():
+            rows = embed_rows(esm, batch.input_ids, batch.attention_mask, batch.rows)
+        wt, mut = (r[0].cpu().numpy() * rm for r in rows)
         np.savez_compressed(cache, wt=wt, mut=mut)
         return wt, mut, np.float32(e["ddG"])
 

@@ -186,8 +186,9 @@ def test_refusals(tmp_path):
     from packppi_torch.cli.ddg import run_cli
 
     pdb = os.path.join(FIXTURES, "1brs.pdb")
-    with pytest.raises(SystemExit, match="network/linear"):
-        run_cli(["--eval_csv", str(tmp_path), "--mode", "esm", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="single mutation"):
+        run_cli(["--eval_csv", str(tmp_path), "--mode", "esm", "--esm_dir", str(tmp_path),
+                 "--device", "cpu"])
     with pytest.raises(ValueError, match="inconsistent"):
         run_cli(["--input", pdb, "--mutstr", "KA26A", "--device", "cpu", "--mode", "linear",
               "--outdir", str(tmp_path)])

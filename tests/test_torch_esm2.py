@@ -183,7 +183,7 @@ def test_random_init_is_seeded_and_follows_hf():
 
 def test_make_extractor_pads_to_128_and_strips_nothing(ported):
     ids = tokenize("MKVLA" + "<pad>" * 2 + "WCY")
-    out = make_extractor(ported)(ids)
+    (out,) = make_extractor(ported)([ids])
     assert out.shape == (len(ids), 64) and out.dtype == np.float32
     np.testing.assert_allclose(out, _forward(ported, ids[None].astype(np.int64),
                                              np.ones((1, len(ids)), np.int64))[0],
@@ -192,9 +192,10 @@ def test_make_extractor_pads_to_128_and_strips_nothing(ported):
 
 def test_extractor_end_to_end_matches_jax(hf_model, tmp_path, monkeypatch):
     """Chain-separated sequence, tokenizer, forward, cls/eos strip, pads
-    dropped and residues realigned: the port's extractor over the converted
-    ``.pt`` file against the JAX extractor over the same HuggingFace model,
-    with chain ids that are not non-decreasing and a masked residue."""
+    dropped and residues realigned: the port's model over the converted
+    ``.pt`` file, read at ``residue_tokens``' rows, against the JAX
+    extractor over the same HuggingFace model, with chain ids that are not
+    non-decreasing and a masked residue."""
     import packppi_tpu.data.esm as jax_esm
     from packppi_torch.data import esm as port_esm
 
@@ -204,8 +205,12 @@ def test_extractor_end_to_end_matches_jax(hf_model, tmp_path, monkeypatch):
                         classmethod(lambda cls, *a, **k: hf_model))
     jax_esm._extractor_cache.clear()
     ex_jax = jax_esm.get_esm_extractor(backend="jax")
-    ex_port = port_esm.get_esm_extractor(path, "cpu")
-    assert port_esm.get_esm_extractor(tmp_path / "absent.pt", "cpu") is None
+    run_tokens = make_extractor(port_esm.load_esm_model(path, "cpu"))
+    assert port_esm.load_esm_model(tmp_path / "absent.pt", "cpu") is None
+
+    def ex_port(restypes, chains, mp):
+        ids, rows = port_esm.residue_tokens(restypes, chains, mp)
+        return run_tokens([ids])[0][rows]
 
     restypes = np.array([12, 11, 19, 0, 4, 3, 5, 12, 11, 7], np.int64)
     chains = np.array([1, 1, 1, 0, 1, 1, 2, 2, 2, 2], np.int64)   # residue 3 lost its chain id

@@ -195,6 +195,42 @@ def test_esm_mode_matches_jax(tmp_path):
     _check_records_and_params(port, port_out, jax_result, jax_out, "esm")
 
 
+def test_esm_mode_extracts_uncached_embeddings(tmp_path):
+    """esm mode with no cached embeddings and a tiny ESM-2 file: each
+    mutation's cached pair equals the one-sequence extractor's rows over
+    the featurized wild type and the mutant (``make_extractor``, read at
+    ``residue_tokens``' rows, zeroed where the backbone is incomplete)."""
+    from packppi_torch.data.esm import load_esm_model, residue_tokens
+    from packppi_torch.data.skempi import apply_mutations, load_skempi_entries
+    from packppi_torch.models.esm2 import ESM2, ESM2Config, init_esm_weights, make_extractor
+    from packppi_torch.structure import featurize, from_pdb_file
+    from packppi_torch.train.loop import train_affinity
+
+    tiny = dict(hidden_size=ESM_WIDTH, num_layers=2, num_heads=2, intermediate_size=32)
+    model = ESM2(ESM2Config(**tiny, attention_impl="dense"))
+    init_esm_weights(model, 3)
+    esm_file = tmp_path / "esm_tiny.pt"
+    torch.save({"config": tiny, "state_dict": model.state_dict()}, esm_file)
+    data = _data_dir(tmp_path / "data", rows=(("1BRS", 1), ("2FTL", 1)))
+    train_affinity(load_config(CONFIG, _overrides(
+        data, tmp_path / "out", "model.mode=esm", f"esm_weights={esm_file}",
+        "trainer.max_epochs=1", "data.batch_size=1")), device="cpu")
+
+    extract = make_extractor(load_esm_model(esm_file, "cpu"))
+    entries = load_skempi_entries(str(data), "PDBs")
+    assert len(entries) == 2
+    for e in entries:
+        prot = from_pdb_file(e["pdb_path"], mse_to_met=True)
+        feats = featurize(prot)
+        rt_mut, _ = apply_mutations(prot, e["mutations"])
+        with np.load(data / "dataset_cache" / f"esm_{e['pdb_id']}_{e['id']}.npz") as z:
+            for key, rt in (("wt", feats["residue_type"]), ("mut", rt_mut)):
+                ids, rows = residue_tokens(rt, feats["chain_indices"])
+                want = extract([ids])[0][rows] * feats["residue_mask"][:, None]
+                np.testing.assert_allclose(z[key], want, atol=1e-5 * np.abs(want).max(),
+                                           rtol=0, err_msg=f"{e['id']} {key}")
+
+
 def test_empty_validation_fold_matches_jax(tmp_path):
     """A fold with no complex leaves validation empty: ``skempi_mini`` at
     ``num_cvfolds=3, cvfold_index=2`` in both packages, and in the runs
