@@ -236,12 +236,8 @@ class SO2Schedule:
                 score = score * x_mask
         return x + noise, score
 
-    def step(self, x: torch.Tensor, x_score: torch.Tensor, t: float, dt: float,
-             x_mask: Optional[torch.Tensor] = None,
-             generator: Optional[torch.Generator] = None,
-             noise: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """One reverse-time step at scalar time ``t``: the probability-flow
-        ODE, or the SDE with noise injection."""
+    def _drift(self, t: float):
+        """(g(t), the annealing weight) at scalar time ``t``, in float64."""
         sigma = self.t_to_sigma(t)
         g = sigma * math.sqrt(2 * math.log(self.sigma_max / self.sigma_min))
         if self.annealed_temp:
@@ -249,9 +245,30 @@ class SO2Schedule:
             weight = self.annealed_temp / (alpha + (1 - alpha) * self.annealed_temp)
         else:
             weight = 1.0
+        return g, weight
+
+    def ode_coefficients(self, t: float, dt: float):
+        """(0.5 g(t)^2 dt, the annealing weight): the two scalars of the
+        probability-flow ODE's step from ``t`` over ``dt``, in float64."""
+        g, weight = self._drift(t)
+        return 0.5 * g ** 2 * dt, weight
+
+    def step(self, x: torch.Tensor, x_score: torch.Tensor, t: Optional[float],
+             dt: Optional[float], x_mask: Optional[torch.Tensor] = None,
+             generator: Optional[torch.Generator] = None,
+             noise: Optional[torch.Tensor] = None, ode: Optional[tuple] = None) -> torch.Tensor:
+        """One reverse-time step at scalar time ``t``: the probability-flow
+        ODE, or the SDE with noise injection. ``ode`` replaces the ODE's
+        ``ode_coefficients(t, dt)`` (``t`` and ``dt`` are then unread) by
+        the same two numbers rounded to float32, as float32 tensors on
+        ``x``'s device that a CUDA graph's replays read: a Python float
+        multiplies a float32 tensor as its float32 rounding, so the step's
+        bits are the same."""
         if self.mode == "ode":
-            delta = (0.5 * g ** 2 * dt) * (x_score * weight)
+            factor, weight = self.ode_coefficients(t, dt) if ode is None else ode
+            delta = factor * (x_score * weight)
         elif self.mode == "sde":
+            g, weight = self._drift(t)
             if noise is None:
                 noise = _randn(x_score.shape, generator, x_score.device, x_score.dtype)
             delta = (g ** 2 * dt) * (x_score * weight) + (g * math.sqrt(dt)) * noise

@@ -4,13 +4,22 @@
 ``TorsionalDiffusion.loss`` is the score-matching loss of one batch (one
 diffusion time per protein, the score normalised per chi by E[score^2]).
 ``TorsionalDiffusion.sample`` encodes the static graph once and runs the
-``n_steps`` denoising iterations as a Python loop (each one network
-evaluation with the last layer's edge pass skipped), optionally with
-Langevin corrector sub-steps.
+``n_steps`` denoising iterations (each one network evaluation with the last
+layer's edge pass skipped), optionally with Langevin corrector sub-steps.
+
+One denoising iteration is one function (``TorsionalDiffusion._step``). On
+the CPU, and for SDE, corrector or split-row sampling, it runs eagerly
+``n_steps`` times. An ODE sample on the card captures it once a shape into a
+CUDA graph (``_GraphedStep``, kept in a small cache on the model) and
+replays it ``n_steps`` times, so a step costs one launch of the host's
+rather than the ~290 operations of the network and the schedule's update;
+the message and chain kernels run inside the graph.
 """
 from __future__ import annotations
 
 import dataclasses
+import threading
+from collections import OrderedDict
 from typing import Optional
 
 import numpy as np
@@ -18,10 +27,12 @@ import torch
 from torch import nn
 
 from packppi_torch.data.batch import ProteinBatch
+from packppi_torch.device import capture_graph
 from packppi_torch.diffusion.so2 import SO2Schedule
 from packppi_torch.geometry.dihedrals import wrap_angle
-from packppi_torch.models.diffusion_net import ChiScoreNetwork, NetworkConfig
-from packppi_torch.utils.trace import span
+from packppi_torch.models import ipmp
+from packppi_torch.models.diffusion_net import ChiScoreNetwork, NetworkConfig, StaticGraph
+from packppi_torch.utils.trace import add_launches, span, tally
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,6 +81,11 @@ class TorsionalDiffusion(nn.Module):
         kw = dict(annealed_temp=sample_cfg.annealed_temp, mode=sample_cfg.mode)
         self.schedule_pi = SO2Schedule(pi_periodic=True, **kw)
         self.schedule_2pi = SO2Schedule(pi_periodic=False, **kw)
+        # the captured ODE steps of each shape (``_graphed``) and each step
+        # count's table of step scalars on each device (``ode_table``)
+        self._graphs: "OrderedDict[tuple, _GraphedStep]" = OrderedDict()
+        self._graphs_lock = threading.Lock()
+        self._tables: dict = {}
 
     def add_chi_noise(self, batch: ProteinBatch, t: torch.Tensor,
                       generator: Optional[torch.Generator] = None, *,
@@ -165,9 +181,12 @@ class TorsionalDiffusion(nn.Module):
         ``corrector_steps`` Langevin sub-steps per iteration draw from
         ``generator``. ``rows``: ``batch`` is these rows of a global batch
         split over ranks (``Rows``).
+
+        On the card an ODE sample with neither corrector steps nor ``rows``
+        replays one captured step a shape (``_GraphedStep``), with the same
+        bits as the eager loop; what it returns is its own.
         """
-        draw = (lambda x: None) if rows is None else (
-            lambda x: rows.draw(x.shape, generator, x.device))
+        draw = _draws(rows, generator)
         if init_sc is None:
             if generator is None:
                 raise ValueError("sample needs a generator or init_sc")
@@ -180,25 +199,33 @@ class TorsionalDiffusion(nn.Module):
         else:
             sc = torch.as_tensor(init_sc, dtype=torch.float32, device=batch.SC_D.device)
 
-        ts = np.linspace(1.0, 0.0, n_steps + 1)
-        times = ts[:-1].astype(np.float32)
-        dts = (ts[:-1] - ts[1:]).astype(np.float32)
-        m1, m2 = batch.chi_1pi_periodic_mask, batch.chi_2pi_periodic_mask
-
         with span("sample.encode"):
             static = self.net.encode_static(batch)
+        if sc.is_cuda and self.schedule_pi.mode == "ode" and not corrector_steps and rows is None:
+            traj = sc.new_empty((n_steps,) + sc.shape) if return_trajectory else None
+            sc = self._graphed(batch, static, sc).run(batch, static, sc,
+                                                      self.ode_table(n_steps, sc.device), traj)
+            return (sc, traj) if return_trajectory else sc
+
+        return self._eager(batch, static, sc, n_steps, corrector_steps, generator, rows,
+                           return_trajectory)
+
+    def _eager(self, batch: ProteinBatch, static: StaticGraph, sc: torch.Tensor, n_steps: int,
+               corrector_steps: int = 0, generator: Optional[torch.Generator] = None,
+               rows: Optional[Rows] = None, return_trajectory: bool = False):
+        """The denoising loop from chis ``sc``, one eager step a call (as
+        ``sample``'s arguments): the CPU's path and that of SDE, corrector
+        and split-row samples; on the card what the graph's replays are
+        held to."""
+        draw = _draws(rows, generator)
+        m1, m2 = batch.chi_1pi_periodic_mask, batch.chi_2pi_periodic_mask
         traj = []
-        for time, dt in zip(times, dts):
+        for time, dt in zip(*_step_times(n_steps)):
             with span("sample.step"):
                 t = torch.full(batch.residue_mask.shape, float(time), device=sc.device)
-                score, _ = self.net(batch, sc, t, static=static, skip_last_edge_update=True)
                 traj.append(sc)
-                sde = self.schedule_pi.mode == "sde"
-                sc_next = self.schedule_pi.step(sc, score, float(time), float(dt), m1, generator,
-                                                draw(score) if sde else None)
-                sc_next = self.schedule_2pi.step(sc_next, score, float(time), float(dt), m2,
-                                                 generator, draw(score) if sde else None)
-                sc = wrap_angle(sc_next) * batch.SC_D_mask
+                sc = self._step(batch, static, sc, t, float(time), float(dt), generator, draw)
+                tally("sample_eager_steps")
             for _ in range(corrector_steps):
                 # each periodicity's step size from its own masked norms
                 score, _ = self.net(batch, sc, t, static=static, skip_last_edge_update=True)
@@ -211,3 +238,137 @@ class TorsionalDiffusion(nn.Module):
         if return_trajectory:
             return sc, torch.stack(traj)
         return sc
+
+    def _step(self, batch: ProteinBatch, static: StaticGraph, sc: torch.Tensor,
+              t: torch.Tensor, time: Optional[float], dt: Optional[float],
+              generator: Optional[torch.Generator] = None, draw=lambda x: None,
+              ode: tuple = (None, None)) -> torch.Tensor:
+        """One denoising iteration from chis ``sc`` at times ``t`` [B, L]:
+        the network, each periodicity's step and the wrap; returns the next
+        chis. The eager loop passes the step's ``time`` and ``dt``; a CUDA
+        graph's capture passes ``ode``, each schedule's ODE scalars as
+        float32 tensors (``SO2Schedule.step``), which its replays read.
+        ``draw`` gives an SDE step's noise (None: drawn from ``generator``)."""
+        score, _ = self.net(batch, sc, t, static=static, skip_last_edge_update=True)
+        noise = (lambda: draw(score)) if self.schedule_pi.mode == "sde" else (lambda: None)
+        sc_next = self.schedule_pi.step(sc, score, time, dt, batch.chi_1pi_periodic_mask,
+                                        generator, noise(), ode[0])
+        sc_next = self.schedule_2pi.step(sc_next, score, time, dt, batch.chi_2pi_periodic_mask,
+                                         generator, noise(), ode[1])
+        return wrap_angle(sc_next) * batch.SC_D_mask
+
+    def ode_table(self, n_steps: int, device) -> torch.Tensor:
+        """[n_steps, 5] float32 on ``device``, a row a step: its time, then
+        each schedule's ``ode_coefficients`` (pi-periodic first), computed
+        in float64 from the times the eager loop steps through and rounded
+        to float32 once. Made once for each step count and device."""
+        key = (n_steps, torch.device(device))
+        table = self._tables.get(key)
+        if table is None:
+            rows = [[float(time), *self.schedule_pi.ode_coefficients(float(time), float(dt)),
+                     *self.schedule_2pi.ode_coefficients(float(time), float(dt))]
+                    for time, dt in zip(*_step_times(n_steps))]
+            table = self._tables[key] = torch.tensor(rows, dtype=torch.float64).to(
+                torch.float32).to(device)
+        return table
+
+    def _graphed(self, batch: ProteinBatch, static: StaticGraph,
+                 sc: torch.Tensor) -> "_GraphedStep":
+        """The cached ``_GraphedStep`` of this shape, captured on its first
+        call and again once a parameter is another tensor or was written in
+        place (the kernels' packed weight copies are made outside the graph);
+        the least recently used of more than ``_MAX_GRAPHS`` is dropped with
+        its memory."""
+        key = (sc.device, *sc.shape[:2], self.net.training, ipmp.FOLD_EDGE_CHAIN)
+        weights = tuple((p.data_ptr(), -1 if p.is_inference() else p._version)
+                        for p in self.net.parameters())
+        with self._graphs_lock:
+            g = self._graphs.get(key)
+            if g is None or g.weights != weights:
+                g = self._graphs[key] = _GraphedStep(self, batch, static, sc, weights)
+                if len(self._graphs) > _MAX_GRAPHS:
+                    self._graphs.popitem(last=False)
+            self._graphs.move_to_end(key)
+        return g
+
+
+def _draws(rows: Optional[Rows], generator):
+    """What a draw of the shape of ``x`` gives: the global batch's draw cut
+    to ``rows``, or None (the step draws from ``generator`` itself)."""
+    if rows is None:
+        return lambda x: None
+    return lambda x: rows.draw(x.shape, generator, x.device)
+
+
+def _step_times(n_steps: int):
+    """Each step's time (1 down to 1/n_steps) and length, as float32."""
+    ts = np.linspace(1.0, 0.0, n_steps + 1)
+    return ts[:-1].astype(np.float32), (ts[:-1] - ts[1:]).astype(np.float32)
+
+
+# the fields of the batch a step reads
+_READ = ("X", "residue_type", "residue_mask", "BB_D_sincos", "SC_D_mask",
+         "chi_1pi_periodic_mask", "chi_2pi_periodic_mask")
+_MAX_GRAPHS = 8
+
+
+def _leaves(static: StaticGraph) -> list:
+    """The tensors of a ``StaticGraph`` in field order (an int8 edge cache's
+    and local geometry's pairs flattened)."""
+    out = []
+    for v in static:
+        out.extend(v if isinstance(v, tuple) else () if v is None else (v,))
+    return out
+
+
+class _GraphedStep:
+    """One ODE step captured for one shape: static copies of what a step
+    reads (the batch's fields, the static graph, the chis, a slot of the
+    step's scalars: a row of ``ode_table``), the graph of one step, and the
+    kernel launches a replay makes. ``run`` loads a request into the copies
+    and replays the step; a lock keeps requests of one shape apart."""
+
+    def __init__(self, model: TorsionalDiffusion, batch, static, sc, weights):
+        self.weights = weights
+        self.batch = ProteinBatch(**{f: getattr(batch, f).clone() if f in _READ else None
+                                     for f in ProteinBatch._fields})
+        self.static = StaticGraph(*(tuple(t.clone() for t in v) if isinstance(v, tuple)
+                                    else None if v is None else v.clone() for v in static))
+        self.sc = sc.clone()
+        self.slot = sc.new_zeros(5)
+        self.lock = threading.Lock()
+        # the last request's end: the next one, on whatever stream, loads
+        # the copies only after it
+        self.done = torch.cuda.Event()
+
+        def step():
+            s = self.slot
+            t = s[0].expand(self.sc.shape[:2])
+            self.sc.copy_(model._step(self.batch, self.static, self.sc, t, None, None,
+                                      ode=((s[1], s[2]), (s[3], s[4]))))
+
+        self.graph, self.launches = capture_graph(step, sc.device)
+        tally("sample_graph_captures")
+
+    def run(self, batch, static, sc, table, traj=None):
+        """The ``len(table)`` steps from chis ``sc``; each step's input goes
+        to ``traj``'s row when given. Returns the final chis."""
+        with self.lock:
+            torch.cuda.current_stream(self.sc.device).wait_event(self.done)
+            for f in _READ:
+                getattr(self.batch, f).copy_(getattr(batch, f))
+            for mine, t in zip(_leaves(self.static), _leaves(static)):
+                mine.copy_(t)
+            self.sc.copy_(sc)
+            for i in range(table.shape[0]):
+                with span("sample.step"):
+                    if traj is not None:
+                        traj[i].copy_(self.sc)
+                    self.slot.copy_(table[i])
+                    self.graph.replay()
+                    add_launches(self.launches)
+                    tally("sample_graph_replays")
+            # a copy made before the next request of this shape loads its own
+            out = self.sc.clone()
+            self.done.record()
+            return out

@@ -19,7 +19,6 @@ inside the graph.
 """
 from __future__ import annotations
 
-import functools
 import threading
 from collections import OrderedDict
 from typing import NamedTuple, Optional
@@ -27,8 +26,9 @@ from typing import NamedTuple, Optional
 import torch
 
 from packppi_torch.data.batch import ProteinBatch
-from packppi_torch.ops.clash import between_residue_clash, compute_residue_clash
-from packppi_torch.utils.trace import span, tally
+from packppi_torch.device import capture_graph
+from packppi_torch.ops.clash import compute_residue_clash
+from packppi_torch.utils.trace import add_launches, span, tally
 
 
 def _row_mean(x, mask, eps=1e-10):
@@ -84,8 +84,6 @@ class ProximalResult(NamedTuple):
 
 # the fields of the batch a step reads
 _READ = ("X", "atom_mask", "residue_type", "residue_mask", "residue_index", "BB_D")
-# eager steps on the capture's stream before it (Adam's state, cuBLAS's workspace)
-_WARMUP = 2
 _MAX_GRAPHS = 8
 
 
@@ -125,7 +123,7 @@ class _Refinement:
 
 class _Graphed:
     """A refinement captured for one shape: static copies of what a step
-    reads, Adam's state, the graph of one step, and the clash launches a
+    reads, Adam's state, the graph of one step, and the kernel launches a
     replay makes. ``run`` loads a request into the copies and replays the
     step; a lock keeps requests of one shape apart."""
 
@@ -135,30 +133,19 @@ class _Graphed:
         self.r = _Refinement(ProteinBatch(**static), SC_D.clone(), z.clone(),
                              clash_mask.clone(), *args)
         self.lock = threading.Lock()
-        brc = between_residue_clash
-        before = (brc.launches_fwd, brc.launches_bwd)
-        dev = z.device
-        side = _capture_stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side), torch.enable_grad():
-            for _ in range(_WARMUP):
-                self.r.slot.zero_()
-                self.r.step()
-        torch.cuda.current_stream(dev).wait_stream(side)
-        warm = (brc.launches_fwd, brc.launches_bwd)
-        self.graph = torch.cuda.CUDAGraph()
-        self.r.opt.zero_grad(set_to_none=True)
-        with torch.enable_grad(), torch.cuda.graph(self.graph, stream=side,
-                                                   capture_error_mode="thread_local"):
-            self.r.step()
-        self.launches = (brc.launches_fwd - warm[0], brc.launches_bwd - warm[1])
-        # the warm-up and the capture are set-up: a refinement counts the
-        # launches of its replays alone, as many as the eager loop's
-        brc.launches_fwd, brc.launches_bwd = before
+        r = self.r
+
+        def warm_up():   # Adam's state is made here, outside the graph
+            r.slot.zero_()
+            r.step()
+            r.opt.zero_grad(set_to_none=True)   # the capture allocates its own
+
+        with torch.enable_grad():
+            self.graph, self.launches = capture_graph(r.step, z.device, warm_up)
         tally("graph_captures")
 
     def run(self, batch, SC_D, z, clash_mask, num_steps):
-        r, brc = self.r, between_residue_clash
+        r = self.r
         with self.lock:
             for f in _READ:
                 getattr(r.batch, f).copy_(getattr(batch, f))
@@ -170,19 +157,11 @@ class _Graphed:
             for _ in range(num_steps):
                 with span("refine.step"):
                     self.graph.replay()
-                    brc.launches_fwd += self.launches[0]
-                    brc.launches_bwd += self.launches[1]
+                    add_launches(self.launches)
                     tally("graph_replays")
             # copies made before the next request of this shape loads its own
             x, losses = r.result()
             return x, losses.clone()
-
-
-@functools.lru_cache(maxsize=None)
-def _capture_stream(device):
-    """The one side stream of ``device`` that every capture warms up and
-    captures on (cuBLAS keeps a workspace for each stream it meets)."""
-    return torch.cuda.Stream(device)
 
 
 _GRAPHS: "OrderedDict[tuple, _Graphed]" = OrderedDict()

@@ -26,12 +26,16 @@ span that closes takes them again as the stretch's end. ``report()`` and
 ``records()`` read the last live stretch and clear nothing.
 
 ``engagement()`` counts how the refinement's Adam steps ran (CUDA graphs
-captured, graph replays, eager steps); ``tally(name)`` adds one. They are
-kept apart from ``counters()``, whose every entry is a kernel launch.
+captured, graph replays, eager steps) and, under keys of their own
+(``sample_*``), how the sampler's ODE steps ran; ``tally(name)`` adds one.
+They are kept apart from ``counters()``, whose every entry is a kernel
+launch. ``add_launches`` adds to the launch counters what a CUDA graph's
+replay launched, which no wrapper counts.
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 import threading
 import time
 from typing import NamedTuple, Optional
@@ -114,23 +118,39 @@ def span(name: str):
     return _Live(name)
 
 
+@functools.lru_cache(maxsize=None)
+def _counter_sites() -> dict:
+    """Each launch counter by name: the object and attribute that hold it."""
+    from packppi_torch.ops import attention, chain, clash, layer, message, message_feat
+
+    brc = clash.between_residue_clash
+    return {"message": (message.message, "launches"),
+            "message_gather": (message.message_gather, "launches"),
+            "message_geom": (message.message_geom, "launches"),
+            "message_chain": (message.message_chain, "launches"),
+            "message_feat": (message_feat.message_feat, "launches"),
+            "chain": (chain.chain, "launches"), "layer_node": (layer.layer_node, "launches"),
+            "layer_edge": (layer.layer_edge, "launches"), "attention": (attention.mha, "launches"),
+            "clash_fwd": (brc, "launches_fwd"), "clash_bwd": (brc, "launches_bwd")}
+
+
 def counters() -> dict:
     """Every counter of the program by name: the launches of each kernel
     wrapper in ``ops/`` (clash forward and gradient apart)."""
-    from packppi_torch.ops import attention, chain, clash, layer, message, message_feat
-
-    return {"message": message.message.launches,
-            "message_gather": message.message_gather.launches,
-            "message_geom": message.message_geom.launches,
-            "message_chain": message.message_chain.launches,
-            "message_feat": message_feat.message_feat.launches,
-            "chain": chain.chain.launches, "layer_node": layer.layer_node.launches,
-            "layer_edge": layer.layer_edge.launches, "attention": attention.mha.launches,
-            "clash_fwd": clash.between_residue_clash.launches_fwd,
-            "clash_bwd": clash.between_residue_clash.launches_bwd}
+    return {k: getattr(o, a) for k, (o, a) in _counter_sites().items()}
 
 
-_ENGAGED = {"graph_captures": 0, "graph_replays": 0, "eager_steps": 0}
+def add_launches(growth: dict) -> None:
+    """Add ``growth`` (launches by the names of ``counters()``) to the
+    counters: a CUDA graph's replay launches its kernels without their
+    wrappers, and a capture's wrappers counted launches that never ran."""
+    for k, (o, a) in _counter_sites().items():
+        if growth.get(k):
+            setattr(o, a, getattr(o, a) + growth[k])
+
+
+_ENGAGED = {"graph_captures": 0, "graph_replays": 0, "eager_steps": 0,
+            "sample_graph_captures": 0, "sample_graph_replays": 0, "sample_eager_steps": 0}
 
 
 def tally(name: str) -> None:
@@ -140,7 +160,9 @@ def tally(name: str) -> None:
 
 def engagement() -> dict:
     """How the refinement's Adam steps ran, by name: CUDA graphs captured
-    (one a shape), steps run as a replay of one, and steps run eagerly."""
+    (one a shape), steps run as a replay of one, and steps run eagerly; the
+    same for the sampler's ODE steps under ``sample_graph_captures``,
+    ``sample_graph_replays`` and ``sample_eager_steps``."""
     return dict(_ENGAGED)
 
 

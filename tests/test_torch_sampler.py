@@ -83,3 +83,46 @@ def test_corrector_steps_are_refused(batch, model):
                       init_sc=init)
     assert torch.isfinite(sc).all() and not torch.equal(sc, plain)
     np.testing.assert_array_equal(sc.numpy()[batch.SC_D_mask.numpy() == 0], 0.0)
+
+
+@pytest.mark.parametrize("pi_periodic", [True, False])
+@pytest.mark.parametrize("n_steps", [1, 7, 30])
+def test_ode_step_from_the_table_matches_the_float_step(batch, model, pi_periodic, n_steps):
+    """Each step's scalars as ``ode_table`` holds them (computed in float64,
+    rounded to float32 once) give the bits of the step computed from the
+    step's time and length as Python floats, in either schedule."""
+    from packppi_torch.models.torsional_diffusion import _step_times
+
+    sched = model.schedule_pi if pi_periodic else model.schedule_2pi
+    col = 1 if pi_periodic else 3
+    table = model.ode_table(n_steps, "cpu")
+    assert table.dtype == torch.float32 and table.shape == (n_steps, 5)
+    mask = batch.chi_1pi_periodic_mask if pi_periodic else batch.chi_2pi_periodic_mask
+    g = torch.Generator().manual_seed(n_steps)
+    for i, (time, dt) in enumerate(zip(*_step_times(n_steps))):
+        x = torch.rand(batch.SC_D.shape, generator=g) * 2 * np.pi - np.pi
+        score = torch.randn(batch.SC_D.shape, generator=g) * 10
+        want = sched.step(x, score, float(time), float(dt), mask)
+        got = sched.step(x, score, None, None, mask, ode=(table[i, col], table[i, col + 1]))
+        assert torch.equal(got, want), f"step {i}"
+        assert table[i, 0].item() == float(time)
+
+
+def test_steps_as_a_graph_runs_them_give_the_eager_samples_bits(batch, model):
+    """The step a CUDA graph captures (the time broadcast from the table's
+    slot, the ODE scalars as float32 tensors), run eagerly here from the
+    same start, gives every trajectory row and the final chis of the eager
+    loop bit for bit."""
+    n = 2
+    init = model.init_noise(batch, torch.Generator().manual_seed(5))
+    sc_eager, traj_eager = model.sample(batch, init_sc=init, n_steps=n, return_trajectory=True)
+    static = model.net.encode_static(batch)
+    table = model.ode_table(n, "cpu")
+    sc = init
+    with torch.no_grad():
+        for i in range(n):
+            assert torch.equal(traj_eager[i], sc), f"step {i}"
+            s = table[i]
+            sc = model._step(batch, static, sc, s[0].expand(sc.shape[:2]), None, None,
+                             ode=((s[1], s[2]), (s[3], s[4])))
+    assert torch.equal(sc, sc_eager)

@@ -214,13 +214,44 @@ def test_cpu_refinement_counts_eager_steps_apart_from_the_launches():
     with profile(activities=[ProfilerActivity.CPU]):
         proximal_optimize(batch, sc, num_steps=50)
     after = trace.engagement()
-    assert {k: after[k] - before[k] for k in after} == {
-        "graph_captures": 0, "graph_replays": 0, "eager_steps": 50}
+    want = {k: 0 for k in after}
+    want["eager_steps"] = 50
+    assert {k: after[k] - before[k] for k in after} == want
     rep = trace.report()
-    assert rep["engagement"] == {"graph_captures": 0, "graph_replays": 0, "eager_steps": 50}
+    assert rep["engagement"] == want
     assert rep["spans"]["refine.step"]["n"] == 50
     assert len(trace.counters()) == 11 and trace.counters() == launches
     assert rep["counters"] == {k: 0 for k in launches}
+
+
+def test_cpu_sample_counts_eager_steps_apart_from_the_refinement():
+    """On the CPU the sampler runs eagerly: a 3-step sample counts 3 eager
+    ODE steps under the sampler's keys, no capture and no replay, and
+    leaves the refinement's keys (``refine_graphed.*`` reads them) as they
+    were, in ``engagement()`` and in the profiled stretch's report."""
+    from packppi_torch.data import stack_batch
+    from packppi_torch.models import NetworkConfig, TorsionalDiffusion
+    from packppi_torch.structure import featurize, from_pdb_file
+    from packppi_torch.weights import init_weights
+
+    model = TorsionalDiffusion(NetworkConfig(node_features=32, edge_features=32, hidden_dim=32,
+                                             top_k=8))
+    init_weights(model.net, 0)
+    feats = featurize(from_pdb_file(os.path.join(FIXTURES, "1brs.pdb"), mse_to_met=True))
+    batch = stack_batch([feats], torch.device("cpu"))
+    before = trace.engagement()
+    _off_span()
+    with profile(activities=[ProfilerActivity.CPU]):
+        model.sample(batch, torch.Generator().manual_seed(0), n_steps=3)
+    after = trace.engagement()
+    want = {k: 0 for k in after}
+    want["sample_eager_steps"] = 3
+    assert {k: after[k] - before[k] for k in after} == want
+    rep = trace.report()
+    assert rep["engagement"] == want
+    assert rep["spans"]["sample.step"]["n"] == 3
+    assert {"graph_captures", "graph_replays", "eager_steps", "sample_graph_captures",
+            "sample_graph_replays", "sample_eager_steps"} == set(after)
 
 
 @pytest.mark.gpu
@@ -247,5 +278,8 @@ def test_profiled_t1124_pack_counts_its_launches(tmp_path):
     assert rep["spans"]["sample.encode"]["n"] == 1
     assert rep["spans"]["sample.step"]["n"] == 30
     assert rep["spans"]["refine.step"]["n"] == 50
-    # the shape was captured by the first run: the Adam steps are replays
-    assert rep["engagement"] == {"graph_captures": 0, "graph_replays": 50, "eager_steps": 0}
+    # the Adam and ODE steps are replays: the refinement's shape was captured
+    # by the first run, and the run's new model captures its ODE step once
+    want = {k: 0 for k in trace.engagement()}
+    want.update(graph_replays=50, sample_graph_captures=1, sample_graph_replays=30)
+    assert rep["engagement"] == want
