@@ -10,16 +10,14 @@ layer's edge pass skipped), optionally with Langevin corrector sub-steps.
 One denoising iteration is one function (``TorsionalDiffusion._step``). On
 the CPU, and for SDE, corrector or split-row sampling, it runs eagerly
 ``n_steps`` times. An ODE sample on the card captures it once a shape into a
-CUDA graph (``_GraphedStep``, kept in a small cache on the model) and
-replays it ``n_steps`` times, so a step costs one launch of the host's
+CUDA graph (``_GraphedStep``, kept in a ``device.GraphCache`` on the model)
+and replays it ``n_steps`` times, so a step costs one launch of the host's
 rather than the ~290 operations of the network and the schedule's update;
 the message and chain kernels run inside the graph.
 """
 from __future__ import annotations
 
 import dataclasses
-import threading
-from collections import OrderedDict
 from typing import Optional
 
 import numpy as np
@@ -27,12 +25,12 @@ import torch
 from torch import nn
 
 from packppi_torch.data.batch import ProteinBatch
-from packppi_torch.device import capture_graph
+from packppi_torch.device import GraphCache, Replay, static_copies
 from packppi_torch.diffusion.so2 import SO2Schedule
 from packppi_torch.geometry.dihedrals import wrap_angle
 from packppi_torch.models import ipmp
 from packppi_torch.models.diffusion_net import ChiScoreNetwork, NetworkConfig, StaticGraph
-from packppi_torch.utils.trace import add_launches, span, tally
+from packppi_torch.utils.trace import span, tally
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,10 +79,9 @@ class TorsionalDiffusion(nn.Module):
         kw = dict(annealed_temp=sample_cfg.annealed_temp, mode=sample_cfg.mode)
         self.schedule_pi = SO2Schedule(pi_periodic=True, **kw)
         self.schedule_2pi = SO2Schedule(pi_periodic=False, **kw)
-        # the captured ODE steps of each shape (``_graphed``) and each step
+        # the captured ODE steps of each shape (``sample``) and each step
         # count's table of step scalars on each device (``ode_table``)
-        self._graphs: "OrderedDict[tuple, _GraphedStep]" = OrderedDict()
-        self._graphs_lock = threading.Lock()
+        self._graphs = GraphCache()
         self._tables: dict = {}
 
     def add_chi_noise(self, batch: ProteinBatch, t: torch.Tensor,
@@ -202,9 +199,15 @@ class TorsionalDiffusion(nn.Module):
         with span("sample.encode"):
             static = self.net.encode_static(batch)
         if sc.is_cuda and self.schedule_pi.mode == "ode" and not corrector_steps and rows is None:
+            # captured again once a parameter is another tensor or was written
+            # in place (the kernels' packed weight copies are made outside the graph)
+            key = (sc.device, *sc.shape[:2], self.net.training, ipmp.FOLD_EDGE_CHAIN)
+            weights = tuple((p.data_ptr(), -1 if p.is_inference() else p._version)
+                            for p in self.net.parameters())
+            g = self._graphs.get(key, lambda: _GraphedStep(self, batch, static, sc, weights),
+                                 lambda g: g.weights == weights)
             traj = sc.new_empty((n_steps,) + sc.shape) if return_trajectory else None
-            sc = self._graphed(batch, static, sc).run(batch, static, sc,
-                                                      self.ode_table(n_steps, sc.device), traj)
+            sc = g.run(batch, static, sc, self.ode_table(n_steps, sc.device), traj)
             return (sc, traj) if return_trajectory else sc
 
         return self._eager(batch, static, sc, n_steps, corrector_steps, generator, rows,
@@ -272,25 +275,6 @@ class TorsionalDiffusion(nn.Module):
                 torch.float32).to(device)
         return table
 
-    def _graphed(self, batch: ProteinBatch, static: StaticGraph,
-                 sc: torch.Tensor) -> "_GraphedStep":
-        """The cached ``_GraphedStep`` of this shape, captured on its first
-        call and again once a parameter is another tensor or was written in
-        place (the kernels' packed weight copies are made outside the graph);
-        the least recently used of more than ``_MAX_GRAPHS`` is dropped with
-        its memory."""
-        key = (sc.device, *sc.shape[:2], self.net.training, ipmp.FOLD_EDGE_CHAIN)
-        weights = tuple((p.data_ptr(), -1 if p.is_inference() else p._version)
-                        for p in self.net.parameters())
-        with self._graphs_lock:
-            g = self._graphs.get(key)
-            if g is None or g.weights != weights:
-                g = self._graphs[key] = _GraphedStep(self, batch, static, sc, weights)
-                if len(self._graphs) > _MAX_GRAPHS:
-                    self._graphs.popitem(last=False)
-            self._graphs.move_to_end(key)
-        return g
-
 
 def _draws(rows: Optional[Rows], generator):
     """What a draw of the shape of ``x`` gives: the global batch's draw cut
@@ -309,66 +293,32 @@ def _step_times(n_steps: int):
 # the fields of the batch a step reads
 _READ = ("X", "residue_type", "residue_mask", "BB_D_sincos", "SC_D_mask",
          "chi_1pi_periodic_mask", "chi_2pi_periodic_mask")
-_MAX_GRAPHS = 8
-
-
-def _leaves(static: StaticGraph) -> list:
-    """The tensors of a ``StaticGraph`` in field order (an int8 edge cache's
-    and local geometry's pairs flattened)."""
-    out = []
-    for v in static:
-        out.extend(v if isinstance(v, tuple) else () if v is None else (v,))
-    return out
 
 
 class _GraphedStep:
-    """One ODE step captured for one shape: static copies of what a step
-    reads (the batch's fields, the static graph, the chis, a slot of the
-    step's scalars: a row of ``ode_table``), the graph of one step, and the
-    kernel launches a replay makes. ``run`` loads a request into the copies
-    and replays the step; a lock keeps requests of one shape apart."""
+    """One ODE step captured for one shape under ``weights``: the ``Replay``
+    of a step that reads static copies of the batch's fields, the static
+    graph and the chis, and a slot of the step's scalars (a row of
+    ``ode_table``)."""
 
     def __init__(self, model: TorsionalDiffusion, batch, static, sc, weights):
         self.weights = weights
-        self.batch = ProteinBatch(**{f: getattr(batch, f).clone() if f in _READ else None
-                                     for f in ProteinBatch._fields})
-        self.static = StaticGraph(*(tuple(t.clone() for t in v) if isinstance(v, tuple)
-                                    else None if v is None else v.clone() for v in static))
-        self.sc = sc.clone()
-        self.slot = sc.new_zeros(5)
-        self.lock = threading.Lock()
-        # the last request's end: the next one, on whatever stream, loads
-        # the copies only after it
-        self.done = torch.cuda.Event()
+        self.sc, self.slot = sc.clone(), sc.new_zeros(5)
+        copies = (static_copies(batch, _READ), static_copies(static), self.sc)
 
         def step():
             s = self.slot
             t = s[0].expand(self.sc.shape[:2])
-            self.sc.copy_(model._step(self.batch, self.static, self.sc, t, None, None,
-                                      ode=((s[1], s[2]), (s[3], s[4]))))
+            self.sc.copy_(model._step(*copies, t, None, None, ode=((s[1], s[2]), (s[3], s[4]))))
 
-        self.graph, self.launches = capture_graph(step, sc.device)
-        tally("sample_graph_captures")
+        self.replay = Replay(step, sc.device, copies, "sample.step", "sample_")
 
     def run(self, batch, static, sc, table, traj=None):
         """The ``len(table)`` steps from chis ``sc``; each step's input goes
         to ``traj``'s row when given. Returns the final chis."""
-        with self.lock:
-            torch.cuda.current_stream(self.sc.device).wait_event(self.done)
-            for f in _READ:
-                getattr(self.batch, f).copy_(getattr(batch, f))
-            for mine, t in zip(_leaves(self.static), _leaves(static)):
-                mine.copy_(t)
-            self.sc.copy_(sc)
-            for i in range(table.shape[0]):
-                with span("sample.step"):
-                    if traj is not None:
-                        traj[i].copy_(self.sc)
-                    self.slot.copy_(table[i])
-                    self.graph.replay()
-                    add_launches(self.launches)
-                    tally("sample_graph_replays")
-            # a copy made before the next request of this shape loads its own
-            out = self.sc.clone()
-            self.done.record()
-            return out
+        def each(i):
+            if traj is not None:
+                traj[i].copy_(self.sc)
+            self.slot.copy_(table[i])
+
+        return self.replay.run((batch, static, sc), table.shape[0], self.sc.clone, each)

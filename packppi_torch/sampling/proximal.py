@@ -12,23 +12,21 @@ complexes of a batch stay independent.
 
 One Adam step is one function (``_Refinement.step``). On the CPU it runs
 eagerly ``num_steps`` times. On the card it is captured once a shape into a
-CUDA graph (``_Graphed``, kept in a small cache) and replayed ``num_steps``
-times, so a step costs one launch of the host's rather than the ~200
-operations of the objective, its backward and Adam; the clash kernels run
-inside the graph.
+CUDA graph (``device.Replay``, kept in a ``device.GraphCache``) and
+replayed ``num_steps`` times, so a step costs one launch of the host's
+rather than the ~200 operations of the objective, its backward and Adam;
+the clash kernels run inside the graph.
 """
 from __future__ import annotations
 
-import threading
-from collections import OrderedDict
 from typing import NamedTuple, Optional
 
 import torch
 
 from packppi_torch.data.batch import ProteinBatch
-from packppi_torch.device import capture_graph
+from packppi_torch.device import GraphCache, Replay, static_copies
 from packppi_torch.ops.clash import compute_residue_clash
-from packppi_torch.utils.trace import add_launches, span, tally
+from packppi_torch.utils.trace import span, tally
 
 
 def _row_mean(x, mask, eps=1e-10):
@@ -84,7 +82,6 @@ class ProximalResult(NamedTuple):
 
 # the fields of the batch a step reads
 _READ = ("X", "atom_mask", "residue_type", "residue_mask", "residue_index", "BB_D")
-_MAX_GRAPHS = 8
 
 
 class _Refinement:
@@ -121,67 +118,23 @@ class _Refinement:
         return torch.where(self.clash_mask, self.x.detach(), self.SC_D), self.losses
 
 
-class _Graphed:
-    """A refinement captured for one shape: static copies of what a step
-    reads, Adam's state, the graph of one step, and the kernel launches a
-    replay makes. ``run`` loads a request into the copies and replays the
-    step; a lock keeps requests of one shape apart."""
+def _captured(batch, SC_D, z, clash_mask, *args):
+    """A refinement on static copies of what a step reads, and the
+    ``Replay`` of its Adam step."""
+    r = _Refinement(static_copies(batch, _READ), SC_D.clone(), z.clone(), clash_mask.clone(),
+                    *args)
 
-    def __init__(self, batch, SC_D, z, clash_mask, *args):
-        static = {f: getattr(batch, f).clone() if f in _READ else None
-                  for f in ProteinBatch._fields}
-        self.r = _Refinement(ProteinBatch(**static), SC_D.clone(), z.clone(),
-                             clash_mask.clone(), *args)
-        self.lock = threading.Lock()
-        r = self.r
+    def warm_up():   # Adam's state is made here, outside the graph
+        r.slot.zero_()
+        r.step()
+        r.opt.zero_grad(set_to_none=True)   # the capture allocates its own
 
-        def warm_up():   # Adam's state is made here, outside the graph
-            r.slot.zero_()
-            r.step()
-            r.opt.zero_grad(set_to_none=True)   # the capture allocates its own
-
-        with torch.enable_grad():
-            self.graph, self.launches = capture_graph(r.step, z.device, warm_up)
-        tally("graph_captures")
-
-    def run(self, batch, SC_D, z, clash_mask, num_steps):
-        r = self.r
-        with self.lock:
-            for f in _READ:
-                getattr(r.batch, f).copy_(getattr(batch, f))
-            for static, t in ((r.SC_D, SC_D), (r.z, z), (r.clash_mask, clash_mask), (r.x, z)):
-                static.detach().copy_(t)
-            for t in r.opt.state[r.x].values():           # step, exp_avg, exp_avg_sq
-                t.zero_()
-            r.slot.zero_()
-            for _ in range(num_steps):
-                with span("refine.step"):
-                    self.graph.replay()
-                    add_launches(self.launches)
-                    tally("graph_replays")
-            # copies made before the next request of this shape loads its own
-            x, losses = r.result()
-            return x, losses.clone()
+    with torch.enable_grad():
+        return r, Replay(r.step, z.device, (r.batch, r.SC_D, r.z, r.clash_mask, r.x),
+                         "refine.step", warm_up=warm_up)
 
 
-_GRAPHS: "OrderedDict[tuple, _Graphed]" = OrderedDict()
-_GRAPHS_LOCK = threading.Lock()
-
-
-def _graphed(batch, SC_D, z, clash_mask, num_steps, lr, lamda, tolerances, n_rows):
-    """The cached ``_Graphed`` of this shape and these settings, captured on
-    its first call; the least recently used of more than ``_MAX_GRAPHS`` is
-    dropped with its memory."""
-    key = (SC_D.device, *SC_D.shape[:2], num_steps, lr, lamda, *tolerances, n_rows)
-    with _GRAPHS_LOCK:
-        g = _GRAPHS.get(key)
-        if g is None:
-            g = _GRAPHS[key] = _Graphed(batch, SC_D, z, clash_mask, num_steps, lr, lamda,
-                                        tolerances, n_rows)
-            if len(_GRAPHS) > _MAX_GRAPHS:
-                _GRAPHS.popitem(last=False)
-        _GRAPHS.move_to_end(key)
-    return g
+_GRAPHS = GraphCache()
 
 
 def proximal_optimize(batch: ProteinBatch, SC_D,
@@ -203,8 +156,13 @@ def proximal_optimize(batch: ProteinBatch, SC_D,
     clash_mask = find_clash_mask(batch, SC_D, *tolerances)
     z = SC_D * clash_mask
     if SC_D.is_cuda:
-        x, row_losses = _graphed(batch, SC_D, z, clash_mask, num_steps, lr, lamda, tolerances,
-                                 n_rows).run(batch, SC_D, z, clash_mask, num_steps)
+        key = (SC_D.device, *SC_D.shape[:2], num_steps, lr, lamda, *tolerances, n_rows)
+        r, replay = _GRAPHS.get(key, lambda: _captured(batch, SC_D, z, clash_mask, num_steps, lr,
+                                                       lamda, tolerances, n_rows))
+        # Adam's state (step, exp_avg, exp_avg_sq) and the losses' slot start at 0
+        x, row_losses = replay.run((batch, SC_D, z, clash_mask, z), num_steps,
+                                   lambda: (r.result()[0], r.losses.clone()),
+                                   zero=(*r.opt.state[r.x].values(), r.slot))
     else:
         x, row_losses = _eager(batch, SC_D, z, clash_mask, num_steps, lr, lamda, tolerances,
                                n_rows)

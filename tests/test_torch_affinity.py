@@ -29,18 +29,13 @@ from packppi_torch.structure import from_pdb_file
 from packppi_torch.weights import affinity_from_flax_params, load_weights
 
 from conftest import FIXTURES, GOLDEN
+from torch_threads import _threads  # noqa: F401 (autouse fixture)
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
 from convert_checkpoint import convert_affinity_state_dict  # noqa: E402
 
 SKEMPI_MINI = os.path.join(FIXTURES, "skempi_mini")
 MUTS = ("KA25A", "DD35A")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _threads():
-    if os.environ.get("PYTEST_XDIST_WORKER"):
-        torch.set_num_threads(min(2, torch.get_num_threads()))
 
 
 @pytest.fixture(scope="module")

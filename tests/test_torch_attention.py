@@ -10,7 +10,6 @@ max|ref|: max |d| <= 2^-6 and mean |d| <= 2^-16, the limits of the port's
 other bf16 kernels; the weights left unrounded (a control that must fail)
 read mean |d| far above the mean limit.
 """
-import os
 
 import jax
 import jax.numpy as jnp
@@ -21,11 +20,7 @@ import torch
 from packppi_tpu.ops.pallas_attention import _mha_kernel, flash_mha
 from packppi_torch.ops.attention import mha, mha_plain
 
-
-@pytest.fixture(scope="module", autouse=True)
-def _threads():
-    if os.environ.get("PYTEST_XDIST_WORKER"):
-        torch.set_num_threads(min(2, torch.get_num_threads()))
+from torch_threads import _threads  # noqa: F401 (autouse fixture)
 
 
 def _operands(B, H, T, D, pad=5, seed=17):

@@ -22,7 +22,6 @@ The JAX kernel is compiled with ``xla_allow_excess_precision`` off: by
 default XLA:CPU drops a float32 -> bf16 -> float32 round trip, so the
 interpreted kernel would skip the very rounding points under test.
 """
-import os
 
 import jax
 import jax.numpy as jnp
@@ -34,15 +33,10 @@ import packppi_tpu.ops.pallas_layer as pallas_layer
 from packppi_tpu.ops.pallas_layer import fused_chain, fused_chain_diff
 from packppi_torch.ops.chain import chain, chain_plain
 
+from torch_threads import _threads  # noqa: F401 (autouse fixture)
+
 H, N = 128, 300
 BF16_MAX_REL, BF16_MEAN_REL = 2.0 ** -6, 2.0 ** -16
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _threads():
-    """xdist workers share the machine's cores: two torch threads each."""
-    if os.environ.get("PYTEST_XDIST_WORKER"):
-        torch.set_num_threads(min(2, torch.get_num_threads()))
 
 
 @pytest.fixture(scope="module")

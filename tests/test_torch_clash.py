@@ -29,15 +29,9 @@ from packppi_torch.ops import clash
 from packppi_torch.structure import featurize, from_pdb_file
 
 from conftest import FIXTURES, GOLDEN
+from torch_threads import _threads  # noqa: F401 (autouse fixture)
 
 TOL = 0.5
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _threads():
-    """xdist workers share the machine's cores: two torch threads each."""
-    if os.environ.get("PYTEST_XDIST_WORKER"):
-        torch.set_num_threads(min(2, torch.get_num_threads()))
 
 
 def _both_batches(name, padded=False):

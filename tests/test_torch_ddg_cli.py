@@ -23,18 +23,13 @@ import pytest
 import torch
 
 from conftest import FIXTURES
+from torch_threads import _threads  # noqa: F401 (autouse fixture)
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
 CKPTS = os.path.join(REPO, "docs", "ckpts", "affinity_skempi_mini_pretrained")
 SHIPPED = {"--ckpt": os.path.join(CKPTS, "torch_affinity.pt"),
            "--pre_ckpt": os.path.join(CKPTS, "torch_backbone.pt")}
 TOL = 1e-4
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _threads():
-    if os.environ.get("PYTEST_XDIST_WORKER"):
-        torch.set_num_threads(min(2, torch.get_num_threads()))
 
 
 @pytest.fixture(scope="module")

@@ -15,16 +15,10 @@ from packppi_torch.data.crops import spatial_crops, take_residues
 from packppi_torch.structure import from_pdb_file, to_pdb
 
 from conftest import FIXTURES, GOLDEN
+from torch_threads import _threads  # noqa: F401 (autouse fixture)
 
 CKPT = os.path.join(GOLDEN, "pipeline_golden.npz")
 PROXIMAL_KEYS = {"proximal_accepted", "proximal_objective_initial", "proximal_objective_final"}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _threads():
-    """xdist workers share the machine's cores: two torch threads each."""
-    if os.environ.get("PYTEST_XDIST_WORKER"):
-        torch.set_num_threads(min(2, torch.get_num_threads()))
 
 
 def _crop(name, size, stride=10):

@@ -27,18 +27,14 @@ from packppi_torch.models.esm2 import (CLS_ID, EOS_ID, MASK_ID, PAD_ID, ESM2, ES
                                        init_esm_weights, make_extractor, tokenize)
 from packppi_torch.weights import esm_from_jax_params, load_esm_state_dict
 
+from torch_threads import _threads  # noqa: F401 (autouse fixture)
+
 os.environ.setdefault("USE_TF", "0")      # transformers need not import TensorFlow here
 transformers = pytest.importorskip("transformers")
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
 from convert_hf_esm_to_torch import convert_model  # noqa: E402
 
 TINY = dict(hidden_size=64, num_layers=3, num_heads=4, intermediate_size=128)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _threads():
-    if os.environ.get("PYTEST_XDIST_WORKER"):
-        torch.set_num_threads(min(2, torch.get_num_threads()))
 
 
 @pytest.fixture(scope="module")

@@ -19,17 +19,12 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from conftest import FIXTURES
+from torch_threads import _threads  # noqa: F401 (autouse fixture)
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
 sys.path.insert(0, REPO)
 
 TINY = dict(hidden_size=64, num_layers=3, num_heads=4, intermediate_size=128)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _threads():
-    if os.environ.get("PYTEST_XDIST_WORKER"):
-        torch.set_num_threads(min(2, torch.get_num_threads()))
 
 
 @pytest.fixture(scope="module")

@@ -15,13 +15,7 @@ from packppi_torch.ops.graph import gather_nodes, masked_knn
 from packppi_torch.structure import featurize, from_pdb_file
 
 from conftest import FIXTURES
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _threads():
-    """xdist workers share the machine's cores: two torch threads each."""
-    if os.environ.get("PYTEST_XDIST_WORKER"):
-        torch.set_num_threads(min(2, torch.get_num_threads()))
+from torch_threads import _threads  # noqa: F401 (autouse fixture)
 
 
 @pytest.fixture(scope="module")

@@ -7,6 +7,8 @@ import sys
 import pytest
 import torch
 
+from torch_threads import _threads  # noqa: F401 (autouse fixture)
+
 REPO = os.path.join(os.path.dirname(__file__), "..")
 
 _IMPORT_ALL = """

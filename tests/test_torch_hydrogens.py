@@ -12,6 +12,7 @@ from packppi_torch.structure import hbond_networks as hn
 from packppi_torch.structure import hydrogens as hy
 
 from conftest import FIXTURES
+from torch_threads import _threads  # noqa: F401 (autouse fixture)
 
 
 @pytest.fixture(scope="module", params=["1brs", "2ftl"])

@@ -13,7 +13,6 @@ not (``x0 = rnd(h + rnd(m))`` against ``h + rnd(m)``): it reads several
 times the sound version's mean difference, which shows that the test sees
 that rounding point.
 """
-import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -29,13 +28,7 @@ from packppi_torch.ops.message_feat import message_feat_plain
 from test_torch_message_variants import (BF16_MAX_REL, BF16_MEAN_REL, H, K, L, P, _inputs,
                                          _Out, _readings, case, port_chain_weights,  # noqa: F401
                                          port_mlp)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _threads():
-    """xdist workers share the machine's cores: two torch threads each."""
-    if os.environ.get("PYTEST_XDIST_WORKER"):
-        torch.set_num_threads(min(2, torch.get_num_threads()))
+from torch_threads import _threads  # noqa: F401 (autouse fixture)
 
 
 def _operands(case, tdt, pool):

@@ -20,7 +20,6 @@ the same model, with the kernels' chunking at each width (the chain's
 weight chunks of 16 k from H = 224 on), at (H, P) in {(64, 4), (128, 4),
 (256, 8)} on ``tests/test_torch_widths.py``'s cases (K = 16, He = H).
 """
-import os
 
 import numpy as np
 import pytest
@@ -37,14 +36,9 @@ from test_torch_layer import _operands as _layer_operands
 from test_torch_message_variants import H, K, _inputs, case, port_chain_weights, port_mlp  # noqa: F401
 from test_torch_message_variants import _jax as _jax_route
 from test_torch_tf32x3 import tf32
+from torch_threads import _threads  # noqa: F401 (autouse fixture)
 
 F32_TOL = 2e-5
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _threads():
-    if os.environ.get("PYTEST_XDIST_WORKER"):
-        torch.set_num_threads(min(2, torch.get_num_threads()))
 
 
 def mm_3xtf32(chunk):

@@ -16,7 +16,6 @@ rounding point and is held to mean |d| <= 2^-10 * max|ref| only, as in
 Gradients: every operand within 5e-4 of that gradient's max, the limit of
 the JAX package's own fused-vs-unfused gradient tests.
 """
-import os
 
 import jax
 import jax.numpy as jnp
@@ -28,16 +27,11 @@ from packppi_tpu.ops.pallas_ipmp import (_fused_kernel, _reference_message, fuse
                                          fused_message_diff)
 from packppi_torch.ops.message_feat import message_feat, message_feat_plain
 
+from torch_threads import _threads  # noqa: F401 (autouse fixture)
+
 H, G, K, L = 128, 72, 16, 40
 BF16_MAX_REL, BF16_MEAN_REL = 2.0 ** -6, 2.0 ** -16
 GRAD_REL = 5e-4
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _threads():
-    """xdist workers share the machine's cores: two torch threads each."""
-    if os.environ.get("PYTEST_XDIST_WORKER"):
-        torch.set_num_threads(min(2, torch.get_num_threads()))
 
 
 @pytest.fixture(scope="module")

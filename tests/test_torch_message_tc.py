@@ -29,7 +29,6 @@ in interpret mode, on random operands) and the same packing at H in {64,
 first product's depth He + 9P padded to a multiple of 16, the panels and
 chunks of H columns, the n-tiles of a float32 chunk.
 """
-import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -52,18 +51,13 @@ from test_torch_message_variants import _jax as _jax_route
 from test_torch_message_variants import case as geom_case_fixture
 from test_torch_message_variants import port_mlp
 from test_torch_tf32x3 import tf32
+from torch_threads import _threads  # noqa: F401 (autouse fixture)
 
 H, G = 128, 72
 F32_TOL = 2e-5
 
 feat_case = pytest.fixture(scope="module", name="feat_case")(feat_case_fixture.__wrapped__)
 geom_case = pytest.fixture(scope="module", name="geom_case")(geom_case_fixture.__wrapped__)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _threads():
-    if os.environ.get("PYTEST_XDIST_WORKER"):
-        torch.set_num_threads(min(2, torch.get_num_threads()))
 
 
 def mm_3xtf32_chunks(a, w):

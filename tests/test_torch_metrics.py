@@ -16,15 +16,9 @@ from packppi_torch.utils import metrics as tm
 from packppi_torch.utils.analysis import ProteinAnalysis
 
 from conftest import FIXTURES, GOLDEN
+from torch_threads import _threads  # noqa: F401 (autouse fixture)
 
 NAMES = ("1brs", "2ftl", "t1124")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _threads():
-    """xdist workers share the machine's cores: two torch threads each."""
-    if os.environ.get("PYTEST_XDIST_WORKER"):
-        torch.set_num_threads(min(2, torch.get_num_threads()))
 
 
 def _pdb(name):

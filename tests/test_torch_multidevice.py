@@ -47,6 +47,7 @@ from conftest import FIXTURES
 from test_torch_parallel import ESM, esm_case  # noqa: F401 (fixture)
 from test_torch_so2 import _table_cache, jax_schedule  # noqa: F401 (autouse fixture)
 from test_torch_trainer import corpus  # noqa: F401 (fixture)
+from torch_threads import _threads  # noqa: F401 (autouse fixture)
 
 pytestmark = pytest.mark.skipif(jax.device_count() < 4, reason="needs 4 virtual devices")
 

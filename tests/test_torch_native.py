@@ -22,6 +22,7 @@ from packppi_torch.structure import atom_layout, from_pdb_file, interface
 from packppi_torch.structure.protein import from_pdb_string, from_pdb_string_python
 
 from conftest import FIXTURES, GOLDEN
+from torch_threads import _threads  # noqa: F401 (autouse fixture)
 
 CASES = [("t1124.pdb", {"mse_to_met": True}), ("1brs.pdb", {"mse_to_met": True}),
          ("2ftl.pdb", {}), ("1brs.pdb", {"chain_id": "A"})]

@@ -35,19 +35,13 @@ from packppi_torch.weights import from_flax_params, load_weights, read_state_dic
 
 from conftest import FIXTURES, GOLDEN
 from test_torch_routing import _noised, jax_kernels
+from torch_threads import _threads  # noqa: F401 (autouse fixture)
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
 from convert_checkpoint import convert_diffusion_state_dict  # noqa: E402
 
 NETWORK_GOLDEN = os.path.join(GOLDEN, "network_golden.npz")
 TOL = {"float32": 1e-4, "bfloat16": 6e-2}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _threads():
-    """xdist workers share the machine's cores: two torch threads each."""
-    if os.environ.get("PYTEST_XDIST_WORKER"):
-        torch.set_num_threads(min(2, torch.get_num_threads()))
 
 
 @pytest.fixture(scope="module")

@@ -7,22 +7,15 @@ import sys
 
 import numpy as np
 import pytest
-import torch
 
 from packppi_torch.cli.pack import build_parser, run
 from packppi_torch.structure import from_pdb_file
 
 from conftest import FIXTURES, GOLDEN
+from torch_threads import _threads  # noqa: F401 (autouse fixture)
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
 PDB = os.path.join(FIXTURES, "1brs.pdb")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _threads():
-    """xdist workers share the machine's cores: two torch threads each."""
-    if os.environ.get("PYTEST_XDIST_WORKER"):
-        torch.set_num_threads(min(2, torch.get_num_threads()))
 
 
 @pytest.mark.parametrize("precision", ["float32", "bfloat16"])

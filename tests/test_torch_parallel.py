@@ -27,6 +27,7 @@ from packppi_torch.parallel import param_shards
 from packppi_torch.weights import esm_from_jax_params, from_flax_params
 
 from __graft_entry__ import _synthetic_batch
+from torch_threads import _threads  # noqa: F401 (autouse fixture)
 
 pytestmark = pytest.mark.skipif(jax.device_count() < 4, reason="needs 4 virtual devices")
 

@@ -30,17 +30,11 @@ from packppi_torch.sampling.proximal import _row_mean
 from packppi_torch.structure import featurize, from_pdb_file
 
 from conftest import FIXTURES, GOLDEN
+from torch_threads import _threads  # noqa: F401 (autouse fixture)
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
 PDB = os.path.join(FIXTURES, "1brs.pdb")
 PIPELINE_GOLDEN = os.path.join(GOLDEN, "pipeline_golden.npz")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _threads():
-    """xdist workers share the machine's cores: two torch threads each."""
-    if os.environ.get("PYTEST_XDIST_WORKER"):
-        torch.set_num_threads(min(2, torch.get_num_threads()))
 
 
 def _wrapdiff(a, b):

@@ -36,11 +36,11 @@ def deterministic(cuda):
 
     was, warn = torch.are_deterministic_algorithms_enabled(), \
         torch.is_deterministic_algorithms_warn_only_enabled()
-    proximal._GRAPHS.clear()
+    proximal._GRAPHS.entries.clear()
     torch.use_deterministic_algorithms(True, warn_only=True)
     yield cuda
     torch.use_deterministic_algorithms(was, warn_only=warn)
-    proximal._GRAPHS.clear()
+    proximal._GRAPHS.entries.clear()
 
 
 def _complex(name, rows, device, seed):
@@ -109,7 +109,7 @@ def test_graphed_refinement_matches_the_eager_loop_and_reuses_its_graph(determin
             assert (brc.launches_fwd - f0, brc.launches_bwd - b0) == (STEPS + 1, STEPS)
         assert not res.SC_D.requires_grad
         _assert_matches_eager(res, batch, sc)
-    assert len(proximal._GRAPHS) == 2
+    assert len(proximal._GRAPHS.entries) == 2
 
 
 def test_graphed_results_outlive_the_next_replay(cuda):
@@ -124,3 +124,26 @@ def test_graphed_results_outlive_the_next_replay(cuda):
     proximal_optimize(batch, sc2)
     torch.cuda.synchronize()
     assert torch.equal(first.SC_D, kept[0]) and torch.equal(first.row_losses, kept[1])
+
+
+def test_a_request_on_another_stream_loads_after_the_last_results(deterministic):
+    """Two refinements of one shape issued back to back on two streams: the
+    second waits for the first's results to be cloned out before it loads
+    the graph's copies, though its own stream has no work before it. Each
+    gets the chis and losses it gets alone."""
+    from packppi_torch.sampling import proximal_optimize
+
+    cuda = deterministic
+    (batch, sc), (_, sc2) = _complex("1brs", 1, cuda, 5), _complex("1brs", 1, cuda, 6)
+    alone = [proximal_optimize(batch, s) for s in (sc, sc2)]      # the capture, then a replay
+    streams = [torch.cuda.Stream(cuda) for _ in range(2)]
+    got = []
+    for stream, s in zip(streams, (sc, sc2)):
+        stream.wait_stream(torch.cuda.current_stream(cuda))
+        with torch.cuda.stream(stream):
+            got.append(proximal_optimize(batch, s))
+    torch.cuda.synchronize()
+    for res, want in zip(got, alone):
+        assert _wrapdiff(res.SC_D, want.SC_D).max().item() < 1e-5
+        rel = (res.row_losses - want.row_losses).abs() / want.row_losses.abs().clamp_min(1e-12)
+        assert rel.max().item() < 1e-5

@@ -36,6 +36,7 @@ from packppi_torch.weights import load_weights, read_state_dict
 
 from conftest import FIXTURES, GOLDEN
 from test_torch_message_variants import eager_entries
+from torch_threads import _threads  # noqa: F401 (autouse fixture)
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
 from convert_checkpoint import convert_diffusion_state_dict  # noqa: E402
@@ -55,13 +56,6 @@ ROUTINGS = {
     "local": (dict(fused_messages=True, geometry_mode="local"),
               dict(fused_messages=True, fused_chain=True, geometry_mode="local"), False),
 }
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _threads():
-    """xdist workers share the machine's cores: two torch threads each."""
-    if os.environ.get("PYTEST_XDIST_WORKER"):
-        torch.set_num_threads(min(2, torch.get_num_threads()))
 
 
 @pytest.fixture(scope="module")

@@ -116,7 +116,7 @@ def test_alternating_shapes_reuse_their_graphs(model, cuda):
         for (b, s), want in zip(cases, first):
             assert torch.equal(model.sample(b, init_sc=s, n_steps=STEPS), want)
     assert trace.engagement()["sample_graph_captures"] == captures
-    assert len(model._graphs) == 2
+    assert len(model._graphs.entries) == 2
 
 
 def test_weights_written_in_place_are_seen_by_the_replay(model, cuda):

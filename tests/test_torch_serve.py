@@ -14,7 +14,6 @@ from __future__ import annotations
 
 import http.client
 import json
-import os
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -22,19 +21,13 @@ from types import SimpleNamespace
 
 import numpy as np
 import pytest
-import torch
 
 from conftest import FIXTURES
+from torch_threads import _threads  # noqa: F401 (autouse fixture)
 
 REPO = Path(__file__).resolve().parent.parent
 CKPTS = REPO / "docs" / "ckpts" / "affinity_skempi_mini_pretrained"
 PDB_2FTL = Path(FIXTURES) / "2ftl.pdb"
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _threads():
-    if os.environ.get("PYTEST_XDIST_WORKER"):
-        torch.set_num_threads(min(2, torch.get_num_threads()))
 
 
 def _serve_args(tmp_path, n_steps=2, **kw):

@@ -32,6 +32,7 @@ from packppi_torch.diffusion import so2
 from packppi_torch.diffusion.so2 import SO2Schedule, SO2Tables
 
 from conftest import GOLDEN
+from torch_threads import _threads  # noqa: F401 (autouse fixture)
 
 PERIODS = [("pi", True), ("2pi", False)]
 
@@ -67,12 +68,10 @@ _settle_jax_table_cache()
 def _table_cache(tmp_path_factory):
     """The port's tables are cached under pytest's temporary directory, one
     directory for all workers of a run (a file appears there by a rename, so
-    workers can share it), and never under the home directory. Several
-    workers share the machine's cores: two threads each for torch."""
+    workers can share it), and never under the home directory."""
     base = tmp_path_factory.getbasetemp()
     if os.environ.get("PYTEST_XDIST_WORKER"):
         base = base.parent
-        torch.set_num_threads(min(2, torch.get_num_threads()))
     os.environ.setdefault("PACKPPI_TORCH_CACHE", str(base / "packppi_torch_cache"))
 
 

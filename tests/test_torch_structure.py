@@ -17,15 +17,9 @@ from packppi_torch.structure import featurize, from_pdb_file, to_pdb
 from packppi_torch.structure.protein import from_pdb_string_python
 
 from conftest import FIXTURES
+from torch_threads import _threads  # noqa: F401 (autouse fixture)
 
 PDBS = ["1brs.pdb", "2ftl.pdb", "t1124.pdb"]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _threads():
-    """xdist workers share the machine's cores: two torch threads each."""
-    if os.environ.get("PYTEST_XDIST_WORKER"):
-        torch.set_num_threads(min(2, torch.get_num_threads()))
 
 
 @pytest.fixture(scope="module")

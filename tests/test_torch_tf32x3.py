@@ -18,7 +18,6 @@ kernels answer to:
 The control: plain TF32 (hi . hi alone) must fail the same limits, so the
 limits can tell the two schemes apart.
 """
-import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -30,13 +29,9 @@ from packppi_tpu.ops.pallas_layer import fused_chain
 from packppi_torch.ops.activations import ACTS
 from packppi_torch.ops.chain import _ln
 
+from torch_threads import _threads  # noqa: F401 (autouse fixture)
+
 CHAIN_TOL, ATTN_TOL = 3e-5, 1e-5
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _threads():
-    if os.environ.get("PYTEST_XDIST_WORKER"):
-        torch.set_num_threads(min(2, torch.get_num_threads()))
 
 
 def veltkamp(x):

@@ -18,6 +18,8 @@ from torch.profiler import ProfilerActivity, profile
 
 from packppi_torch.utils import trace
 
+from torch_threads import _threads  # noqa: F401 (autouse fixture)
+
 REPO = os.path.join(os.path.dirname(__file__), "..")
 FIXTURES = os.path.join(REPO, "tests", "fixtures")
 
@@ -197,10 +199,10 @@ def test_counters_are_every_kernel_wrappers_launches():
 
 
 def test_cpu_refinement_counts_eager_steps_apart_from_the_launches():
-    """On the CPU the Adam loop runs eagerly: a 50-step refinement counts 50
-    eager steps, no capture and no replay, in ``engagement()`` and in the
-    profiled stretch's report, and ``counters()`` keeps its 11 launch
-    counters, none of which moved."""
+    """On the CPU the Adam loop runs eagerly: a refinement of ``steps``
+    steps counts as many eager steps, no capture and no replay, in
+    ``engagement()`` and in the profiled stretch's report, and
+    ``counters()`` keeps its 11 launch counters, none of which moved."""
     from packppi_torch.data import stack_batch
     from packppi_torch.sampling import proximal_optimize
     from packppi_torch.structure import featurize, from_pdb_file
@@ -209,17 +211,18 @@ def test_cpu_refinement_counts_eager_steps_apart_from_the_launches():
     batch = stack_batch([feats], torch.device("cpu"), target_len=len(feats["residue_type"]))
     sc = batch.SC_D + 0.5 * torch.randn(batch.SC_D.shape,
                                          generator=torch.Generator().manual_seed(0))
+    steps = 2
     before, launches = trace.engagement(), trace.counters()
     _off_span()
     with profile(activities=[ProfilerActivity.CPU]):
-        proximal_optimize(batch, sc, num_steps=50)
+        proximal_optimize(batch, sc, num_steps=steps)
     after = trace.engagement()
     want = {k: 0 for k in after}
-    want["eager_steps"] = 50
+    want["eager_steps"] = steps
     assert {k: after[k] - before[k] for k in after} == want
     rep = trace.report()
     assert rep["engagement"] == want
-    assert rep["spans"]["refine.step"]["n"] == 50
+    assert rep["spans"]["refine.step"]["n"] == steps
     assert len(trace.counters()) == 11 and trace.counters() == launches
     assert rep["counters"] == {k: 0 for k in launches}
 

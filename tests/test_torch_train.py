@@ -39,6 +39,7 @@ from packppi_torch.weights import from_flax_params, load_weights
 
 from conftest import FIXTURES
 from test_torch_so2 import _table_cache, jax_schedule  # noqa: F401 (autouse fixture)
+from torch_threads import _threads  # noqa: F401 (autouse fixture)
 
 KNOBS = dict(fused_messages=True, fused_messages_train=True, fused_chain_train=True)
 SMALL = dict(top_k=16)        # 16 neighbours: half the edge rows, the same code paths

@@ -19,7 +19,6 @@ one in a thousand to 1e-6.
 """
 import json
 import logging
-import os
 import shutil
 from pathlib import Path
 
@@ -31,6 +30,7 @@ from packppi_torch.utils.config import load_config
 
 from conftest import FIXTURES
 from test_torch_so2 import _table_cache  # noqa: F401 (autouse fixture)
+from torch_threads import _threads  # noqa: F401 (autouse fixture)
 
 REPO = Path(__file__).resolve().parent.parent
 CONFIG = str(REPO / "configs" / "train_affinity.yaml")
@@ -40,12 +40,6 @@ NARROW = ["model.hidden_dim=32", "model.node_features=32", "model.edge_features=
           "model.mxu_gather_grad=false"]
 LR, EPOCHS = 1e-4, 2
 ESM_WIDTH = 16
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _threads():
-    if os.environ.get("PYTEST_XDIST_WORKER"):
-        torch.set_num_threads(min(2, torch.get_num_threads()))
 
 
 def _data_dir(path: Path, rows=(("1BRS", 3), ("2FTL", 4))) -> Path:

@@ -27,6 +27,7 @@ from packppi_torch.utils.metrics import chi_metrics
 
 from conftest import FIXTURES
 from test_torch_so2 import _table_cache  # noqa: F401 (autouse fixture)
+from torch_threads import _threads  # noqa: F401 (autouse fixture)
 
 REPO = Path(__file__).resolve().parent.parent
 CONFIG = str(REPO / "configs" / "train_diffusion.yaml")

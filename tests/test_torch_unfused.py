@@ -21,16 +21,11 @@ from packppi_torch.weights import load_weights, read_state_dict
 
 from conftest import FIXTURES, GOLDEN
 from test_torch_network import convert_diffusion_state_dict
+from torch_threads import _threads  # noqa: F401 (autouse fixture)
 
 PIPELINE_GOLDEN = os.path.join(GOLDEN, "pipeline_golden.npz")
 NETWORK_GOLDEN = os.path.join(GOLDEN, "network_golden.npz")
 UNFUSED = dict(fused_messages=False, fused_chain=False)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _threads():
-    if os.environ.get("PYTEST_XDIST_WORKER"):
-        torch.set_num_threads(min(2, torch.get_num_threads()))
 
 
 @pytest.fixture(scope="module")

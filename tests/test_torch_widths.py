@@ -60,19 +60,13 @@ from packppi_torch.weights import from_flax_params
 
 from conftest import FIXTURES
 from test_torch_message_variants import eager_entries
+from torch_threads import _threads  # noqa: F401 (autouse fixture)
 
 L = 100
 WIDTHS = [(64, 64, 4, 16), (128, 64, 16, 48), (32, 96, 3, 96)]
 IDS = ["H64-He64-P4-K16", "H128-He64-P16-K48", "H32-He96-P3-K96"]
 F32_MSG, F32_CHAIN, GRAD_REL = 2e-5, 3e-5, 5e-4
 BF16_MAX_REL, BF16_MEAN_REL = 2.0 ** -6, 2.0 ** -16
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _threads():
-    """xdist workers share the machine's cores: two torch threads each."""
-    if os.environ.get("PYTEST_XDIST_WORKER"):
-        torch.set_num_threads(min(2, torch.get_num_threads()))
 
 
 @pytest.fixture(scope="module")
