@@ -68,6 +68,15 @@ def _load(copies, x) -> None:
         copies.copy_(x)
 
 
+def weight_versions(module: torch.nn.Module) -> tuple:
+    """Each parameter of ``module``'s address and version (-1 for an
+    inference tensor, which has none): a step captured under one reading
+    is captured again once a parameter is another tensor or was written in
+    place (the kernels' packed weight copies are made outside the graph)."""
+    return tuple((p.data_ptr(), -1 if p.is_inference() else p._version)
+                 for p in module.parameters())
+
+
 class GraphCache:
     """Captured steps by key under one lock, so that a key is captured once
     however many threads ask for it; the least recently used beyond

@@ -14,6 +14,15 @@ reference ``AffinityPrediction``'s (``mutation_encoder.*``,
 ``mutation_mpnn.*``, ``mutation_fusion.{0,2}.*``, ``seq_embedding.weight``,
 ``mut_bias.weight``, ``ddg_predictor.{0,2,4}.*``); the backbone keeps the
 diffusion network's names.
+
+A prediction is three passes of two functions: the backbone's
+(``AffinityModel._backbone_pass``) on the wild type, then on the mutant,
+and the mutation stack's (``_mutation_pass``). On the CPU, with grad
+enabled or with ``deterministic=False``, they run eagerly. Otherwise, on
+the card, each is captured once a (B, L) shape into a CUDA graph
+(``_GraphedPass``, kept in a ``device.GraphCache`` on the model) and
+replayed, so a prediction costs the host three replays rather than the
+operations of four network evaluations.
 """
 from __future__ import annotations
 
@@ -25,12 +34,14 @@ from torch import nn
 from packppi_torch.data.batch import ProteinBatch
 from packppi_torch.data.esm import ESM_DIM
 from packppi_torch.data.skempi import AffinityBatch, EsmBatch
+from packppi_torch.device import GraphCache, Replay, static_copies, weight_versions
+from packppi_torch.models import ipmp
 from packppi_torch.models.diffusion_net import NetworkConfig
 from packppi_torch.models.encoder import ProteinEncoder
 from packppi_torch.models.esm2 import ESM2, embed_rows
 from packppi_torch.models.ipmp import MessagePassingStack
 from packppi_torch.models.torsional_diffusion import TorsionalDiffusion
-from packppi_torch.utils.trace import span
+from packppi_torch.utils.trace import span, tally
 
 MODES = ("network", "linear", "esm")
 
@@ -145,6 +156,8 @@ class AffinityModel(nn.Module):
         self.mode = mode
         self.backbone = TorsionalDiffusion(cfg)
         self.net = AffinityNet(cfg, mode, strict_parity, esm_dim)
+        # the captured passes of each shape (``predict``), one cache a pass
+        self._backbone_graphs, self._mutation_graphs = GraphCache(), GraphCache()
 
     @staticmethod
     def create(cfg: NetworkConfig = NetworkConfig(), mode: str = "network",
@@ -155,24 +168,62 @@ class AffinityModel(nn.Module):
     def pret(self, batch: ProteinBatch) -> torch.Tensor:
         """The frozen backbone's per-residue features [B, L, H] at t = 0."""
         self.backbone.net.eval()
+        return self._backbone_pass(batch)
+
+    def _backbone_pass(self, batch: ProteinBatch) -> torch.Tensor:
+        """h_V [B, L, H] of the backbone at t = 0 (``encode_edges`` and the
+        network, its last edge pass skipped), in the network's current mode."""
         t = torch.zeros(batch.residue_mask.shape, device=batch.X.device)
         _, h_V = self.backbone.net(batch, batch.SC_D, t, skip_last_edge_update=True)
         return h_V
 
+    def _mutation_pass(self, batch: AffinityBatch, h_wt: torch.Tensor, h_mt: torch.Tensor):
+        """(ddg [B], ddg_inv [B]) of the net on the backbone's features of
+        the wild type and the mutant, in the net's current mode."""
+        wild = batch.wild()
+        return self.net(wild, batch.mutant(), h_wt, h_mt, batch.mut_mask, wild.residue_mask)
+
     def predict(self, batch: AffinityBatch, deterministic: bool = True):
         """(ddg [B], ddg_inv [B]) in "network" or "linear" mode; dropout is
-        applied only with ``deterministic=False``."""
+        applied only with ``deterministic=False``.
+
+        On the card, with grad disabled and ``deterministic``, each pass
+        replays the CUDA graph of its shape (``_GraphedPass``), with the
+        same bits as the eager passes; what it returns is its own."""
+        if batch.X.is_cuda and deterministic and not torch.is_grad_enabled():
+            return self._graphed(batch)
         wild, mut = batch.wild(), batch.mutant()
         with span("affinity.backbone"):
+            tally("affinity_eager_passes")
             h_wt = self.pret(wild)
         with span("affinity.backbone"):
+            tally("affinity_eager_passes")
             h_mt = self.pret(mut)
         self.net.train(not deterministic)
         try:
             with span("affinity.mutation"):
-                return self.net(wild, mut, h_wt, h_mt, batch.mut_mask, wild.residue_mask)
+                tally("affinity_eager_passes")
+                return self._mutation_pass(batch, h_wt, h_mt)
         finally:
             self.net.eval()
+
+    def _graphed(self, batch: AffinityBatch):
+        """``predict`` as three replays: the backbone's graph on the wild
+        type and on the mutant, then the mutation stack's."""
+        self.backbone.net.eval()
+        self.net.eval()
+        device = batch.X.device
+        key = (device, *batch.mut_mask.shape, self.mode, ipmp.FOLD_EDGE_CHAIN)
+        wild, mut = batch.wild(), batch.mutant()
+        backbone = self._backbone_graphs.get(key, lambda: _GraphedPass(
+            self._backbone_pass, self.backbone.net, device,
+            (static_copies(wild, _BACKBONE_READ),), "affinity.backbone"), _GraphedPass.current)
+        h_wt, h_mt = backbone.run((wild,)), backbone.run((mut,))
+        mutation = self._mutation_graphs.get(key, lambda: _GraphedPass(
+            self._mutation_pass, self.net, device,
+            (static_copies(batch, _MUTATION_READ), h_wt.clone(), h_mt.clone()),
+            "affinity.mutation"), _GraphedPass.current)
+        return mutation.run((batch, h_wt, h_mt))
 
     def predict_esm(self, esm_wt, esm_mt, residue_mask=None):
         """(ddg, ddg_inv) over ESM-2 embeddings [B, L, E]; ``residue_mask``
@@ -193,6 +244,39 @@ class AffinityModel(nn.Module):
             return 0.5 * (torch.mean((pred - ddg) ** 2) + torch.mean((pred_inv + ddg) ** 2))
         w = weights / torch.clamp(weights.sum(), min=1e-9)
         return 0.5 * (torch.sum(w * (pred - ddg) ** 2) + torch.sum(w * (pred_inv + ddg) ** 2))
+
+
+# the fields the backbone's pass reads of a ProteinBatch, and the mutation
+# stack's of an AffinityBatch (the wild type's and the mutant's)
+_BACKBONE_READ = ("X", "residue_type", "residue_mask", "residue_index", "chain_indices",
+                  "BB_D_sincos", "SC_D", "SC_D_mask")
+_MUTATION_READ = ("X", "residue_type", "residue_mask", "residue_index", "chain_indices",
+                  "BB_D_sincos", "SC_D_sincos", "SC_D_mask", "residue_type_mut",
+                  "SC_D_sincos_mut", "SC_D_mask_mut", "mut_mask")
+
+
+class _GraphedPass:
+    """One pass of ``AffinityModel`` captured on ``device`` for one shape:
+    the ``Replay`` of ``fn(*copies)``, whose result stays in the graph's own
+    memory and is cloned out for each request. Captured under the weights
+    of ``module`` as they read then (``device.weight_versions``)."""
+
+    def __init__(self, fn, module: nn.Module, device, copies: tuple, span_name: str):
+        self.module, self.weights, self.out = module, weight_versions(module), None
+
+        def step():
+            self.out = fn(*copies)
+
+        self.replay = Replay(step, device, copies, span_name, "affinity_")
+
+    def current(self) -> bool:
+        """Whether ``module``'s parameters are still the tensors and
+        versions the graph was captured under."""
+        return self.weights == weight_versions(self.module)
+
+    def run(self, request: tuple):
+        """``fn`` on ``request`` (of the copies' structure): one replay."""
+        return self.replay.run(request, 1, lambda: static_copies(self.out))
 
 
 class EsmAffinityModel(nn.Module):

@@ -25,7 +25,7 @@ import torch
 from torch import nn
 
 from packppi_torch.data.batch import ProteinBatch
-from packppi_torch.device import GraphCache, Replay, static_copies
+from packppi_torch.device import GraphCache, Replay, static_copies, weight_versions
 from packppi_torch.diffusion.so2 import SO2Schedule
 from packppi_torch.geometry.dihedrals import wrap_angle
 from packppi_torch.models import ipmp
@@ -199,11 +199,8 @@ class TorsionalDiffusion(nn.Module):
         with span("sample.encode"):
             static = self.net.encode_static(batch)
         if sc.is_cuda and self.schedule_pi.mode == "ode" and not corrector_steps and rows is None:
-            # captured again once a parameter is another tensor or was written
-            # in place (the kernels' packed weight copies are made outside the graph)
             key = (sc.device, *sc.shape[:2], self.net.training, ipmp.FOLD_EDGE_CHAIN)
-            weights = tuple((p.data_ptr(), -1 if p.is_inference() else p._version)
-                            for p in self.net.parameters())
+            weights = weight_versions(self.net)
             g = self._graphs.get(key, lambda: _GraphedStep(self, batch, static, sc, weights),
                                  lambda g: g.weights == weights)
             traj = sc.new_empty((n_steps,) + sc.shape) if return_trajectory else None

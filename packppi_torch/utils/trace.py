@@ -26,8 +26,9 @@ span that closes takes them again as the stretch's end. ``report()`` and
 ``records()`` read the last live stretch and clear nothing.
 
 ``engagement()`` counts how the refinement's Adam steps ran (CUDA graphs
-captured, graph replays, eager steps) and, under keys of their own
-(``sample_*``), how the sampler's ODE steps ran; ``tally(name)`` adds one.
+captured, graph replays, eager steps) and, under keys of their own, how the
+sampler's ODE steps ran (``sample_*``) and how PackPPI-AP's backbone and
+mutation passes ran (``affinity_*``); ``tally(name)`` adds one.
 They are kept apart from ``counters()``, whose every entry is a kernel
 launch. ``add_launches`` adds to the launch counters what a CUDA graph's
 replay launched, which no wrapper counts.
@@ -150,7 +151,9 @@ def add_launches(growth: dict) -> None:
 
 
 _ENGAGED = {"graph_captures": 0, "graph_replays": 0, "eager_steps": 0,
-            "sample_graph_captures": 0, "sample_graph_replays": 0, "sample_eager_steps": 0}
+            "sample_graph_captures": 0, "sample_graph_replays": 0, "sample_eager_steps": 0,
+            "affinity_graph_captures": 0, "affinity_graph_replays": 0,
+            "affinity_eager_passes": 0}
 
 
 def tally(name: str) -> None:
@@ -162,7 +165,10 @@ def engagement() -> dict:
     """How the refinement's Adam steps ran, by name: CUDA graphs captured
     (one a shape), steps run as a replay of one, and steps run eagerly; the
     same for the sampler's ODE steps under ``sample_graph_captures``,
-    ``sample_graph_replays`` and ``sample_eager_steps``."""
+    ``sample_graph_replays`` and ``sample_eager_steps``, and for
+    PackPPI-AP's backbone and mutation passes (three a prediction) under
+    ``affinity_graph_captures``, ``affinity_graph_replays`` and
+    ``affinity_eager_passes``."""
     return dict(_ENGAGED)
 
 

@@ -166,6 +166,43 @@ def test_vanilla_mutation_stack_matches_the_jax_net(brs):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-4)
 
 
+@pytest.mark.parametrize("mode", ["network", "linear"])
+def test_cpu_predict_runs_its_passes_eagerly(brs, mode):
+    """On the CPU ``predict`` runs eagerly: three passes (backbone on the
+    wild type and the mutant, the mutation stack) counted as
+    ``affinity_eager_passes``, no capture and no replay. The two pass
+    functions, each run on only the fields it names as read (the others
+    None, as in a graph's static copies), give the bits of the backbone
+    and the net called as before they were split out."""
+    from packppi_torch.device import static_copies
+    from packppi_torch.models import affinity
+    from packppi_torch.utils import trace
+    from packppi_torch.weights import init_weights
+
+    model = affinity.AffinityModel(NetworkConfig(node_features=32, edge_features=32,
+                                                 hidden_dim=32, top_k=8), mode)
+    init_weights(model.backbone.net, 0)
+    init_weights(model.net, 1)
+    batch, _ = _batches(brs, target_len=256)
+    wild, mut = batch.wild(), batch.mutant()
+    before = trace.engagement()
+    with torch.no_grad():
+        got = model.predict(batch)
+    after = trace.engagement()
+    want = {k: 0 for k in after}
+    want["affinity_eager_passes"] = 3
+    assert {k: after[k] - before[k] for k in after} == want
+    with torch.no_grad():
+        t = torch.zeros(wild.residue_mask.shape)
+        h = [model.backbone.net(b, b.SC_D, t, skip_last_edge_update=True)[1] for b in (wild, mut)]
+        split = model.net(wild, mut, *h, batch.mut_mask, wild.residue_mask)
+        passes = [model._backbone_pass(static_copies(b, affinity._BACKBONE_READ))
+                  for b in (wild, mut)]
+        stack = model._mutation_pass(static_copies(batch, affinity._MUTATION_READ), *h)
+    for a, b in zip((*got, *passes, *stack), (*split, *h, *split)):
+        assert torch.equal(a, b)
+
+
 def test_esm_loss_matches_jax():
     """The antisymmetric loss over embeddings, plain and weighted (a
     zero-weight row pads the batch)."""

@@ -99,7 +99,8 @@ def test_graphed_sample_matches_the_eager_loop(model, cuda, rows):
     assert e1["sample_eager_steps"] - e0["sample_eager_steps"] == STEPS
     assert {k: e2[k] - e1[k] for k in e1} == {
         "graph_captures": 0, "graph_replays": 0, "eager_steps": 0,
-        "sample_graph_captures": 1, "sample_graph_replays": STEPS, "sample_eager_steps": 0}
+        "sample_graph_captures": 1, "sample_graph_replays": STEPS, "sample_eager_steps": 0,
+        "affinity_graph_captures": 0, "affinity_graph_replays": 0, "affinity_eager_passes": 0}
 
 
 def test_alternating_shapes_reuse_their_graphs(model, cuda):

@@ -254,7 +254,8 @@ def test_cpu_sample_counts_eager_steps_apart_from_the_refinement():
     assert rep["engagement"] == want
     assert rep["spans"]["sample.step"]["n"] == 3
     assert {"graph_captures", "graph_replays", "eager_steps", "sample_graph_captures",
-            "sample_graph_replays", "sample_eager_steps"} == set(after)
+            "sample_graph_replays", "sample_eager_steps", "affinity_graph_captures",
+            "affinity_graph_replays", "affinity_eager_passes"} == set(after)
 
 
 @pytest.mark.gpu
