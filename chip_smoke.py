@@ -41,7 +41,12 @@ fatal on failure:
    shapes (H = 20, D = 64): T1124's T = 896, T = 768, B = 2 at T = 763 and
    T = 2,048, float32 (max |d| <= 1e-5) and bf16 with the two controls (the
    weights left unrounded; one query tile zeroed), bit for bit across two
-   launches, timed beside ``scaled_dot_product_attention``. The five
+   launches, timed beside ``scaled_dot_product_attention``. The 3xTF32
+   GEMM runs ESM-2 650M's maps after the attention with their epilogues
+   (bias, GELU, residual) and the query, key and value through its heads
+   epilogue at M = 1,280, 1,920 and 4,480 rows, float32, within 2e-6 of
+   max|ref| of the float64 product (plain TF32, the control, must fail),
+   bit for bit across two launches, timed beside ``F.linear``. The five
    kernels of the variant routings (``message_geom``, ``message_gather``,
    ``message_chain``, ``layer_node``, ``layer_edge``) run on T1124's graph
    and activations, node and edge, float32 and bf16 with the two controls,
@@ -156,9 +161,10 @@ fatal on failure:
     as one device; a float32 DP training step at B = 2 a rank against one
     device at B = 4, loss 1e-5 relative and every gradient at the card vs
     CPU limits; ESM-2 650M under tensor parallelism at T = 896, 33
-    attention launches a rank on 10 heads, 1e-4 of max|ref|; directory mode
-    at ``--batch_size 2`` against one device at 4); three ranks (ESM-2 650M
-    over 3 pipeline stages, M = 2, 22 attention launches a stage, 1e-4);
+    attention and 132 gemm launches a rank on 10 heads, 1e-4 of max|ref|;
+    directory mode at ``--batch_size 2`` against one device at 4); three
+    ranks (ESM-2 650M over 3 pipeline stages, M = 2, 22 attention and 88
+    gemm launches a stage, 1e-4);
     four ranks, 2 x 2 (the eight-stage dry run; ``cli.train_diffusion``
     with FSDP for an epoch and a resume, its checkpoint trained on one
     device). Every rank reports its wall, peak memory, launches and the
@@ -206,9 +212,9 @@ STEPS = 30
 CLASH_FWD_TOL, CLASH_GRAD_TOL = 1e-5, 2e-5
 CLASH_TOL_SOFT = 0.5                    # sc_violation_loss's overlap tolerance
 PROX_STEPS = 50
-SOURCES = ("message", "message_feat", "chain", "clash", "attention", "layer")
+SOURCES = ("message", "message_feat", "chain", "clash", "attention", "layer", "gemm")
 # products on tensor cores (csrc/mma.cuh): every ptxas line of these is printed
-TENSOR_CORE_SOURCES = ("attention", "chain", "layer", "message", "message_feat")
+TENSOR_CORE_SOURCES = ("attention", "chain", "layer", "message", "message_feat", "gemm")
 # the training shape: 4 copies of T1124 padded to 1,024 residues (131,072 edge rows)
 TRAIN_B, TRAIN_L = 4, 1024
 # the two differentiable passes: each gradient against autograd through the
@@ -1927,6 +1933,116 @@ def phase_attention(torch, timer):
     return records
 
 
+# the 3xTF32 GEMM (ops.gemm) against the float64 product with the same
+# epilogue: max |d| over max|ref| (tests/test_torch_gemm_gpu.py's limit;
+# the kernel reads 4.5e-7 to 8.7e-7 there). The same product on operands
+# rounded to TF32 (one TF32 product, the control) reads ~3e-4 and must
+# fail. F.linear on the FMA units is logged beside it, not held: its own
+# float32 error is of the kernel's order, so the two can differ by more
+# than 2e-6 of max|ref| (2.07e-6 at the FFN-in map, M = 1,280)
+GEMM_TOL = 2e-6
+# ESM-2 650M's maps after the attention, each with the epilogue the model
+# gives it: (N, K, gelu, residual); the query, key and value run through
+# the heads epilogue (B = 5 rows of T tokens, 20 heads of 64)
+GEMM_MAPS = {"out": (1280, 1280, False, True), "ffn_in": (5120, 1280, True, False),
+             "ffn_out": (1280, 5120, False, True)}
+GEMM_T = (256, 384, 896)              # a scan batch of 5 rows: M = 1,280, 1,920, 4,480
+
+
+def phase_gemm(torch, timer):
+    """The 3xTF32 GEMM on the card at ESM-2 650M's shapes, float32: the
+    three maps after the attention with their epilogues (``GEMM_MAPS``) and
+    the query, key and value through the heads epilogue, each at M = 5 x
+    ``GEMM_T`` rows; one launch a call, two launches bit for bit, within
+    ``GEMM_TOL`` of max|ref| of the plain version run in float64, and the
+    plain version on operands rounded to TF32 (the control) outside it; the
+    plain version in float32 (``F.linear``) logged beside. Times of the
+    kernel, the plain version and ``F.linear`` alone (cuBLAS with TF32 off,
+    the FMA units). Returns records."""
+    import torch.nn.functional as F
+
+    from packppi_torch.models.esm2 import rope_tables
+    from packppi_torch.ops import gemm
+    from packppi_torch.ops.message_feat import tf32_split
+
+    tf32 = lambda t: tf32_split(t)[0]
+    g = torch.Generator(device="cuda").manual_seed(0)
+    uniform = lambda *shape, scale: (torch.rand(*shape, device="cuda", generator=g) * 2 - 1) * scale
+    records = {}
+    for T in GEMM_T:
+        M = 5 * T
+        cases = {}
+        for name, (N, K, gelu, with_res) in GEMM_MAPS.items():
+            x = torch.randn(M, K, device="cuda", generator=g)
+            w, b = uniform(N, K, scale=(6 / (N + K)) ** 0.5), uniform(N, scale=0.1)
+            res = torch.randn(M, N, device="cuda", generator=g) if with_res else None
+            kw = dict(gelu=gelu, residual=res)
+            kw64 = dict(gelu=gelu, residual=None if res is None else res.double())
+            cases[name] = (
+                lambda x=x, w=w, b=b, kw=kw: gemm.linear(x, w, b, **kw),
+                lambda x=x, w=w, b=b, kw=kw: gemm.linear_plain(x, w, b, **kw),
+                lambda x=x, w=w, b=b, kw=kw64: gemm.linear_plain(x.double(), w.double(),
+                                                                 b.double(), **kw),
+                lambda x=x, w=w, b=b, kw=kw: gemm.linear_plain(tf32(x), tf32(w), b, **kw),
+                lambda x=x, w=w, b=b: F.linear(x, w, b),
+                sum(_nbytes(t) for t in (x, w, b, res)) + M * N * 4, 2 * M * N * K)
+        D, width, K = 64, 1280, 1280
+        x = torch.randn(5, T, K, device="cuda", generator=g)
+        ws = [uniform(width, K, scale=(6 / (width + K)) ** 0.5) for _ in range(3)]
+        bs = [uniform(width, scale=0.1) for _ in range(3)]
+        cos, sin = rope_tables(T, D, "cuda")
+        w_all, b_all = torch.cat(ws), torch.cat(bs)
+        heads = lambda out: torch.stack(out)
+        cases["qkv_heads"] = (
+            lambda: heads(gemm.linear_heads(x, ws, bs, cos, sin, D ** -0.5)),
+            lambda: heads(gemm.linear_heads_plain(x, ws, bs, cos, sin, D ** -0.5)),
+            lambda: heads(gemm.linear_heads_plain(
+                x.double(), [w.double() for w in ws], [b.double() for b in bs], cos.double(),
+                sin.double(), D ** -0.5)),
+            lambda: heads(gemm.linear_heads_plain(tf32(x), [tf32(w) for w in ws], bs, cos, sin,
+                                                  D ** -0.5)),
+            lambda: F.linear(x, w_all, b_all),
+            sum(_nbytes(t) for t in (x, w_all, b_all, cos, sin)) + 3 * M * width * 4,
+            2 * M * 3 * width * K)
+        for name, (kernel, plain, plain64, control, library, nb, no) in cases.items():
+            label = f"gemm {name} float32 M = {M}"
+            with torch.no_grad():
+                before = gemm.linear.launches
+                got = kernel()
+                launched = gemm.linear.launches - before
+                again = kernel()
+                ref = plain64()
+                gaps = [(t.double() - ref).abs().max().item() for t in (got, plain(), control())]
+            torch.cuda.synchronize()
+            if launched != 1:
+                fail(f"{label}: {launched} kernel launches, expected 1")
+            if not torch.equal(got, again):
+                fail(f"{label}: two launches on one input differ")
+            scale = ref.abs().max().item()
+            err, f32_rel, c_rel = gaps[0], gaps[1] / scale, gaps[2] / scale
+            ok = bool(got.isfinite().all()) and err <= GEMM_TOL * scale
+            log(f"  {label}: max|d| to float64 {err:.6g}  max|ref| {scale:.6g}  "
+                f"max|d|/max|ref| {err / scale:.3e}; F.linear {f32_rel:.3e}; TF32 control "
+                f"{c_rel:.3e}  {'ok' if ok else 'OUT OF TOLERANCE'} (limit {GEMM_TOL:g})")
+            if not ok:
+                fail(f"{label} disagrees with the float64 product")
+            if c_rel <= GEMM_TOL:
+                fail(f"{label}: the TF32 control passes the limit ({c_rel:.3e})")
+            with torch.no_grad():
+                records[("gemm", "float32", f"{name} M={M}")] = dict(
+                    max_abs_err=err, max_rel_err=err / scale, plain_rel_err=f32_rel,
+                    control_rel_err=c_rel, ms=timer(kernel), plain_ms=timer(plain, 5),
+                    library_ms=timer(library), bound=bound_ms(nb, no, "float32"), bytes=nb,
+                    operations=no)
+            del got, again, ref
+        del cases, x, ws, bs
+    for (k, d, v), r in records.items():
+        log(f"  time {k} {v} {d}: kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
+            f"F.linear {r['library_ms']:.4f} ms  bound {r['bound'][0]:.4f} ms ({r['bound'][1]}; "
+            f"{r['bytes']} bytes, {r['operations']} operations; {rate_line(r)})")
+    return records
+
+
 def esm2_650m(torch, device, seed=None, weights=None):
     """ESM-2 650M (33 layers, hidden 1280, 20 heads, attention "auto") on
     ``device``: random weights from ``seed`` (drawn on the CPU), or a copy
@@ -1987,8 +2103,10 @@ def phase_esm(torch):
         T = -(-len(ids) // 128) * 128
         log(f"  extraction of T1124 {what} ({T1124_MUTATION}): {len(ids)} tokens padded to "
             f"T = {T}, output {out.shape}, launches {got}")
-        if got != {**{k: 0 for k in got}, "attention": n_layers}:
-            fail(f"ESM-2 extraction ({what}): launches {got}, expected {n_layers} attention")
+        # a block: the attention, q/k/v as one product and three more products
+        if got != {**{k: 0 for k in got}, "attention": n_layers, "gemm": 4 * n_layers}:
+            fail(f"ESM-2 extraction ({what}): launches {got}, expected {n_layers} attention "
+                 f"and {4 * n_layers} gemm")
         if out.shape != (len(ids), card.cfg.hidden_size) or not np.isfinite(out).all():
             fail(f"ESM-2 extraction ({what}): shape {out.shape} or values not finite")
         outs.append(out)
@@ -2075,12 +2193,12 @@ def phase_ddg_esm(torch, cpu_model):
     value = ddg.run_cli(argv)
     wall = time.perf_counter() - t0
     got = read_launches()
-    expect = {**{k: 0 for k in got}, "attention": cfg.num_layers}
+    expect = {**{k: 0 for k in got}, "attention": cfg.num_layers, "gemm": 4 * cfg.num_layers}
     log(f"cli.ddg --mode esm T1124 {T1124_MUTATION}: ddG {value:.6f} kcal/mol, whole call "
         f"{wall:.3f} s (reading the weights and building the model included), launches {got}")
     if got != expect or not np.isfinite(value):
         fail(f"cli.ddg --mode esm: launches {got} (expected {expect}) or ddG {value}")
-    return got["attention"], path
+    return got, path
 
 
 def esm_scan_table(name):
@@ -2130,9 +2248,9 @@ def phase_ddg_eval_esm(torch, esm_weights):
     log(f"cli.ddg --eval_csv --mode esm, T1124 and T1124CUT interleaved: {summary['n']} "
         f"mutations in {n_batches} batches, {wall:.2f} s (reading the 650M weights included); "
         f"launches {got}")
-    if got != expect_launches(attention=33 * n_batches):
+    if got != expect_launches(attention=33 * n_batches, gemm=4 * 33 * n_batches):
         fail(f"cli.ddg --eval_csv --mode esm: launches {got}, expected {33 * n_batches} "
-             "attention")
+             f"attention and {4 * 33 * n_batches} gemm")
     scan = [json.loads(line) for line in open(outdir / "ddg_eval.jsonl")]
     if [(r["complex"].split("_")[0], r["mutstr"]) for r in scan] != \
             [(pdb.stem, m) for pdb, m in rows]:
@@ -2858,7 +2976,7 @@ def phase_train_affinity_esm(torch, esm_weights):
     embeddings extracted with ESM-2 650M (the random weights of
     ``phase_ddg_esm``'s file): 33 attention launches per mutation (wild
     type and mutant in one forward), finite losses. Returns the attention
-    launches."""
+    and gemm launches."""
     from packppi_torch.cli import train_affinity
 
     data = skempi_copy("skempi_esm", rows=(("1BRS", 4), ("2FTL", 4)))
@@ -2878,11 +2996,12 @@ def phase_train_affinity_esm(torch, esm_weights):
     log(f"cli.train_affinity model.mode=esm, 4 + 4 mutations: {wall:.2f} s (reading the 650M "
         f"weights and {extracted} extractions of wild type and mutant included), launches "
         f"{got}; record {rec}")
-    if extracted != 8 or got != expect_launches(attention=33 * extracted):
+    if extracted != 8 or got != expect_launches(attention=33 * extracted,
+                                                 gemm=4 * 33 * extracted):
         fail(f"esm training: {extracted} cached pairs, launches {got}")
     if not all(math.isfinite(rec[k]) for k in ("train/loss", "val/loss")):
         fail(f"esm training: record {rec}")
-    return got["attention"]
+    return {k: got[k] for k in ("attention", "gemm")}
 
 
 def http_request(addr, method, path, body=None):
@@ -3695,7 +3814,8 @@ def phase_native():
 COLLECTIVE_KEYS = ("gloo:", "nccl:", "c10d::")       # the process group's profiler events
 MD_ESM_TOL = 1e-4                       # of max|ref|, float32 ESM-2 under TP and PP
 KERNEL_NAMES = ("message", "message_feat", "chain", "clash_fwd", "clash_bwd", "attention",
-                "message_geom", "message_gather", "message_chain", "layer_node", "layer_edge")
+                "message_geom", "message_gather", "message_chain", "layer_node", "layer_edge",
+                "gemm")
 
 
 def collective_ms(prof):
@@ -4054,9 +4174,10 @@ def phase_multidevice(torch, esm_weights):
     if d > MD_ESM_TOL:
         fail("ESM-2 under tensor parallelism departs from one device")
     for r in reports:
-        if r["esm_tp"]["launches"]["attention"] != 33 or r["esm_tp"]["heads"] != 10:
-            fail(f"ESM-2 TP rank {r['rank']}: {r['esm_tp']['launches']} on "
-                 f"{r['esm_tp']['heads']} heads (33 launches on 10 heads)")
+        got = r["esm_tp"]["launches"]
+        if got["attention"] != 33 or got["gemm"] != 4 * 33 or r["esm_tp"]["heads"] != 10:
+            fail(f"ESM-2 TP rank {r['rank']}: {got} on {r['esm_tp']['heads']} heads (33 "
+                 f"attention and {4 * 33} gemm launches on 10 heads)")
     for path, part in (("pack_best_of_4", "pack"), ("dp_train_step", "train"),
                        ("esm2_tp", "esm_tp")):
         for k in KERNEL_NAMES:
@@ -4111,9 +4232,11 @@ def phase_multidevice(torch, esm_weights):
     if d > MD_ESM_TOL:
         fail("the ESM-2 pipeline departs from the sequential forward")
     for r in reports:
-        if r["launches"]["attention"] != 11 * 2:
-            fail(f"pipeline stage {r['rank']}: {r['launches']} (11 a microbatch, 2 microbatches)")
-    per_rank.setdefault("attention", {})["esm2_pp"] = [r["launches"]["attention"] for r in reports]
+        if r["launches"]["attention"] != 11 * 2 or r["launches"]["gemm"] != 4 * 11 * 2:
+            fail(f"pipeline stage {r['rank']}: {r['launches']} (11 attention and 44 gemm a "
+                 "microbatch, 2 microbatches)")
+    for k in ("attention", "gemm"):
+        per_rank.setdefault(k, {})["esm2_pp"] = [r["launches"][k] for r in reports]
 
     # d. 4 ranks (2 x 2): the dry run's eight stages and the trainer with FSDP
     t0 = time.perf_counter()
@@ -4195,6 +4318,7 @@ def main():
     run(phase_function_grads, torch)
     clash_records = run(phase_clash_kernels, torch, timer)
     attention_records = run(phase_attention, torch, timer)
+    gemm_records = run(phase_gemm, torch, timer)
     run(phase_golden, torch)
     run(phase_golden_variants, torch)
     run(phase_prox_golden, torch)
@@ -4215,13 +4339,13 @@ def main():
     run(phase_native)
     run(phase_shipped_checkpoint, torch)
     cpu_esm = run(phase_esm, torch)
-    attention_launches, esm_weights = run(phase_ddg_esm, torch, cpu_esm)
+    esm_launches, esm_weights = run(phase_ddg_esm, torch, cpu_esm)
     del cpu_esm
     run(phase_ddg_eval_esm, torch, esm_weights)
     run(phase_ddg_eval, torch)
     run(phase_pack_unfused, torch)
     affinity_launches = run(phase_train_affinity, torch)
-    affinity_launches["attention"] = run(phase_train_affinity_esm, torch, esm_weights)
+    affinity_launches.update(run(phase_train_affinity_esm, torch, esm_weights))
     multidevice_launches = run(phase_multidevice, torch, esm_weights)
     esm_weights.unlink()
     serve_launches = run(phase_serve, torch)
@@ -4243,11 +4367,15 @@ def main():
             ("message_chain", "packppi_torch/csrc/message.cu",
              "packppi_tpu/ops/pallas_ipmp.py:370"),
             ("layer_node", "packppi_torch/csrc/layer.cu", "packppi_tpu/ops/pallas_layer.py:315"),
-            ("layer_edge", "packppi_torch/csrc/layer.cu", "packppi_tpu/ops/pallas_layer.py:344")):
+            ("layer_edge", "packppi_torch/csrc/layer.cu", "packppi_tpu/ops/pallas_layer.py:344"),
+            ("gemm", "packppi_torch/csrc/gemm.cu", None)):
         # each kernel at its main path's dtype and larger pass (packing in
         # bf16 at T1124, training in float32 at B = 4, L = 1,024, ESM-2 in
-        # float32 at T1124's 896 tokens); the clash kernels at T1124, the
-        # node pass of the whole layer at T1124's nodes.
+        # float32 at T1124's 896 tokens, the GEMM at the FFN's first map of
+        # a scan batch at T = 896 with its GELU); the clash kernels at
+        # T1124, the node pass of the whole layer at T1124's nodes. The
+        # GEMM replaces no TPU kernel (the JAX package leaves ESM-2's
+        # products to XLA); its ``maps`` give every shape of phase_gemm.
         # Launches: the packing run's (for the new kernels, the pack under
         # their routing), for the feature-message kernel the 20 training
         # steps', for attention the cli.ddg --mode esm call's
@@ -4255,6 +4383,8 @@ def main():
             r = clash_records[name]
         elif name == "attention":
             r = attention_records[("attention", "float32", "T1124")]
+        elif name == "gemm":
+            r = gemm_records[("gemm", "float32", "ffn_in M=4480")]
         else:
             r = records[(name, "float32" if name == "message_feat" else "bfloat16",
                          "node" if name == "layer_node" else "edge")]
@@ -4262,7 +4392,8 @@ def main():
                    "message_chain": "fold", "layer_node": "fused_layers",
                    "layer_edge": "fused_layers"}.get(name)
         launches_main = ({"message_feat": train_launches["message_feat"],
-                          "attention": attention_launches}.get(name, launches[name])
+                          "attention": esm_launches["attention"],
+                          "gemm": esm_launches["gemm"]}.get(name, launches[name])
                          if routing is None else variant_launches[routing][name])
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -4280,6 +4411,13 @@ def main():
                                 "node" if name == "layer_node" else "edge"))
         if by_act:
             kernels[-1]["ms_by_activation"] = by_act
+        if name == "gemm":
+            kernels[-1]["maps"] = [
+                {"map": v, "max_rel_err": r["max_rel_err"], "plain_rel_err": r["plain_rel_err"],
+                 "control_rel_err": r["control_rel_err"], "ms": r["ms"],
+                 "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
+                 "bound_ms": r["bound"][0], "bound_by": r["bound"][1]}
+                for (k, d, v), r in gemm_records.items()]
         # the same kernel at the widths of phase_widths (T1124's graph)
         kernels[-1]["widths"] = [
             {"H": H, "He": He, "P": P, "K": K, "dtype": d, "variant": v,

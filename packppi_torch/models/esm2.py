@@ -12,7 +12,11 @@ d_h^-0.5 before rotary; half-split rotary tables built in float64; pre-LN
 blocks with LayerNorm eps 1e-5 (two-pass variance, not flax's) and a final
 LayerNorm; erf-GELU; token dropout's rescale of mask tokens by the
 mask-aware source length, with padding embeddings zeroed. Softmax and
-LayerNorm run in float32. ``compute_dtype="bfloat16"`` runs the linear
+LayerNorm run in float32. In float32 the linear maps go through
+``ops.gemm`` (on the card a 3xTF32 tensor-core kernel, whose epilogues add
+the bias, the GELU and the residual, and give the query, key and value
+scaled, rotated and in the attention's layout from one product;
+``F.linear`` elsewhere). ``compute_dtype="bfloat16"`` runs the linear
 maps as bf16 products whose outputs are rounded to bf16 (the JAX package
 keeps those outputs in float32).
 
@@ -34,7 +38,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from packppi_torch.ops import gemm
 from packppi_torch.ops.attention import mha, mha_plain
+from packppi_torch.ops.gemm import apply_rope
 from packppi_torch.utils.trace import span
 
 # The fair-esm / HF ESM-2 alphabet (fixed across all ESM-2 checkpoints):
@@ -103,12 +109,6 @@ def rope_tables(T: int, head_dim: int, device=None):
             torch.tensor(np.sin(emb), dtype=torch.float32, device=device))
 
 
-def apply_rope(x, cos, sin):
-    """x [B, H, T, D]: x * cos + rotate_half(x) * sin, rotate_half = (-x2, x1)."""
-    d = x.shape[-1] // 2
-    return x * cos + torch.cat([-x[..., d:], x[..., :d]], -1) * sin
-
-
 class _Embeddings(nn.Module):
     def __init__(self, cfg: ESM2Config):
         super().__init__()
@@ -171,12 +171,18 @@ class ESM2(nn.Module):
     def _dot(self, x, lin: nn.Linear):
         return self._mm(x, lin.weight, lin.bias)
 
-    def _mm(self, x, weight, bias=None):
+    def _mm(self, x, weight, bias=None, gelu=False, residual=None):
+        """``residual + gelu(x . weight^T + bias)`` (gelu and residual
+        optional). float32: ``ops.gemm.linear`` (3xTF32 on the card's tensor
+        cores, ``F.linear`` elsewhere); bfloat16: a bf16 product rounded to
+        bf16, then the bias, the GELU and the residual in float32."""
         if self.cfg.compute_dtype == "float32":
-            return F.linear(x.float(), weight, bias)
+            return gemm.linear(x.float(), weight, bias, gelu=gelu, residual=residual)
         bf = torch.bfloat16
         out = F.linear(x.to(bf), weight.to(bf)).float()
-        return out if bias is None else out + bias
+        out = out if bias is None else out + bias
+        out = F.gelu(out, approximate="none") if gelu else out
+        return out if residual is None else residual + out
 
     def embed(self, input_ids, attention_mask):
         """Token embeddings with the token-dropout rescale and padding zeroed,
@@ -221,24 +227,30 @@ class ESM2(nn.Module):
             return F.layer_norm(y.float(), (cfg.hidden_size,), lp[f"{name}.weight"],
                                 lp[f"{name}.bias"], cfg.layer_norm_eps)
 
-        def dot(y, name):
-            return self._mm(y, lp[f"{name}.weight"], lp[f"{name}.bias"])
-
-        def out_proj(y, name):
+        def out_proj(y, name, res):
+            """res + y . W^T + b; under tensor parallelism the bias and the
+            residual are added after the ranks' partial products are summed."""
+            w, b = lp[f"{name}.weight"], lp[f"{name}.bias"]
             if reduce is None:
-                return dot(y, name)
-            return reduce(self._mm(y, lp[f"{name}.weight"])) + lp[f"{name}.bias"]
+                return self._mm(y, w, b, residual=res)
+            return res + (reduce(self._mm(y, w)) + b)
 
         h = ln(x, "attention.LayerNorm")
-        to_heads = lambda y: y.reshape(B, T, H, D).transpose(1, 2)
+        names = [f"attention.self.{n}" for n in ("query", "key", "value")]
+        ws, bs = [lp[f"{n}.weight"] for n in names], [lp[f"{n}.bias"] for n in names]
         # ESM scales the query by d_h^-0.5 before rotary
-        q = apply_rope(to_heads(dot(h, "attention.self.query")) * (D ** -0.5), cos, sin)
-        k = apply_rope(to_heads(dot(h, "attention.self.key")), cos, sin)
-        v = to_heads(dot(h, "attention.self.value"))
+        if cfg.compute_dtype == "float32":
+            q, k, v = gemm.linear_heads(h, ws, bs, cos, sin, D ** -0.5)
+        else:
+            q, k, v = (self._mm(h, w, b).reshape(B, T, H, D).transpose(1, 2)
+                       for w, b in zip(ws, bs))
+            q = apply_rope(q * (D ** -0.5), cos, sin)
+            k = apply_rope(k, cos, sin)
         ctx = self._attention(*(t.to(cd).contiguous() for t in (q, k, v)), kbias)
-        x = x + out_proj(ctx.transpose(1, 2).reshape(B, T, H * D), "attention.output.dense")
-        h = F.gelu(dot(ln(x, "LayerNorm"), "intermediate.dense"), approximate="none")
-        return x + out_proj(h, "output.dense")
+        x = out_proj(ctx.transpose(1, 2).reshape(B, T, H * D), "attention.output.dense", x)
+        h = self._mm(ln(x, "LayerNorm"), lp["intermediate.dense.weight"],
+                     lp["intermediate.dense.bias"], gelu=True)
+        return out_proj(h, "output.dense", x)
 
     def forward(self, input_ids, attention_mask, num_layers: Optional[int] = None):
         """``num_layers`` runs the first N blocks only (then the final

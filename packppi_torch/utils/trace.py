@@ -122,7 +122,7 @@ def span(name: str):
 @functools.lru_cache(maxsize=None)
 def _counter_sites() -> dict:
     """Each launch counter by name: the object and attribute that hold it."""
-    from packppi_torch.ops import attention, chain, clash, layer, message, message_feat
+    from packppi_torch.ops import attention, chain, clash, gemm, layer, message, message_feat
 
     brc = clash.between_residue_clash
     return {"message": (message.message, "launches"),
@@ -132,7 +132,8 @@ def _counter_sites() -> dict:
             "message_feat": (message_feat.message_feat, "launches"),
             "chain": (chain.chain, "launches"), "layer_node": (layer.layer_node, "launches"),
             "layer_edge": (layer.layer_edge, "launches"), "attention": (attention.mha, "launches"),
-            "clash_fwd": (brc, "launches_fwd"), "clash_bwd": (brc, "launches_bwd")}
+            "clash_fwd": (brc, "launches_fwd"), "clash_bwd": (brc, "launches_bwd"),
+            "gemm": (gemm.linear, "launches")}
 
 
 def counters() -> dict:

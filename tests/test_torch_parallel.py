@@ -144,7 +144,7 @@ def test_every_kernel_entry_call_goes_through_the_device_guard():
                 calls.setdefault(path.name, []).append(node.lineno)
             if isinstance(f, ast.Attribute) and f.attr == "launch_kernel":
                 calls.setdefault("launch_kernel", []).append(path.name)
-    assert set(calls.pop("launch_kernel")) == {"attention.py", "chain.py", "clash.py",
+    assert set(calls.pop("launch_kernel")) == {"attention.py", "chain.py", "clash.py", "gemm.py",
                                                "layer.py", "message.py", "message_feat.py"}
     assert calls == {"_build.py": calls.get("_build.py", [])}
     assert len(calls["_build.py"]) == 1                   # the helper's own call

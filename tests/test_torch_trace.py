@@ -184,25 +184,26 @@ def test_second_profiled_stretch_replaces_the_first():
 
 
 def test_counters_are_every_kernel_wrappers_launches():
-    from packppi_torch.ops import attention, chain, clash, layer, message, message_feat
+    from packppi_torch.ops import attention, chain, clash, gemm, layer, message, message_feat
 
     c = trace.counters()
     assert set(c) == {"message", "message_gather", "message_geom", "message_chain",
                       "message_feat", "chain", "layer_node", "layer_edge", "attention",
-                      "clash_fwd", "clash_bwd"}
+                      "clash_fwd", "clash_bwd", "gemm"}
     assert c["message"] == message.message.launches
     assert c["message_feat"] == message_feat.message_feat.launches
     assert c["chain"] == chain.chain.launches
     assert c["layer_edge"] == layer.layer_edge.launches
     assert c["attention"] == attention.mha.launches
     assert c["clash_bwd"] == clash.between_residue_clash.launches_bwd
+    assert c["gemm"] == gemm.linear.launches
 
 
 def test_cpu_refinement_counts_eager_steps_apart_from_the_launches():
     """On the CPU the Adam loop runs eagerly: a refinement of ``steps``
     steps counts as many eager steps, no capture and no replay, in
     ``engagement()`` and in the profiled stretch's report, and
-    ``counters()`` keeps its 11 launch counters, none of which moved."""
+    ``counters()`` keeps its 12 launch counters, none of which moved."""
     from packppi_torch.data import stack_batch
     from packppi_torch.sampling import proximal_optimize
     from packppi_torch.structure import featurize, from_pdb_file
@@ -223,7 +224,7 @@ def test_cpu_refinement_counts_eager_steps_apart_from_the_launches():
     rep = trace.report()
     assert rep["engagement"] == want
     assert rep["spans"]["refine.step"]["n"] == steps
-    assert len(trace.counters()) == 11 and trace.counters() == launches
+    assert len(trace.counters()) == 12 and trace.counters() == launches
     assert rep["counters"] == {k: 0 for k in launches}
 
 
